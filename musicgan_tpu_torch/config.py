@@ -1,0 +1,67 @@
+"""Configuration dataclasses of the synthesis path.
+
+Copies of ``musicgan_tpu.config``'s ``AudioConfig``, ``ModelConfig`` and
+``GenerateConfig`` (this package imports nothing of the JAX one).  The
+kernel behind each conv is chosen by the tensor's device, so
+``ModelConfig`` carries no ``conv_impl``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class AudioConfig:
+    """STFT geometry (reference ``audio/constant.py:1-4``)."""
+
+    n_fft: int = 1024
+    n_vec: int = 512          # frames per training sample (image width)
+    stft_stride: int = 256    # hop length
+    sample_rate: int = 44100
+
+    @property
+    def n_bins(self) -> int:
+        """Frequency bins kept after dropping the Nyquist row (512)."""
+        return self.n_fft // 2
+
+    @property
+    def seconds_per_sample(self) -> float:
+        """Wall-clock audio seconds covered by one 512x512 sample."""
+        return self.n_vec * self.stft_stride / self.sample_rate
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """Network geometry (reference ``generator.py:67-76``,
+    ``discriminator.py:60-70``)."""
+
+    rand_channels: int = 32
+    latent_height: int = 2
+    latent_width: int = 2
+    # Generator per-block (in, out) channels; 8 blocks: 4x4 .. 512x512.
+    gen_channels: Tuple[Tuple[int, int], ...] = (
+        (32, 128), (128, 112), (112, 96), (96, 80),
+        (80, 64), (64, 48), (48, 32), (32, 16),
+    )
+    # Discriminator per-block (in, out) channels; 9 blocks: 512 -> 1.
+    disc_channels: Tuple[Tuple[int, int], ...] = (
+        (16, 32), (32, 48), (48, 64), (64, 80), (80, 96),
+        (96, 112), (112, 128), (128, 144), (144, 160),
+    )
+    leaky_slope: float = 0.2
+    pixel_norm_eps: float = 1e-8
+
+    @property
+    def n_stages(self) -> int:
+        return len(self.gen_channels)  # 8 (stages 0..7)
+
+
+@dataclasses.dataclass(frozen=True)
+class GenerateConfig:
+    """Inference defaults (reference ``generate.py:12-65``,
+    ``__main__.py:67-78``)."""
+
+    nb_vec: int = 10     # latent width multiplier -> ~29.7 s of audio
+    nb_music: int = 5

@@ -1,0 +1,26 @@
+// Shared by every kernel library of the package.
+#pragma once
+
+#include <cuda_runtime.h>
+
+// Asynchronous 4-byte copy from device memory to shared memory (cp.async):
+// a thread issues all its copies of a tile without waiting on each load.
+// With valid == false nothing is read and the shared word is set to 0, which
+// is how the kernels mask halos and ragged edges.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
+               "r"(valid ? 4 : 0));
+}
+
+// Wait until every cp.async of this thread has landed (then __syncthreads()
+// for the whole block's copies).
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Each C entry point returns cudaGetLastError() after its launch, and the
+// Python wrapper turns a non-zero code into an exception carrying this string.
+extern "C" const char* mg_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}

@@ -1,0 +1,17 @@
+// K3: conv3x3(upsample_nearest_2x(x)) as four sub-pixel phase convolutions
+// with 2x2 kernels (K = 4*cin), + bias + LeakyReLU + PixelNorm, float32.
+// Replaces musicgan_tpu/ops/conv.py::fused_upconv3x3 (Pallas kernel
+// _upconv_kernel).  The kernel body is conv_tile_kernel<2> in conv_tile.cuh,
+// with the phase a*2+b on blockIdx.z; phase results go straight to
+// (2i+a, 2j+b), the interleave that Mosaic refused in float32.
+#include "conv_tile.cuh"
+
+// x: (B, cin, H, W); w: (4, cout, 4*cin) from pack_upconv_weights;
+// y: (B, cout, 2H, 2W).
+extern "C" int mg_upconv3x3(const float* x, const float* w, const float* bias,
+                            float* y, int B, int cin, int cout, int H, int W,
+                            float slope, int use_slope, int pixel_norm, float eps,
+                            cudaStream_t stream) {
+  return mg::launch_conv_tile<2>(x, w, bias, y, B, cin, cout, H, W, 4, slope,
+                                 use_slope, pixel_norm, eps, stream);
+}

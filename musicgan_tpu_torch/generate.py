@@ -1,0 +1,139 @@
+"""Generation workflow: latent -> spectrogram image -> waveform.
+
+Counterpart of ``musicgan_tpu/generate.py``.  The generator runs its
+blocks through the fused conv kernels (K1, K3), the magnitude/phase image
+is turned into spectra in plain PyTorch (bark unscale, phase prefix sum,
+cos/sin, per music as JAX's ``vmap`` does), and the fused iSTFT kernel
+(K5) vocodes the whole batch in one launch.
+
+Width-extended latents give long clips: ``z`` of width ``2 * nb_vec``
+produces ``512 * nb_vec`` STFT frames, about ``2.97 * nb_vec`` seconds.
+
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``,
+which runs every kernel's plain version; without a GPU they raise.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from .audio import mp_to_real_imag, save_wav
+from .config import AudioConfig, GenerateConfig, ModelConfig
+from .models import Generator
+from .ops.istft_fused import istft_fused
+
+__all__ = ["resolve_device", "synthesize_fn", "load_generator_params", "generate"]
+
+
+def resolve_device(device: str | torch.device | None = None) -> torch.device:
+    """``cuda`` by default; raise rather than run on the CPU unasked."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "musicgan_tpu_torch runs on an NVIDIA GPU by default and none is "
+            "available; pass device='cpu' (--device cpu on the command line) "
+            "to run the plain PyTorch versions on the CPU"
+        )
+    return device
+
+
+@torch.no_grad()
+def _synthesize(
+    gen: Generator, z: torch.Tensor, stage: int, model_cfg: ModelConfig
+) -> torch.Tensor:
+    """``(M, h, 2*nb_vec, C)`` latent -> ``(M, T)`` waveforms.
+
+    For a partially grown ``stage`` the image is nearest-upsampled to the
+    full 512-bin resolution before vocoding, so audio can be auditioned
+    from any growth checkpoint."""
+    img = gen.forward_nchw(z.permute(0, 3, 1, 2), stage, 1.0)  # (M, 2, H, W)
+    n_stages = model_cfg.n_stages
+    if stage < n_stages - 1:
+        img = F.interpolate(img, scale_factor=2 ** (n_stages - 1 - stage), mode="nearest")
+    acfg = AudioConfig()
+    real, imag = mp_to_real_imag(img[:, None], acfg)  # (M, n_bins + 1, T)
+    return istft_fused(real, imag, n_fft=acfg.n_fft, hop=acfg.stft_stride)
+
+
+def synthesize_fn(model_cfg: ModelConfig = ModelConfig(), stage: int = 7):
+    """Returns ``f(gen, z) -> waveforms``: the synthesis path.  ``z`` is
+    ``(M, h, w, C)`` (numpy or tensor) and moves to ``gen``'s device."""
+
+    def f(gen: Generator, z) -> torch.Tensor:
+        device = next(gen.parameters()).device
+        z = torch.as_tensor(z, dtype=torch.float32, device=device)
+        return _synthesize(gen, z, stage, model_cfg)
+
+    return f
+
+
+def load_generator_params(
+    ckpt: str, model_cfg: ModelConfig = ModelConfig(), device="cuda"
+) -> Generator:
+    """Load a generator from a reference PyTorch ``gen_*.pt`` state_dict."""
+    if os.path.isfile(ckpt) and ckpt.endswith(".pt"):
+        from .models.torch_ingest import load_reference_generator
+
+        return load_reference_generator(ckpt, model_cfg, device=device)
+    raise NotImplementedError(
+        f"{ckpt!r}: musicgan_tpu_torch reads reference-format gen_*.pt files "
+        "only; convert a musicgan_tpu checkpoint with "
+        "`python -m musicgan_tpu export CKPT -o gen.pt`"
+    )
+
+
+def generate(
+    output_dir: str,
+    rand_channels: int,
+    gen_ckpt: str,
+    nb_vec: int = GenerateConfig.nb_vec,
+    nb_music: int = GenerateConfig.nb_music,
+    seed: int = 0,
+    stage: int = 7,
+    model_cfg: Optional[ModelConfig] = None,
+    audio_cfg: AudioConfig = AudioConfig(),
+    z=None,
+    device: str | torch.device | None = None,
+) -> list[str]:
+    """CLI workflow (reference ``generate.py:12-65``): sample ``nb_music``
+    wide latents, synthesize, write ``sound_{i}.wav``.  Returns paths.
+
+    ``z``: optional explicit latent batch ``(nb_music, latent_height,
+    latent_width * nb_vec, rand_channels)`` overriding the seeded draw,
+    for cross-framework parity tests (JAX and PyTorch draw different
+    numbers from one seed; matching by value is exact)."""
+    device = resolve_device(device)
+    if model_cfg is None:
+        model_cfg = (
+            ModelConfig()
+            if rand_channels == ModelConfig.rand_channels
+            else dataclasses.replace(ModelConfig(), rand_channels=rand_channels)
+        )
+    os.makedirs(output_dir, exist_ok=True)
+
+    gen = load_generator_params(gen_ckpt, model_cfg, device)
+    expect = (
+        nb_music,
+        model_cfg.latent_height,
+        model_cfg.latent_width * nb_vec,
+        model_cfg.rand_channels,
+    )
+    if z is None:
+        rng = torch.Generator(device=device).manual_seed(seed)
+        z = torch.randn(expect, generator=rng, device=device)
+    elif tuple(z.shape) != expect:
+        raise ValueError(f"z shape {tuple(z.shape)} != expected {expect}")
+    waves = synthesize_fn(model_cfg, stage)(gen, z).cpu().numpy()
+
+    paths = []
+    for i, w in enumerate(waves):
+        p = os.path.join(output_dir, f"sound_{i}.wav")
+        save_wav(p, w, audio_cfg.sample_rate)
+        paths.append(p)
+    return paths

@@ -1,0 +1,155 @@
+"""Fused 3x3 conv and sub-pixel up-conv: hand-written CUDA kernels for
+Hopper, each beside its plain PyTorch version.
+
+``fused_conv3x3`` (K1) replaces ``musicgan_tpu/ops/conv.py::fused_conv3x3``
+(Pallas ``_kernel``); ``fused_upconv3x3`` (K3) replaces
+``fused_upconv3x3`` (Pallas ``_upconv_kernel``).  Both kernels are one
+template, ``csrc/conv_tile.cuh``, built by ``csrc/conv3x3.cu`` and
+``csrc/upconv3x3.cu``.
+
+What bounds them on an H100: float32 operations.  At the generator's
+widths (16..128 channels) a 3x3 conv does 2 * 9 * cin FLOP per output
+value against 4 bytes stored, above the card's float32 ridge of about
+20 FLOP/byte (67 TFLOP/s over 3.35 TB/s), so the CUDA cores, not the
+memory, are the limit.  The design keeps the FMA units fed from
+registers: each thread holds 4 rows x 16 channels of accumulators, reads
+its input column once per tap row and its 16 weights as broadcast float4
+loads from shared memory, and the epilogue (bias, LeakyReLU, PixelNorm)
+runs on the accumulators before the only store.  Each 8-channel chunk is
+staged with ``cp.async``, every copy in flight at once: a load-at-a-time
+staging loop left the kernel waiting on memory latency (2.3x slower at
+block 7 of the up-conv on an H100; PERF.md).  The up-conv never writes
+the 4x-sized upsampled input: it reads the small input and runs the four
+2x2 phase kernels (2.25x fewer MACs than a 3x3 conv on the upsampled
+tensor).  Float32 on the CUDA cores is the first, simple form; tensor
+cores (TF32 or bf16 ``wgmma``) are later work.
+
+Dispatch: a CPU tensor takes the plain version, a CUDA tensor launches the
+kernel, anything else raises.  Nothing falls back.  Each wrapper counts its
+launches in ``.launches``.  The plain versions take the OIHW weights; the
+kernels take them packed, which the generator does once per weight
+(``models/generator.py``) and passes as ``w_packed``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _build
+from ..models.layers import (
+    conv2d,
+    conv3x3_on_nearest_up2x,
+    leaky_relu,
+    pixel_norm,
+    subpixel_phase_kernels,
+)
+
+__all__ = [
+    "fused_conv3x3",
+    "fused_upconv3x3",
+    "pack_weights",
+    "pack_upconv_weights",
+    "conv3x3_plain",
+    "upconv3x3_plain",
+]
+
+MAX_COUT = 128  # csrc/conv_tile.cuh: eight warps of 16 channels a block
+
+
+def pack_weights(w: torch.Tensor) -> torch.Tensor:
+    """OIHW ``(cout, cin, 3, 3)`` -> ``(cout, 9*cin)``, K ordered
+    ``(dy, dx, c)`` (``musicgan_tpu/ops/conv.py::pack_weights``)."""
+    cout, cin, kh, kw = w.shape
+    assert (kh, kw) == (3, 3)
+    return w.permute(0, 2, 3, 1).reshape(cout, 9 * cin).contiguous()
+
+
+def pack_upconv_weights(w: torch.Tensor) -> torch.Tensor:
+    """OIHW ``(cout, cin, 3, 3)`` -> ``(4, cout, 4*cin)``: the four
+    sub-pixel phase kernels of ``conv3x3(upsample_nearest_2x(x))``, each
+    packed like :func:`pack_weights` with K ordered ``(dy, dx, c)``; phase
+    ``a * 2 + b`` makes output pixel ``(2i+a, 2j+b)``."""
+    cout, cin, kh, kw = w.shape
+    assert (kh, kw) == (3, 3)
+    phases = [
+        k.permute(0, 2, 3, 1).reshape(cout, 4 * cin)
+        for k in subpixel_phase_kernels(w)
+    ]
+    return torch.stack(phases, dim=0).contiguous()
+
+
+def _epilogue(y, slope, pixel_norm_, eps):
+    if slope is not None:
+        y = leaky_relu(y, slope)
+    if pixel_norm_:
+        y = pixel_norm(y, eps)
+    return y
+
+
+def conv3x3_plain(x, w, b, slope=None, pixel_norm=False, eps=1e-8):
+    """Plain version of K1: ``(B, cin, H, W)`` and OIHW weights ->
+    ``(B, cout, H, W)``."""
+    return _epilogue(conv2d(x, w, b), slope, pixel_norm, eps)
+
+
+def upconv3x3_plain(x, w, b, slope=None, pixel_norm=False, eps=1e-8):
+    """Plain version of K3: ``(B, cin, H, W)`` and OIHW weights ->
+    ``(B, cout, 2H, 2W)``."""
+    return _epilogue(conv3x3_on_nearest_up2x(x, w, b), slope, pixel_norm, eps)
+
+
+_CONV_ARGS = [_build.PTR] * 4 + [_build.INT] * 5 + [
+    _build.FLOAT, _build.INT, _build.INT, _build.FLOAT,
+]
+
+
+def _launch(name, x, w_packed, b, out_hw, slope, pixel_norm, eps):
+    """Check the operands, allocate the output and launch ``mg_<name>``."""
+    bsz, cin, h, w = x.shape
+    cout = b.shape[0]
+    for t in (x, w_packed, b):
+        if t.device != x.device or t.dtype != torch.float32:
+            raise ValueError(f"{name}: every operand must be float32 on {x.device}")
+    if cout > MAX_COUT:
+        raise ValueError(f"{name}: cout {cout} > {MAX_COUT} is not supported")
+    x, w_packed, b = x.contiguous(), w_packed.contiguous(), b.contiguous()
+    y = torch.empty(bsz, cout, *out_hw, device=x.device, dtype=torch.float32)
+    _build.kernel(name, f"mg_{name}", _CONV_ARGS)(
+        x.data_ptr(), w_packed.data_ptr(), b.data_ptr(), y.data_ptr(),
+        bsz, cin, cout, h, w, 0.0 if slope is None else slope,
+        int(slope is not None), int(pixel_norm), eps, device=x.device,
+    )
+    return y
+
+
+def fused_conv3x3(x, w, b, slope=None, pixel_norm=False, eps=1e-8, w_packed=None):
+    """3x3 'SAME' conv on NCHW ``(B, cin, H, W)`` with OIHW weights ->
+    ``(B, cout, H, W)``, with the bias / LeakyReLU / PixelNorm epilogue.
+    ``w_packed``: ``pack_weights(w)`` made ahead, for the kernel."""
+    if x.device.type == "cpu":
+        return conv3x3_plain(x, w, b, slope, pixel_norm, eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_conv3x3: no kernel for device {x.device}")
+    wp = pack_weights(w) if w_packed is None else w_packed
+    y = _launch("conv3x3", x, wp, b, x.shape[2:], slope, pixel_norm, eps)
+    fused_conv3x3.launches += 1
+    return y
+
+
+def fused_upconv3x3(x, w, b, slope=None, pixel_norm=False, eps=1e-8, w_packed=None):
+    """``conv3x3(upsample_nearest_2x(x))`` on NCHW ``(B, cin, H, W)`` with
+    OIHW weights -> ``(B, cout, 2H, 2W)``, with the fused epilogue.
+    ``w_packed``: ``pack_upconv_weights(w)`` made ahead, for the kernel."""
+    if x.device.type == "cpu":
+        return upconv3x3_plain(x, w, b, slope, pixel_norm, eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_upconv3x3: no kernel for device {x.device}")
+    wp = pack_upconv_weights(w) if w_packed is None else w_packed
+    h, w_ = x.shape[2:]
+    y = _launch("upconv3x3", x, wp, b, (2 * h, 2 * w_), slope, pixel_norm, eps)
+    fused_upconv3x3.launches += 1
+    return y
+
+
+fused_conv3x3.launches = 0
+fused_upconv3x3.launches = 0
