@@ -1,9 +1,10 @@
-"""Configuration dataclasses of the synthesis path.
+"""Configuration dataclasses of the synthesis path and the train step.
 
-Copies of ``musicgan_tpu.config``'s ``AudioConfig``, ``ModelConfig`` and
-``GenerateConfig`` (this package imports nothing of the JAX one).  The
-kernel behind each conv is chosen by the tensor's device, so
-``ModelConfig`` carries no ``conv_impl``.
+Copies of ``musicgan_tpu.config``'s ``AudioConfig``, ``ModelConfig``,
+``TrainConfig`` (the fields the train step reads) and ``GenerateConfig``
+(this package imports nothing of the JAX one).  The kernel behind each
+conv is chosen by the tensor's device, so ``ModelConfig`` carries no
+``conv_impl``.
 """
 
 from __future__ import annotations
@@ -56,6 +57,32 @@ class ModelConfig:
     @property
     def n_stages(self) -> int:
         return len(self.gen_channels)  # 8 (stages 0..7)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Hyperparameters of the train step (reference ``train.py:34-43,
+    101-116,189``).  The schedule, logging and data-placement fields of the
+    JAX ``TrainConfig`` come with the train loop."""
+
+    batch_size: int = 6
+    disc_lr: float = 1e-3
+    gen_lr: float = 1e-3
+    betas: Tuple[float, float] = (0.0, 0.9)
+    n_critic: int = 5                # G step every 5th iteration
+    grad_penalty_weight: float = 10.0
+    drift_eps: float = 0.0           # ProGAN eps-drift: + eps * E[D(x_real)^2]
+    ema_decay: float = 0.0           # generator weight EMA for eval; 0 = off
+    chunk_steps: int = 10            # iterations per ``build_chunk_step`` call
+    seed: int = 0
+    compute_dtype: str = "float32"   # the only one ported (ROADMAP B8)
+
+    def __post_init__(self):
+        if self.compute_dtype != "float32":
+            raise NotImplementedError(
+                f"compute_dtype {self.compute_dtype!r}: only float32 is ported; "
+                "bf16 I/O of the conv kernels is ROADMAP.md section B item 8"
+            )
 
 
 @dataclasses.dataclass(frozen=True)

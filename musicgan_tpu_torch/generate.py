@@ -25,22 +25,11 @@ import torch.nn.functional as F
 
 from .audio import mp_to_real_imag, save_wav
 from .config import AudioConfig, GenerateConfig, ModelConfig
+from .device import resolve_device
 from .models import Generator
 from .ops.istft_fused import istft_fused
 
 __all__ = ["resolve_device", "synthesize_fn", "load_generator_params", "generate"]
-
-
-def resolve_device(device: str | torch.device | None = None) -> torch.device:
-    """``cuda`` by default; raise rather than run on the CPU unasked."""
-    device = torch.device("cuda" if device is None else device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "musicgan_tpu_torch runs on an NVIDIA GPU by default and none is "
-            "available; pass device='cpu' (--device cpu on the command line) "
-            "to run the plain PyTorch versions on the CPU"
-        )
-    return device
 
 
 @torch.no_grad()

@@ -11,6 +11,12 @@ plain versions.  Each block packs its conv weights for the kernels once,
 not per call.  Heads and the fade-in are plain PyTorch, as they are XLA
 in JAX.
 
+Training runs :meth:`Generator.forward_nchw_train` instead (counterpart of
+``_generator_forward_nchw_train``, impl ``"pallas_train"``): each block is
+``conv3x3_act`` with PixelNorm (forward kernel K2), a plain 2x upsample and
+``conv3x3_act`` again, all under the once-differentiable gradient of
+``ops/conv_vjp.py``, and the fade head is computed at every ``alpha``.
+
 Fade-in (reference ``generator.py:106-126``): at stage s > 0 the output is
 ``alpha * head_s(block_s(x)) + (1 - alpha) * up2x(head_{s-1}(x))``.
 """
@@ -22,6 +28,7 @@ from torch import nn
 
 from ..config import ModelConfig
 from ..ops import conv as conv_ops
+from ..ops import conv_vjp
 from .layers import upsample_nearest_2x
 
 _DEFAULT = ModelConfig()
@@ -59,6 +66,12 @@ class GenBlock(nn.Module):
             x, self.conv2.weight, self.conv2.bias, slope, True, eps,
             w_packed=self._packed("conv2", conv_ops.pack_upconv_weights),
         )
+
+
+    def forward_train(self, x: torch.Tensor, slope: float, eps: float) -> torch.Tensor:
+        x = conv_vjp.conv3x3_act(x, self.conv1.weight, self.conv1.bias, slope, True, eps)
+        x = upsample_nearest_2x(x)  # its transpose is a 2x2 sum-pool, left to autograd
+        return conv_vjp.conv3x3_act(x, self.conv2.weight, self.conv2.bias, slope, True, eps)
 
 
 class Generator(nn.Module):
@@ -108,10 +121,28 @@ class Generator(nn.Module):
             out_mp = alpha * out_mp + (1.0 - alpha) * old
         return out_mp
 
-    def forward(self, z: torch.Tensor, stage: int, alpha: float = 1.0) -> torch.Tensor:
+    def forward_nchw_train(self, z: torch.Tensor, stage: int, alpha) -> torch.Tensor:
+        """The differentiable forward of the train step, same shapes as
+        :meth:`forward_nchw`.  ``alpha`` may be a tensor on the device: the
+        fade term is computed whatever its value, so nothing reads it back."""
+        slope, eps = self.cfg.leaky_slope, self.cfg.pixel_norm_eps
+        out = z
+        for i in range(stage):
+            out = self.blocks[i].forward_train(out, slope, eps)
+        out_mp = self._head(stage, self.blocks[stage].forward_train(out, slope, eps))
+        if stage > 0:
+            old = upsample_nearest_2x(self._head(stage - 1, out))
+            out_mp = alpha * out_mp + (1.0 - alpha) * old
+        return out_mp
+
+    def forward(
+        self, z: torch.Tensor, stage: int, alpha: float = 1.0, train: bool = False
+    ) -> torch.Tensor:
         """``z``: ``(B, h, w, rand_channels)`` NHWC, as in JAX's
-        ``generator_forward`` -> ``(B, H, W, 2)``."""
-        return self.forward_nchw(z.permute(0, 3, 1, 2), stage, alpha).permute(0, 2, 3, 1)
+        ``generator_forward`` -> ``(B, H, W, 2)``.  ``train`` selects the
+        differentiable forward."""
+        fwd = self.forward_nchw_train if train else self.forward_nchw
+        return fwd(z.permute(0, 3, 1, 2), stage, alpha).permute(0, 2, 3, 1)
 
 
 def generator_param_count(cfg: ModelConfig = _DEFAULT, stage: int | None = None) -> int:

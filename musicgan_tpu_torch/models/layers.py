@@ -1,4 +1,4 @@
-"""Primitive layers of the generator, NCHW, plain PyTorch.
+"""Primitive layers of the generator and the critic, NCHW, plain PyTorch.
 
 Counterparts of ``musicgan_tpu/models/layers.py`` (which is NHWC).  They
 are the plain versions that the hand-written kernels of ``ops/`` are held
@@ -15,16 +15,24 @@ import torch.nn.functional as F
 
 __all__ = [
     "conv2d",
+    "linear",
     "leaky_relu",
     "pixel_norm",
     "upsample_nearest_2x",
+    "avg_pool_2x",
     "conv3x3_on_nearest_up2x",
 ]
 
 
-def conv2d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def conv2d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None) -> torch.Tensor:
     """3x3/1x1 'same' convolution, ``(B, cin, H, W)`` -> ``(B, cout, H, W)``."""
     return F.conv2d(x, w, b, padding="same")
+
+
+def linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``(B, cin) @ (cout, cin).T + b`` (reference ``layers.py:123-134``;
+    the weight is in PyTorch's ``(cout, cin)`` layout)."""
+    return F.linear(x, w, b)
 
 
 def leaky_relu(x: torch.Tensor, slope: float = 0.2) -> torch.Tensor:
@@ -40,7 +48,14 @@ def pixel_norm(x: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
 
 def upsample_nearest_2x(x: torch.Tensor) -> torch.Tensor:
     """Nearest-neighbor 2x upsample, NCHW (reference ``generator.py:25-28``)."""
-    return x.repeat_interleave(2, dim=-2).repeat_interleave(2, dim=-1)
+    b, c, h, w = x.shape
+    return x[:, :, :, None, :, None].expand(b, c, h, 2, w, 2).reshape(b, c, 2 * h, 2 * w)
+
+
+def avg_pool_2x(x: torch.Tensor) -> torch.Tensor:
+    """2x2/2 average pool, NCHW (reference ``layers.py:168-171``)."""
+    b, c, h, w = x.shape
+    return x.reshape(b, c, h // 2, 2, w // 2, 2).mean(dim=(3, 5))
 
 
 def subpixel_phase_kernels(w: torch.Tensor) -> list[torch.Tensor]:

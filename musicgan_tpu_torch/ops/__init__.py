@@ -1,11 +1,21 @@
 """Hand-written CUDA kernels for Hopper (sources in ``csrc/``), each beside
-its plain PyTorch version: ``conv.fused_conv3x3``, ``conv.fused_upconv3x3``
-and ``istft_fused.istft_fused``."""
+its plain PyTorch version: ``conv.fused_conv3x3``, ``conv.fused_conv3x3_msq``,
+``conv.fused_upconv3x3`` and ``istft_fused.istft_fused``; and
+``conv_vjp.conv3x3_act``, the trainable conv built on the first two."""
 
-from .conv import fused_conv3x3, fused_upconv3x3, pack_upconv_weights, pack_weights
+from .conv import (
+    fused_conv3x3,
+    fused_conv3x3_msq,
+    fused_upconv3x3,
+    pack_upconv_weights,
+    pack_weights,
+)
+from .conv_vjp import conv3x3_act
 
 __all__ = [
+    "conv3x3_act",
     "fused_conv3x3",
+    "fused_conv3x3_msq",
     "fused_upconv3x3",
     "pack_upconv_weights",
     "pack_weights",

@@ -2,10 +2,19 @@
 Hopper, each beside its plain PyTorch version.
 
 ``fused_conv3x3`` (K1) replaces ``musicgan_tpu/ops/conv.py::fused_conv3x3``
-(Pallas ``_kernel``); ``fused_upconv3x3`` (K3) replaces
-``fused_upconv3x3`` (Pallas ``_upconv_kernel``).  Both kernels are one
-template, ``csrc/conv_tile.cuh``, built by ``csrc/conv3x3.cu`` and
+(Pallas ``_kernel``); ``fused_conv3x3_msq`` (K2) replaces
+``fused_conv3x3_msq`` (the same Pallas kernel with ``emit_msq``): K1 with
+PixelNorm, also writing the pre-norm ``mean_c(u^2)`` map that the backward
+pass of ``ops/conv_vjp.py`` needs; ``fused_upconv3x3`` (K3) replaces
+``fused_upconv3x3`` (Pallas ``_upconv_kernel``).  All three kernels are one
+template, ``csrc/conv_tile.cuh``, built by ``csrc/conv3x3.cu`` (K1, K2) and
 ``csrc/upconv3x3.cu``.
+
+Widths: without PixelNorm any ``cout`` (past 128 channels the kernel splits
+the channel groups over the grid; the critic's convs reach 160).  With
+PixelNorm ``cout <= 128`` (``MAX_COUT_PIXEL_NORM``): the norm reduces over
+all channels of a pixel inside one thread block, which holds eight warps of
+16 channels.  The generator's widest conv has 128.
 
 What bounds them on an H100: float32 operations.  At the generator's
 widths (16..128 channels) a 3x3 conv does 2 * 9 * cin FLOP per output
@@ -23,6 +32,15 @@ the 4x-sized upsampled input: it reads the small input and runs the four
 2x2 phase kernels (2.25x fewer MACs than a 3x3 conv on the upsampled
 tensor).  Float32 on the CUDA cores is the first, simple form; tensor
 cores (TF32 or bf16 ``wgmma``) are later work.
+
+Small images (the critic's last blocks, the generator's first: 1x1 to
+32x32 at 80-160 channels) are not bound by operations but by one block's
+chain of serial steps over the input channels, with most of the 32x4 tile
+masked.  For them the launcher takes a second shape of the same template
+(one row a thread, the tile's width fitted to the image, 16 input channels
+a step) whenever the large shape's grid would fill less than half of the
+card's SMs; it is 1.4-2x faster there on an H100 and slower from 64x64 on
+(PERF.md).
 
 Dispatch: a CPU tensor takes the plain version, a CUDA tensor launches the
 kernel, anything else raises.  Nothing falls back.  Each wrapper counts its
@@ -46,14 +64,19 @@ from ..models.layers import (
 
 __all__ = [
     "fused_conv3x3",
+    "fused_conv3x3_msq",
     "fused_upconv3x3",
     "pack_weights",
     "pack_upconv_weights",
     "conv3x3_plain",
+    "conv3x3_msq_plain",
     "upconv3x3_plain",
 ]
 
-MAX_COUT = 128  # csrc/conv_tile.cuh: eight warps of 16 channels a block
+# Widest conv that may carry PixelNorm (csrc/conv_tile.cuh: the norm needs
+# every channel of a pixel in one block, eight warps of 16 channels).
+# Without PixelNorm there is no limit.
+MAX_COUT_PIXEL_NORM = 128
 
 
 def pack_weights(w: torch.Tensor) -> torch.Tensor:
@@ -88,8 +111,17 @@ def _epilogue(y, slope, pixel_norm_, eps):
 
 def conv3x3_plain(x, w, b, slope=None, pixel_norm=False, eps=1e-8):
     """Plain version of K1: ``(B, cin, H, W)`` and OIHW weights ->
-    ``(B, cout, H, W)``."""
+    ``(B, cout, H, W)``.  ``b`` may be None (no bias)."""
     return _epilogue(conv2d(x, w, b), slope, pixel_norm, eps)
+
+
+def conv3x3_msq_plain(x, w, b, slope=None, eps=1e-8):
+    """Plain version of K2: ``(y, m)`` with ``y`` as :func:`conv3x3_plain`
+    with PixelNorm and ``m`` the ``(B, 1, H, W)`` mean over channels of the
+    squared post-LeakyReLU activation (before ``+ eps`` and the scale)."""
+    u = _epilogue(conv2d(x, w, b), slope, False, eps)
+    m = torch.mean(torch.square(u), dim=1, keepdim=True)
+    return u * torch.rsqrt(m + eps), m
 
 
 def upconv3x3_plain(x, w, b, slope=None, pixel_norm=False, eps=1e-8):
@@ -98,24 +130,35 @@ def upconv3x3_plain(x, w, b, slope=None, pixel_norm=False, eps=1e-8):
     return _epilogue(conv3x3_on_nearest_up2x(x, w, b), slope, pixel_norm, eps)
 
 
-_CONV_ARGS = [_build.PTR] * 4 + [_build.INT] * 5 + [
-    _build.FLOAT, _build.INT, _build.INT, _build.FLOAT,
-]
+_CONV_TAIL = [_build.INT] * 5 + [_build.FLOAT, _build.INT]
+_CONV_ARGS = [_build.PTR] * 4 + _CONV_TAIL + [_build.INT, _build.FLOAT]
+_MSQ_ARGS = [_build.PTR] * 5 + _CONV_TAIL + [_build.FLOAT]
+
+
+def _operands(name, x, w_packed, b, pixel_norm):
+    """Check the operands of a conv kernel; returns them contiguous with the
+    bias's address (0 for none) and ``cout``."""
+    cout = w_packed.shape[-2]
+    for t in (x, w_packed) if b is None else (x, w_packed, b):
+        if t.device != x.device or t.dtype != torch.float32:
+            raise ValueError(f"{name}: every operand must be float32 on {x.device}")
+    if b is not None and b.shape != (cout,):
+        raise ValueError(f"{name}: bias {tuple(b.shape)} for {cout} output channels")
+    if pixel_norm and cout > MAX_COUT_PIXEL_NORM:
+        raise ValueError(
+            f"{name}: PixelNorm over cout {cout} > {MAX_COUT_PIXEL_NORM} is not supported"
+        )
+    b = None if b is None else b.contiguous()
+    return x.contiguous(), w_packed.contiguous(), b, 0 if b is None else b.data_ptr(), cout
 
 
 def _launch(name, x, w_packed, b, out_hw, slope, pixel_norm, eps):
     """Check the operands, allocate the output and launch ``mg_<name>``."""
     bsz, cin, h, w = x.shape
-    cout = b.shape[0]
-    for t in (x, w_packed, b):
-        if t.device != x.device or t.dtype != torch.float32:
-            raise ValueError(f"{name}: every operand must be float32 on {x.device}")
-    if cout > MAX_COUT:
-        raise ValueError(f"{name}: cout {cout} > {MAX_COUT} is not supported")
-    x, w_packed, b = x.contiguous(), w_packed.contiguous(), b.contiguous()
+    x, w_packed, b, b_ptr, cout = _operands(name, x, w_packed, b, pixel_norm)
     y = torch.empty(bsz, cout, *out_hw, device=x.device, dtype=torch.float32)
     _build.kernel(name, f"mg_{name}", _CONV_ARGS)(
-        x.data_ptr(), w_packed.data_ptr(), b.data_ptr(), y.data_ptr(),
+        x.data_ptr(), w_packed.data_ptr(), b_ptr, y.data_ptr(),
         bsz, cin, cout, h, w, 0.0 if slope is None else slope,
         int(slope is not None), int(pixel_norm), eps, device=x.device,
     )
@@ -125,6 +168,7 @@ def _launch(name, x, w_packed, b, out_hw, slope, pixel_norm, eps):
 def fused_conv3x3(x, w, b, slope=None, pixel_norm=False, eps=1e-8, w_packed=None):
     """3x3 'SAME' conv on NCHW ``(B, cin, H, W)`` with OIHW weights ->
     ``(B, cout, H, W)``, with the bias / LeakyReLU / PixelNorm epilogue.
+    ``b`` may be None (no bias: the input-gradient convs).
     ``w_packed``: ``pack_weights(w)`` made ahead, for the kernel."""
     if x.device.type == "cpu":
         return conv3x3_plain(x, w, b, slope, pixel_norm, eps)
@@ -134,6 +178,29 @@ def fused_conv3x3(x, w, b, slope=None, pixel_norm=False, eps=1e-8, w_packed=None
     y = _launch("conv3x3", x, wp, b, x.shape[2:], slope, pixel_norm, eps)
     fused_conv3x3.launches += 1
     return y
+
+
+def fused_conv3x3_msq(x, w, b, slope=None, eps=1e-8, w_packed=None):
+    """Training forward of :func:`fused_conv3x3` with PixelNorm: returns
+    ``(y, m)``, ``m`` the pre-norm ``mean_c(u^2)`` map ``(B, 1, H, W)``.
+    It is the one intermediate the backward pass cannot rebuild from ``y``
+    in float32: ``mean_c(y^2) = m / (m + eps)`` rounds to 1 for ``m >> eps``."""
+    if x.device.type == "cpu":
+        return conv3x3_msq_plain(x, w, b, slope, eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_conv3x3_msq: no kernel for device {x.device}")
+    wp = pack_weights(w) if w_packed is None else w_packed
+    bsz, cin, h, wd = x.shape
+    x, wp, b, b_ptr, cout = _operands("conv3x3_msq", x, wp, b, True)
+    y = torch.empty(bsz, cout, h, wd, device=x.device, dtype=torch.float32)
+    m = torch.empty(bsz, 1, h, wd, device=x.device, dtype=torch.float32)
+    _build.kernel("conv3x3", "mg_conv3x3_msq", _MSQ_ARGS)(
+        x.data_ptr(), wp.data_ptr(), b_ptr, y.data_ptr(), m.data_ptr(),
+        bsz, cin, cout, h, wd, 0.0 if slope is None else slope,
+        int(slope is not None), eps, device=x.device,
+    )
+    fused_conv3x3_msq.launches += 1
+    return y, m
 
 
 def fused_upconv3x3(x, w, b, slope=None, pixel_norm=False, eps=1e-8, w_packed=None):
@@ -152,4 +219,5 @@ def fused_upconv3x3(x, w, b, slope=None, pixel_norm=False, eps=1e-8, w_packed=No
 
 
 fused_conv3x3.launches = 0
+fused_conv3x3_msq.launches = 0
 fused_upconv3x3.launches = 0

@@ -15,6 +15,7 @@ import torch
 
 from musicgan_tpu_torch.audio.stft import istft_real_imag
 from musicgan_tpu_torch.ops import conv as conv_ops
+from musicgan_tpu_torch.ops import conv_vjp
 from musicgan_tpu_torch.ops import istft_fused as istft_ops
 
 pytestmark = pytest.mark.cuda
@@ -60,6 +61,81 @@ def test_fused_conv3x3_kernel_matches_plain(cuda, b, cin, cout, h, w, epilogue):
     torch.testing.assert_close(got, ref, atol=1e-4, rtol=0)
     prepacked = conv_ops.fused_conv3x3(x, wt, bias, **kw, w_packed=conv_ops.pack_weights(wt))
     torch.testing.assert_close(prepacked, got, atol=0, rtol=0)
+
+
+# Past 128 channels the kernel splits the channel groups over the grid (the
+# critic's last blocks: 144 and 160, at 2x2 and 1x1 pixels), with and
+# without a bias, and in the input-gradient role (cin > 128 too).
+WIDE_SHAPES = [
+    (6, 128, 144, 2, 2), (6, 144, 144, 1, 1), (2, 144, 160, 5, 37),
+    (6, 160, 160, 1, 1), (2, 160, 144, 9, 33), (1, 24, 272, 4, 40),
+]
+
+
+@pytest.mark.parametrize("bias", [True, False])
+@pytest.mark.parametrize("b,cin,cout,h,w", WIDE_SHAPES)
+def test_fused_conv3x3_kernel_takes_more_than_128_channels(cuda, b, cin, cout, h, w, bias):
+    x, wt, bvec = _conv_inputs(4, b, cin, cout, h, w, cuda)
+    bvec = bvec if bias else None
+    slope = 0.2 if bias else None
+    got = conv_ops.fused_conv3x3(x, wt, bvec, slope)
+    torch.cuda.synchronize()
+    ref = conv_ops.conv3x3_plain(x, wt, bvec, slope)
+    torch.testing.assert_close(got, ref, atol=1e-4, rtol=0)
+    with pytest.raises(ValueError, match="PixelNorm"):
+        conv_ops.fused_conv3x3(x, wt, bvec, slope, pixel_norm=True)
+
+
+@pytest.mark.parametrize("b,cin,cout,h,w", CONV_SHAPES)
+def test_fused_conv3x3_msq_kernel_matches_plain(cuda, b, cin, cout, h, w):
+    """K2: ``y`` at the conv bar (1e-4), the pre-norm mean-square map at
+    1e-4 relative to its largest value."""
+    x, wt, bias = _conv_inputs(5, b, cin, cout, h, w, cuda)
+    n0 = conv_ops.fused_conv3x3_msq.launches
+    y, m = conv_ops.fused_conv3x3_msq(x, wt, bias, 0.2, 1e-8)
+    torch.cuda.synchronize()
+    assert conv_ops.fused_conv3x3_msq.launches == n0 + 1
+    y_ref, m_ref = conv_ops.conv3x3_msq_plain(x, wt, bias, 0.2, 1e-8)
+    assert m.shape == m_ref.shape == (b, 1, h, w)
+    torch.testing.assert_close(y, y_ref, atol=1e-4, rtol=0)
+    assert float((m - m_ref).abs().max() / m_ref.abs().max()) < 1e-4
+    # the same y as K1 with PixelNorm gives
+    torch.testing.assert_close(y, conv_ops.fused_conv3x3(x, wt, bias, 0.2, True), atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("slope,pn", [(0.2, True), (0.2, False), (None, False)])
+@pytest.mark.parametrize("b,cin,cout,h,w", [(2, 12, 20, 9, 33), (1, 32, 16, 64, 160), (2, 144, 160, 2, 2)])
+def test_conv3x3_act_gradients_match_plain_autograd(cuda, b, cin, cout, h, w, slope, pn):
+    """The Function's three gradients (input gradient on K1, the library's
+    weight gradient, the bias sum) against ordinary autograd through the
+    plain version, each relative to the plain gradient's largest value."""
+    if pn and cout > conv_ops.MAX_COUT_PIXEL_NORM:
+        pytest.skip("PixelNorm is limited to 128 channels")
+    x, wt, bias = _conv_inputs(6, b, cin, cout, h, w, cuda)
+    cot = torch.tensor(
+        np.random.default_rng(7).standard_normal((b, cout, h, w)), dtype=torch.float32, device=cuda
+    )
+    grads = {}
+    for name, fn in (("kernel", conv_vjp.conv3x3_act), ("plain", conv_vjp.conv3x3_act_plain)):
+        leaves = [t.clone().requires_grad_(True) for t in (x, wt, bias)]
+        n1 = conv_ops.fused_conv3x3.launches + conv_ops.fused_conv3x3_msq.launches
+        y = fn(*leaves, slope, pn, 1e-8)
+        grads[name] = (y.detach(), *torch.autograd.grad((y * cot).sum(), leaves))
+        launched = conv_ops.fused_conv3x3.launches + conv_ops.fused_conv3x3_msq.launches - n1
+        assert launched == (2 if name == "kernel" else 0)  # forward + input gradient
+    torch.cuda.synchronize()
+    for got, ref in zip(grads["kernel"], grads["plain"]):
+        assert float((got - ref).abs().max() / ref.abs().max()) < 1e-4
+
+
+def test_conv3x3_act_is_differentiable_once_only(cuda):
+    x, wt, bias = _conv_inputs(8, 1, 8, 8, 4, 4, cuda)
+    x.requires_grad_(True)
+    cot = torch.ones(1, 8, 4, 4, device=cuda, requires_grad=True)
+    y = conv_vjp.conv3x3_act(x, wt, bias)
+    (dx,) = torch.autograd.grad((y * cot).sum(), x, create_graph=True)
+    with pytest.raises(RuntimeError, match="once_differentiable"):
+        dx.sum().backward()
 
 
 @pytest.mark.parametrize("epilogue", [True, False])

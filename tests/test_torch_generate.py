@@ -101,6 +101,9 @@ import musicgan_tpu_torch
 for m in pkgutil.walk_packages(musicgan_tpu_torch.__path__, "musicgan_tpu_torch."):
     importlib.import_module(m.name)
 import chip_smoke
+for new in ("train.step", "train.optim", "ops.conv_vjp", "models.discriminator",
+            "models.losses", "audio.transforms", "device"):
+    assert "musicgan_tpu_torch." + new in sys.modules, new
 bad = sorted(
     m for m in sys.modules
     if m in ("jax", "musicgan_tpu") or m.startswith(("jax.", "musicgan_tpu."))
