@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's synthesis path and its WGAN-GP train step on
-one NVIDIA GPU.
+"""Drive the PyTorch port's synthesis path, its WGAN-GP train step and its
+``train`` entry point on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -36,6 +36,23 @@ the CUDA toolkit (``nvcc``).  Phases, each of which raises on failure:
    iteration again from the same state and noise through the plain
    versions on the card; warm timings.
 
+7. the whole-block kernel K4 at the shapes of every generator block that
+   ``fused_block_fits`` (blocks 5, 6, 7 of the 5 x nb_vec 10 call):
+   against its plain version and against K1 then K3, with its time beside
+   its bound, the plain version's, the pair's and two ``F.conv2d`` calls';
+   then ``generate`` with ``conv_impl="pallas_block"``, launches counted,
+   waveforms against the default path's, warm synthesis under both values;
+8. the ``train`` entry point at full width on a seeded synthetic corpus of
+   24 samples, the schedule cut to 12 samples a stage so that 32 iterations
+   pass through all eight stages with their fades: once uninterrupted
+   (launches held against the formula summed over the trajectory, plus the
+   previews'), once uninterrupted and once stopped half way and resumed
+   under ``torch.backends.cudnn.deterministic`` (the two final states are
+   equal bit for bit), once streaming through the host pipeline, once as a
+   subprocess of the CLI that is sent SIGTERM (exit code 75, a complete
+   off-cadence save); the Saver's preview images; ``generate`` from the
+   run directory through K4; the time of a save and of a restore.
+
 The last lines are a ``{"kernels": [...]}`` record, the ``nvidia-smi``
 line, and ``{"ok": true, "device": {...}}``.  Per-shape numbers also go
 to ``chiprun_out/chip_smoke.json``.
@@ -43,8 +60,15 @@ to ``chiprun_out/chip_smoke.json``.
 
 from __future__ import annotations
 
+import contextlib
+import csv
+import dataclasses
+import io
 import json
 import math
+import os
+import re
+import signal
 import subprocess
 import sys
 import tempfile
@@ -58,6 +82,7 @@ import torch.nn.functional as F
 
 from musicgan_tpu_torch import generate as generate_mod
 from musicgan_tpu_torch.audio import load_wav
+from musicgan_tpu_torch.audio.ingest import ShardWriter
 from musicgan_tpu_torch.audio.stft import hann_window, istft_real_imag
 from musicgan_tpu_torch.config import AudioConfig, ModelConfig, TrainConfig
 from musicgan_tpu_torch.models import (
@@ -70,7 +95,15 @@ from musicgan_tpu_torch.ops import _build
 from musicgan_tpu_torch.ops import conv as conv_ops
 from musicgan_tpu_torch.ops import conv_vjp
 from musicgan_tpu_torch.ops import istft_fused as istft_ops
-from musicgan_tpu_torch.train import build_chunk_step, build_step, init_train_state
+from musicgan_tpu_torch.train import (
+    CheckpointManager,
+    Grower,
+    Saver,
+    build_chunk_step,
+    build_step,
+    init_train_state,
+    train,
+)
 
 ROOT = Path(__file__).resolve().parent
 CKPT = ROOT / "saved_models" / "quality_r4" / "gen_final.pt"
@@ -87,7 +120,11 @@ PEAK_BYTES_S = 3.35e12
 TOL = {
     "fused_conv3x3": 1e-4, "fused_conv3x3_msq": 1e-4, "fused_upconv3x3": 1e-4,
     "istft_fused": 2e-4,
+    # K4 is two convs, the second on the first's output: their errors compound.
+    "fused_block": 2e-4,
 }
+# K4 against K1 then K3: the same products summed in the same order.
+TOL_BLOCK_VS_PAIR = 1e-6
 TOL_MSQ_REL = 1e-4  # K2's mean-square map, relative to its largest value
 # End to end, kernels vs plain versions on the same latents.  The image:
 # each conv disagrees by up to ~1.3e-5 (the per-shape check above), and
@@ -126,13 +163,31 @@ SOURCES = {
     "fused_conv3x3_msq": ("musicgan_tpu_torch/csrc/conv3x3.cu", "musicgan_tpu/ops/conv.py:625"),
     "fused_upconv3x3": ("musicgan_tpu_torch/csrc/upconv3x3.cu", "musicgan_tpu/ops/conv.py:139"),
     "istft_fused": ("musicgan_tpu_torch/csrc/istft.cu", "musicgan_tpu/ops/istft_pallas.py:60"),
+    "fused_block": ("musicgan_tpu_torch/csrc/block3x3.cu", "musicgan_tpu/ops/conv.py:234"),
 }
 WRAPPERS = {
     "fused_conv3x3": conv_ops.fused_conv3x3,
     "fused_conv3x3_msq": conv_ops.fused_conv3x3_msq,
     "fused_upconv3x3": conv_ops.fused_upconv3x3,
     "istft_fused": istft_ops.istft_fused,
+    "fused_block": conv_ops.fused_block,
 }
+
+# The train entry point (phase 8): 24 samples, 12 a stage at batch 6, so
+# stage 0 takes 3 iterations, stages 1-6 two each and stage 7 the last 17 of
+# 32; every stage but 0 fades in over its first two iterations.
+LOOP_SAMPLES, LOOP_ITERS = 24, 32
+LOOP_CFG = dict(
+    fadein_lengths=(1,) + (12,) * 7, train_lengths=(12,) * 7, save_every=8, log_every=4,
+    chunk_steps=4,
+)
+# A resumed run against the uninterrupted one is held bit for bit, under
+# torch.backends.cudnn.deterministic.  Without that flag cuDNN's float32
+# weight-gradient kernels sum in an order that changes from run to run: on
+# an H100 the same run twice differed by 1e-8 (relative 2-norm) after one
+# iteration and, through this schedule's random-init trajectory, by a tenth
+# after 32, so no tolerance on the default path would say anything about
+# resume.  The difference between the two settings is printed.
 
 
 def card_line() -> str:
@@ -283,7 +338,7 @@ def end_to_end(cfg: ModelConfig, dev) -> dict:
     print(f"[e2e] generate wrote {len(paths)} WAVs in {cold_s:.2f} s; launches {launches}")
     expect = {
         "fused_conv3x3": cfg.n_stages, "fused_conv3x3_msq": 0,
-        "fused_upconv3x3": cfg.n_stages, "istft_fused": 1,
+        "fused_upconv3x3": cfg.n_stages, "istft_fused": 1, "fused_block": 0,
     }
     if launches != expect:
         raise AssertionError(f"launch counts {launches} != {expect}")
@@ -362,7 +417,7 @@ def end_to_end(cfg: ModelConfig, dev) -> dict:
         "warm_synthesis_s": synth_s, "warm_synthesis_median_s": med_synth,
         "warm_generate_s": gen_s, "warm_generate_median_s": med_gen, "audio_s": audio_s, "peak_bytes": peak,
         "err_image": err_img, "err_wave": err_wave,
-    }
+    }, np.stack(waves)
 
 
 def conv_rows(name, role, shapes, rng, dev, slope, bias):
@@ -557,7 +612,7 @@ def expected_train_launches(cfg: ModelConfig, stage: int, n_d_only: int, n_d_and
     return {
         "fused_conv3x3": n * 7 * c + n_d_and_g * (2 * c + g - 1),
         "fused_conv3x3_msq": n * g + n_d_and_g * g,
-        "fused_upconv3x3": 0, "istft_fused": 0,
+        "fused_upconv3x3": 0, "istft_fused": 0, "fused_block": 0,
     }
 
 
@@ -733,6 +788,393 @@ def train_path(cfg: ModelConfig, tcfg: TrainConfig, dev) -> dict:
     }
 
 
+def check_block_kernel(gen, cfg: ModelConfig, dev) -> list[dict]:
+    """Phase 7: K4 at every block of the main path whose widths fit; at
+    the blocks that do not, its time beside the pair's, which is what
+    ``fused_block_fits`` rests on."""
+    rng = torch.Generator(device=dev).manual_seed(4)
+    slope, eps = cfg.leaky_slope, cfg.pixel_norm_eps
+    rows = []
+    for i, (cin, cout) in enumerate(cfg.gen_channels):
+        h, w = cfg.latent_height * 2**i, cfg.latent_width * NB_VEC * 2**i
+        blk = gen.blocks[i]
+        x = torch.randn(NB_MUSIC, cin, h, w, generator=rng, device=dev)
+        w1, b1 = blk.conv1.weight.detach(), blk.conv1.bias.detach()
+        w2, b2 = blk.conv2.weight.detach(), blk.conv2.bias.detach()
+        w1p, w2p = conv_ops.pack_weights(w1), conv_ops.pack_upconv_weights(w2)
+
+        def kernel():
+            return conv_ops.fused_block(x, w1, b1, w2, b2, slope, eps, w1_packed=w1p, w2_packed=w2p)
+
+        def pair():
+            mid = conv_ops.fused_conv3x3(x, w1, b1, slope, True, eps, w_packed=w1p)
+            return conv_ops.fused_upconv3x3(mid, w2, b2, slope, True, eps, w_packed=w2p)
+
+        if not conv_ops.fused_block_fits(cin, cin, cout):
+            tile_rows, _, passes = conv_ops.block_tile(cin, cout)
+            err = (kernel() - pair()).abs().max().item()
+            print(f"[kernel] fused_block block {i} {(NB_MUSIC, cin, cin, cout, h, w)} does not fit "
+                  f"(tile {tile_rows} rows, {passes} passes a phase): K4 {time_ms(kernel):.4f} ms, "
+                  f"K1 then K3 {time_ms(pair):.4f} ms, err {err:.2e}")
+            if not err <= TOL_BLOCK_VS_PAIR:
+                raise AssertionError(f"fused_block block {i} disagrees with K1 then K3")
+            continue
+        mid_up = upsample_nearest_2x(conv_ops.conv3x3_plain(x, w1, b1, slope, True, eps))
+        px = NB_MUSIC * h * w
+
+        def library():  # the two convolutions alone, without epilogues or the upsample
+            F.conv2d(x, w1, b1, padding=1)
+            return F.conv2d(mid_up, w2, b2, padding=1)
+
+        row = measure(
+            "fused_block", (NB_MUSIC, cin, cin, cout, h, w), kernel,
+            lambda: conv_ops.fused_block_plain(x, w1, b1, w2, b2, slope, eps), library,
+            2.0 * px * cin * 9 * cin + 2.0 * 4 * px * cout * 4 * cin,
+            4.0 * (px * cin + 4 * px * cout + 9 * cin * cin + cin + 16 * cin * cout + cout),
+        )
+        row["err_pair"] = (kernel() - pair()).abs().max().item()
+        row["pair_ms"] = time_ms(pair)
+        row["tile_rows"], row["smem_bytes"], _ = conv_ops.block_tile(cin, cout)
+        print(f"[kernel] fused_block block {i}: tile {row['tile_rows']} rows x 30, "
+              f"{row['smem_bytes']} B shared; against K1 then K3: err {row['err_pair']:.2e} "
+              f"(tol {TOL_BLOCK_VS_PAIR:.0e}), pair {row['pair_ms']:.4f} ms")
+        if not row["err_pair"] <= TOL_BLOCK_VS_PAIR:
+            raise AssertionError(f"fused_block block {i} disagrees with K1 then K3")
+        rows.append(row)
+        del mid_up
+    fitting = [r["shape"][1:4] for r in rows]
+    if (48, 48, 32) not in fitting or (32, 32, 16) not in fitting:
+        raise AssertionError(f"blocks 6 and 7 must take K4; fitting: {fitting}")
+    return rows
+
+
+def warm_synthesis_s(synth, gen, z, n: int) -> list[float]:
+    out = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        synth(gen, z)
+        torch.cuda.synchronize()
+        out.append(time.perf_counter() - t0)
+    return out
+
+
+def end_to_end_block(cfg: ModelConfig, dev, waves_default: np.ndarray) -> dict:
+    """Phase 7, end to end: ``generate`` under ``conv_impl="pallas_block"``."""
+    cfg_b = dataclasses.replace(cfg, conv_impl="pallas_block")
+    n_fit = sum(conv_ops.fused_block_fits(cin, cin, cout) for cin, cout in cfg.gen_channels)
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_block_")
+    reset_launches()
+    paths = generate_mod.generate(
+        out_dir, cfg.rand_channels, str(CKPT), nb_vec=NB_VEC, nb_music=NB_MUSIC,
+        seed=SEED, model_cfg=cfg_b, device="cuda",
+    )
+    torch.cuda.synchronize()
+    launches = read_launches()
+    expect = {
+        "fused_block": n_fit, "fused_conv3x3": cfg.n_stages - n_fit,
+        "fused_upconv3x3": cfg.n_stages - n_fit, "fused_conv3x3_msq": 0, "istft_fused": 1,
+    }
+    print(f"[e2e-block] generate with conv_impl='pallas_block': launches {launches}")
+    if launches != expect:
+        raise AssertionError(f"launch counts {launches} != {expect}")
+    waves = np.stack([load_wav(p)[0] for p in paths])
+    err_wave = float(np.abs(waves - waves_default).max())
+    print(f"[e2e-block] waveforms against the default path's: err {err_wave:.3e} (tol {TOL_WAVE:.0e})")
+    if not (np.isfinite(waves).all() and err_wave <= TOL_WAVE):
+        raise AssertionError("the K4 path's waveforms disagree with the default path's")
+
+    # Warm synthesis under both values, in turns within this one process:
+    # default, block, block, default, half of WARM_REPS each.
+    z = main_path_latent(cfg, dev)
+    gens = {
+        "pallas_up": load_reference_generator(str(CKPT), cfg, device=dev),
+        "pallas_block": load_reference_generator(str(CKPT), cfg_b, device=dev),
+    }
+    synth = generate_mod.synthesize_fn(cfg, cfg.n_stages - 1)
+    times = {k: [] for k in gens}
+    for k in gens:
+        warm_synthesis_s(synth, gens[k], z, 2)
+    for k in ("pallas_up", "pallas_block", "pallas_block", "pallas_up"):
+        times[k] += warm_synthesis_s(synth, gens[k], z, WARM_REPS // 2)
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    print(f"[e2e-block] warm synthesis, median of {WARM_REPS} each: conv_impl='pallas_up' "
+          f"{med['pallas_up'] * 1e3:.3f} ms (min {min(times['pallas_up']) * 1e3:.3f}), "
+          f"'pallas_block' {med['pallas_block'] * 1e3:.3f} ms (min {min(times['pallas_block']) * 1e3:.3f})")
+    return {"launches": launches, "err_wave": err_wave, "warm_synthesis_s": times,
+            "warm_synthesis_median_s": med, "fitting_blocks": n_fit}
+
+
+def loop_trajectory(tcfg: TrainConfig, cfg: ModelConfig, n_iters: int, start: int = 0):
+    """What the loop does over iterations ``start .. n_iters - 1``:
+    ``(iterations by stage as {stage: [critic only, with generator]},
+    stages at which a save fired)``, from a replay of its bookkeeping."""
+    grower = Grower(fadein_lengths=tcfg.fadein_lengths, train_lengths=tcfg.train_lengths)
+    by_stage, saves = {}, []
+    for it in range(n_iters):
+        stage = grower.curr_grow
+        if it >= start:
+            by_stage.setdefault(stage, [0, 0])[it % tcfg.n_critic == 0] += 1
+            if (it + 1) % tcfg.save_every == 0:
+                saves.append(stage)
+        grower.grow(tcfg.batch_size)
+    return by_stage, saves
+
+
+def expected_loop_launches(tcfg: TrainConfig, cfg: ModelConfig, n_iters: int, start: int = 0) -> dict:
+    """Launches of a ``train`` run: the train step's formula summed over the
+    stage trajectory, plus one inference forward (K1 and K3 once a block)
+    for the previews of every save."""
+    by_stage, saves = loop_trajectory(tcfg, cfg, n_iters, start)
+    total = {name: 0 for name in WRAPPERS}
+    for stage, (n_d, n_dg) in by_stage.items():
+        for k, v in expected_train_launches(cfg, stage, n_d, n_dg).items():
+            total[k] += v
+    for stage in saves:
+        total["fused_conv3x3"] += stage + 1
+        total["fused_upconv3x3"] += stage + 1
+    return total
+
+
+def run_train(name, ds, out, tcfg, cfg, show=True, **kw):
+    """``train`` with its output captured (and shown): returns the state,
+    the text, the counted launches and the wall seconds."""
+    buf = io.StringIO()
+    reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        state = train(name, ds, out, tcfg, cfg, device="cuda", **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    text = buf.getvalue()
+    if show:
+        print("".join(f"    | {line}\n" for line in text.splitlines()), end="")
+    return state, text, read_launches(), wall
+
+
+def state_diff(a, b) -> dict:
+    """Two train states: what must be equal exactly, and each network's
+    parameters and moments in the relative 2-norm and the largest
+    absolute difference."""
+    exact = {
+        "iter_idx": int(a.iter_idx) == int(b.iter_idx),
+        "rng": torch.equal(a.rng.get_state(), b.rng.get_state()),
+        "counts": all(
+            torch.equal(oa.count[k], ob.count[k])
+            for oa, ob in ((a.opt_gen, b.opt_gen), (a.opt_disc, b.opt_disc)) for k in oa.count
+        ),
+    }
+    groups = {
+        "gen": (dict(a.gen.named_parameters()), dict(b.gen.named_parameters())),
+        "disc": (dict(a.disc.named_parameters()), dict(b.disc.named_parameters())),
+        "opt_gen.mu": (a.opt_gen.mu, b.opt_gen.mu), "opt_gen.nu": (a.opt_gen.nu, b.opt_gen.nu),
+        "opt_disc.mu": (a.opt_disc.mu, b.opt_disc.mu), "opt_disc.nu": (a.opt_disc.nu, b.opt_disc.nu),
+    }
+    rel, worst = {}, 0.0
+    for name, (ta, tb) in groups.items():
+        va = torch.cat([ta[k].detach().flatten() for k in ta])
+        vb = torch.cat([tb[k].detach().flatten() for k in ta])
+        rel[name] = rel_l2(va, vb)
+        worst = max(worst, (va - vb).abs().max().item())
+    return {"exact": exact, "rel_l2": rel, "max_abs": worst}
+
+
+def stage_rates(text: str) -> dict:
+    """``{stage: (iterations, steps/s)}`` from the loop's own lines."""
+    found = re.findall(r"stage (\d+): (\d+) iterations in [0-9.]+ s = ([0-9.]+) steps/s", text)
+    return {int(s): (int(n), float(r)) for s, n, r in found}
+
+
+def train_entry_point(cfg: ModelConfig, dev) -> dict:
+    """Phase 8: ``train`` at full width through all eight stages."""
+    work = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    ds = os.path.join(work, "ds")
+    writer = ShardWriter(ds, samples_per_shard=8)
+    corpus = torch.randn(LOOP_SAMPLES, 2, 512, 512, generator=torch.Generator().manual_seed(SEED))
+    writer.add(corpus.numpy())
+    writer.close()
+    del corpus
+    tcfg = TrainConfig(**LOOP_CFG)
+    half = LOOP_ITERS // 2
+
+    # (a) uninterrupted, the corpus resident on the card.
+    out_a = os.path.join(work, "a")
+    state_a, text_a, launches, wall_a = run_train("smoke", ds, out_a, tcfg, cfg, max_iters=LOOP_ITERS)
+    expect = expected_loop_launches(tcfg, cfg, LOOP_ITERS)
+    by_stage, saves = loop_trajectory(tcfg, cfg, LOOP_ITERS)
+    print(f"[loop] {LOOP_ITERS} iterations in {wall_a:.2f} s; iterations by stage "
+          f"[critic only, with generator] {by_stage}; saves at stages {saves}; launches {launches}")
+    if launches != expect:
+        raise AssertionError(f"launch counts {launches} != {expect}")
+    if sorted(by_stage) != list(range(cfg.n_stages)) or by_stage[cfg.n_stages - 1][0] < 3:
+        raise AssertionError(f"the run did not pass through all stages: {by_stage}")
+    if int(state_a.iter_idx) != LOOP_ITERS:
+        raise AssertionError(f"iter_idx {int(state_a.iter_idx)}")
+    with open(os.path.join(out_a, "metrics.csv")) as f:
+        rows_a = list(csv.DictReader(f))
+    if [int(r["step"]) for r in rows_a] != list(range(0, LOOP_ITERS, tcfg.log_every)):
+        raise AssertionError(f"metrics.csv steps {[r['step'] for r in rows_a]}")
+    for r in rows_a:
+        if not all(math.isfinite(float(v)) for v in r.values() if v != ""):
+            raise AssertionError(f"non-finite metrics row {r}")
+    rates = stage_rates(text_a)
+    if sorted(rates) != list(range(cfg.n_stages)):
+        raise AssertionError(f"the loop reported rates for stages {sorted(rates)}")
+    print("[loop] wall steps/s by stage inside the loop, saves and previews included "
+          "(iterations): " + ", ".join(f"s{s} {r:.2f} ({n})" for s, (n, r) in sorted(rates.items())))
+    ck_a = CheckpointManager(os.path.join(out_a, "checkpoints"))
+    n_saves = LOOP_ITERS // tcfg.save_every
+    if ck_a.saved_indices() != list(range(n_saves)):
+        raise AssertionError(f"saves {ck_a.saved_indices()}")
+    pngs = sorted(f for f in os.listdir(out_a) if f.endswith(".png"))
+    try:
+        import matplotlib  # noqa: F401
+        have_mpl = True
+    except ImportError:
+        have_mpl = False
+    print(f"[loop] matplotlib importable: {have_mpl}; {len(pngs)} preview PNGs written")
+    if have_mpl and len(pngs) != 2 * tcfg.nb_preview * n_saves:
+        raise AssertionError(f"{len(pngs)} preview PNGs")
+
+    # (b) under cudnn.deterministic: uninterrupted again, and to half way by
+    # max_iters then on by resume.  The two must be equal bit for bit.
+    out_u, out_b = os.path.join(work, "u"), os.path.join(work, "b")
+    torch.backends.cudnn.deterministic = True
+    try:
+        state_u, _, launches_u, _ = run_train("smoke", ds, out_u, tcfg, cfg, show=False, max_iters=LOOP_ITERS)
+        run_train("smoke", ds, out_b, tcfg, cfg, show=False, max_iters=half)
+        state_b, text_b, launches_b, _ = run_train(
+            "smoke", ds, out_b, tcfg, cfg, show=False, max_iters=LOOP_ITERS, resume=True)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    resume_line = f"[resume] save_{half // tcfg.save_every - 1}: iter={half}"
+    if resume_line not in text_b:
+        raise AssertionError("the second half did not resume from the half-way save")
+    print(f"    | {next(line for line in text_b.splitlines() if line.startswith(resume_line))}")
+    if launches_u != expect or launches_b != expected_loop_launches(tcfg, cfg, LOOP_ITERS, start=half):
+        raise AssertionError(f"launch counts {launches_u} and, resumed, {launches_b}")
+    diff = state_diff(state_u, state_b)
+    metas = []
+    for out in (out_u, out_b):
+        with open(os.path.join(out, "checkpoints", f"save_{n_saves - 1}", "meta.json")) as f:
+            metas.append(json.load(f))
+    diff["exact"]["meta"] = metas[0] == metas[1]
+    print(f"[loop] under cudnn.deterministic, resumed at iteration {half} against uninterrupted: exact "
+          f"{diff['exact']}; rel L2 {diff['rel_l2']}; largest absolute difference {diff['max_abs']:.3e} "
+          f"(held at 0)")
+    if not all(diff["exact"].values()) or max(diff["rel_l2"].values()) != 0.0 or diff["max_abs"] != 0.0:
+        raise AssertionError(f"resume is not bit-exact: {diff}")
+    spread = state_diff(state_a, state_u)
+    print(f"[loop] for scale, the same uninterrupted run under cuDNN's default kernels against the "
+          f"deterministic ones after {LOOP_ITERS} iterations: exact {spread['exact']}; rel L2 "
+          f"{({k: float(f'{v:.3e}') for k, v in spread['rel_l2'].items()})}")
+    del state_b, state_u
+
+    # (d) streaming through the host pipeline (prepare_batch), stages 0-3.
+    out_d = os.path.join(work, "d")
+    tcfg_d = dataclasses.replace(tcfg, device_dataset="off")
+    n_d = 8
+    _, _, launches_d, _ = run_train("smoke", ds, out_d, tcfg_d, cfg, max_iters=n_d)
+    if launches_d != expected_loop_launches(tcfg_d, cfg, n_d):
+        raise AssertionError(f"streaming run's launch counts {launches_d}")
+    with open(os.path.join(out_d, "metrics.csv")) as f:
+        rows_d = list(csv.DictReader(f))
+    worst = 0.0
+    for ra, rd in zip(rows_a, rows_d):
+        if (ra["step"], ra["stage"], ra["alpha"]) != (rd["step"], rd["stage"], rd["alpha"]):
+            raise AssertionError(f"streaming row {rd} against resident {ra}")
+        for k in ("disc_loss", "grad_pen", "e_tp", "e_tn", "gen_loss", "e_gen"):
+            va, vd = float(ra[k]), float(rd[k])
+            worst = max(worst, abs(va - vd))
+            if not abs(va - vd) <= TOL_METRIC_ABS + TOL_METRIC_REL * abs(va):
+                raise AssertionError(f"step {ra['step']} {k}: resident {va!r} vs streaming {vd!r}")
+    print(f"[loop] streaming through prepare_batch, {n_d} iterations: the {len(rows_d)} logged rows agree "
+          f"with the resident run's, largest difference {worst:.2e}")
+
+    # (c) the CLI as a subprocess, sent SIGTERM once it logs an iteration.
+    out_c = os.path.join(work, "c")
+    cmd = [sys.executable, "-u", "-m", "musicgan_tpu_torch", "train", "smoke_cli", "-i", ds, "-o", out_c,
+           "--batch-size", "6", "--log-every", "1", "--save-every", "100000", "--chunk-steps", "4"]
+    proc = subprocess.Popen(cmd, cwd=str(ROOT), stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    lines = []
+    try:
+        for line in proc.stdout:
+            lines.append(line)
+            if line.startswith("e000 it"):
+                proc.send_signal(signal.SIGTERM)
+                break
+        rest, _ = proc.communicate(timeout=180)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    text_c = "".join(lines) + rest
+    print("".join(f"    | {line}\n" for line in text_c.splitlines()), end="")
+    if proc.returncode != 75 or "[preempt] caught SIGTERM" not in text_c:
+        raise AssertionError(f"the CLI exited {proc.returncode} after SIGTERM")
+    ck_c = CheckpointManager(os.path.join(out_c, "checkpoints"))
+    if ck_c.saved_indices() != [0]:
+        raise AssertionError(f"the preempted run left saves {ck_c.saved_indices()}")
+    pre, meta_c = ck_c.restore(0, init_train_state(SEED, cfg, TrainConfig(), device="cuda"))
+    if int(pre.iter_idx) != meta_c["iter_idx"] or meta_c["iter_idx"] % 4 != 0 or meta_c["saver_counter"] != meta_c["iter_idx"]:
+        raise AssertionError(f"the preemption save is not at a chunk's end: {meta_c}")
+    print(f"[loop] CLI subprocess: SIGTERM -> exit code 75, complete save at iteration {meta_c['iter_idx']}")
+    del pre
+
+    # The Saver's image-computing half, called directly, at stage 7.
+    saver = Saver(os.path.join(work, "previews"), tcfg, cfg)
+    reset_launches()
+    images = saver.preview_images(state_a, cfg.n_stages - 1, 1.0)
+    got = read_launches()
+    if images.shape != (tcfg.nb_preview, 512, 512, 2) or not np.isfinite(images).all() or np.abs(images).max() > 1.0:
+        raise AssertionError(f"preview images {images.shape}")
+    if (got["fused_conv3x3"], got["fused_upconv3x3"]) != (cfg.n_stages, cfg.n_stages):
+        raise AssertionError(f"the previews launched {got}")
+    drawn = saver.draw_previews(images, cfg.n_stages - 1) if have_mpl else []
+    print(f"[loop] Saver.preview_images: {images.shape}, K1 and K3 {cfg.n_stages} launches each; "
+          f"{len(drawn)} PNGs drawn")
+
+    # The time of a save and of a restore (state to the host and a file, and back).
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ck_a.save(n_saves, state_a, metas[0])
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ck_a.restore(n_saves, init_train_state(SEED + 5, cfg, tcfg, device="cuda"))
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    size = os.path.getsize(os.path.join(ck_a.root, f"save_{n_saves}", "state.pt"))
+    print(f"[loop] a save {save_s * 1e3:.1f} ms, a restore {restore_s * 1e3:.1f} ms "
+          f"(a fresh state's init included), state.pt {size / 2**20:.2f} MiB")
+
+    # generate from the run directory (the checkpoint branch), through K4.
+    cfg_b = dataclasses.replace(cfg, conv_impl="pallas_block")
+    n_fit = sum(conv_ops.fused_block_fits(cin, cin, cout) for cin, cout in cfg.gen_channels)
+    reset_launches()
+    paths = generate_mod.generate(
+        os.path.join(work, "wav"), cfg.rand_channels, out_a, nb_vec=2, nb_music=2, seed=SEED,
+        model_cfg=cfg_b, device="cuda",
+    )
+    got = read_launches()
+    want = {"fused_block": n_fit, "fused_conv3x3": cfg.n_stages - n_fit,
+            "fused_upconv3x3": cfg.n_stages - n_fit, "fused_conv3x3_msq": 0, "istft_fused": 1}
+    if got != want:
+        raise AssertionError(f"generate from the run directory launched {got}, not {want}")
+    for p in paths:
+        wave, sr = load_wav(p)
+        if sr != 44100 or wave.shape != ((2 * 512 - 1) * 256,) or not np.isfinite(wave).all():
+            raise AssertionError(f"{p}: {sr} Hz, {wave.shape}")
+    print(f"[loop] generate from the run directory with conv_impl='pallas_block': {len(paths)} WAVs, launches {got}")
+
+    total = {k: launches[k] + launches_u[k] + launches_b[k] + launches_d[k] for k in launches}
+    return {
+        "launches": total, "launches_uninterrupted": launches, "wall_s": wall_a,
+        "iterations_by_stage": {str(k): v for k, v in by_stage.items()},
+        "steps_per_s_by_stage": {str(s): r for s, (_, r) in rates.items()},
+        "resume": diff, "default_vs_deterministic": spread, "streaming_worst_abs_diff": worst, "save_s": save_s, "restore_s": restore_s,
+        "state_bytes": size, "matplotlib": have_mpl, "preempt_iter": meta_c["iter_idx"],
+    }
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
@@ -748,21 +1190,31 @@ def main() -> None:
     gen = load_reference_generator(str(CKPT), cfg, device=dev)
     rows = check_kernels(gen, cfg, dev)
     del gen
-    e2e = end_to_end(cfg, dev)
+    e2e, waves = end_to_end(cfg, dev)
     torch.cuda.empty_cache()
 
     tcfg = TrainConfig()
     rows += check_train_kernels(cfg, tcfg, dev)
     grads = check_function_and_gp(cfg, tcfg, dev)
     torch.cuda.empty_cache()
-    train = train_path(cfg, tcfg, dev)
+    train_rec = train_path(cfg, tcfg, dev)
+    torch.cuda.empty_cache()
 
+    gen = load_reference_generator(str(CKPT), cfg, device=dev)
+    rows += check_block_kernel(gen, cfg, dev)
+    del gen
+    torch.cuda.empty_cache()
+    e2e_block = end_to_end_block(cfg, dev, waves)
+    torch.cuda.empty_cache()
+    loop = train_entry_point(cfg, dev)
+
+    paths = (e2e, train_rec, e2e_block, loop)
     kernels = []
     for name, (source, replaces) in SOURCES.items():
         mine = [r for r in rows if r["name"] == name]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": e2e["launches"][name] + train["launches"][name],
+            "launches": sum(p["launches"][name] for p in paths),
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             **{k: sum(r[k] for r in mine) for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
             "bound_by": "operations" if sum(r["flops"] for r in mine) / PEAK_FP32_FLOPS
@@ -771,8 +1223,8 @@ def main() -> None:
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(
-        {"card": card, "shapes": rows, "end_to_end": e2e, "gradients": grads, "train": train,
-         "kernels": kernels}, indent=1))
+        {"card": card, "shapes": rows, "end_to_end": e2e, "gradients": grads, "train": train_rec,
+         "end_to_end_block": e2e_block, "train_entry_point": loop, "kernels": kernels}, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

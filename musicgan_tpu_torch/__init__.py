@@ -2,19 +2,21 @@
 NVIDIA Hopper (H100).
 
 The JAX package stays the reference; this package imports none of it,
-nor JAX.  Ported so far: the synthesis path — a reference ``gen_*.pt``
-checkpoint through the fully grown generator and the iSTFT vocoder to WAV
-files — and the WGAN-GP train step (generator, critic, hand-unrolled
-gradient penalty, per-leaf Adam), on four hand-written CUDA kernels
-(``ops/``, sources in ``csrc/``).  Its entry points are
-``generate.generate``, ``generate.synthesize_fn``,
-``python -m musicgan_tpu_torch generate``, ``train.init_train_state``,
+nor JAX.  Ported so far: the synthesis path (a reference ``gen_*.pt``
+checkpoint, or a checkpoint of this package's ``train``, through the
+generator and the iSTFT vocoder to WAV files), the WGAN-GP train step
+(generator, critic, hand-unrolled gradient penalty, per-leaf Adam) and the
+train loop around it (growth schedule, dataset, checkpoints with bit-exact
+resume, previews, metrics, stall watchdog), on five hand-written CUDA
+kernels (``ops/``, sources in ``csrc/``).  Its entry points are
+``generate.generate``, ``generate.synthesize_fn``, ``train.train``,
+``python -m musicgan_tpu_torch generate|train``, ``train.init_train_state``,
 ``train.build_step`` and ``train.build_chunk_step``; they run on ``cuda``
 unless the caller passes ``device="cpu"``.
 """
 
 __version__ = "0.1.0"
 
-from . import audio, config, generate, models, ops, train
+from . import audio, config, generate, models, ops, train, utils
 
-__all__ = ["audio", "config", "generate", "models", "ops", "train", "__version__"]
+__all__ = ["audio", "config", "generate", "models", "ops", "train", "utils", "__version__"]

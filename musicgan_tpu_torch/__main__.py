@@ -1,33 +1,129 @@
-"""CLI of the PyTorch port (the ``generate`` subcommand of
-``musicgan_tpu/__main__.py``, plus ``--device``).
+"""CLI of the PyTorch port: the ``train`` and ``generate`` subcommands of
+``musicgan_tpu/__main__.py``, plus ``--device``.
 
-    python -m musicgan_tpu_torch generate CKPT.pt 32 -o /out [-n 10] [-m 5] \\
-        [--seed 0] [--device cuda|cpu]
+    python -m musicgan_tpu_torch train RUN -i DATASET_DIR -o OUT_DIR \\
+        [--resume] [--max-iters N] [--batch-size 6] ... [--device cuda|cpu]
+    python -m musicgan_tpu_torch generate CKPT 32 -o /out [-n 10] [-m 5] \\
+        [--seed 0] [--conv-impl pallas_up|pallas_block] [--device cuda|cpu]
+
+``CKPT`` is a reference ``gen_*.pt`` file or a run directory of ``train``
+(or its ``checkpoints`` or a ``save_N`` directory).  ``train`` exits 75
+(EX_TEMPFAIL) after a SIGTERM/SIGUSR1 preemption, with a checkpoint
+flushed: run it again with ``--resume``.  The JAX CLI's ``--max-restarts``,
+``--profile``, ``--debug-nans`` and multi-host flags are not ported yet
+(ROADMAP.md section A items 16 and 17) and are rejected.
 """
 
 from __future__ import annotations
 
 import argparse
 
+_DEVICE_HELP = (
+    "'cuda' (default; the hand-written kernels) or 'cpu' (their plain "
+    "PyTorch versions)"
+)
+
 
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser("musicgan_tpu_torch")
     sub = parser.add_subparsers(dest="mode", required=True)
 
+    p = sub.add_parser("train", help="progressive WGAN-GP training", allow_abbrev=False)
+    p.add_argument("run", type=str, metavar="RUN_NAME")
+    p.add_argument("-o", "--out-path", dest="out_path", type=str, required=True)
+    p.add_argument("-i", "--input-dataset", dest="input_dataset", type=str,
+                   required=True)
+    p.add_argument("--resume", action="store_true",
+                   help="resume from the latest checkpoint in out-path")
+    p.add_argument("--batch-size", type=int, default=None)
+    p.add_argument("--nb-epoch", type=int, default=None)
+    p.add_argument("--max-iters", type=int, default=None)
+    p.add_argument("--max-stage", type=int, default=None,
+                   help="cap growth (e.g. 3 => 32x32)")
+    p.add_argument("--save-every", type=int, default=None)
+    p.add_argument("--log-every", type=int, default=None)
+    p.add_argument("--seed", type=int, default=None)
+    p.add_argument("--compute-dtype", type=str, default=None,
+                   choices=["float32", "bfloat16", "bfloat16_f32gp"],
+                   help="only float32 is ported; the others raise")
+    p.add_argument("--device-dataset", type=str, default=None,
+                   choices=["auto", "on", "off"],
+                   help="corpus resident in device memory, indices per step "
+                        "(auto: when it fits the byte budget)")
+    p.add_argument("--drift-eps", type=float, default=None,
+                   help="ProGAN eps-drift penalty on E[D(real)^2] "
+                        "(0 = reference-faithful)")
+    p.add_argument("--ema-decay", type=float, default=None,
+                   help="generator weight EMA for preview/generate "
+                        "(0 = reference-faithful)")
+    p.add_argument("--chunk-steps", type=int, default=None,
+                   help="iterations per chunked step call")
+    p.add_argument("--tb-dir", type=str, default=None, metavar="LOG_DIR",
+                   help="also write metrics to a TensorBoard event log")
+    p.add_argument("--mlflow-uri", type=str, default=None, metavar="URI",
+                   help="also log params+metrics to an MLflow tracking "
+                        "store (requires the mlflow package)")
+    p.add_argument("--stall-timeout", type=float, default=None,
+                   metavar="SECONDS",
+                   help="abort (exit 75) when no device progress is seen "
+                        "for this long (default: off)")
+    p.add_argument("--device", type=str, default="cuda", help=_DEVICE_HELP)
+
     p = sub.add_parser("generate", help="sample latents -> WAV files")
-    p.add_argument("gen_dict_state", type=str, help="reference gen_*.pt")
+    p.add_argument("gen_dict_state", type=str,
+                   help="run / checkpoint directory of train, or reference gen_*.pt")
     p.add_argument("rand_channels", type=int)
     p.add_argument("-n", "--nb-vec", type=int, default=10)
     p.add_argument("-m", "--nb-music", type=int, default=5)
     p.add_argument("-o", "--output-dir", type=str, required=True)
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument(
-        "--device", type=str, default="cuda",
-        help="'cuda' (default; the hand-written kernels) or 'cpu' (their "
-             "plain PyTorch versions)")
+    p.add_argument("--conv-impl", type=str, default="pallas_up",
+                   help="'pallas_up' (default: conv + up-conv kernels) or "
+                        "'pallas_block' (the whole-block kernel where it fits)")
+    p.add_argument("--device", type=str, default="cuda", help=_DEVICE_HELP)
 
     args = parser.parse_args(argv)
-    if args.mode == "generate":
+    if args.mode == "train":
+        from .config import train_config_from_overrides
+        from .train import train
+        from .train.loop import PREEMPTED
+        from .utils.watchdog import EXIT_STALLED
+
+        cfg = train_config_from_overrides(
+            batch_size=args.batch_size,
+            nb_epoch=args.nb_epoch,
+            max_stage=args.max_stage,
+            save_every=args.save_every,
+            log_every=args.log_every,
+            seed=args.seed,
+            compute_dtype=args.compute_dtype,
+            chunk_steps=args.chunk_steps,
+            drift_eps=args.drift_eps,
+            ema_decay=args.ema_decay,
+            device_dataset=args.device_dataset,
+            stall_timeout_s=args.stall_timeout,
+            tb_dir=args.tb_dir,
+            mlflow_uri=args.mlflow_uri,
+        )
+        train(
+            args.run,
+            args.input_dataset,
+            args.out_path,
+            train_cfg=cfg,
+            resume=args.resume,
+            max_iters=args.max_iters,
+            device=args.device,
+        )
+        if PREEMPTED.is_set():
+            # SIGTERM/SIGUSR1 preemption: the loop flushed a checkpoint
+            # and stopped early; exit EX_TEMPFAIL so schedulers treat this
+            # run as retryable.
+            raise SystemExit(EXIT_STALLED)
+
+    elif args.mode == "generate":
+        import dataclasses
+
+        from .config import ModelConfig
         from .generate import generate
 
         paths = generate(
@@ -37,6 +133,9 @@ def main(argv=None) -> None:
             nb_vec=args.nb_vec,
             nb_music=args.nb_music,
             seed=args.seed,
+            model_cfg=dataclasses.replace(
+                ModelConfig(), rand_channels=args.rand_channels, conv_impl=args.conv_impl
+            ),
             device=args.device,
         )
         print("\n".join(paths))

@@ -1,16 +1,24 @@
-"""Configuration dataclasses of the synthesis path and the train step.
+"""Configuration dataclasses of the synthesis path and the train loop.
 
 Copies of ``musicgan_tpu.config``'s ``AudioConfig``, ``ModelConfig``,
-``TrainConfig`` (the fields the train step reads) and ``GenerateConfig``
-(this package imports nothing of the JAX one).  The kernel behind each
-conv is chosen by the tensor's device, so ``ModelConfig`` carries no
-``conv_impl``.
+``TrainConfig`` and ``GenerateConfig`` (this package imports nothing of the
+JAX one).  Whether a conv runs its kernel or its plain version is chosen by
+the tensor's device; ``ModelConfig.conv_impl`` chooses between the two
+kernel paths of the inference forward.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+import json
+from typing import Optional, Tuple
+
+# The names musicgan_tpu.config.ModelConfig.conv_impl takes; two are ported.
+_JAX_CONV_IMPLS = (
+    "auto", "xla", "subpixel", "pallas", "pallas_up", "pallas_block",
+    "pallas_bf16", "pallas_up_bf16", "pallas_block_bf16", "pallas_train", "pallas_gp",
+)
+CONV_IMPLS = ("pallas_up", "pallas_block")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,6 +61,24 @@ class ModelConfig:
     )
     leaky_slope: float = 0.2
     pixel_norm_eps: float = 1e-8
+    # The generator's inference forward (``Generator.forward_nchw``: generate,
+    # ``synthesize_fn``, the Saver's previews): "pallas_up" runs each block
+    # as the conv kernel and the up-conv kernel (K1 + K3), "pallas_block"
+    # runs a block as the one whole-block kernel (K4) where
+    # ``ops.conv.fused_block_fits`` and as the pair elsewhere.  The names are
+    # the JAX package's; the train step does not read this.
+    conv_impl: str = "pallas_up"
+
+    def __post_init__(self):
+        if self.conv_impl in CONV_IMPLS:
+            return
+        if self.conv_impl in _JAX_CONV_IMPLS:
+            where = "section B item 8" if self.conv_impl.endswith("bf16") else "section B"
+            raise NotImplementedError(
+                f"conv_impl {self.conv_impl!r} is not ported: musicgan_tpu_torch runs "
+                f"{CONV_IMPLS} in float32 (ROADMAP.md {where})"
+            )
+        raise ValueError(f"unknown conv_impl {self.conv_impl!r}; one of {CONV_IMPLS}")
 
     @property
     def n_stages(self) -> int:
@@ -61,21 +87,48 @@ class ModelConfig:
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    """Hyperparameters of the train step (reference ``train.py:34-43,
-    101-116,189``).  The schedule, logging and data-placement fields of the
-    JAX ``TrainConfig`` come with the train loop."""
+    """Training hyperparameters (reference ``train.py:34-43,101-116,189``);
+    the fields and defaults of ``musicgan_tpu.config.TrainConfig``."""
 
     batch_size: int = 6
     disc_lr: float = 1e-3
     gen_lr: float = 1e-3
     betas: Tuple[float, float] = (0.0, 0.9)
+    nb_epoch: int = 1000
     n_critic: int = 5                # G step every 5th iteration
     grad_penalty_weight: float = 10.0
     drift_eps: float = 0.0           # ProGAN eps-drift: + eps * E[D(x_real)^2]
     ema_decay: float = 0.0           # generator weight EMA for eval; 0 = off
-    chunk_steps: int = 10            # iterations per ``build_chunk_step`` call
+    # Progressive-growth schedule, in cumulative samples viewed.
+    fadein_lengths: Tuple[int, ...] = (
+        1, 25_000, 37_500, 50_000, 62_500, 75_000, 87_500, 100_000,
+    )
+    train_lengths: Tuple[int, ...] = (
+        50_000, 100_000, 150_000, 200_000, 250_000, 300_000, 350_000,
+    )
+    save_every: int = 1000           # checkpoint + preview cadence (iters)
+    metric_window: int = 20
+    log_every: int = 200
+    nb_preview: int = 6
     seed: int = 0
     compute_dtype: str = "float32"   # the only one ported (ROADMAP B8)
+    data_axis: str = "data"          # mesh axis name; data parallelism is ROADMAP A16
+    max_stage: Optional[int] = None  # cap growth (e.g. 3 for 32x32 runs)
+    chunk_steps: int = 10            # iterations per ``build_chunk_step`` call;
+    # identical to single stepping (tested); set 1 to disable
+    host_pipeline: bool = True       # per-stage scaling on the host when
+    # streaming: the host-to-device copy then scales with the stage's
+    # resolution instead of always shipping raw 512x512 batches
+    device_dataset: str = "auto"     # "on" | "off" | "auto": ship the whole
+    # corpus to device memory once and pass per-step indices instead of
+    # batches; "auto" enables it when the corpus fits the budget below
+    device_dataset_budget_bytes: int = 4 << 30
+    device_dataset_dtype: str = "float32"  # "bfloat16" halves the resident
+    # corpus; rows are upcast as each batch is gathered, compute stays float32
+    stall_timeout_s: float = 0.0     # > 0 enables the stall watchdog
+    # (utils/watchdog.py): no metric fetch or checkpoint for this long exits 75
+    tb_dir: Optional[str] = None     # optional TensorBoard sink
+    mlflow_uri: Optional[str] = None  # optional MLflow sink (needs mlflow)
 
     def __post_init__(self):
         if self.compute_dtype != "float32":
@@ -92,3 +145,13 @@ class GenerateConfig:
 
     nb_vec: int = 10     # latent width multiplier -> ~29.7 s of audio
     nb_music: int = 5
+
+
+def config_to_json(cfg) -> str:
+    return json.dumps(dataclasses.asdict(cfg), indent=2, default=str)
+
+
+def train_config_from_overrides(**overrides) -> TrainConfig:
+    """Build a TrainConfig from CLI-style overrides, ignoring ``None``s."""
+    clean = {k: v for k, v in overrides.items() if v is not None}
+    return dataclasses.replace(TrainConfig(), **clean)

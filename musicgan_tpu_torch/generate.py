@@ -1,7 +1,9 @@
 """Generation workflow: latent -> spectrogram image -> waveform.
 
 Counterpart of ``musicgan_tpu/generate.py``.  The generator runs its
-blocks through the fused conv kernels (K1, K3), the magnitude/phase image
+blocks through the fused conv kernels (K1 and K3, or the whole-block kernel
+K4 where ``ModelConfig.conv_impl == "pallas_block"`` and the block's widths
+fit), the magnitude/phase image
 is turned into spectra in plain PyTorch (bark unscale, phase prefix sum,
 cos/sin, per music as JAX's ``vmap`` does), and the fused iSTFT kernel
 (K5) vocodes the whole batch in one launch.
@@ -65,16 +67,27 @@ def synthesize_fn(model_cfg: ModelConfig = ModelConfig(), stage: int = 7):
 def load_generator_params(
     ckpt: str, model_cfg: ModelConfig = ModelConfig(), device="cuda"
 ) -> Generator:
-    """Load a generator from a reference PyTorch ``gen_*.pt`` state_dict."""
+    """Load a generator from either a checkpoint of this package's ``train``
+    (a run directory, its ``checkpoints`` directory or a specific ``save_N``
+    directory) or a reference PyTorch ``gen_*.pt`` state_dict.  A
+    ``musicgan_tpu`` (orbax) checkpoint directory raises
+    ``NotImplementedError``."""
     if os.path.isfile(ckpt) and ckpt.endswith(".pt"):
         from .models.torch_ingest import load_reference_generator
 
         return load_reference_generator(ckpt, model_cfg, device=device)
-    raise NotImplementedError(
-        f"{ckpt!r}: musicgan_tpu_torch reads reference-format gen_*.pt files "
-        "only; convert a musicgan_tpu checkpoint with "
-        "`python -m musicgan_tpu export CKPT -o gen.pt`"
-    )
+
+    from .train.checkpoint import CheckpointManager, resolve_checkpoint
+    from .train.step import init_train_state
+
+    root, save_idx = resolve_checkpoint(ckpt)
+    template = init_train_state(0, model_cfg, device=device)
+    state, _ = CheckpointManager(root).restore(save_idx, template, load_rng=False)
+    # EMA-carrying runs (TrainConfig.ema_decay > 0) ship the averaged
+    # weights: the ProGAN/GANSynth eval convention.
+    if state.gen_ema is not None:
+        state.gen.load_state_dict(state.gen_ema)
+    return state.gen
 
 
 def generate(

@@ -1,5 +1,6 @@
 """Progressive-growing generator as an ``nn.Module`` (counterpart of
-``musicgan_tpu/models/generator.py``, impl ``"pallas_up"`` in float32).
+``musicgan_tpu/models/generator.py``, impls ``"pallas_up"`` and
+``"pallas_block"`` in float32).
 
 All 8 blocks and all 8 ToMagnPhase heads exist from construction, as in
 JAX, so the parameter set never changes shape.  Internally NCHW; the
@@ -7,9 +8,11 @@ public :meth:`Generator.forward` keeps the JAX layout (NHWC latent in,
 NHWC image out).  Each block is ``fused_conv3x3`` (conv1 + LeakyReLU +
 PixelNorm) then ``fused_upconv3x3`` (up2x + conv2 + LeakyReLU +
 PixelNorm): on the card they are the kernels K1 and K3, on the CPU their
-plain versions.  Each block packs its conv weights for the kernels once,
-not per call.  Heads and the fade-in are plain PyTorch, as they are XLA
-in JAX.
+plain versions.  With ``ModelConfig.conv_impl == "pallas_block"`` a block
+whose widths ``fused_block_fits`` is one launch of ``fused_block`` (K4)
+instead, as in JAX's ``block_nchw``.  Each block packs its conv weights for
+the kernels once, not per call.  Heads and the fade-in are plain PyTorch, as
+they are XLA in JAX.
 
 Training runs :meth:`Generator.forward_nchw_train` instead (counterpart of
 ``_generator_forward_nchw_train``, impl ``"pallas_train"``): each block is
@@ -57,7 +60,17 @@ class GenBlock(nn.Module):
             hit = self._packs[name] = (key, pack(w.detach()))
         return hit[1]
 
-    def forward(self, x: torch.Tensor, slope: float, eps: float) -> torch.Tensor:
+    def forward(
+        self, x: torch.Tensor, slope: float, eps: float, use_block: bool = False
+    ) -> torch.Tensor:
+        """``use_block``: take the whole-block kernel where the widths fit."""
+        w1, w2 = self.conv1.weight, self.conv2.weight
+        if use_block and conv_ops.fused_block_fits(w1.shape[1], w1.shape[0], w2.shape[0]):
+            return conv_ops.fused_block(
+                x, w1, self.conv1.bias, w2, self.conv2.bias, slope, eps,
+                w1_packed=self._packed("conv1", conv_ops.pack_weights),
+                w2_packed=self._packed("conv2", conv_ops.pack_upconv_weights),
+            )
         x = conv_ops.fused_conv3x3(
             x, self.conv1.weight, self.conv1.bias, slope, True, eps,
             w_packed=self._packed("conv1", conv_ops.pack_weights),
@@ -66,7 +79,6 @@ class GenBlock(nn.Module):
             x, self.conv2.weight, self.conv2.bias, slope, True, eps,
             w_packed=self._packed("conv2", conv_ops.pack_upconv_weights),
         )
-
 
     def forward_train(self, x: torch.Tensor, slope: float, eps: float) -> torch.Tensor:
         x = conv_vjp.conv3x3_act(x, self.conv1.weight, self.conv1.bias, slope, True, eps)
@@ -110,10 +122,11 @@ class Generator(nn.Module):
         """``(B, C, h, w)`` latent -> ``(B, 2, h * 2^(stage+1), w *
         2^(stage+1))`` magn/phase image in [-1, 1]."""
         slope, eps = self.cfg.leaky_slope, self.cfg.pixel_norm_eps
+        use_block = self.cfg.conv_impl == "pallas_block"
         out = z
         for i in range(stage):
-            out = self.blocks[i](out, slope, eps)
-        out_mp = self._head(stage, self.blocks[stage](out, slope, eps))
+            out = self.blocks[i](out, slope, eps, use_block)
+        out_mp = self._head(stage, self.blocks[stage](out, slope, eps, use_block))
         # At alpha == 1 the fade term (1 - alpha) * old is exactly zero (tanh
         # is finite), so it is not computed: synthesis always runs there.
         if stage > 0 and alpha != 1.0:

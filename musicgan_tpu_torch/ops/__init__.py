@@ -1,9 +1,12 @@
 """Hand-written CUDA kernels for Hopper (sources in ``csrc/``), each beside
 its plain PyTorch version: ``conv.fused_conv3x3``, ``conv.fused_conv3x3_msq``,
-``conv.fused_upconv3x3`` and ``istft_fused.istft_fused``; and
+``conv.fused_upconv3x3``, ``conv.fused_block`` and
+``istft_fused.istft_fused``; and
 ``conv_vjp.conv3x3_act``, the trainable conv built on the first two."""
 
 from .conv import (
+    fused_block,
+    fused_block_fits,
     fused_conv3x3,
     fused_conv3x3_msq,
     fused_upconv3x3,
@@ -14,6 +17,8 @@ from .conv_vjp import conv3x3_act
 
 __all__ = [
     "conv3x3_act",
+    "fused_block",
+    "fused_block_fits",
     "fused_conv3x3",
     "fused_conv3x3_msq",
     "fused_upconv3x3",

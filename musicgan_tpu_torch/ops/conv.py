@@ -1,5 +1,5 @@
-"""Fused 3x3 conv and sub-pixel up-conv: hand-written CUDA kernels for
-Hopper, each beside its plain PyTorch version.
+"""Fused 3x3 conv, sub-pixel up-conv and whole generator block:
+hand-written CUDA kernels for Hopper, each beside its plain PyTorch version.
 
 ``fused_conv3x3`` (K1) replaces ``musicgan_tpu/ops/conv.py::fused_conv3x3``
 (Pallas ``_kernel``); ``fused_conv3x3_msq`` (K2) replaces
@@ -8,7 +8,10 @@ PixelNorm, also writing the pre-norm ``mean_c(u^2)`` map that the backward
 pass of ``ops/conv_vjp.py`` needs; ``fused_upconv3x3`` (K3) replaces
 ``fused_upconv3x3`` (Pallas ``_upconv_kernel``).  All three kernels are one
 template, ``csrc/conv_tile.cuh``, built by ``csrc/conv3x3.cu`` (K1, K2) and
-``csrc/upconv3x3.cu``.
+``csrc/upconv3x3.cu``.  ``fused_block`` (K4) replaces ``fused_block``
+(Pallas ``_block_kernel``): K1 with PixelNorm then K3 with PixelNorm in one
+launch, ``csrc/block3x3.cu``, the first conv's output kept in shared memory
+with a one-pixel halo that is set to zero outside the image.
 
 Widths: without PixelNorm any ``cout`` (past 128 channels the kernel splits
 the channel groups over the grid; the critic's convs reach 160).  With
@@ -66,11 +69,14 @@ __all__ = [
     "fused_conv3x3",
     "fused_conv3x3_msq",
     "fused_upconv3x3",
+    "fused_block",
+    "fused_block_fits",
     "pack_weights",
     "pack_upconv_weights",
     "conv3x3_plain",
     "conv3x3_msq_plain",
     "upconv3x3_plain",
+    "fused_block_plain",
 ]
 
 # Widest conv that may carry PixelNorm (csrc/conv_tile.cuh: the norm needs
@@ -218,6 +224,109 @@ def fused_upconv3x3(x, w, b, slope=None, pixel_norm=False, eps=1e-8, w_packed=No
     return y
 
 
+def fused_block_plain(x, w1, b1, w2, b2, slope=0.2, eps=1e-8):
+    """Plain version of K4: :func:`conv3x3_plain` then :func:`upconv3x3_plain`,
+    both with LeakyReLU and PixelNorm."""
+    mid = conv3x3_plain(x, w1, b1, slope, True, eps)
+    return upconv3x3_plain(mid, w2, b2, slope, True, eps)
+
+
+# The shape of a K4 thread block (csrc/block3x3.cu): 8 warps, each thread 4
+# rows x 16 channels of the first conv's tile, which is 32 columns wide.
+_BLK_WARPS, _BLK_RA, _BLK_RB, _BLK_CK1, _BLK_CK2, _BLK_C1W = 8, 4, 2, 8, 16, 32
+# Most dynamic shared memory a Hopper thread block may ask for.
+SMEM_OPTIN_BYTES = 232448
+# Fewest rows of a K4 tile that the generator takes the kernel for: at 6
+# rows x 30 columns the first conv is computed on (8 * 32) / (6 * 30) = 1.42
+# times the pixels; the next smaller tile has 2 rows and costs 2.13 times.
+MIN_BLOCK_ROWS = 6
+# Most passes over the tile's rows that the second conv may need for a
+# phase: each pass stages the phase's weights again and ends in barriers.
+# Block 0 of the generator (128 output channels: one row group, 7 passes)
+# measured 14 times the K1 + K3 pair's time on an H100.
+MAX_BLOCK_PASSES = 2
+
+
+def block_tile(cmid: int, cout: int) -> tuple[int, int, int] | None:
+    """``(rows, shared-memory bytes, passes)`` of a K4 thread block at these
+    widths, as ``csrc/block3x3.cu`` lays it out, or None for widths it does
+    not take (PixelNorm over more than ``MAX_COUT_PIXEL_NORM`` channels).
+    Eight warps of 16 channels x 4 rows make the first conv's tile, so it
+    has ``4 * (8 // ceil(cmid / 16))`` rows, two of them halo; the second
+    conv's ``8 // ceil(cout / 16)`` row groups make 2 rows each at a time,
+    so a phase takes ``passes`` turns over the tile."""
+    if not (1 <= cmid <= MAX_COUT_PIXEL_NORM and 1 <= cout <= MAX_COUT_PIXEL_NORM):
+        return None
+    cg_a, cg_b = -(-cmid // 16), -(-cout // 16)
+    rg_a, rg_b = _BLK_WARPS // cg_a, _BLK_WARPS // cg_b
+    r1 = _BLK_RA * rg_a
+    c1 = cg_a * 16 * r1 * _BLK_C1W
+    stage_a = _BLK_CK1 * (r1 + 2) * (_BLK_C1W + 2) + 9 * _BLK_CK1 * cg_a * 16
+    stage_b = 4 * _BLK_CK2 * cg_b * 16 + cg_b * rg_b * _BLK_RB * 32
+    return r1 - 2, 4 * (c1 + max(stage_a, stage_b)), -(-(r1 - 2) // (rg_b * _BLK_RB))
+
+
+def fused_block_fits(cin: int, cmid: int, cout: int) -> bool:
+    """Whether a generator block of these widths takes K4 (else the K1 + K3
+    pair).  The card's rule, from the kernel's own layout: its shared memory
+    (the first conv's whole tile for all ``cmid`` channels, plus staging)
+    must fit a thread block's ``SMEM_OPTIN_BYTES``, which it does at every
+    width PixelNorm allows; the tile, which shrinks as ``cmid`` grows
+    because a block's eight warps hold 16 channels x 4 rows each, must keep
+    ``MIN_BLOCK_ROWS`` rows, which holds up to 64 mid channels; and the
+    second conv must cover it in ``MAX_BLOCK_PASSES`` passes a phase, which
+    at those tiles holds up to 64 output channels.  Blocks 5, 6 and 7 of
+    the full-width generator fit.  ``cin`` does not enter: the input streams
+    through in steps of 8 channels."""
+    tile = block_tile(cmid, cout)
+    return (
+        tile is not None and tile[0] >= MIN_BLOCK_ROWS
+        and tile[1] <= SMEM_OPTIN_BYTES and tile[2] <= MAX_BLOCK_PASSES
+    )
+
+
+_BLOCK_ARGS = [_build.PTR] * 6 + [_build.INT] * 6 + [_build.FLOAT] * 2
+
+
+def fused_block(x, w1, b1, w2, b2, slope=0.2, eps=1e-8, w1_packed=None, w2_packed=None):
+    """A whole generator block on NCHW ``(B, cin, H, W)`` with OIHW weights
+    ``w1`` ``(cmid, cin, 3, 3)`` and ``w2`` ``(cout, cmid, 3, 3)`` ->
+    ``(B, cout, 2H, 2W)``: ``pn(lrelu(conv3x3(x)))``, kept on the chip, then
+    ``pn(lrelu(conv3x3(up2x(.))))``, in one launch.  ``w1_packed``,
+    ``w2_packed``: ``pack_weights(w1)`` and ``pack_upconv_weights(w2)`` made
+    ahead, for the kernel."""
+    if x.device.type == "cpu":
+        return fused_block_plain(x, w1, b1, w2, b2, slope, eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_block: no kernel for device {x.device}")
+    w1p = pack_weights(w1) if w1_packed is None else w1_packed
+    w2p = pack_upconv_weights(w2) if w2_packed is None else w2_packed
+    bsz, cin, h, wd = x.shape
+    cmid, cout = w1p.shape[0], w2p.shape[1]
+    if w1p.shape != (cmid, 9 * cin) or w2p.shape != (4, cout, 4 * cmid):
+        raise ValueError(
+            f"fused_block: packed weights {tuple(w1p.shape)}, {tuple(w2p.shape)} "
+            f"for widths {cin} -> {cmid} -> {cout}"
+        )
+    if block_tile(cmid, cout) is None:
+        raise ValueError(
+            f"fused_block: PixelNorm over {cmid} or {cout} > {MAX_COUT_PIXEL_NORM} "
+            "channels is not supported"
+        )
+    if b1 is None or b2 is None:
+        raise ValueError("fused_block: both convs carry a bias")
+    x, w1p, b1, b1_ptr, _ = _operands("block3x3", x, w1p, b1, True)
+    _, w2p, b2, b2_ptr, _ = _operands("block3x3", x, w2p, b2, True)
+    y = torch.empty(bsz, cout, 2 * h, 2 * wd, device=x.device, dtype=torch.float32)
+    _build.kernel("block3x3", "mg_block3x3", _BLOCK_ARGS)(
+        x.data_ptr(), w1p.data_ptr(), b1_ptr, w2p.data_ptr(), b2_ptr, y.data_ptr(),
+        bsz, cin, cmid, cout, h, wd, slope, eps, device=x.device,
+    )
+    fused_block.launches += 1
+    return y
+
+
 fused_conv3x3.launches = 0
 fused_conv3x3_msq.launches = 0
 fused_upconv3x3.launches = 0
+fused_block.launches = 0

@@ -39,6 +39,95 @@ def _conv_inputs(seed, b, cin, cout, h, w, device):
     return x, wt, bias
 
 
+def _block_inputs(seed, b, cin, cmid, cout, h, w, device):
+    x, w1, b1 = _conv_inputs(seed, b, cin, cmid, h, w, device)
+    _, w2, b2 = _conv_inputs(seed + 1, 1, cmid, cout, 1, 1, device)
+    return x, w1, b1, w2, b2
+
+
+# K4: the two shapes of tests/test_ops.py (cmid != cin), ragged edges on all
+# four sides of tiles of 30, 14, 6 and 2 rows, one pixel, widths that are no
+# multiple of 16, PixelNorm's widest, and blocks 5-7 of the generator cut down.
+BLOCK_SHAPES = [
+    (1, 16, 24, 32, 8, 256), (2, 8, 8, 8, 4, 128), (2, 5, 7, 3, 13, 37), (1, 32, 32, 16, 1, 1),
+    (1, 48, 48, 32, 7, 61), (3, 64, 64, 48, 31, 29), (1, 32, 32, 128, 2, 20), (1, 20, 100, 120, 5, 33),
+    (2, 16, 16, 16, 33, 70), (1, 32, 32, 16, 43, 91), (1, 9, 128, 128, 3, 31),
+]
+
+
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("b,cin,cmid,cout,h,w", BLOCK_SHAPES)
+def test_fused_block_kernel_matches_plain_and_the_pair(cuda, b, cin, cmid, cout, h, w, packed):
+    """One launch of K4 against its plain version (2e-4: two convs compound)
+    and against K1 then K3, whose sums run in the same order (1e-6)."""
+    x, w1, b1, w2, b2 = _block_inputs(2, b, cin, cmid, cout, h, w, cuda)
+    kw = dict(w1_packed=conv_ops.pack_weights(w1), w2_packed=conv_ops.pack_upconv_weights(w2)) if packed else {}
+    n0 = (conv_ops.fused_block.launches, conv_ops.fused_conv3x3.launches, conv_ops.fused_upconv3x3.launches)
+    got = conv_ops.fused_block(x, w1, b1, w2, b2, 0.2, 1e-8, **kw)
+    torch.cuda.synchronize()
+    assert (conv_ops.fused_block.launches, conv_ops.fused_conv3x3.launches,
+            conv_ops.fused_upconv3x3.launches) == (n0[0] + 1, n0[1], n0[2])
+    assert got.shape == (b, cout, 2 * h, 2 * w)
+    ref = conv_ops.fused_block_plain(x, w1, b1, w2, b2, 0.2, 1e-8)
+    assert (got - ref).abs().max().item() < 2e-4
+    pair = conv_ops.fused_upconv3x3(
+        conv_ops.fused_conv3x3(x, w1, b1, 0.2, True, 1e-8), w2, b2, 0.2, True, 1e-8)
+    assert (got - pair).abs().max().item() < 1e-6
+
+
+def test_fused_block_tile_is_the_kernels_own(cuda):
+    """``block_tile`` (what ``fused_block_fits`` rests on) against the
+    tile the compiled launcher computes."""
+    import ctypes
+
+    from musicgan_tpu_torch.ops import _build
+
+    lib = _build.load("block3x3")
+    lib.mg_block3x3_tile.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    lib.mg_block3x3_tile.restype = ctypes.c_int
+    for cmid, cout in [(32, 16), (48, 32), (64, 48), (32, 128), (100, 120), (7, 3), (128, 128)]:
+        rows = ctypes.c_int(0)
+        smem = lib.mg_block3x3_tile(cmid, cout, ctypes.byref(rows))
+        assert (rows.value, smem) == conv_ops.block_tile(cmid, cout)[:2]
+    assert lib.mg_block3x3_tile(129, 16, None) == 0 and conv_ops.block_tile(129, 16) is None
+
+
+def test_fused_block_refuses_what_the_kernel_does_not_take(cuda):
+    x, w1, b1, w2, b2 = _block_inputs(0, 1, 8, 8, 8, 4, 4, cuda)
+    with pytest.raises(ValueError, match="float32"):
+        conv_ops.fused_block(x.double(), w1, b1, w2, b2)
+    with pytest.raises(ValueError, match="packed weights"):
+        conv_ops.fused_block(x, w1, b1, w2, b2, w1_packed=conv_ops.pack_weights(w2[:, :4]))
+    with pytest.raises(ValueError, match="bias"):
+        conv_ops.fused_block(x, w1, None, w2, b2)
+    wide = torch.zeros(136, 8, 3, 3, device=cuda)
+    with pytest.raises(ValueError, match="PixelNorm"):
+        conv_ops.fused_block(x, wide, torch.zeros(136, device=cuda), torch.zeros(8, 136, 3, 3, device=cuda), b2)
+
+
+def test_generator_pallas_block_on_the_card(cuda):
+    """The inference forward under ``conv_impl="pallas_block"``: K4 for the
+    blocks that fit, K1 + K3 for the others, the same image as the default
+    path (K4 and the pair sum in one order)."""
+    import dataclasses
+
+    from musicgan_tpu_torch.config import ModelConfig
+    from musicgan_tpu_torch.models import Generator
+
+    cfg = ModelConfig(conv_impl="pallas_block")
+    gen = Generator(cfg, device=cuda, seed=4)
+    ref = Generator(dataclasses.replace(cfg, conv_impl="pallas_up"), device=cuda, seed=4)
+    z = torch.randn(2, 32, 2, 4, generator=torch.Generator(device=cuda).manual_seed(0), device=cuda)
+    n0 = (conv_ops.fused_block.launches, conv_ops.fused_conv3x3.launches, conv_ops.fused_upconv3x3.launches)
+    with torch.no_grad():
+        got = gen.forward_nchw(z, 7)
+        torch.cuda.synchronize()
+        n1 = (conv_ops.fused_block.launches, conv_ops.fused_conv3x3.launches, conv_ops.fused_upconv3x3.launches)
+        want = ref.forward_nchw(z, 7)
+    assert tuple(a - b for a, b in zip(n1, n0)) == (3, 5, 5)  # blocks 5, 6, 7 fit
+    assert (got - want).abs().max().item() < 1e-6
+
+
 # Ragged edges (2x2 and 2x20 of block 0, widths that are not a multiple of
 # the 32-column tile), cin not a multiple of the 8-channel step, cout not a
 # multiple of the 16-channel warp group, and the largest cout (128).

@@ -91,8 +91,18 @@ def test_entry_points_raise_without_a_gpu(tmp_path):
 def test_orbax_checkpoints_are_refused_with_a_clear_error(tmp_path):
     from musicgan_tpu_torch.generate import load_generator_params
 
-    with pytest.raises(NotImplementedError, match="musicgan_tpu export"):
-        load_generator_params(str(tmp_path), device="cpu")
+    # What the JAX package's CheckpointManager leaves: save_N/state as an
+    # orbax directory beside meta.json.  Each spelling of the path is refused.
+    save = tmp_path / "run" / "checkpoints" / "save_3"
+    os.makedirs(save / "state")
+    (save / "meta.json").write_text('{"has_ema": false}')
+    for path in (tmp_path / "run", tmp_path / "run" / "checkpoints", save):
+        with pytest.raises(NotImplementedError, match="musicgan_tpu export"):
+            load_generator_params(str(path), device="cpu")
+    # A directory that holds no checkpoint of either package is just missing.
+    os.makedirs(tmp_path / "empty")
+    with pytest.raises(FileNotFoundError, match="no checkpoints"):
+        load_generator_params(str(tmp_path / "empty"), device="cpu")
 
 
 _ISOLATION_PROBE = """
@@ -102,17 +112,20 @@ for m in pkgutil.walk_packages(musicgan_tpu_torch.__path__, "musicgan_tpu_torch.
     importlib.import_module(m.name)
 import chip_smoke
 for new in ("train.step", "train.optim", "ops.conv_vjp", "models.discriminator",
-            "models.losses", "audio.transforms", "device"):
+            "models.losses", "audio.transforms", "device", "train.loop", "train.grower",
+            "train.saver", "train.checkpoint", "audio.dataset", "audio.ingest",
+            "audio.host_pipeline", "utils.metrics", "utils.watchdog", "__main__"):
     assert "musicgan_tpu_torch." + new in sys.modules, new
 bad = sorted(
     m for m in sys.modules
-    if m in ("jax", "musicgan_tpu") or m.startswith(("jax.", "musicgan_tpu."))
+    if m in ("jax", "jaxlib", "orbax", "musicgan_tpu")
+    or m.startswith(("jax.", "jaxlib.", "orbax.", "musicgan_tpu."))
 )
 assert not bad, bad
 print("isolated", len(sys.modules))
 """
 
-_IMPORT_RE = re.compile(r"^\s*(from|import)\s+(jax|musicgan_tpu)(\.|\s|$)", re.M)
+_IMPORT_RE = re.compile(r"^\s*(from|import)\s+(jax|jaxlib|orbax|musicgan_tpu)(\.|\s|$)", re.M)
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
