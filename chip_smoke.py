@@ -13,7 +13,9 @@ the CUDA toolkit (``nvcc``).  Phases, each of which raises on failure:
    generator of ``saved_models/quality_r4/gen_final.pt``): hold each kernel
    against its plain PyTorch version on the card (TF32 off), and time the
    kernel, the plain version and one PyTorch library call computing the
-   same function (the yardstick, used nowhere in the port);
+   same function (the yardstick, used nowhere in the port), as device
+   time from CUDA-graph replays where the function can be captured; each
+   conv row also prints the launch plan the conv template took;
 3. run ``generate`` end to end through the entry point, with every launch
    counter set to 0 just before and read just after; check the five WAVs
    and hold the waveforms against the same latents through the plain
@@ -23,7 +25,8 @@ the CUDA toolkit (``nvcc``).  Phases, each of which raises on failure:
 4. at the train step's shapes (stage 7, batch 6, full width): K2 at the 16
    generator convs, K1 at the 18 critic convs (up to 160 channels) and at
    every input-gradient conv (swapped channels, no bias), each against its
-   plain version, with the three times as in phase 2;
+   plain version, with the three times as in phase 2 and the sums over the
+   shapes up to 32x32; then K1, K2 and K3 with PixelNorm past 128 channels;
 5. the trainable conv ``conv3x3_act`` on the card: its input, weight and
    bias gradients against autograd through the plain version; the
    hand-unrolled gradient-penalty input gradient at stage 7 against
@@ -34,7 +37,9 @@ the CUDA toolkit (``nvcc``).  Phases, each of which raises on failure:
    ``build_chunk_step(0, 10)``, launch counters set to 0 before and held
    against the counts the architecture gives after; the first D+G
    iteration again from the same state and noise through the plain
-   versions on the card; warm timings.
+   versions on the card in float32 and in float64, the gradients of both
+   float32 paths printed against the float64 ones and the kernels' held
+   there (2-norm: generator 1e-2, critic 2e-2); warm timings.
 
 7. the whole-block kernel K4 at the shapes of every generator block that
    ``fused_block_fits`` (blocks 5, 6, 7 of the 5 x nb_vec 10 call):
@@ -123,7 +128,9 @@ TOL = {
     # K4 is two convs, the second on the first's output: their errors compound.
     "fused_block": 2e-4,
 }
-# K4 against K1 then K3: the same products summed in the same order.
+# K4 against K1 then K3 where both take the conv template's large-image
+# shape (blocks 3-7 at the synthesis sizes): the same products summed in
+# the same order.
 TOL_BLOCK_VS_PAIR = 1e-6
 TOL_MSQ_REL = 1e-4  # K2's mean-square map, relative to its largest value
 # End to end, kernels vs plain versions on the same latents.  The image:
@@ -154,6 +161,14 @@ TOL_GRAD_REL = 1e-4
 # relative to the reference's, where the few pixels on the other side of a
 # LeakyReLU count by their share of all pixels.
 TOL_BACKWARD_L2 = 1e-2
+# The critic's whole gradient in the first D+G iteration at random init,
+# against the same iteration in float64.  Its Wasserstein part is the
+# difference of two nearly equal batch means, so float32 rounding anywhere
+# moves it by about 1e-2: on an H100 the plain versions (cuDNN, float32)
+# read 1.5e-2 against float64 and the kernels 1.3e-2.  The bar sits above
+# what a correct float32 path reads; the generator's gradient, which does
+# not cancel, keeps TOL_BACKWARD_L2.
+TOL_CRITIC_ITERATION_L2 = 2e-2
 # One whole iteration, kernels vs plain versions: the repo's own bar for
 # two lowerings of the train step (tests/test_ops_vjp.py).
 TOL_METRIC_REL, TOL_METRIC_ABS = 1e-3, 1e-4
@@ -206,9 +221,15 @@ def main_path_latent(cfg: ModelConfig, dev) -> torch.Tensor:
     )
 
 
-def time_ms(fn) -> float:
-    """Mean device time of ``fn`` by CUDA events, after a warm-up call;
-    enough repetitions to cover about 50 ms."""
+def time_ms(fn, graph: bool = True) -> float:
+    """Mean device time of one call of ``fn`` in ms, after a warm-up call.
+    ``graph``: the calls captured into one CUDA graph and the graph
+    replayed, timed by CUDA events, so the host's time to issue a call
+    (Python, the wrapper, the launch) is not counted: what a caller with
+    work queued ahead sees, as the stage-7 train step is.  Without (a
+    function that synchronises with the host and cannot be captured):
+    back-to-back calls timed by CUDA events, which for small kernels
+    measures the host.  Enough calls to cover about 20 ms."""
     fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -216,7 +237,20 @@ def time_ms(fn) -> float:
     fn()
     end.record()
     torch.cuda.synchronize()
-    reps = int(min(50, max(3, math.ceil(50.0 / max(start.elapsed_time(end), 1e-3)))))
+    reps = int(min(50, max(3, math.ceil(20.0 / max(start.elapsed_time(end), 1e-3)))))
+    if graph:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(reps):
+                fn()
+        g.replay()
+        torch.cuda.synchronize()
+        start.record()
+        g.replay()
+        end.record()
+        torch.cuda.synchronize()
+        del g
+        return start.elapsed_time(end) / reps
     start.record()
     for _ in range(reps):
         fn()
@@ -230,19 +264,26 @@ def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
-def measure(name, shape, kernel, plain, library, flops, nbytes, role="synthesis"):
+def measure(name, shape, kernel, plain, library, flops, nbytes, role="synthesis", plan=None,
+            graph_plain=True):
     """One kernel at one main-path shape: error against the plain version
-    (raises past the tolerance) and the three times."""
+    (raises past the tolerance) and the three times.  ``plan``: the conv
+    template's launch plan for the shape, printed and kept."""
     err = (kernel() - plain()).abs().max().item()
     if not err <= TOL[name]:
         raise AssertionError(f"{name} {shape}: max abs err {err:.3e} > {TOL[name]:.0e}")
     b, by = bound_ms(flops, nbytes)
     row = {
         "name": name, "role": role, "shape": shape, "max_abs_err": err,
-        "ms": time_ms(kernel), "plain_ms": time_ms(plain),
-        "library_ms": time_ms(library), "bound_ms": b, "bound_by": by,
+        "ms": time_ms(kernel), "plain_ms": time_ms(plain, graph_plain),
+        "library_ms": time_ms(library, graph_plain), "bound_ms": b, "bound_by": by,
         "flops": flops, "bytes": nbytes,
     }
+    if plan is not None:
+        row["plan"] = plan
+        print(f"[plan]   {name:17s} {role:10s} {str(shape):26s} {plan['shape']} shape, cluster of "
+              f"{plan['cluster']} ({plan['split_k']} over input channels x {plan['nsplit']} over output "
+              f"channels), {plan['pixels_a_lane']} pixels a lane, {plan['blocks']} blocks of {plan['threads']}")
     print(
         f"[kernel] {name:17s} {role:10s} {str(shape):26s} err {err:.2e}  kernel {row['ms']:.4f} ms"
         f"  plain {row['plain_ms']:.4f}  library {row['library_ms']:.4f}"
@@ -261,7 +302,7 @@ def check_kernels(gen, cfg: ModelConfig, dev) -> list[dict]:
         blk = gen.blocks[i]
         x = torch.randn(NB_MUSIC, cin, h, w, generator=rng, device=dev)
         w1, b1 = blk.conv1.weight.detach(), blk.conv1.bias.detach()
-        w1p = conv_ops.pack_weights(w1)
+        w1p = conv_ops.kernel_weights(w1)
         px = NB_MUSIC * h * w
         rows.append(measure(
             "fused_conv3x3", (NB_MUSIC, cin, cin, h, w),
@@ -269,9 +310,10 @@ def check_kernels(gen, cfg: ModelConfig, dev) -> list[dict]:
             lambda: conv_ops.conv3x3_plain(x, w1, b1, slope, True, eps),
             lambda: F.conv2d(x, w1, b1, padding=1),
             2.0 * px * cin * 9 * cin, 4.0 * (2 * px * cin + 9 * cin * cin + cin),
+            plan=conv_ops.conv_plan("conv3x3", NB_MUSIC, cin, cin, h, w, True),
         ))
         w2, b2 = blk.conv2.weight.detach(), blk.conv2.bias.detach()
-        w2p = conv_ops.pack_upconv_weights(w2)
+        w2p = conv_ops.kernel_upconv_weights(w2)
         xu = upsample_nearest_2x(x)
         rows.append(measure(
             "fused_upconv3x3", (NB_MUSIC, cin, cout, h, w),
@@ -280,24 +322,32 @@ def check_kernels(gen, cfg: ModelConfig, dev) -> list[dict]:
             lambda: F.conv2d(xu, w2, b2, padding=1),
             2.0 * 4 * px * cout * 4 * cin,
             4.0 * (px * cin + 4 * px * cout + 16 * cin * cout + cout),
+            plan=conv_ops.conv_plan("upconv3x3", NB_MUSIC, cin, cout, h, w, True),
         ))
         del xu
         h, w = 2 * h, 2 * w
 
     acfg = AudioConfig()
     n_fft, hop = acfg.n_fft, acfg.stft_stride
-    n_bins, t, r = n_fft // 2 + 1, w, n_fft // hop
+    n_bins, t = n_fft // 2 + 1, w
     re = torch.randn(NB_MUSIC, n_bins, t, generator=rng, device=dev)
     im = torch.randn(NB_MUSIC, n_bins, t, generator=rng, device=dev)
     spec = torch.complex(re, im)
     window = torch.from_numpy(hann_window(n_fft)).to(dev)
+    # The function's work: per frame a real inverse FFT of n_fft points (a
+    # complex one of m = n_fft / 2, 5 m log2 m FLOP, and about 10 m for the
+    # packing, the window, the overlap-add and the envelope); its bytes: the
+    # spectra read once, the signal written once, the three tables.
+    m = n_fft // 2
     rows.append(measure(
         "istft_fused", (NB_MUSIC, n_bins, t),
         lambda: istft_ops.istft_fused(re, im, n_fft, hop),
         lambda: istft_real_imag(re, im, n_fft, hop),
         lambda: torch.istft(spec, n_fft, hop, window=window, center=True, normalized=True),
-        2.0 * NB_MUSIC * (t + r - 1) * hop * r * 2 * n_bins,
-        4.0 * (2 * NB_MUSIC * n_bins * t + 2 * n_bins * n_fft + NB_MUSIC * (t - 1) * hop),
+        NB_MUSIC * t * (5.0 * m * math.log2(m) + 10.0 * m),
+        4.0 * (2 * NB_MUSIC * n_bins * t + NB_MUSIC * (t - 1) * hop
+               + 3 * n_fft + (n_fft // hop) ** 2 * hop),
+        graph_plain=False,  # both build or check tables on the host
     ))
     return rows
 
@@ -420,7 +470,7 @@ def end_to_end(cfg: ModelConfig, dev) -> dict:
     }, np.stack(waves)
 
 
-def conv_rows(name, role, shapes, rng, dev, slope, bias):
+def conv_rows(name, role, shapes, rng, dev, slope, bias, pixel_norm=False):
     """K1 or K2 at ``shapes`` = ``[(B, cin, cout, H, W), ...]``, called as
     the train step calls it (OIHW weights, packed inside the wrapper)."""
     rows = []
@@ -431,6 +481,7 @@ def conv_rows(name, role, shapes, rng, dev, slope, bias):
         px = bsz * h * w
         flops = 2.0 * px * cout * 9 * cin
         nbytes = 4.0 * (px * cin + px * cout + 9 * cin * cout + (cout if bias else 0))
+        plan = conv_ops.conv_plan("conv3x3", bsz, cin, cout, h, w, pixel_norm or name == "fused_conv3x3_msq")
         if name == "fused_conv3x3_msq":
             m, m_ref = conv_ops.fused_conv3x3_msq(x, wt, b, slope, 1e-8)[1], conv_ops.conv3x3_msq_plain(x, wt, b, slope, 1e-8)[1]
             m_rel = ((m - m_ref).abs().max() / m_ref.abs().max()).item()
@@ -440,17 +491,37 @@ def conv_rows(name, role, shapes, rng, dev, slope, bias):
                 name, (bsz, cin, cout, h, w),
                 lambda: conv_ops.fused_conv3x3_msq(x, wt, b, slope, 1e-8)[0],
                 lambda: conv_ops.conv3x3_msq_plain(x, wt, b, slope, 1e-8)[0],
-                lambda: F.conv2d(x, wt, b, padding=1), flops, nbytes + 4.0 * px, role,
+                lambda: F.conv2d(x, wt, b, padding=1), flops, nbytes + 4.0 * px, role, plan,
             )
             row["msq_rel_err"] = m_rel
         else:
             row = measure(
                 name, (bsz, cin, cout, h, w),
-                lambda: conv_ops.fused_conv3x3(x, wt, b, slope),
-                lambda: conv_ops.conv3x3_plain(x, wt, b, slope),
-                lambda: F.conv2d(x, wt, b, padding=1), flops, nbytes, role,
+                lambda: conv_ops.fused_conv3x3(x, wt, b, slope, pixel_norm),
+                lambda: conv_ops.conv3x3_plain(x, wt, b, slope, pixel_norm),
+                lambda: F.conv2d(x, wt, b, padding=1), flops, nbytes, role, plan,
             )
         rows.append(row)
+    return rows
+
+
+def upconv_rows(shapes, rng, dev, slope):
+    """K3 with PixelNorm at ``shapes`` = ``[(B, cin, cout, H, W), ...]``."""
+    rows = []
+    for bsz, cin, cout, h, w in shapes:
+        x = torch.randn(bsz, cin, h, w, generator=rng, device=dev)
+        wt = torch.randn(cout, cin, 3, 3, generator=rng, device=dev) / (9 * cin) ** 0.5
+        b = torch.randn(cout, generator=rng, device=dev) * 0.1
+        xu = upsample_nearest_2x(x)
+        px = bsz * h * w
+        rows.append(measure(
+            "fused_upconv3x3", (bsz, cin, cout, h, w),
+            lambda: conv_ops.fused_upconv3x3(x, wt, b, slope, True),
+            lambda: conv_ops.upconv3x3_plain(x, wt, b, slope, True),
+            lambda: F.conv2d(xu, wt, b, padding=1),
+            2.0 * 4 * px * cout * 4 * cin, 4.0 * (px * cin + 4 * px * cout + 16 * cin * cout + cout),
+            "pn_wide", conv_ops.conv_plan("upconv3x3", bsz, cin, cout, h, w, True),
+        ))
     return rows
 
 
@@ -468,17 +539,34 @@ def train_conv_shapes(cfg: ModelConfig, batch: int, stage: int):
     return gen, disc
 
 
+# PixelNorm past 128 channels (one cluster of blocks shares each pixel's
+# sum): the critic's widest shapes at batch 6, as no path of the repo runs
+# them with PixelNorm; K3 at the same widths.
+WIDE_PN_SHAPES = [(6, 128, 144, 4, 4), (6, 144, 144, 2, 2), (6, 144, 160, 2, 2), (6, 160, 160, 1, 1)]
+
+
 def check_train_kernels(cfg: ModelConfig, tcfg: TrainConfig, dev) -> list[dict]:
-    """Phase 4: every kernel at every shape the train step gives it."""
+    """Phase 4: every kernel at every shape the train step gives it, and
+    PixelNorm past 128 channels."""
     rng = torch.Generator(device=dev).manual_seed(2)
     gen, disc = train_conv_shapes(cfg, tcfg.batch_size, TRAIN_STAGE)
     swap = lambda shapes: [(b, cout, cin, h, w) for b, cin, cout, h, w in shapes]  # noqa: E731
     slope = cfg.leaky_slope
-    return (
+    rows = (
         conv_rows("fused_conv3x3_msq", "gen_fwd", gen, rng, dev, slope, True)
         + conv_rows("fused_conv3x3", "critic_fwd", disc, rng, dev, slope, True)
         + conv_rows("fused_conv3x3", "critic_dx", swap(disc), rng, dev, None, False)
         + conv_rows("fused_conv3x3", "gen_dx", swap(gen[1:]), rng, dev, None, False)
+    )
+    for role in ("critic_fwd", "critic_dx", "gen_fwd", "gen_dx"):
+        small = [r for r in rows if r["role"] == role and r["shape"][3] <= 32]
+        print(f"[small]  {role:10s} the {len(small)} shapes up to 32x32: kernel "
+              f"{sum(r['ms'] for r in small):.4f} ms, F.conv2d {sum(r['library_ms'] for r in small):.4f} ms")
+    return (
+        rows
+        + conv_rows("fused_conv3x3", "pn_wide", WIDE_PN_SHAPES, rng, dev, slope, True, True)
+        + conv_rows("fused_conv3x3_msq", "pn_wide", WIDE_PN_SHAPES, rng, dev, slope, True)
+        + upconv_rows(WIDE_PN_SHAPES, rng, dev, slope)
     )
 
 
@@ -630,6 +718,32 @@ def first_moments(state) -> dict:
     return out
 
 
+def float64_state(state):
+    """A copy of ``state`` in float64: both networks, the Adam moments and
+    the EMA (the random generator's state is kept)."""
+    s = state.clone()
+    s.gen.double()
+    s.disc.double()
+    for tree in (*s.opt_gen[1:], *s.opt_disc[1:], *([s.gen_ema] if s.gen_ema else [])):
+        for k, v in tree.items():
+            tree[k] = v.double()
+    return s
+
+
+def same_noise(state, cfg: ModelConfig, batch: int):
+    """The ``(z, eps, zg)`` that an iteration from ``state`` draws (in
+    float32, from a copy of its random generator), in float64 and laid out
+    as ``build_step``'s ``noise`` takes them."""
+    rng = torch.Generator(device=state.rng.device)
+    rng.set_state(state.rng.get_state())
+    dev = state.rng.device
+    shape = (batch, cfg.rand_channels, cfg.latent_height, cfg.latent_width)
+    z = torch.randn(shape, generator=rng, device=dev)
+    eps = torch.rand((batch, 1, 1, 1), generator=rng, device=dev)
+    zg = torch.randn(shape, generator=rng, device=dev)
+    return z.double().permute(0, 2, 3, 1), eps.double(), zg.double().permute(0, 2, 3, 1)
+
+
 def timed_iterations(step, state, x, n: int) -> list[float]:
     """``n`` warm calls, each timed to the end of its device work."""
     out = []
@@ -713,41 +827,48 @@ def train_path(cfg: ModelConfig, tcfg: TrainConfig, dev) -> dict:
 
     # The first D+G iteration again, from the same state (the random
     # generator's state included, so the same noise) through the plain
-    # versions on the card.
+    # versions on the card: in float32, and in float64 as the reference
+    # that tells rounding from a fault.
+    snap64 = float64_state(snap)
     with plain_convs():
         reset_launches()
         snap, m_plain = build_step(TRAIN_STAGE, True, cfg, tcfg)(snap, x, TRAIN_ALPHA)
         m_plain = metrics_floats(m_plain)
+        snap64, _ = build_step(TRAIN_STAGE, True, cfg, tcfg)(
+            snap64, x.double(), TRAIN_ALPHA, noise=same_noise(snap64, cfg, tcfg.batch_size))
         if any(read_launches().values()):
-            raise AssertionError(f"the plain iteration launched kernels: {read_launches()}")
+            raise AssertionError(f"the plain iterations launched kernels: {read_launches()}")
     m_kernel = metrics_floats(snap_metrics)
     print(f"[train] the same iteration through the plain versions: {m_plain}")
     for k, v in m_plain.items():
         if not abs(m_kernel[k] - v) <= TOL_METRIC_ABS + TOL_METRIC_REL * abs(v):
             raise AssertionError(f"{k}: kernels {m_kernel[k]!r} vs plain {v!r}")
     # With b1 = 0 the first moments after an iteration ARE its gradients.
-    # Each network's whole gradient is held in the 2-norm.  Leaf by leaf is
-    # not a fair bar on this state: at random init the critic's score hardly
-    # depends on its input (the biases carry it through 18 layers), so the
-    # Wasserstein gradient of a leaf is the difference of two nearly equal
-    # batch means and comes out of the rounding; the worst leaf is printed.
-    mu_plain = first_moments(snap)
-    del snap
-    err_mu, worst, worst_err = {}, None, 0.0
+    # Each network's whole gradient is held in the 2-norm, against the
+    # float64 iteration.  Leaf by leaf is not a fair bar on this state: at
+    # random init the critic's score hardly depends on its input (the biases
+    # carry it through 18 layers), so the Wasserstein gradient of a leaf is
+    # the difference of two nearly equal batch means and comes out of the
+    # rounding; the worst leaf is printed.
+    mu_plain, mu64 = first_moments(snap), first_moments(snap64)
+    del snap, snap64
+    err_mu, err64, worst, worst_err = {}, {}, None, 0.0
+    flat = lambda mu, keys: torch.cat([mu[k].flatten().double() for k in keys])  # noqa: E731
     for net in ("gen.", "disc."):
         keys = [k for k in mu_plain if k.startswith(net)]
-        err_mu[net] = rel_l2(
-            torch.cat([snap_mu[k].flatten() for k in keys]),
-            torch.cat([mu_plain[k].flatten() for k in keys]),
-        )
+        ref = flat(mu64, keys)
+        err_mu[net] = rel_l2(flat(snap_mu, keys), flat(mu_plain, keys))
+        err64[net] = {"kernels": rel_l2(flat(snap_mu, keys), ref), "plain": rel_l2(flat(mu_plain, keys), ref)}
         for k in keys:
             if mu_plain[k].norm() > 0 and rel_l2(snap_mu[k], mu_plain[k]) > worst_err:
                 worst, worst_err = k, rel_l2(snap_mu[k], mu_plain[k])
-    print(f"[train] gradients of that iteration, kernels vs plain, rel L2 err: generator "
-          f"{err_mu['gen.']:.2e}, critic {err_mu['disc.']:.2e} (tol {TOL_BACKWARD_L2:.0e}); "
-          f"worst single leaf {worst}: {worst_err:.2e}")
-    if not max(err_mu.values()) <= TOL_BACKWARD_L2:
-        raise AssertionError("the iteration's gradients disagree with the plain versions")
+    print(f"[train] gradients of that iteration, rel L2 err against float64: generator kernels "
+          f"{err64['gen.']['kernels']:.2e}, plain {err64['gen.']['plain']:.2e}; critic kernels "
+          f"{err64['disc.']['kernels']:.2e}, plain {err64['disc.']['plain']:.2e} (tols "
+          f"{TOL_BACKWARD_L2:.0e}, {TOL_CRITIC_ITERATION_L2:.0e}); kernels vs float32 plain: generator "
+          f"{err_mu['gen.']:.2e}, critic {err_mu['disc.']:.2e}; worst single leaf {worst}: {worst_err:.2e}")
+    if not (err64["gen."]["kernels"] <= TOL_BACKWARD_L2 and err64["disc."]["kernels"] <= TOL_CRITIC_ITERATION_L2):
+        raise AssertionError("the iteration's gradients disagree with the float64 plain versions")
 
     # Warm timings, each call timed to the end of its device work; and the
     # same two kinds of iteration through the plain versions (cuDNN in
@@ -782,16 +903,25 @@ def train_path(cfg: ModelConfig, tcfg: TrainConfig, dev) -> dict:
           f"median of {TIMED_ITERS}: {float(np.median(chunk_s)) * 1e3:.2f} ms a chunk = {steps_s0:.1f} steps/s")
     return {
         "launches": launches, "cold_s": cold_s, "metrics_stage7": hist, "metrics_chunk": chunk,
-        "plain_d_and_g": m_plain, "grad_rel_l2_err": err_mu, "plain_d_only_s": plain_d_s,
+        "plain_d_and_g": m_plain, "grad_rel_l2_err": err_mu, "grad_rel_l2_err_vs_float64": err64,
+        "plain_d_only_s": plain_d_s,
         "plain_d_and_g_s": plain_dg_s, "d_only_s": d_s, "d_and_g_s": dg_s, "chunk_s": chunk_s,
         "steps_per_s_stage7": steps_s7, "steps_per_s_stage0": steps_s0, "peak_bytes": peak,
     }
 
 
+def pair_is_large(cin: int, cout: int, h: int, w: int) -> bool:
+    """K1 then K3 at a block's sizes both take the conv template's large
+    shape, where they sum in K4's order."""
+    return (conv_ops.conv_plan("conv3x3", NB_MUSIC, cin, cin, h, w, True)["shape"] == "large"
+            and conv_ops.conv_plan("upconv3x3", NB_MUSIC, cin, cout, h, w, True)["shape"] == "large")
+
+
 def check_block_kernel(gen, cfg: ModelConfig, dev) -> list[dict]:
     """Phase 7: K4 at every block of the main path whose widths fit; at
     the blocks that do not, its time beside the pair's, which is what
-    ``fused_block_fits`` rests on."""
+    ``fused_block_fits`` rests on.  K4 is held to its plain version, and
+    to K1 then K3 bit for bit where that pair takes the large shape."""
     rng = torch.Generator(device=dev).manual_seed(4)
     slope, eps = cfg.leaky_slope, cfg.pixel_norm_eps
     rows = []
@@ -801,7 +931,7 @@ def check_block_kernel(gen, cfg: ModelConfig, dev) -> list[dict]:
         x = torch.randn(NB_MUSIC, cin, h, w, generator=rng, device=dev)
         w1, b1 = blk.conv1.weight.detach(), blk.conv1.bias.detach()
         w2, b2 = blk.conv2.weight.detach(), blk.conv2.bias.detach()
-        w1p, w2p = conv_ops.pack_weights(w1), conv_ops.pack_upconv_weights(w2)
+        w1p, w2p = conv_ops.kernel_weights(w1), conv_ops.kernel_upconv_weights(w2)
 
         def kernel():
             return conv_ops.fused_block(x, w1, b1, w2, b2, slope, eps, w1_packed=w1p, w2_packed=w2p)
@@ -810,15 +940,21 @@ def check_block_kernel(gen, cfg: ModelConfig, dev) -> list[dict]:
             mid = conv_ops.fused_conv3x3(x, w1, b1, slope, True, eps, w_packed=w1p)
             return conv_ops.fused_upconv3x3(mid, w2, b2, slope, True, eps, w_packed=w2p)
 
+        large = pair_is_large(cin, cout, h, w)
         if not conv_ops.fused_block_fits(cin, cin, cout):
             tile_rows, _, passes = conv_ops.block_tile(cin, cout)
-            err = (kernel() - pair()).abs().max().item()
+            ref, tol = (pair, TOL_BLOCK_VS_PAIR) if large else (
+                lambda: conv_ops.fused_block_plain(x, w1, b1, w2, b2, slope, eps), TOL["fused_block"])
+            err = (kernel() - ref()).abs().max().item()
             print(f"[kernel] fused_block block {i} {(NB_MUSIC, cin, cin, cout, h, w)} does not fit "
                   f"(tile {tile_rows} rows, {passes} passes a phase): K4 {time_ms(kernel):.4f} ms, "
-                  f"K1 then K3 {time_ms(pair):.4f} ms, err {err:.2e}")
-            if not err <= TOL_BLOCK_VS_PAIR:
-                raise AssertionError(f"fused_block block {i} disagrees with K1 then K3")
+                  f"K1 then K3 {time_ms(pair):.4f} ms, err against {'the pair' if large else 'plain'} "
+                  f"{err:.2e} (tol {tol:.0e})")
+            if not err <= tol:
+                raise AssertionError(f"fused_block block {i} disagrees with {'K1 then K3' if large else 'plain'}")
             continue
+        if not large:
+            raise AssertionError(f"block {i}: K1 then K3 do not take the large shape at the path's sizes")
         mid_up = upsample_nearest_2x(conv_ops.conv3x3_plain(x, w1, b1, slope, True, eps))
         px = NB_MUSIC * h * w
 

@@ -38,6 +38,9 @@ constexpr int BLK_RA = 4;           // c1 rows a thread makes
 constexpr int BLK_RB = 2;           // output rows (of one phase) a thread makes in a pass
 constexpr int BLK_CK1 = 8;          // input channels staged at a time (conv1)
 constexpr int BLK_CK2 = 16;         // mid channels of weights staged at a time (conv2)
+// Widest conv1 and conv2: PixelNorm reduces inside one block, eight warps
+// of 16 channels.
+constexpr int BLK_MAX_C = BLK_WARPS * CO;
 
 // The tile for the widths: rows of c1, and the shared memory in floats.
 struct BlockTile {
@@ -46,7 +49,7 @@ struct BlockTile {
 };
 
 inline bool block_tile(int cmid, int cout, BlockTile* t) {
-  if (cmid < 1 || cout < 1 || cmid > MAX_COUT_PIXEL_NORM || cout > MAX_COUT_PIXEL_NORM)
+  if (cmid < 1 || cout < 1 || cmid > BLK_MAX_C || cout > BLK_MAX_C)
     return false;
   t->cgA = ceil_div(cmid, CO);
   t->rgA = BLK_WARPS / t->cgA;
@@ -63,9 +66,12 @@ inline bool block_tile(int cmid, int cout, BlockTile* t) {
   return true;
 }
 
-// x: (B, cin, H, W); w1: (cmid, 9*cin), K ordered (dy, dx, c); b1: (cmid,);
-// w2: (4, cout, 4*cmid), the phase kernels, K ordered (dy, dx, c); b2: (cout,);
-// y: (B, cout, 2H, 2W).
+// x: (B, cin, H, W); w1: (cin, 9, cmidp), ops/conv.py::kernel_weights, taps
+// (dy, dx), the mid channel fastest and zero past cmid; b1: (cmid,); w2: (4,
+// cmid, 4, coutp), kernel_upconv_weights: the four sub-pixel phase kernels
+// laid out alike; b2: (cout,); y: (B, cout, 2H, 2W).  cmidp and coutp are
+// cmid and cout rounded up to 16, so a (channel, tap) run of weights is
+// staged with 16-byte copies.
 __global__ void __launch_bounds__(32 * BLK_WARPS, 2)
 block3x3_kernel(const float* __restrict__ x, const float* __restrict__ w1,
                 const float* __restrict__ b1, const float* __restrict__ w2,
@@ -108,12 +114,12 @@ block3x3_kernel(const float* __restrict__ x, const float* __restrict__ w1,
           cp_async4(in_s + ci * SH * SW + e, ok ? src + (size_t)(ci0 + ci) * H * W : xb, ok);
         }
       }
-      for (int i = threadIdx.x; i < cmidp * 9 * BLK_CK1; i += blockDim.x) {
-        const int cil = i % BLK_CK1, t = i / BLK_CK1, tap = t % 9, co = t / 9;
+      for (int i = threadIdx.x; i < (cmidp / 4) * 9 * BLK_CK1; i += blockDim.x) {
+        const int j4 = i % (cmidp / 4), t = i / (cmidp / 4), cil = t % BLK_CK1, tap = t / BLK_CK1;
         const int c = ci0 + cil;
-        const bool ok = co < cmid && c < cin;
-        cp_async4(w_s + (tap * BLK_CK1 + cil) * cmidp + co,
-                  ok ? w1 + (size_t)co * 9 * cin + tap * cin + c : w1, ok);
+        const bool ok = c < cin;
+        cp_async16(w_s + (tap * BLK_CK1 + cil) * cmidp + 4 * j4,
+                   ok ? w1 + ((size_t)c * 9 + tap) * cmidp + 4 * j4 : w1, ok);
       }
       cp_async_wait_all();
       __syncthreads();
@@ -206,7 +212,7 @@ block3x3_kernel(const float* __restrict__ x, const float* __restrict__ w1,
 
   for (int ph = 0; ph < 4; ++ph) {
     const int pa = ph >> 1, pb = ph & 1;
-    const float* wp = w2 + (size_t)ph * cout * 4 * cmid;
+    const float* wp = w2 + (size_t)ph * cmid * 4 * coutp;
     for (int rb = 0; rb < nbatch; ++rb) {
       const int row = rb * rows_pass + rgi * BLK_RB;       // first row of this thread
       const int rowr = row < TH - BLK_RB ? row : TH - BLK_RB;  // rows past the tile repeat its last
@@ -217,12 +223,12 @@ block3x3_kernel(const float* __restrict__ x, const float* __restrict__ w1,
         for (int k = 0; k < CO; ++k) acc[p][k] = 0.f;
 
       for (int ci0 = 0; ci0 < cmidp; ci0 += BLK_CK2) {
-        for (int i = threadIdx.x; i < coutp * 4 * BLK_CK2; i += blockDim.x) {
-          const int cil = i % BLK_CK2, t = i / BLK_CK2, tap = t % 4, co = t / 4;
+        for (int i = threadIdx.x; i < (coutp / 4) * 4 * BLK_CK2; i += blockDim.x) {
+          const int j4 = i % (coutp / 4), t = i / (coutp / 4), cil = t % BLK_CK2, tap = t / BLK_CK2;
           const int c = ci0 + cil;
-          const bool ok = co < cout && c < cmid;
-          cp_async4(w_s + (tap * BLK_CK2 + cil) * coutp + co,
-                    ok ? wp + (size_t)co * 4 * cmid + tap * cmid + c : wp, ok);
+          const bool ok = c < cmid;
+          cp_async16(w_s + (tap * BLK_CK2 + cil) * coutp + 4 * j4,
+                     ok ? wp + ((size_t)c * 4 + tap) * coutp + 4 * j4 : wp, ok);
         }
         cp_async_wait_all();
         __syncthreads();

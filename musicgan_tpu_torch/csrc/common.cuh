@@ -13,6 +13,24 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src, bool val
                "r"(valid ? 4 : 0));
 }
 
+// The same for 16 bytes (both addresses 16-byte aligned).
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+
+// Close the group of this thread's cp.async issued since the last commit.
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N committed groups of this thread are still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // Wait until every cp.async of this thread has landed (then __syncthreads()
 // for the whole block's copies).
 __device__ __forceinline__ void cp_async_wait_all() {

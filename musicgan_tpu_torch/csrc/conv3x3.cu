@@ -6,8 +6,8 @@
 // The kernel body of both is conv_tile_kernel<3> in conv_tile.cuh.
 #include "conv_tile.cuh"
 
-// x: (B, cin, H, W); w: (cout, 9*cin) from pack_weights; bias: (cout,) or
-// null; y: (B, cout, H, W).
+// x: (B, cin, H, W); w: (cin, 9, coutp) from kernel_weights; bias: (cout,)
+// or null; y: (B, cout, H, W).
 extern "C" int mg_conv3x3(const float* x, const float* w, const float* bias,
                           float* y, int B, int cin, int cout, int H, int W,
                           float slope, int use_slope, int pixel_norm, float eps,

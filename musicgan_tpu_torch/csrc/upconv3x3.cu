@@ -6,7 +6,7 @@
 // (2i+a, 2j+b), the interleave that Mosaic refused in float32.
 #include "conv_tile.cuh"
 
-// x: (B, cin, H, W); w: (4, cout, 4*cin) from pack_upconv_weights;
+// x: (B, cin, H, W); w: (4, cin, 4, coutp) from kernel_upconv_weights;
 // y: (B, cout, 2H, 2W).
 extern "C" int mg_upconv3x3(const float* x, const float* w, const float* bias,
                             float* y, int B, int cin, int cout, int H, int W,

@@ -49,14 +49,16 @@ class GenBlock(nn.Module):
         self.conv2 = nn.Conv2d(cin, cout, 3, padding=1, device=device)
         self._packs: dict[str, tuple] = {}
 
-    def _packed(self, name: str, pack) -> torch.Tensor:
-        """``pack(weight)`` of conv ``name`` for the kernel, made once and
-        kept until the weight changes (in place, which bumps its version,
-        or by a move to other storage)."""
+    def _packed(self, name: str) -> torch.Tensor:
+        """The kernels' layout of conv ``name``'s weight (``kernel_weights``
+        for ``conv1``, ``kernel_upconv_weights`` for ``conv2``: K1, K3 and
+        K4 read the same), made once and kept until the weight changes (in
+        place, which bumps its version, or by a move to other storage)."""
         w = getattr(self, name).weight
         key = (w.device, w.data_ptr(), w._version)
         hit = self._packs.get(name)
         if hit is None or hit[0] != key:
+            pack = conv_ops.kernel_weights if name == "conv1" else conv_ops.kernel_upconv_weights
             hit = self._packs[name] = (key, pack(w.detach()))
         return hit[1]
 
@@ -68,16 +70,15 @@ class GenBlock(nn.Module):
         if use_block and conv_ops.fused_block_fits(w1.shape[1], w1.shape[0], w2.shape[0]):
             return conv_ops.fused_block(
                 x, w1, self.conv1.bias, w2, self.conv2.bias, slope, eps,
-                w1_packed=self._packed("conv1", conv_ops.pack_weights),
-                w2_packed=self._packed("conv2", conv_ops.pack_upconv_weights),
+                w1_packed=self._packed("conv1"), w2_packed=self._packed("conv2"),
             )
         x = conv_ops.fused_conv3x3(
             x, self.conv1.weight, self.conv1.bias, slope, True, eps,
-            w_packed=self._packed("conv1", conv_ops.pack_weights),
+            w_packed=self._packed("conv1"),
         )
         return conv_ops.fused_upconv3x3(
             x, self.conv2.weight, self.conv2.bias, slope, True, eps,
-            w_packed=self._packed("conv2", conv_ops.pack_upconv_weights),
+            w_packed=self._packed("conv2"),
         )
 
     def forward_train(self, x: torch.Tensor, slope: float, eps: float) -> torch.Tensor:

@@ -10,6 +10,8 @@ from .conv import (
     fused_conv3x3,
     fused_conv3x3_msq,
     fused_upconv3x3,
+    kernel_upconv_weights,
+    kernel_weights,
     pack_upconv_weights,
     pack_weights,
 )
@@ -22,6 +24,8 @@ __all__ = [
     "fused_conv3x3",
     "fused_conv3x3_msq",
     "fused_upconv3x3",
+    "kernel_upconv_weights",
+    "kernel_weights",
     "pack_upconv_weights",
     "pack_weights",
 ]

@@ -133,8 +133,11 @@ def kernel(name: str, symbol: str, argtypes: list):
     lib.mg_error_string.restype = ctypes.c_char_p
 
     def launcher(*args, device):
-        with torch.cuda.device(device):
-            err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+        if device.index is None or device.index == torch.cuda.current_device():
+            err = fn(*args, torch.cuda.current_stream().cuda_stream)
+        else:
+            with torch.cuda.device(device):
+                err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
         if err != 0:
             msg = lib.mg_error_string(err).decode()
             raise RuntimeError(f"{symbol}: CUDA error {err} at launch: {msg}")

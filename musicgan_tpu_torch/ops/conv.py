@@ -13,46 +13,44 @@ template, ``csrc/conv_tile.cuh``, built by ``csrc/conv3x3.cu`` (K1, K2) and
 launch, ``csrc/block3x3.cu``, the first conv's output kept in shared memory
 with a one-pixel halo that is set to zero outside the image.
 
-Widths: without PixelNorm any ``cout`` (past 128 channels the kernel splits
-the channel groups over the grid; the critic's convs reach 160).  With
-PixelNorm ``cout <= 128`` (``MAX_COUT_PIXEL_NORM``): the norm reduces over
-all channels of a pixel inside one thread block, which holds eight warps of
-16 channels.  The generator's widest conv has 128.
+Widths: any ``cout``.  Past 128 channels the kernel splits the channel
+groups of a pixel over several thread blocks; with PixelNorm those blocks
+form one thread-block cluster and add each other's per-pixel sums through
+distributed shared memory, so PixelNorm takes up to
+``MAX_PIXEL_NORM_CHANNELS`` (a portable cluster of 8 blocks of 128).
 
-What bounds them on an H100: float32 operations.  At the generator's
-widths (16..128 channels) a 3x3 conv does 2 * 9 * cin FLOP per output
-value against 4 bytes stored, above the card's float32 ridge of about
-20 FLOP/byte (67 TFLOP/s over 3.35 TB/s), so the CUDA cores, not the
-memory, are the limit.  The design keeps the FMA units fed from
-registers: each thread holds 4 rows x 16 channels of accumulators, reads
-its input column once per tap row and its 16 weights as broadcast float4
-loads from shared memory, and the epilogue (bias, LeakyReLU, PixelNorm)
-runs on the accumulators before the only store.  Each 8-channel chunk is
-staged with ``cp.async``, every copy in flight at once: a load-at-a-time
-staging loop left the kernel waiting on memory latency (2.3x slower at
-block 7 of the up-conv on an H100; PERF.md).  The up-conv never writes
-the 4x-sized upsampled input: it reads the small input and runs the four
-2x2 phase kernels (2.25x fewer MACs than a 3x3 conv on the upsampled
-tensor).  Float32 on the CUDA cores is the first, simple form; tensor
-cores (TF32 or bf16 ``wgmma``) are later work.
+What bounds them on an H100 depends on the image (``csrc/conv_tile.cuh``
+says how each shape works).  From 64x64 up: float32 operations.  A 3x3
+conv does 2 * 9 * cin FLOP per output value against 4 bytes stored, above
+the card's float32 ridge of about 20 FLOP/byte, so the CUDA cores are the
+limit; each thread holds 4 rows x 16 channels of accumulators and reads its
+16 weights as broadcast float4 loads from shared memory.  Up to 32x32 (the
+critic's last blocks, the generator's first) a conv is a few MFLOP and what
+bounds it is latency: serial steps over the input channels in too few
+blocks.  There the tile is a set of pixels of the flattened batch (so every
+weight staged serves all images), the input channels are split over a
+cluster of up to 8 blocks whose partial sums meet in distributed shared
+memory, and each step's weights arrive as 16-byte copies while the
+previous step computes.  The up-conv never writes the 4x-sized upsampled
+input: it runs the four 2x2 phase kernels on the small input.  Float32 on
+the CUDA cores is the first, simple form; tensor cores are later work.
 
-Small images (the critic's last blocks, the generator's first: 1x1 to
-32x32 at 80-160 channels) are not bound by operations but by one block's
-chain of serial steps over the input channels, with most of the 32x4 tile
-masked.  For them the launcher takes a second shape of the same template
-(one row a thread, the tile's width fitted to the image, 16 input channels
-a step) whenever the large shape's grid would fill less than half of the
-card's SMs; it is 1.4-2x faster there on an H100 and slower from 64x64 on
-(PERF.md).
+Weights: the plain versions take OIHW; the kernels K1-K4 take the kernel
+layout of :func:`kernel_weights` / :func:`kernel_upconv_weights` (input
+channel, tap, output channel fastest, padded to 16 channels).  The
+generator makes them once per weight version (``models/generator.py``) and
+passes them as ``w_packed``.  :func:`pack_weights` /
+:func:`pack_upconv_weights` keep the JAX package's layout, which the tests
+hold the kernel layout against.
 
 Dispatch: a CPU tensor takes the plain version, a CUDA tensor launches the
 kernel, anything else raises.  Nothing falls back.  Each wrapper counts its
-launches in ``.launches``.  The plain versions take the OIHW weights; the
-kernels take them packed, which the generator does once per weight
-(``models/generator.py``) and passes as ``w_packed``.
+launches in ``.launches``.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -73,16 +71,21 @@ __all__ = [
     "fused_block_fits",
     "pack_weights",
     "pack_upconv_weights",
+    "kernel_weights",
+    "kernel_upconv_weights",
+    "conv_plan",
     "conv3x3_plain",
     "conv3x3_msq_plain",
     "upconv3x3_plain",
     "fused_block_plain",
 ]
 
-# Widest conv that may carry PixelNorm (csrc/conv_tile.cuh: the norm needs
-# every channel of a pixel in one block, eight warps of 16 channels).
+# Widest conv that may carry PixelNorm (csrc/conv_tile.cuh: the blocks that
+# share a pixel's channels, 128 each, form one portable cluster of at most 8).
 # Without PixelNorm there is no limit.
-MAX_COUT_PIXEL_NORM = 128
+MAX_PIXEL_NORM_CHANNELS = 8 * 128
+# Output channels rounded up to this in the kernel layout.
+_CO = 16
 
 
 def pack_weights(w: torch.Tensor) -> torch.Tensor:
@@ -104,6 +107,34 @@ def pack_upconv_weights(w: torch.Tensor) -> torch.Tensor:
         k.permute(0, 2, 3, 1).reshape(cout, 4 * cin)
         for k in subpixel_phase_kernels(w)
     ]
+    return torch.stack(phases, dim=0).contiguous()
+
+
+def _pad_cout(w: torch.Tensor) -> torch.Tensor:
+    """OIHW weights with zero output channels appended up to a multiple of 16."""
+    extra = -w.shape[0] % _CO
+    return w if extra == 0 else torch.cat([w, w.new_zeros(extra, *w.shape[1:])])
+
+
+def kernel_weights(w: torch.Tensor) -> torch.Tensor:
+    """OIHW ``(cout, cin, 3, 3)`` -> the layout K1 and K2 read,
+    ``(cin, 9, coutp)``: taps ordered ``(dy, dx)``, the output channel
+    fastest and zero from ``cout`` to ``coutp`` (``cout`` rounded up to 16).
+    The weights of one input channel and one tap for a block's channels are
+    then one run of 16-byte copies.  It is :func:`pack_weights` permuted."""
+    cout, cin, kh, kw = w.shape
+    assert (kh, kw) == (3, 3)
+    return _pad_cout(w).permute(1, 2, 3, 0).reshape(cin, 9, -1).contiguous()
+
+
+def kernel_upconv_weights(w: torch.Tensor) -> torch.Tensor:
+    """OIHW ``(cout, cin, 3, 3)`` -> the layout K3 reads,
+    ``(4, cin, 4, coutp)``: :func:`pack_upconv_weights`'s four sub-pixel
+    phase kernels, each laid out as :func:`kernel_weights` lays out a 3x3
+    kernel."""
+    cout, cin, kh, kw = w.shape
+    assert (kh, kw) == (3, 3)
+    phases = [k.permute(1, 2, 3, 0).reshape(cin, 4, -1) for k in subpixel_phase_kernels(_pad_cout(w))]
     return torch.stack(phases, dim=0).contiguous()
 
 
@@ -141,27 +172,39 @@ _CONV_ARGS = [_build.PTR] * 4 + _CONV_TAIL + [_build.INT, _build.FLOAT]
 _MSQ_ARGS = [_build.PTR] * 5 + _CONV_TAIL + [_build.FLOAT]
 
 
-def _operands(name, x, w_packed, b, pixel_norm):
+def _operands(name, x, w_packed, b, pixel_norm, cout):
     """Check the operands of a conv kernel; returns them contiguous with the
-    bias's address (0 for none) and ``cout``."""
-    cout = w_packed.shape[-2]
+    bias's address (0 for none)."""
     for t in (x, w_packed) if b is None else (x, w_packed, b):
         if t.device != x.device or t.dtype != torch.float32:
             raise ValueError(f"{name}: every operand must be float32 on {x.device}")
     if b is not None and b.shape != (cout,):
         raise ValueError(f"{name}: bias {tuple(b.shape)} for {cout} output channels")
-    if pixel_norm and cout > MAX_COUT_PIXEL_NORM:
+    if pixel_norm and cout > MAX_PIXEL_NORM_CHANNELS:
         raise ValueError(
-            f"{name}: PixelNorm over cout {cout} > {MAX_COUT_PIXEL_NORM} is not supported"
+            f"{name}: PixelNorm over cout {cout} > {MAX_PIXEL_NORM_CHANNELS} is not supported"
         )
     b = None if b is None else b.contiguous()
-    return x.contiguous(), w_packed.contiguous(), b, 0 if b is None else b.data_ptr(), cout
+    return x.contiguous(), w_packed.contiguous(), b, 0 if b is None else b.data_ptr()
 
 
-def _launch(name, x, w_packed, b, out_hw, slope, pixel_norm, eps):
+def _kernel_layout(name, w, w_packed, upconv):
+    """The kernel-layout weights: ``w_packed`` if given (checked), else made
+    from the OIHW ``w``."""
+    cout, cin = w.shape[:2]
+    coutp = -(-cout // _CO) * _CO
+    want = (4, cin, 4, coutp) if upconv else (cin, 9, coutp)
+    if w_packed is None:
+        return kernel_upconv_weights(w) if upconv else kernel_weights(w)
+    if tuple(w_packed.shape) != want:
+        raise ValueError(f"{name}: packed weights {tuple(w_packed.shape)}, not {want}")
+    return w_packed
+
+
+def _launch(name, x, w_packed, b, cout, out_hw, slope, pixel_norm, eps):
     """Check the operands, allocate the output and launch ``mg_<name>``."""
     bsz, cin, h, w = x.shape
-    x, w_packed, b, b_ptr, cout = _operands(name, x, w_packed, b, pixel_norm)
+    x, w_packed, b, b_ptr = _operands(name, x, w_packed, b, pixel_norm, cout)
     y = torch.empty(bsz, cout, *out_hw, device=x.device, dtype=torch.float32)
     _build.kernel(name, f"mg_{name}", _CONV_ARGS)(
         x.data_ptr(), w_packed.data_ptr(), b_ptr, y.data_ptr(),
@@ -175,13 +218,13 @@ def fused_conv3x3(x, w, b, slope=None, pixel_norm=False, eps=1e-8, w_packed=None
     """3x3 'SAME' conv on NCHW ``(B, cin, H, W)`` with OIHW weights ->
     ``(B, cout, H, W)``, with the bias / LeakyReLU / PixelNorm epilogue.
     ``b`` may be None (no bias: the input-gradient convs).
-    ``w_packed``: ``pack_weights(w)`` made ahead, for the kernel."""
+    ``w_packed``: ``kernel_weights(w)`` made ahead, for the kernel."""
     if x.device.type == "cpu":
         return conv3x3_plain(x, w, b, slope, pixel_norm, eps)
     if x.device.type != "cuda":
         raise ValueError(f"fused_conv3x3: no kernel for device {x.device}")
-    wp = pack_weights(w) if w_packed is None else w_packed
-    y = _launch("conv3x3", x, wp, b, x.shape[2:], slope, pixel_norm, eps)
+    wp = _kernel_layout("fused_conv3x3", w, w_packed, False)
+    y = _launch("conv3x3", x, wp, b, w.shape[0], x.shape[2:], slope, pixel_norm, eps)
     fused_conv3x3.launches += 1
     return y
 
@@ -195,9 +238,10 @@ def fused_conv3x3_msq(x, w, b, slope=None, eps=1e-8, w_packed=None):
         return conv3x3_msq_plain(x, w, b, slope, eps)
     if x.device.type != "cuda":
         raise ValueError(f"fused_conv3x3_msq: no kernel for device {x.device}")
-    wp = pack_weights(w) if w_packed is None else w_packed
+    wp = _kernel_layout("fused_conv3x3_msq", w, w_packed, False)
     bsz, cin, h, wd = x.shape
-    x, wp, b, b_ptr, cout = _operands("conv3x3_msq", x, wp, b, True)
+    cout = w.shape[0]
+    x, wp, b, b_ptr = _operands("conv3x3_msq", x, wp, b, True, cout)
     y = torch.empty(bsz, cout, h, wd, device=x.device, dtype=torch.float32)
     m = torch.empty(bsz, 1, h, wd, device=x.device, dtype=torch.float32)
     _build.kernel("conv3x3", "mg_conv3x3_msq", _MSQ_ARGS)(
@@ -212,14 +256,14 @@ def fused_conv3x3_msq(x, w, b, slope=None, eps=1e-8, w_packed=None):
 def fused_upconv3x3(x, w, b, slope=None, pixel_norm=False, eps=1e-8, w_packed=None):
     """``conv3x3(upsample_nearest_2x(x))`` on NCHW ``(B, cin, H, W)`` with
     OIHW weights -> ``(B, cout, 2H, 2W)``, with the fused epilogue.
-    ``w_packed``: ``pack_upconv_weights(w)`` made ahead, for the kernel."""
+    ``w_packed``: ``kernel_upconv_weights(w)`` made ahead, for the kernel."""
     if x.device.type == "cpu":
         return upconv3x3_plain(x, w, b, slope, pixel_norm, eps)
     if x.device.type != "cuda":
         raise ValueError(f"fused_upconv3x3: no kernel for device {x.device}")
-    wp = pack_upconv_weights(w) if w_packed is None else w_packed
+    wp = _kernel_layout("fused_upconv3x3", w, w_packed, True)
     h, w_ = x.shape[2:]
-    y = _launch("upconv3x3", x, wp, b, (2 * h, 2 * w_), slope, pixel_norm, eps)
+    y = _launch("upconv3x3", x, wp, b, w.shape[0], (2 * h, 2 * w_), slope, pixel_norm, eps)
     fused_upconv3x3.launches += 1
     return y
 
@@ -234,6 +278,8 @@ def fused_block_plain(x, w1, b1, w2, b2, slope=0.2, eps=1e-8):
 # The shape of a K4 thread block (csrc/block3x3.cu): 8 warps, each thread 4
 # rows x 16 channels of the first conv's tile, which is 32 columns wide.
 _BLK_WARPS, _BLK_RA, _BLK_RB, _BLK_CK1, _BLK_CK2, _BLK_C1W = 8, 4, 2, 8, 16, 32
+# Widest conv of K4: eight warps of 16 channels, PixelNorm inside the block.
+MAX_BLOCK_CHANNELS = _BLK_WARPS * 16
 # Most dynamic shared memory a Hopper thread block may ask for.
 SMEM_OPTIN_BYTES = 232448
 # Fewest rows of a K4 tile that the generator takes the kernel for: at 6
@@ -250,12 +296,13 @@ MAX_BLOCK_PASSES = 2
 def block_tile(cmid: int, cout: int) -> tuple[int, int, int] | None:
     """``(rows, shared-memory bytes, passes)`` of a K4 thread block at these
     widths, as ``csrc/block3x3.cu`` lays it out, or None for widths it does
-    not take (PixelNorm over more than ``MAX_COUT_PIXEL_NORM`` channels).
+    not take (more than ``MAX_BLOCK_CHANNELS``: K4's PixelNorm reduces
+    inside one thread block).
     Eight warps of 16 channels x 4 rows make the first conv's tile, so it
     has ``4 * (8 // ceil(cmid / 16))`` rows, two of them halo; the second
     conv's ``8 // ceil(cout / 16)`` row groups make 2 rows each at a time,
     so a phase takes ``passes`` turns over the tile."""
-    if not (1 <= cmid <= MAX_COUT_PIXEL_NORM and 1 <= cout <= MAX_COUT_PIXEL_NORM):
+    if not (1 <= cmid <= MAX_BLOCK_CHANNELS and 1 <= cout <= MAX_BLOCK_CHANNELS):
         return None
     cg_a, cg_b = -(-cmid // 16), -(-cout // 16)
     rg_a, rg_b = _BLK_WARPS // cg_a, _BLK_WARPS // cg_b
@@ -293,30 +340,27 @@ def fused_block(x, w1, b1, w2, b2, slope=0.2, eps=1e-8, w1_packed=None, w2_packe
     ``w1`` ``(cmid, cin, 3, 3)`` and ``w2`` ``(cout, cmid, 3, 3)`` ->
     ``(B, cout, 2H, 2W)``: ``pn(lrelu(conv3x3(x)))``, kept on the chip, then
     ``pn(lrelu(conv3x3(up2x(.))))``, in one launch.  ``w1_packed``,
-    ``w2_packed``: ``pack_weights(w1)`` and ``pack_upconv_weights(w2)`` made
-    ahead, for the kernel."""
+    ``w2_packed``: ``kernel_weights(w1)`` and ``kernel_upconv_weights(w2)``
+    made ahead, the layouts K1 and K3 read too."""
     if x.device.type == "cpu":
         return fused_block_plain(x, w1, b1, w2, b2, slope, eps)
     if x.device.type != "cuda":
         raise ValueError(f"fused_block: no kernel for device {x.device}")
-    w1p = pack_weights(w1) if w1_packed is None else w1_packed
-    w2p = pack_upconv_weights(w2) if w2_packed is None else w2_packed
     bsz, cin, h, wd = x.shape
-    cmid, cout = w1p.shape[0], w2p.shape[1]
-    if w1p.shape != (cmid, 9 * cin) or w2p.shape != (4, cout, 4 * cmid):
-        raise ValueError(
-            f"fused_block: packed weights {tuple(w1p.shape)}, {tuple(w2p.shape)} "
-            f"for widths {cin} -> {cmid} -> {cout}"
-        )
+    cmid, cout = w1.shape[0], w2.shape[0]
+    if w1.shape[1] != cin or w2.shape[1] != cmid:
+        raise ValueError(f"fused_block: weights {tuple(w1.shape)}, {tuple(w2.shape)} for {cin} input channels")
+    w1p = _kernel_layout("fused_block", w1, w1_packed, False)
+    w2p = _kernel_layout("fused_block", w2, w2_packed, True)
     if block_tile(cmid, cout) is None:
         raise ValueError(
-            f"fused_block: PixelNorm over {cmid} or {cout} > {MAX_COUT_PIXEL_NORM} "
+            f"fused_block: PixelNorm over {cmid} or {cout} > {MAX_BLOCK_CHANNELS} "
             "channels is not supported"
         )
     if b1 is None or b2 is None:
         raise ValueError("fused_block: both convs carry a bias")
-    x, w1p, b1, b1_ptr, _ = _operands("block3x3", x, w1p, b1, True)
-    _, w2p, b2, b2_ptr, _ = _operands("block3x3", x, w2p, b2, True)
+    x, w1p, b1, b1_ptr = _operands("block3x3", x, w1p, b1, True, cmid)
+    _, w2p, b2, b2_ptr = _operands("block3x3", x, w2p, b2, True, cout)
     y = torch.empty(bsz, cout, 2 * h, 2 * wd, device=x.device, dtype=torch.float32)
     _build.kernel("block3x3", "mg_block3x3", _BLOCK_ARGS)(
         x.data_ptr(), w1p.data_ptr(), b1_ptr, w2p.data_ptr(), b2_ptr, y.data_ptr(),
@@ -324,6 +368,29 @@ def fused_block(x, w1, b1, w2, b2, slope=0.2, eps=1e-8, w1_packed=None, w2_packe
     )
     fused_block.launches += 1
     return y
+
+
+_PLAN_KEYS = ("shape", "cluster", "split_k", "nsplit", "pixels_a_lane", "threads", "blocks", "smem_bytes")
+
+
+def conv_plan(kind: str, bsz: int, cin: int, cout: int, h: int, w: int, pixel_norm: bool) -> dict:
+    """How K1/K2 (``kind="conv3x3"``) or K3 (``"upconv3x3"``) launches at
+    these sizes on the current CUDA device, as the launcher plans it:
+    ``shape`` ("large" or "small"), the cluster's blocks, its split over
+    input channels, the channel splits, pixels a lane, threads a block,
+    blocks, shared memory.  Needs the card (the plan reads its SM count)."""
+    lib = _build.load(kind)
+    fn = lib.mg_conv_plan
+    fn.argtypes = [ctypes.c_int] * 8 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 8)()
+    k, nphase = (2, 4) if kind == "upconv3x3" else (3, 1)
+    err = fn(k, bsz, cin, cout, h, w, nphase, int(pixel_norm), out)
+    if err != 0:
+        raise ValueError(f"conv_plan({kind}): CUDA error {err} for sizes {(bsz, cin, cout, h, w)}")
+    plan = dict(zip(_PLAN_KEYS, out))
+    plan["shape"] = {1: "large", 2: "small"}[plan["shape"]]
+    return plan
 
 
 fused_conv3x3.launches = 0

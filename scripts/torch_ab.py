@@ -1,0 +1,194 @@
+#!/usr/bin/env python3
+"""Measure one tree of the PyTorch port on the card, for A/B comparisons of
+two trees on one machine in one run.
+
+    python3 scripts/torch_ab.py --root ROOT --tag NAME
+
+``ROOT`` is the root of a checkout (``.`` for this one, or a parent commit
+unpacked with ``git archive`` into a git-ignored directory).  The script
+imports that tree's ``musicgan_tpu_torch`` and measures, the same way for
+any tree:
+
+* the conv kernel (K1 with LeakyReLU and bias, K1 as input gradient, K2)
+  at every shape of one stage-7 train iteration at batch 6: device time of
+  the wrapper as the train step calls it (OIHW weights, packed inside),
+  and of ``F.conv2d`` on the same inputs, each from CUDA-graph replays
+  timed by CUDA events, so the host's time to issue a call is not counted;
+* the host's time to issue one K1 call and one ``F.conv2d`` call (a tiny
+  shape back to back, where the card waits on the host);
+* warm synthesis (5 clips x nb_vec 10 from ``gen_final.pt``): median of 20
+  calls, each timed to the end of its device work;
+* the train step at stage 7 (medians of 10 critic-only and 10 critic +
+  generator iterations, steps/s at n_critic 5) and at stage 0 (median of
+  10 chunks of 10).
+
+Results go to ``chiprun_out/ab_<NAME>.json``; a summary is printed.  Run
+the trees in turns in one call (parent, change, change, parent) and
+compare only within it.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import os
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parent.parent  # the checkout this script is in
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--root", required=True)
+    ap.add_argument("--tag", required=True)
+    args = ap.parse_args()
+    root = Path(args.root).resolve()
+    sys.path.insert(0, str(root))
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from musicgan_tpu_torch import generate as generate_mod
+    from musicgan_tpu_torch.config import ModelConfig, TrainConfig
+    from musicgan_tpu_torch.models import load_reference_generator
+    from musicgan_tpu_torch.ops import _build
+    from musicgan_tpu_torch.ops import conv as conv_ops
+    from musicgan_tpu_torch.train import build_chunk_step, build_step, init_train_state
+
+    # The yardstick of this checkout's chip_smoke.py (its timing and the
+    # train step's conv shapes), for every tree alike; it imports the
+    # package of ROOT, which comes first on the path.
+    spec = importlib.util.spec_from_file_location("chip_smoke", HERE / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+
+    if not torch.cuda.is_available():
+        sys.exit("torch_ab: no CUDA device")
+    if not _build.SRC_DIR.resolve().is_relative_to(root):
+        sys.exit(f"torch_ab: imported the package from {_build.SRC_DIR}, not from {root}")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True).stdout.strip()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.build_all()
+    dev = torch.device("cuda")
+    cfg, tcfg = ModelConfig(), TrainConfig()
+
+    gen, disc = smoke.train_conv_shapes(cfg, tcfg.batch_size, 7)
+    cases = ([("gen_fwd", s, True, 0.2) for s in gen]
+             + [("critic_fwd", s, True, 0.2) for s in disc]
+             + [("critic_dx", (b, co, ci, hh, ww), False, None) for b, ci, co, hh, ww in disc]
+             + [("gen_dx", (b, co, ci, hh, ww), False, None) for b, ci, co, hh, ww in gen[1:]])
+    rng = torch.Generator(device=dev).manual_seed(2)
+    rows = []
+    for role, (b, cin, cout, hh, ww), bias, slope in cases:
+        x = torch.randn(b, cin, hh, ww, generator=rng, device=dev)
+        wt = torch.randn(cout, cin, 3, 3, generator=rng, device=dev) / (9 * cin) ** 0.5
+        bb = torch.randn(cout, generator=rng, device=dev) * 0.1 if bias else None
+        if role == "gen_fwd":
+            kernel = lambda: conv_ops.fused_conv3x3_msq(x, wt, bb, slope, 1e-8)  # noqa: E731
+        else:
+            kernel = lambda: conv_ops.fused_conv3x3(x, wt, bb, slope)  # noqa: E731
+        rows.append({"role": role, "shape": [b, cin, cout, hh, ww], "ms": smoke.time_ms(kernel),
+                     "library_ms": smoke.time_ms(lambda: F.conv2d(x, wt, bb, padding=1))})
+        del x
+    torch.cuda.empty_cache()
+
+    # The host's time to issue one call (back to back on a tiny shape, where
+    # the card waits on the host): the wrapper as the train step calls it,
+    # and F.conv2d.
+    x = torch.randn(1, 8, 4, 4, generator=rng, device=dev)
+    wt = torch.randn(16, 8, 3, 3, generator=rng, device=dev)
+    bb = torch.randn(16, generator=rng, device=dev)
+
+    def host_us(fn, n=2000):
+        for _ in range(50):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        return 1e6 * (time.perf_counter() - t0) / n
+
+    host = {"k1_us": host_us(lambda: conv_ops.fused_conv3x3(x, wt, bb, 0.2)),
+            "f_conv2d_us": host_us(lambda: F.conv2d(x, wt, bb, padding=1))}
+
+    # Warm synthesis.
+    ckpt = root / "saved_models" / "quality_r4" / "gen_final.pt"
+    g = load_reference_generator(str(ckpt), cfg, device=dev)
+    z = torch.randn((5, cfg.latent_height, cfg.latent_width * 10, cfg.rand_channels),
+                    generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+    synth = generate_mod.synthesize_fn(cfg, cfg.n_stages - 1)
+    for _ in range(3):
+        synth(g, z)
+    torch.cuda.synchronize()
+    synth_s = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        synth(g, z)
+        torch.cuda.synchronize()
+        synth_s.append(time.perf_counter() - t0)
+    del g
+    torch.cuda.empty_cache()
+
+    # The train step.
+    state = init_train_state(0, cfg, tcfg, device="cuda")
+    xg = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn(tcfg.batch_size, 2, 512, 512, generator=xg, device=dev)
+    x_stack = torch.randn(10, tcfg.batch_size, 2, 512, 512, generator=xg, device=dev)
+
+    def timed(fn, n):
+        out = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append(time.perf_counter() - t0)
+        return out
+
+    step_d, step_dg = build_step(7, False, cfg, tcfg), build_step(7, True, cfg, tcfg)
+    timed(lambda: step_d(state, x, 0.5), 2)
+    timed(lambda: step_dg(state, x, 0.5), 2)
+    d_s = timed(lambda: step_d(state, x, 0.5), 10)
+    dg_s = timed(lambda: step_dg(state, x, 0.5), 10)
+    mask = [(i + 1) % tcfg.n_critic == 0 for i in range(10)]
+    chunk = build_chunk_step(0, 10, cfg, tcfg)
+    timed(lambda: chunk(state, x_stack, [1.0] * 10, mask), 2)
+    chunk_s = timed(lambda: chunk(state, x_stack, [1.0] * 10, mask), 10)
+    med = lambda v: float(np.median(v))  # noqa: E731
+    n_c = tcfg.n_critic
+    out = {
+        "tag": args.tag, "root": str(root), "card": card, "rows": rows, "host_per_call": host,
+        "synthesis_ms": [1e3 * v for v in synth_s], "synthesis_median_ms": 1e3 * med(synth_s),
+        "d_only_ms": [1e3 * v for v in d_s], "d_and_g_ms": [1e3 * v for v in dg_s],
+        "steps_per_s_stage7": n_c / ((n_c - 1) * med(d_s) + med(dg_s)),
+        "chunk_ms": [1e3 * v for v in chunk_s], "steps_per_s_stage0": 10 / med(chunk_s),
+    }
+    small = {}
+    for r in rows:
+        if r["shape"][3] <= 32:
+            s = small.setdefault(r["role"], [0.0, 0.0])
+            s[0] += r["ms"]
+            s[1] += r["library_ms"]
+    out["small_sums_ms"] = small
+    os.makedirs("chiprun_out", exist_ok=True)
+    Path(f"chiprun_out/ab_{args.tag}.json").write_text(json.dumps(out, indent=1))
+    print(f"[ab {args.tag}] {card}; conv up to 32x32, kernel / F.conv2d ms: "
+          + ", ".join(f"{k} {v[0]:.4f} / {v[1]:.4f}" for k, v in small.items())
+          + f"; all shapes, kernel ms: " + ", ".join(
+              f"{k} {sum(r['ms'] for r in rows if r['role'] == k):.3f}" for k in small)
+          + f"; host per call: K1 {host['k1_us']:.1f} us, F.conv2d {host['f_conv2d_us']:.1f} us"
+          + f"; synthesis {out['synthesis_median_ms']:.3f} ms; stage 7 {1e3 * med(d_s):.2f} / "
+          f"{1e3 * med(dg_s):.2f} ms = {out['steps_per_s_stage7']:.3f} steps/s; stage 0 "
+          f"{out['steps_per_s_stage0']:.1f} steps/s", flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,128 @@
+#!/usr/bin/env python3
+"""Sweep the conv template's launch plans on the card: at every conv shape
+of a stage-7 train iteration (batch 6) up to 64x64 and at synthesis's
+first six blocks (5 clips x nb_vec 10), the device time of the wrapper
+under each plan, against the launcher's own choice and ``F.conv2d``.
+
+    python3 scripts/torch_conv_sweep.py
+
+Plans: the large-image shape, and the small-image shape at every (pixels
+a lane in 1, 2, 4) x (cluster split over input channels in 1, 2, 4, 8)
+that the cluster allows.  The script builds the kernels with
+``-DMG_CONV_SWEEP``, which compiles in ``mg_conv_force`` (a switch that
+forces the plan of every later launch) and gives the libraries other
+names; the libraries the port loads have no such switch.  Weights are packed
+ahead; times are CUDA-graph replays timed by CUDA events
+(``chip_smoke.time_ms``).  This is what the launcher's rule
+(``csrc/conv_tile.cuh::plan_conv``) was fitted to.  Every plan's output is
+held against the plain version at 1e-4.  Results go to
+``chiprun_out/conv_sweep.json``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import json
+import sys
+from pathlib import Path
+
+import torch
+import torch.nn.functional as F
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+from chip_smoke import card_line, time_ms, train_conv_shapes  # noqa: E402
+from musicgan_tpu_torch.config import ModelConfig, TrainConfig  # noqa: E402
+from musicgan_tpu_torch.models.layers import upsample_nearest_2x  # noqa: E402
+from musicgan_tpu_torch.ops import _build  # noqa: E402
+from musicgan_tpu_torch.ops import conv as conv_ops  # noqa: E402
+
+TOL = 1e-4
+_build.NVCC_FLAGS = (*_build.NVCC_FLAGS, "-DMG_CONV_SWEEP")
+
+
+def force_plan(shape: int = 0, pixels_a_lane: int = 0, split_k: int = 0) -> None:
+    """Make K1-K3 take one shape (1 large, 2 small) and, for the small one,
+    pixels a lane and a cluster split over input channels; 0 for each
+    restores the launcher's own choice."""
+    for kind in ("conv3x3", "upconv3x3"):
+        fn = _build.load(kind).mg_conv_force
+        fn.argtypes = [ctypes.c_int] * 3
+        fn.restype = None
+        fn(shape, pixels_a_lane, split_k)
+
+
+def cases(cfg: ModelConfig) -> list:
+    """``(role, kind, (B, cin, cout, H, W), bias, slope, pixel_norm)``."""
+    gen, disc = train_conv_shapes(cfg, TrainConfig().batch_size, 7)
+    small = lambda shapes: [s for s in shapes if s[3] <= 64]  # noqa: E731
+    swap = lambda s: (s[0], s[2], s[1], s[3], s[4])  # noqa: E731
+    out = [("critic_fwd", "conv", s, True, 0.2, False) for s in small(disc)]
+    out += [("critic_dx", "conv", swap(s), False, None, False) for s in small(disc)]
+    out += [("gen_fwd", "msq", s, True, 0.2, True) for s in small(gen)]
+    out += [("gen_dx", "conv", swap(s), False, None, False) for s in small(gen[1:])]
+    for i, (c, o) in enumerate(cfg.gen_channels[:6]):
+        h, w = cfg.latent_height * 2**i, cfg.latent_width * 10 * 2**i
+        out += [("synth_k1", "conv", (5, c, c, h, w), True, 0.2, True),
+                ("synth_k3", "up", (5, c, o, h, w), True, 0.2, True)]
+    return out
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        sys.exit("torch_conv_sweep: no CUDA device")
+    card = card_line()
+    print(f"[card] {card}")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.build_all()
+    dev = torch.device("cuda")
+    rng = torch.Generator(device=dev).manual_seed(0)
+    rows = []
+    for role, kind, (b, cin, cout, h, w), bias, slope, pn in cases(ModelConfig()):
+        x = torch.randn(b, cin, h, w, generator=rng, device=dev)
+        wt = torch.randn(cout, cin, 3, 3, generator=rng, device=dev) / (9 * cin) ** 0.5
+        bb = torch.randn(cout, generator=rng, device=dev) * 0.1 if bias else None
+        if kind == "up":
+            wp, xl = conv_ops.kernel_upconv_weights(wt), upsample_nearest_2x(x)
+            kernel = lambda: conv_ops.fused_upconv3x3(x, wt, bb, slope, pn, w_packed=wp)  # noqa: E731
+            ref = conv_ops.upconv3x3_plain(x, wt, bb, slope, pn)
+        else:
+            wp, xl = conv_ops.kernel_weights(wt), x
+            if kind == "msq":
+                kernel = lambda: conv_ops.fused_conv3x3_msq(x, wt, bb, slope, w_packed=wp)[0]  # noqa: E731
+            else:
+                kernel = lambda: conv_ops.fused_conv3x3(x, wt, bb, slope, pn, w_packed=wp)  # noqa: E731
+            ref = conv_ops.conv3x3_plain(x, wt, bb, slope, pn)
+        plan = conv_ops.conv_plan("upconv3x3" if kind == "up" else "conv3x3", b, cin, cout, h, w, pn)
+        chosen = "large" if plan["shape"] == "large" else f"p{plan['pixels_a_lane']}s{plan['split_k']}"
+        plans = {}
+        forced = [("large", 1, 0, 0)] + [(f"p{p}s{s}", 2, p, s) for p in (1, 2, 4) for s in (1, 2, 4, 8)]
+        try:
+            for name, shape, p, s in forced:
+                force_plan(shape, p, s)
+                try:
+                    err = (kernel() - ref).abs().max().item()
+                except RuntimeError:  # a split the cluster cannot hold
+                    continue
+                if not err <= TOL:
+                    raise AssertionError(f"{role} {(b, cin, cout, h, w)} plan {name}: err {err:.2e}")
+                plans[name] = time_ms(kernel)
+        finally:
+            force_plan(0)
+        best = min(plans, key=plans.get)
+        row = {"role": role, "shape": [b, cin, cout, h, w], "chosen": chosen, "chosen_ms": time_ms(kernel),
+               "best": best, "best_ms": plans[best], "library_ms": time_ms(lambda: F.conv2d(xl, wt, bb, padding=1)),
+               "plans_ms": plans}
+        rows.append(row)
+        print(f"[sweep] {role:10s} {str((b, cin, cout, h, w)):24s} chosen {chosen:5s} {row['chosen_ms'] * 1e3:7.1f} us"
+              f"  best {best:5s} {row['best_ms'] * 1e3:7.1f}  F.conv2d {row['library_ms'] * 1e3:7.1f} | "
+              + " ".join(f"{k} {v * 1e3:.0f}" for k, v in plans.items()), flush=True)
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "conv_sweep.json").write_text(json.dumps({"card": card, "rows": rows}, indent=1))
+
+
+if __name__ == "__main__":
+    main()

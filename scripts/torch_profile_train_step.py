@@ -53,8 +53,12 @@ from musicgan_tpu_torch.train import optim, step as step_mod  # noqa: E402
 from scripts.torch_profile_synthesis import busy_us  # noqa: E402
 
 REPS = 3
-OWN_KERNEL = "conv_tile_kernel"
+OWN_KERNELS = ("conv_tile_kernel", "conv_flat_kernel")  # the conv template's two shapes
 LABEL = "mg:"
+
+
+def is_own(name: str) -> bool:
+    return any(k in name for k in OWN_KERNELS)
 
 
 def labelled(name, fn):
@@ -99,7 +103,7 @@ def instrument(roles: list):
         mock.patch.object(conv_vjp, "fused_conv3x3_msq", k2_logged),
         mock.patch.object(conv_vjp, "conv3x3_act_backward", backward_logged),
         mock.patch.object(conv_vjp, "_weight_grad", labelled("weight gradient (library)", conv_vjp._weight_grad)),
-        mock.patch.object(conv_ops, "pack_weights", labelled("weight packing", conv_ops.pack_weights)),
+        mock.patch.object(conv_ops, "kernel_weights", labelled("weight packing", conv_ops.kernel_weights)),
         mock.patch.object(optim.AdamPerLeaf, "update", labelled("Adam", optim.AdamPerLeaf.update)),
         mock.patch.object(step_mod, "grower_transform", labelled("input pipeline", transforms.grower_transform)),
     ]
@@ -148,9 +152,9 @@ def profile_kind(step, state, x, roles: list) -> dict:
     # The port's kernel by role: its launches in stream order against the
     # wrapper calls in call order.
     by_cat = defaultdict(lambda: [0.0, 0])
-    own = sorted((e for e in kernels if OWN_KERNEL in e.name), key=lambda e: e.time_range.start)
+    own = sorted((e for e in kernels if is_own(e.name)), key=lambda e: e.time_range.start)
     if len(own) != len(roles):
-        sys.exit(f"torch_profile_train_step: {len(own)} launches of {OWN_KERNEL} for {len(roles)} wrapper calls")
+        sys.exit(f"torch_profile_train_step: {len(own)} launches of {OWN_KERNELS} for {len(roles)} wrapper calls")
     for e, role in zip(own, roles):
         by_cat[role][0] += e.time_range.end - e.time_range.start
         by_cat[role][1] += 1
@@ -158,7 +162,7 @@ def profile_kind(step, state, x, roles: list) -> dict:
     attributed = 0.0
     for e in events:
         if e.device_type == torch.autograd.DeviceType.CPU and e.kernels and not e.name.startswith(LABEL):
-            kept = [k for k in e.kernels if OWN_KERNEL not in k.name]
+            kept = [k for k in e.kernels if not is_own(k.name)]
             t = sum(k.duration for k in kept)
             by_cat[region_of(e)][0] += t
             by_cat[region_of(e)][1] += len(kept)

@@ -72,7 +72,7 @@ def test_fused_block_plain_is_the_pair_and_takes_packed_weights():
         conv_ops.conv3x3_plain(xt, w1t, b1t, 0.2, True, 1e-8), w2t, b2t, 0.2, True, 1e-8)
     got = conv_ops.fused_block(
         xt, w1t, b1t, w2t, b2t, 0.2, 1e-8,
-        w1_packed=conv_ops.pack_weights(w1t), w2_packed=conv_ops.pack_upconv_weights(w2t))
+        w1_packed=conv_ops.kernel_weights(w1t), w2_packed=conv_ops.kernel_upconv_weights(w2t))
     assert torch.equal(got, pair)
     assert torch.equal(conv_ops.fused_block_plain(xt, w1t, b1t, w2t, b2t, 0.2, 1e-8), pair)
 

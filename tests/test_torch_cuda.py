@@ -59,9 +59,10 @@ BLOCK_SHAPES = [
 @pytest.mark.parametrize("b,cin,cmid,cout,h,w", BLOCK_SHAPES)
 def test_fused_block_kernel_matches_plain_and_the_pair(cuda, b, cin, cmid, cout, h, w, packed):
     """One launch of K4 against its plain version (2e-4: two convs compound)
-    and against K1 then K3, whose sums run in the same order (1e-6)."""
+    and, where K1 and K3 take the conv template's large-image shape at these
+    sizes, against K1 then K3, whose sums then run in K4's order (1e-6)."""
     x, w1, b1, w2, b2 = _block_inputs(2, b, cin, cmid, cout, h, w, cuda)
-    kw = dict(w1_packed=conv_ops.pack_weights(w1), w2_packed=conv_ops.pack_upconv_weights(w2)) if packed else {}
+    kw = dict(w1_packed=conv_ops.kernel_weights(w1), w2_packed=conv_ops.kernel_upconv_weights(w2)) if packed else {}
     n0 = (conv_ops.fused_block.launches, conv_ops.fused_conv3x3.launches, conv_ops.fused_upconv3x3.launches)
     got = conv_ops.fused_block(x, w1, b1, w2, b2, 0.2, 1e-8, **kw)
     torch.cuda.synchronize()
@@ -70,8 +71,26 @@ def test_fused_block_kernel_matches_plain_and_the_pair(cuda, b, cin, cmid, cout,
     assert got.shape == (b, cout, 2 * h, 2 * w)
     ref = conv_ops.fused_block_plain(x, w1, b1, w2, b2, 0.2, 1e-8)
     assert (got - ref).abs().max().item() < 2e-4
-    pair = conv_ops.fused_upconv3x3(
-        conv_ops.fused_conv3x3(x, w1, b1, 0.2, True, 1e-8), w2, b2, 0.2, True, 1e-8)
+    if _pair_is_large(b, cin, cmid, cout, h, w):
+        pair = conv_ops.fused_upconv3x3(
+            conv_ops.fused_conv3x3(x, w1, b1, 0.2, True, 1e-8), w2, b2, 0.2, True, 1e-8)
+        assert (got - pair).abs().max().item() < 1e-6
+
+
+def _pair_is_large(b, cin, cmid, cout, h, w) -> bool:
+    """K1 then K3 at a block's sizes both take the large-image shape."""
+    return (conv_ops.conv_plan("conv3x3", b, cin, cmid, h, w, True)["shape"] == "large"
+            and conv_ops.conv_plan("upconv3x3", b, cmid, cout, h, w, True)["shape"] == "large")
+
+
+@pytest.mark.parametrize("b,cin,cmid,cout,h,w", [(2, 16, 32, 16, 128, 160), (1, 48, 48, 32, 130, 300)])
+def test_fused_block_equals_the_pair_in_the_large_shape(cuda, b, cin, cmid, cout, h, w):
+    """Sizes at which K1 and K3 take the large-image shape: there K4 and the
+    pair sum the same products in the same order."""
+    assert _pair_is_large(b, cin, cmid, cout, h, w)
+    x, w1, b1, w2, b2 = _block_inputs(3, b, cin, cmid, cout, h, w, cuda)
+    got = conv_ops.fused_block(x, w1, b1, w2, b2, 0.2, 1e-8)
+    pair = conv_ops.fused_upconv3x3(conv_ops.fused_conv3x3(x, w1, b1, 0.2, True, 1e-8), w2, b2, 0.2, True, 1e-8)
     assert (got - pair).abs().max().item() < 1e-6
 
 
@@ -97,7 +116,7 @@ def test_fused_block_refuses_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError, match="float32"):
         conv_ops.fused_block(x.double(), w1, b1, w2, b2)
     with pytest.raises(ValueError, match="packed weights"):
-        conv_ops.fused_block(x, w1, b1, w2, b2, w1_packed=conv_ops.pack_weights(w2[:, :4]))
+        conv_ops.fused_block(x, w1, b1, w2, b2, w1_packed=conv_ops.kernel_weights(w2[:, :4]))
     with pytest.raises(ValueError, match="bias"):
         conv_ops.fused_block(x, w1, None, w2, b2)
     wide = torch.zeros(136, 8, 3, 3, device=cuda)
@@ -108,7 +127,8 @@ def test_fused_block_refuses_what_the_kernel_does_not_take(cuda):
 def test_generator_pallas_block_on_the_card(cuda):
     """The inference forward under ``conv_impl="pallas_block"``: K4 for the
     blocks that fit, K1 + K3 for the others, the same image as the default
-    path (K4 and the pair sum in one order)."""
+    path (blocks 5-7 are large enough that K1 and K3 take the template's
+    large shape, in which K4 and that pair sum in one order)."""
     import dataclasses
 
     from musicgan_tpu_torch.config import ModelConfig
@@ -117,7 +137,10 @@ def test_generator_pallas_block_on_the_card(cuda):
     cfg = ModelConfig(conv_impl="pallas_block")
     gen = Generator(cfg, device=cuda, seed=4)
     ref = Generator(dataclasses.replace(cfg, conv_impl="pallas_up"), device=cuda, seed=4)
-    z = torch.randn(2, 32, 2, 4, generator=torch.Generator(device=cuda).manual_seed(0), device=cuda)
+    z = torch.randn(2, 32, 2, 8, generator=torch.Generator(device=cuda).manual_seed(0), device=cuda)
+    for i in (5, 6, 7):
+        cin, cout = cfg.gen_channels[i]
+        assert _pair_is_large(2, cin, cin, cout, 2 * 2**i, 8 * 2**i)
     n0 = (conv_ops.fused_block.launches, conv_ops.fused_conv3x3.launches, conv_ops.fused_upconv3x3.launches)
     with torch.no_grad():
         got = gen.forward_nchw(z, 7)
@@ -148,13 +171,14 @@ def test_fused_conv3x3_kernel_matches_plain(cuda, b, cin, cout, h, w, epilogue):
     assert conv_ops.fused_conv3x3.launches == n0 + 1
     ref = conv_ops.conv3x3_plain(x, wt, bias, **kw)
     torch.testing.assert_close(got, ref, atol=1e-4, rtol=0)
-    prepacked = conv_ops.fused_conv3x3(x, wt, bias, **kw, w_packed=conv_ops.pack_weights(wt))
+    prepacked = conv_ops.fused_conv3x3(x, wt, bias, **kw, w_packed=conv_ops.kernel_weights(wt))
     torch.testing.assert_close(prepacked, got, atol=0, rtol=0)
 
 
-# Past 128 channels the kernel splits the channel groups over the grid (the
-# critic's last blocks: 144 and 160, at 2x2 and 1x1 pixels), with and
-# without a bias, and in the input-gradient role (cin > 128 too).
+# Past 128 channels the kernel splits the channel groups over several blocks
+# (the critic's last blocks: 144 and 160, at 2x2 and 1x1 pixels), with and
+# without a bias, and in the input-gradient role (cin > 128 too); with
+# PixelNorm those blocks are one cluster and share the per-pixel sums.
 WIDE_SHAPES = [
     (6, 128, 144, 2, 2), (6, 144, 144, 1, 1), (2, 144, 160, 5, 37),
     (6, 160, 160, 1, 1), (2, 160, 144, 9, 33), (1, 24, 272, 4, 40),
@@ -171,8 +195,9 @@ def test_fused_conv3x3_kernel_takes_more_than_128_channels(cuda, b, cin, cout, h
     torch.cuda.synchronize()
     ref = conv_ops.conv3x3_plain(x, wt, bvec, slope)
     torch.testing.assert_close(got, ref, atol=1e-4, rtol=0)
-    with pytest.raises(ValueError, match="PixelNorm"):
-        conv_ops.fused_conv3x3(x, wt, bvec, slope, pixel_norm=True)
+    got_pn = conv_ops.fused_conv3x3(x, wt, bvec, slope, pixel_norm=True)
+    ref_pn = conv_ops.conv3x3_plain(x, wt, bvec, slope, pixel_norm=True)
+    torch.testing.assert_close(got_pn, ref_pn, atol=1e-4, rtol=0)
 
 
 @pytest.mark.parametrize("b,cin,cout,h,w", CONV_SHAPES)
@@ -198,8 +223,6 @@ def test_conv3x3_act_gradients_match_plain_autograd(cuda, b, cin, cout, h, w, sl
     """The Function's three gradients (input gradient on K1, the library's
     weight gradient, the bias sum) against ordinary autograd through the
     plain version, each relative to the plain gradient's largest value."""
-    if pn and cout > conv_ops.MAX_COUT_PIXEL_NORM:
-        pytest.skip("PixelNorm is limited to 128 channels")
     x, wt, bias = _conv_inputs(6, b, cin, cout, h, w, cuda)
     cot = torch.tensor(
         np.random.default_rng(7).standard_normal((b, cout, h, w)), dtype=torch.float32, device=cuda
@@ -239,24 +262,141 @@ def test_fused_upconv3x3_kernel_matches_plain(cuda, b, cin, cout, h, w, epilogue
     ref = conv_ops.upconv3x3_plain(x, wt, bias, **kw)
     torch.testing.assert_close(got, ref, atol=1e-4, rtol=0)
     prepacked = conv_ops.fused_upconv3x3(
-        x, wt, bias, **kw, w_packed=conv_ops.pack_upconv_weights(wt)
+        x, wt, bias, **kw, w_packed=conv_ops.kernel_upconv_weights(wt)
     )
     torch.testing.assert_close(prepacked, got, atol=0, rtol=0)
 
 
-@pytest.mark.parametrize("b,t", [(1, 257), (3, 300), (2, 512)])
+@pytest.mark.parametrize("b,t", [
+    (1, 257), (3, 300), (2, 512),
+    *[(b, t) for t in (1, 2, 3, 4, 5, 17, 257, 300, 512, 5120) for b in (1, 3, 5, None)],
+])
 def test_istft_fused_kernel_matches_plain(cuda, b, t):
+    """K5 from one frame (no samples) to the synthesis length, batched and
+    unbatched (``b`` None), at the 2e-4 bar; and the same bits again."""
     rng = np.random.default_rng(2)
+    shape = (513, t) if b is None else (b, 513, t)
     re, im = (
-        torch.tensor(rng.standard_normal((b, 513, t)), dtype=torch.float32, device=cuda)
+        torch.tensor(rng.standard_normal(shape), dtype=torch.float32, device=cuda)
         for _ in range(2)
     )
     n0 = istft_ops.istft_fused.launches
     got = istft_ops.istft_fused(re, im)
     torch.cuda.synchronize()
-    assert istft_ops.istft_fused.launches == n0 + 1
+    assert istft_ops.istft_fused.launches == n0 + (t > 1)  # T = 1: no samples, no launch
     ref = istft_real_imag(re, im)
+    assert got.shape == ref.shape == (*shape[:-2], (t - 1) * 256)
     torch.testing.assert_close(got, ref, atol=2e-4, rtol=0)
+    assert torch.equal(istft_ops.istft_fused(re, im), got)
+
+
+def test_istft_fused_refuses_what_the_kernel_does_not_take(cuda):
+    """Outside the kernel's domain (no power of two, past 4096, a hop too
+    short for the frames a block transforms) the wrapper raises."""
+    assert [istft_ops.kernel_frames(n) for n in (8, 16, 1024, 2048, 4096, 8192, 1000)] == [0, 32, 32, 16, 8, 0, 0]
+    for n_fft, hop in [(1000, 250), (8192, 2048), (2048, 128), (4096, 512), (1024, 32)]:
+        re = torch.zeros(1, n_fft // 2 + 1, 8, device=cuda)
+        with pytest.raises(ValueError, match="n_fft"):
+            istft_ops.istft_fused(re, re, n_fft=n_fft, hop=hop)
+    with pytest.raises(ValueError, match="float32"):
+        istft_ops.istft_fused(torch.zeros(1, 513, 8, device=cuda).double(), torch.zeros(1, 513, 8, device=cuda))
+
+
+# Every transform length the kernel is built for, each at the hops of
+# r = 2, 4, 8 that its frames a block allow (r = 8 needs more than the 8 a
+# block holds at 4096), and r = 16 where a block holds 32.
+ISTFT_SIZES = [
+    (n_fft, n_fft // r) for n_fft in (16, 32, 64, 128, 256, 512, 2048, 4096) for r in (2, 4, 8)
+    if r < (32 if n_fft <= 1024 else 32768 // n_fft)
+] + [(64, 4), (512, 32), (1024, 64)]
+
+
+@pytest.mark.parametrize("n_fft,hop", ISTFT_SIZES)
+@pytest.mark.parametrize("b,t", [(3, 37), (None, 70), (2, 2)])
+def test_istft_fused_kernel_takes_any_power_of_two_n_fft(cuda, n_fft, hop, b, t):
+    """K5 at n_fft 16 to 4096 against the plain version at the 2e-4 bar,
+    and the same bits again."""
+    rng = np.random.default_rng(n_fft + hop)
+    shape = (n_fft // 2 + 1, t) if b is None else (b, n_fft // 2 + 1, t)
+    re, im = (
+        torch.tensor(rng.standard_normal(shape), dtype=torch.float32, device=cuda)
+        for _ in range(2)
+    )
+    got = istft_ops.istft_fused(re, im, n_fft, hop)
+    ref = istft_real_imag(re, im, n_fft, hop)
+    assert got.shape == ref.shape == (*shape[:-2], (t - 1) * hop)
+    torch.testing.assert_close(got, ref, atol=2e-4, rtol=0)
+    assert torch.equal(istft_ops.istft_fused(re, im, n_fft, hop), got)
+
+
+@pytest.mark.parametrize("n_fft", [64, 1024])
+def test_istft_fused_kernel_with_hop_n_fft(cuda, n_fft):
+    """r = 1 (hop = n_fft: the frames do not overlap, and the centring pad
+    is half a hop).  The envelope is the window squared, whose zeros turn
+    float32 rounding into large values, so the bar is relative to the
+    largest output."""
+    rng = np.random.default_rng(n_fft)
+    re, im = (
+        torch.tensor(rng.standard_normal((2, n_fft // 2 + 1, 9)), dtype=torch.float32, device=cuda)
+        for _ in range(2)
+    )
+    got = istft_ops.istft_fused(re, im, n_fft, n_fft)
+    ref = istft_real_imag(re, im, n_fft, n_fft)
+    assert got.shape == ref.shape == (2, 8 * n_fft)
+    assert float((got - ref).abs().max() / ref.abs().max()) < 1e-4
+
+
+# The small-image shape of the conv template: 1x1 to 32x32 at batch 1 and
+# 6, cin off the 8-channel step and off any split of it, cout 16 to 160.
+SMALL_SHAPES = [
+    (b, cin, cout, h, w)
+    for (h, w) in [(1, 1), (2, 2), (3, 5), (4, 4), (13, 37), (32, 32)]
+    for b, cin, cout in [(1, 37, 16), (6, 21, 48), (6, 131, 144), (1, 160, 160)]
+]
+
+
+@pytest.mark.parametrize("b,cin,cout,h,w", SMALL_SHAPES)
+def test_small_shape_k1_k2_k3_match_plain(cuda, b, cin, cout, h, w):
+    """K1 (with and without PixelNorm), K2 and K3 against their plain
+    versions at the small images, PixelNorm past 128 channels included."""
+    x, wt, bias = _conv_inputs(9, b, cin, cout, h, w, cuda)
+    for pn in (False, True):
+        got = conv_ops.fused_conv3x3(x, wt, bias, 0.2, pn)
+        torch.testing.assert_close(got, conv_ops.conv3x3_plain(x, wt, bias, 0.2, pn), atol=1e-4, rtol=0)
+        up = conv_ops.fused_upconv3x3(x, wt, bias, 0.2, pn)
+        torch.testing.assert_close(up, conv_ops.upconv3x3_plain(x, wt, bias, 0.2, pn), atol=1e-4, rtol=0)
+    y, m = conv_ops.fused_conv3x3_msq(x, wt, bias, 0.2, 1e-8)
+    y_ref, m_ref = conv_ops.conv3x3_msq_plain(x, wt, bias, 0.2, 1e-8)
+    torch.testing.assert_close(y, y_ref, atol=1e-4, rtol=0)
+    assert float((m - m_ref).abs().max() / m_ref.abs().max()) < 1e-4
+
+
+@pytest.mark.parametrize("b,cin,cout,h,w", [(6, 128, 128, 4, 4), (6, 144, 160, 2, 2), (6, 160, 160, 1, 1), (6, 80, 96, 32, 32)])
+def test_cluster_reduction_is_bit_for_bit_repeatable(cuda, b, cin, cout, h, w):
+    """The small shape sums the cluster's partial tiles in rank order: the
+    same inputs give the same bits, run after run (here with PixelNorm's
+    cross-block sums and K2's map too)."""
+    x, wt, bias = _conv_inputs(10, b, cin, cout, h, w, cuda)
+    plan = conv_ops.conv_plan("conv3x3", b, cin, cout, h, w, True)
+    assert plan["shape"] == "small" and plan["cluster"] > 1
+    first = conv_ops.fused_conv3x3_msq(x, wt, bias, 0.2, 1e-8)
+    for _ in range(3):
+        again = conv_ops.fused_conv3x3_msq(x, wt, bias, 0.2, 1e-8)
+        assert all(torch.equal(a, c) for a, c in zip(first, again))
+
+
+def test_conv_plan_takes_the_small_shape_up_to_32x32(cuda):
+    """The launcher's rule at the critic's stage-7 widths (batch 6): the
+    small shape up to 32x32, with a cluster split over input channels on
+    the images of a few pixels; the large shape from 64x64."""
+    plans = {
+        h: conv_ops.conv_plan("conv3x3", 6, cin, cout, h, h, False)
+        for cin, cout, h in [(64, 80, 64), (80, 96, 32), (96, 112, 16), (112, 128, 8), (128, 144, 4), (160, 160, 1)]
+    }
+    assert plans[64]["shape"] == "large"
+    assert all(plans[h]["shape"] == "small" for h in (32, 16, 8, 4, 1))
+    assert all(plans[h]["split_k"] > 1 for h in (8, 4, 1))
+    assert plans[4]["nsplit"] == 2 and plans[4]["cluster"] <= 8
 
 
 def test_kernels_reject_a_wrong_dtype(cuda):

@@ -83,23 +83,22 @@ def test_generator_init_is_seeded():
 def test_generator_packs_weights_once_and_again_after_a_change():
     """A block packs its conv weights for the kernels once; an in-place
     change of a weight (an optimizer step, ``load_state_dict``) repacks."""
-    from musicgan_tpu_torch.ops.conv import pack_upconv_weights, pack_weights
+    from musicgan_tpu_torch.ops.conv import kernel_upconv_weights, kernel_weights
 
     blk = Generator(_torch_cfg(TINY_MODEL)).blocks[1]
-    p1 = blk._packed("conv1", pack_weights)
-    assert blk._packed("conv1", pack_weights) is p1
-    torch.testing.assert_close(p1, pack_weights(blk.conv1.weight.detach()), atol=0, rtol=0)
+    p1 = blk._packed("conv1")
+    assert blk._packed("conv1") is p1
+    torch.testing.assert_close(p1, kernel_weights(blk.conv1.weight.detach()), atol=0, rtol=0)
     with torch.no_grad():
         blk.conv1.weight.mul_(2.0)
-    p2 = blk._packed("conv1", pack_weights)
+    p2 = blk._packed("conv1")
     torch.testing.assert_close(p2, 2.0 * p1, atol=0, rtol=0)
-    p3 = blk._packed("conv2", pack_upconv_weights)
+    p3 = blk._packed("conv2")
     blk.load_state_dict({k: v + 1.0 for k, v in blk.state_dict().items()})
     torch.testing.assert_close(
-        blk._packed("conv2", pack_upconv_weights),
-        pack_upconv_weights(blk.conv2.weight.detach()), atol=0, rtol=0,
+        blk._packed("conv2"), kernel_upconv_weights(blk.conv2.weight.detach()), atol=0, rtol=0,
     )
-    assert not torch.equal(blk._packed("conv2", pack_upconv_weights), p3)
+    assert not torch.equal(blk._packed("conv2"), p3)
 
 
 def test_load_reference_generator_matches_jax_loader():
