@@ -20,6 +20,13 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src, bool va
                "r"(valid ? 16 : 0));
 }
 
+// The same, caching in L2 only (data that a block reads once).
+__device__ __forceinline__ void cp_async16_cg(float* dst, const float* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+
 // Close the group of this thread's cp.async issued since the last commit.
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");

@@ -3,7 +3,8 @@
 // K2: the same with PixelNorm on, also writing the pre-norm mean_c(u^2) map
 // that the backward pass needs.  Replaces
 // musicgan_tpu/ops/conv.py::fused_conv3x3_msq (_kernel with emit_msq).
-// The kernel body of both is conv_tile_kernel<3> in conv_tile.cuh.
+// The kernel of both is conv_tile.cuh's template at K = 3: conv_tc_kernel
+// (large images, 3xTF32 on the tensor cores) or conv_flat_kernel (small).
 #include "conv_tile.cuh"
 
 // x: (B, cin, H, W); w: (cin, 9, coutp) from kernel_weights; bias: (cout,)

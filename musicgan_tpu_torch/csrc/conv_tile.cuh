@@ -1,40 +1,85 @@
 // Direct 3x3 convolution with a fused bias / LeakyReLU / PixelNorm epilogue,
-// float32 on the CUDA cores (FMA; no TF32, no tensor cores yet).
+// in two shapes: large images as an implicit GEMM on the tensor cores in
+// 3xTF32, small images in float32 on the CUDA cores.
 //
 // One template serves three kernels:
 //   K = 3: the 3x3 'SAME' conv, and the same also storing the pre-PixelNorm
 //          mean-square map                         (conv3x3.cu,   K1, K2)
-//   K = 2: one sub-pixel phase of conv3x3(up2x(x)) (upconv3x3.cu, K3)
-// The up-conv's four phases are four slices of the grid (nphase = 4):
-// PixelNorm reduces over the channels of one output pixel, and each output
-// pixel belongs to exactly one phase, so a block owns one phase of its tile
-// and writes it straight to (2i+a, 2j+b); the 4x-sized upsampled tensor
-// never exists.
+//   K = 2: conv3x3(up2x(x)) as four sub-pixel phase convs with 2x2 kernels
+//                                                  (upconv3x3.cu, K3)
+// Replaces musicgan_tpu/ops/conv.py::_kernel (K1, K2 with emit_msq) and
+// ::_upconv_kernel (K3).  PixelNorm reduces over the channels of one output
+// pixel, and each output pixel belongs to exactly one phase, so phase
+// results go straight to (2i+a, 2j+b); the 4x-sized upsampled tensor never
+// exists.
 //
 // Weights come in the kernel layout of ops/conv.py::kernel_weights:
 // (nphase, cin, K*K, coutp), coutp = cout rounded up to 16 with zeros, so
 // the weights of one input channel and one tap for a block's channels are
-// one contiguous run, staged with 16-byte cp.async.
+// one contiguous run.
 //
-// Output channels go to warps 16 at a time (a channel group, CO); up to 8
-// groups share a block.  Past 8 * 16 = 128 channels the groups are split
-// over nsplit blocks of the same pixels.  PixelNorm needs every channel of a
-// pixel: those blocks form one thread-block cluster, and each adds the
-// others' per-pixel sums of u^2 through distributed shared memory, in rank
-// order, so the result does not depend on scheduling.  PixelNorm therefore
-// takes any cout up to 8 * 128 (a portable cluster of 8).
+// Output channels go to a block 16 at a time (a channel group, CO), up to 8
+// groups.  Past 8 * 16 = 128 channels the groups are split over nsplit
+// blocks of the same pixels.  PixelNorm needs every channel of a pixel:
+// those blocks form one thread-block cluster, and each adds the others'
+// per-pixel sums of u^2 through distributed shared memory, in rank order,
+// so the result does not depend on scheduling.  PixelNorm therefore takes
+// any cout up to 8 * 128 (a portable cluster of 8).
 //
-// Two shapes, chosen by plan_conv from the sizes:
+// Two shapes, chosen by plan_conv from the sizes (no timing, so a launch
+// sums in the same order run after run):
 //
-//   large images (conv_tile_kernel): a block owns a tile of 32 columns x TH
-//     rows of one image, a lane one column and 4 rows of it, a warp 16
-//     channels; input channels stream through shared memory 8 at a time,
-//     the (TH + 2) x 34 halo tile zero-filled outside the image.  64
-//     accumulators a thread, one weight load per 16 FMAs: what bounds it is
-//     float32 operations, at 23-51% of the card's FP32 peak.
+//   large images (conv_tc_kernel; taken once its tiles fill half the SMs,
+//     from 32x32 at the train step's widths): an implicit GEMM, M = 64
+//     pixels of one image row, N = the block's output channels, K = taps x
+//     input channels, in warpgroup products (wgmma m64nNk8, TF32).  What
+//     bounds it: operations, 3 TF32 products per float32 product against
+//     the card's 495 TFLOP/s (K3 at 512 x 5120: bytes).  The design:
+//     - no im2col: for a tap (dy, dx) the A operand is the staged halo tile
+//       shifted by (dy, dx) (for K3, by the phase's offset too); input
+//       channels are staged as planes [8][rows + 2][72], the image columns
+//       c0-4 .. c0+67, so that 16-byte copies stay aligned;
+//     - 3xTF32 for float32 accuracy (plain TF32 keeps about 3 digits, and
+//       the penalty regularises an input gradient): each operand is split
+//       into big = tf32(v) and small = tf32(v - big), both rounded to
+//       nearest, and a product is big*big + big*small + small*big.  A comes
+//       from registers: a thread loads its fragment (4 channels x 2 pixels)
+//       from the planes, conflict-free (a plane is 8 words mod 32), splits
+//       it there, and the fragment of one input row and column shift serves
+//       every accumulator tile (row, phase) that needs it.  B, K-major as
+//       wgmma wants tf32, is [tap][channel quad][n][4] in shared memory,
+//       no swizzle, big and small planes;
+//     - the tensor cores' additions truncate: a chain of 27 * cin / 8
+//       products into one accumulator drifts towards zero (on an H100 at
+//       cin 272 by 4.7e-4, 9x the float32 plain version's error against
+//       float64).  So the products of each fragment row (up to 3 taps x 3
+//       terms a tile) go to a fresh accumulator
+//       that is then added to the tile's in float32, round to nearest: on
+//       the H100 the kernel is then nearer float64 than cuDNN's float32
+//       conv (1.5e-5 against 5.4e-5 at cin 272), at 10-17% of its time
+//       against a fresh accumulator a chunk of 8 channels;
+//     - warp-specialised and persistent: one block an SM walks its share of
+//       the tiles; a producer warpgroup stages chunks into a ring of 2-4
+//       stages (the input by cp.async, the weights loaded one chunk ahead,
+//       split and transposed in registers) and hands each over and back by
+//       named barriers, so copies, splits and a tile's epilogue overlap the
+//       two consumer warpgroups' products;
+//     - tiles: a consumer warpgroup holds 8, 4, 2 or 1 m64 accumulator
+//       tiles at 16, 32, 64, 128 channels; K3 holds a row's four phases in
+//       one block up to 32 channels (the input halo staged once; its output
+//       rows leave as 8-byte pairs of both column phases), two at 48-64;
+//     - the epilogue (bias, LeakyReLU, PixelNorm: the thread's channels,
+//       the quad's lanes, the cluster's blocks in rank order) runs in
+//       float32 from the registers, stores 32-byte runs (8 pixels of a
+//       channel) straight from them, so the ring runs on into the next tile;
+//     - nvcc -Xptxas -v (CUDA 12.9, sm_90a): 168 registers a thread (384
+//       threads, one block an SM); spills of 0-56 bytes a thread at every
+//       width but K3's 64 channels (240 bytes, synthesis block 4) and K1's
+//       128 (88, on no path); no serialised wgmma; dynamic shared memory
+//       164-218 KB (K1), 118-169 KB (K3).
 //
-//   small images (conv_flat_kernel; taken when the large shape's grid would
-//     fill less than half the SMs): what bounds these convs is not
+//   small images (conv_flat_kernel; taken when the large shape's tiles
+//     would fill less than half the SMs): what bounds these convs is not
 //     arithmetic (a few MFLOP, microseconds at the FP32 peak) but latency: a
 //     chain of serial steps over the input channels in too few blocks,
 //     each step staging weights.  So:
@@ -66,6 +111,8 @@
 #include <cooperative_groups.h>
 
 #include <algorithm>
+#include <cstdint>
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -78,172 +125,543 @@ constexpr int MAX_CG = 8;      // channel groups (warps of CO channels) per bloc
 constexpr int MAX_CLUSTER = 8; // blocks of a portable cluster
 
 // ---------------------------------------------------------------------------
-// Large images.
+// Large images: an implicit GEMM on the tensor cores in 3xTF32.
+//
+// Warpgroup matrix products of m64 x N x k8 in TF32, A (8 input channels of
+// 64 consecutive pixels of one image row) from registers, B (8 input
+// channels x N output channels of one tap) from shared memory.  Each operand
+// is split into big = tf32(v) and small = tf32(v - big) and a product is
+// summed as big*big + big*small + small*big into one float32 accumulator.
+template <int N>
+struct Wgmma;
+
+template <>
+struct Wgmma<16> {
+  static __device__ __forceinline__ void mma(float (&d)[8], const uint32_t (&a)[4], uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "{%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<32> {
+  static __device__ __forceinline__ void mma(float (&d)[16], const uint32_t (&a)[4], uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<48> {
+  static __device__ __forceinline__ void mma(float (&d)[24], const uint32_t (&a)[4], uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n48k8.f32.tf32.tf32 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23}, "
+        "{%24, %25, %26, %27}, %28, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<64> {
+  static __device__ __forceinline__ void mma(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<80> {
+  static __device__ __forceinline__ void mma(float (&d)[40], const uint32_t (&a)[4], uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n80k8.f32.tf32.tf32 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39}, "
+        "{%40, %41, %42, %43}, %44, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<96> {
+  static __device__ __forceinline__ void mma(float (&d)[48], const uint32_t (&a)[4], uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n96k8.f32.tf32.tf32 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
+        "{%48, %49, %50, %51}, %52, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<112> {
+  static __device__ __forceinline__ void mma(float (&d)[56], const uint32_t (&a)[4], uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %61, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n112k8.f32.tf32.tf32 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55}, "
+        "{%56, %57, %58, %59}, %60, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<128> {
+  static __device__ __forceinline__ void mma(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+__device__ __forceinline__ uint32_t to_tf32(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return r;
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int PENDING>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(PENDING) : "memory");
+}
+// Keeps the compiler from moving reads or writes of an accumulator across
+// the asynchronous products.
+__device__ __forceinline__ void fence_operand(float& r) { asm volatile("" : "+f"(r)::"memory"); }
+// Generic-proxy writes to shared memory made visible to wgmma's reads.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// Shared-memory matrix descriptor, no swizzle, K-major: core matrices of 8
+// rows x 16 bytes; lbo: bytes between the two core matrices along K, sbo:
+// bytes between core matrices 8 rows apart.
+__device__ __forceinline__ uint64_t smem_desc(const float* p, uint32_t lbo, uint32_t sbo) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  return (uint64_t)((a & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(sbo >> 4) << 32);
+}
+
+constexpr int TC_W = 64;          // tile columns: the 64 rows of one wgmma
+constexpr int TC_SW = TC_W + 8;   // staged columns, image columns c0-4 .. c0+67
+constexpr int TC_CK = 8;          // input channels a stage: one k8 step
+constexpr int TC_WG = 2;          // consumer warpgroups a block (the products)
+constexpr int TC_THREADS = 128 * (TC_WG + 1);  // and one producer warpgroup (the copies)
+constexpr int TC_SMEM_BUDGET = 220 * 1024;      // bytes of stages and sums a block
+
+// The large shape's geometry at N output channels a block, for K = 3 (K1,
+// K2) and K = 2 (K3).  tiles: m64 accumulator tiles a consumer warpgroup
+// holds (at most 64 floats a thread); ppb: K3's phases a block (the tiles of
+// one input row are its phases where they fit); rows: image rows a
+// warpgroup owns; th: rows a tile; nt: weight taps a stage holds; plane: an
+// input channel's staged halo tile; stage: a stage's input and split
+// weights; stages: as many as the budget holds, 2 to 4.
+struct TcGeom {
+  int tiles, ppb, rows, th, nt, plane, bsplit, stage, stages, floats;
+};
+__host__ __device__ constexpr TcGeom tc_geom(int K, int N) {
+  const int tiles = N <= 16 ? 8 : N <= 32 ? 4 : N <= 64 ? 2 : 1;
+  const int ppb = K == 2 ? (tiles < 4 ? tiles : 4) : 1;
+  const int rows = tiles / ppb, th = TC_WG * rows;
+  const int nt = K == 3 ? 9 : 4 * ppb;
+  const int sh = th + 2;
+  // Padded to 8 words mod 32, so that a fragment's 4 channels x 8 pixels
+  // fall in 32 distinct banks.
+  const int plane = (sh * TC_SW + 23) / 32 * 32 + 8;
+  const int bsplit = nt * TC_CK * N;  // one of the two split weight planes
+  const int stage = TC_CK * plane + 2 * bsplit;
+  const int part = 2 * TC_WG * tiles * TC_W;
+  const int fit = (TC_SMEM_BUDGET / 4 - part) / stage;
+  const int stages = fit > 4 ? 4 : fit;
+  return TcGeom{tiles, ppb, rows, th, nt, plane, bsplit, stage, stages, stages * stage + part};
+}
+
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
 // x: (B, cin, H, W); w: kernel layout; bias: (cout,) or null for none;
 // y: (B, cout, H, W), or (B, cout, 2H, 2W) when nphase == 4; msq: null, or
 // (B, 1, H, W) to receive the pre-norm mean over channels of u^2 (K2; needs
-// pixel_norm and nphase == 1).  With PixelNorm and nsplit > 1 the nsplit
-// blocks of a tile are one cluster along z.
-template <int K, int ROWS, int CK>
-__global__ void __launch_bounds__(256, 2)
-conv_tile_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                 const float* __restrict__ bias, float* __restrict__ y,
-                 float* __restrict__ msq, int cin, int cout, int coutp, int H, int W,
-                 int rg, int nphase, int nsplit, float slope, int use_slope,
-                 int pixel_norm, float eps) {
-  extern __shared__ float4 smem4[];
+// pixel_norm and nphase == 1).  Persistent: block x = cluster * nsplit +
+// split walks the tiles cluster, cluster + clusters, ... of the ntx x nty x
+// nz tiles (columns fastest; nz = B * phase groups), each 64 columns x th
+// rows of one image and phase group, for the split's N output channels.
+// With PixelNorm and nsplit > 1 the nsplit blocks of a tile are one cluster.
+//
+// Warp-specialised: the producer warpgroup stages the block's sequence of
+// chunks (a tile's 8 input channels each) into a ring of stages, a stage
+// at a time: the input by cp.async, the weights loaded, split into big and
+// small and transposed to K-major; it hands a stage over by a named
+// barrier (full) and takes it back by another (empty).  The two consumer
+// warpgroups multiply and run the epilogue.
+template <int K, int N>
+__global__ void __launch_bounds__(TC_THREADS, 1)
+conv_tc_kernel(const float* __restrict__ x, const float* __restrict__ w,
+               const float* __restrict__ bias, float* __restrict__ y,
+               float* __restrict__ msq, int cin, int cout, int coutp, int H, int W,
+               int nphase, int nsplit, int ntx, int nty, int nz, float slope, int use_slope,
+               int pixel_norm, float eps) {
+  constexpr TcGeom G = tc_geom(K, N);
+  constexpr int T = G.tiles, PPB = G.ppb, RW = G.rows, TH = G.th, NT = G.nt, S = G.stages;
+  constexpr int SH = TH + 2, ND = N / 2;
+  static_assert(S >= 2, "two stages must fit");
+  // Named barriers (0 is __syncthreads'): stage s full 1 + s, empty 1 + S
+  // + s (producer and consumers, all TC_THREADS); the producer's own.
+  constexpr int FULL = 1, EMPTY = 1 + S, PRODUCER = 1 + 2 * S;
+  extern __shared__ __align__(128) float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  constexpr int KK = K * K;
-  constexpr int TW = 32, SW = TW + 2;
-  const int cg = blockDim.x / (32 * rg);
-  const int TH = ROWS * rg;
-  const int SH = TH + 2;
-  const int COP = cg * CO;
-  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-  const int col = lane;
-  const int cgi = wid % cg, rbase = (wid / cg) * ROWS;
-  const int c0 = blockIdx.x * TW, r0 = blockIdx.y * TH;
-  const int zi = blockIdx.z / nsplit, split = blockIdx.z % nsplit;
-  const int co_base = split * COP;  // first channel of this block
-  const int b = zi / nphase, ph = zi % nphase;
-  const int oy = ph >> 1, ox = ph & 1;  // both 0 for the plain 3x3 conv
-  const float* xb = x + (size_t)b * cin * H * W;
-  const float* wp = w + (size_t)ph * cin * KK * coutp;
-  float* in_s = smem;                   // [CK][SH][SW], row 0 = image row r0-1
-  float* w_s = smem + ((CK * SH * SW + 3) & ~3);  // [KK][CK][COP], 16-byte aligned
+  // Stage s: input [8][plane], then big and small weights [NT][2][N][4]
+  // (K-major, 128-byte core matrices); then PixelNorm's sums, 2 x [WG][T][64].
+  float* part = smem + S * G.stage;
 
-  float acc[ROWS][CO];
-#pragma unroll
-  for (int p = 0; p < ROWS; ++p)
-#pragma unroll
-    for (int k = 0; k < CO; ++k) acc[p][k] = 0.f;
+  const int tid = threadIdx.x, lane = tid & 31, wq = (tid >> 5) & 3, wg = tid >> 7;
+  const int g = lane >> 2, t = lane & 3;
+  const int split = blockIdx.x % nsplit, cid = blockIdx.x / nsplit, ncl = gridDim.x / nsplit;
+  const int nphg = nphase / PPB;
+  const int co_base = split * N;
+  const int ntiles = ntx * nty * nz;
+  const int my_tiles = cid < ntiles ? (ntiles - cid + ncl - 1) / ncl : 0;
+  const int nchunks = (cin + TC_CK - 1) / TC_CK;
+  const int total = my_tiles * nchunks;
+  const bool clustered = pixel_norm && nsplit > 1;
 
-  for (int ci0 = 0; ci0 < cin; ci0 += CK) {
-    // Stage the chunk with every copy in flight at once: a thread takes
-    // positions of the halo tile and copies each for the CK channels.
-    for (int e = threadIdx.x; e < SH * SW; e += blockDim.x) {
-      const int rl = e / SW, gr = r0 - 1 + rl, gc = c0 - 1 + (e - rl * SW);
-      const bool inside = gr >= 0 && gr < H && gc >= 0 && gc < W;
-      const float* src = xb + (inside ? (size_t)gr * W + gc : 0);
-#pragma unroll
-      for (int ci = 0; ci < CK; ++ci) {
-        const bool ok = inside && ci0 + ci < cin;
-        cp_async4(in_s + ci * SH * SW + e, ok ? src + (size_t)(ci0 + ci) * H * W : xb, ok);
-      }
-    }
-    const int q4 = COP / 4;
-    for (int i = threadIdx.x; i < KK * CK * q4; i += blockDim.x) {
-      const int j4 = i % q4, t = i / q4, cil = t % CK, tap = t / CK;
-      const int c = ci0 + cil, co = co_base + 4 * j4;
-      const bool ok = c < cin && co < coutp;
-      cp_async16(w_s + t * COP + 4 * j4, ok ? wp + ((size_t)c * KK + tap) * coutp + co : wp, ok);
-    }
-    cp_async_wait_all();
-    __syncthreads();
-#pragma unroll 2
-    for (int ci = 0; ci < CK; ++ci) {
-      const float* src = in_s + (ci * SH + rbase + oy) * SW + col + ox;
-#pragma unroll
-      for (int dx = 0; dx < K; ++dx) {
-        float v[ROWS + K - 1];
-#pragma unroll
-        for (int j = 0; j < ROWS + K - 1; ++j) v[j] = src[j * SW + dx];
-#pragma unroll
-        for (int dy = 0; dy < K; ++dy) {
-          const float4* wv = reinterpret_cast<const float4*>(
-              w_s + ((dy * K + dx) * CK + ci) * COP + cgi * CO);
-          float wr[CO];
-#pragma unroll
-          for (int q = 0; q < CO / 4; ++q) {
-            const float4 t4 = wv[q];
-            wr[4 * q] = t4.x;
-            wr[4 * q + 1] = t4.y;
-            wr[4 * q + 2] = t4.z;
-            wr[4 * q + 3] = t4.w;
-          }
-#pragma unroll
-          for (int p = 0; p < ROWS; ++p)
-#pragma unroll
-            for (int k = 0; k < CO; ++k)
-              acc[p][k] = fmaf(v[p + dy], wr[k], acc[p][k]);
+  struct Tile {
+    int c0, r0, b, ph0;
+  };
+  auto tile_of = [&](int it) {
+    const int tl = cid + it * ncl;
+    const int bx = tl % ntx, rest = tl / ntx, by = rest % nty, zi = rest / nty;
+    return Tile{bx * TC_W, by * TH, zi / nphg, (zi % nphg) * PPB};
+  };
+
+  if (wg == TC_WG) {
+    // ---- The producer. ----
+    const int pt = tid - 128 * TC_WG;
+    const bool vec = (W & 3) == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+    // Copies of chunk q's halo tile (zero outside the image and past cin).
+    auto issue = [&](int q) {
+      const Tile tq = tile_of(q / nchunks);
+      const int ci0 = (q % nchunks) * TC_CK;
+      const float* xb = x + (size_t)tq.b * cin * H * W;
+      float* a_s = smem + (q % S) * G.stage;
+      if (vec) {  // 16-byte runs, each wholly inside or outside the image
+        for (int e = pt; e < TC_CK * SH * (TC_SW / 4); e += 128) {
+          const int qq = e % (TC_SW / 4), tt = e / (TC_SW / 4), rl = tt % SH, ci = tt / SH;
+          const int gr = tq.r0 - 1 + rl, gc = tq.c0 - 4 + 4 * qq, c = ci0 + ci;
+          const bool ok = c < cin && gr >= 0 && gr < H && gc >= 0 && gc < W;
+          cp_async16_cg(a_s + ci * G.plane + rl * TC_SW + 4 * qq,
+                        ok ? xb + ((size_t)c * H + gr) * W + gc : x, ok);
+        }
+      } else {
+        for (int e = pt; e < TC_CK * SH * TC_SW; e += 128) {
+          const int qq = e % TC_SW, tt = e / TC_SW, rl = tt % SH, ci = tt / SH;
+          const int gr = tq.r0 - 1 + rl, gc = tq.c0 - 4 + qq, c = ci0 + ci;
+          const bool ok = c < cin && gr >= 0 && gr < H && gc >= 0 && gc < W;
+          cp_async4(a_s + ci * G.plane + rl * TC_SW + qq,
+                    ok ? xb + ((size_t)c * H + gr) * W + gc : x, ok);
         }
       }
+    };
+    // Chunk q's weights into registers (zero past cin and coutp): a thread's
+    // r-th (tap, channel quad, output channel) is e = 128 * r + pt, the
+    // output channel fastest, so that a warp's loads are runs of channels.
+    constexpr int WREGS = (NT * 2 * N + 127) / 128;
+    float wv[WREGS][4];
+    auto load_weights = [&](int q) {
+      const Tile tq = tile_of(q / nchunks);
+      const int ci0 = (q % nchunks) * TC_CK;
+#pragma unroll
+      for (int r = 0; r < WREGS; ++r) {
+        const int e = r * 128 + pt;
+        const int n = e % N, tt = e / N, cq = tt & 1, tap = tt >> 1;
+        const int co = co_base + n;
+#pragma unroll
+        for (int c4 = 0; c4 < 4; ++c4) {
+          const int c = ci0 + 4 * cq + c4;
+          const float* src = K == 3 ? w + ((size_t)c * 9 + tap) * coutp + co
+                                    : w + (((size_t)(tq.ph0 + tap / 4) * cin + c) * 4 + tap % 4) * coutp + co;
+          wv[r][c4] = e < NT * 2 * N && c < cin && co < coutp ? __ldg(src) : 0.f;
+        }
+      }
+    };
+    // One commit group a chunk: chunk q is group q.  The first S are
+    // issued here, chunk q + S when the consumers give back chunk q's stage.
+#pragma unroll
+    for (int k = 0; k < S; ++k) {
+      if (k < total) issue(k);
+      cp_async_commit();
     }
-    __syncthreads();
+    if (total > 0) load_weights(0);
+    for (int k = 0; k < total; ++k) {
+      if (k == 0)
+        cp_async_wait<S - 1>();
+      else
+        cp_async_wait<S - 2>();
+      bar_sync(PRODUCER, 128);  // chunk k's input landed, every producer thread's copies
+      // Its weights (loaded one chunk ahead, below): a thread takes one
+      // (tap, channel quad, output channel) at a time and writes the 4 input
+      // channels' big and small values as one 16-byte word each of
+      // [tap][quad][n][4].
+      float* b_big = smem + (k % S) * G.stage + TC_CK * G.plane;
+      float* b_small = b_big + G.bsplit;
+#pragma unroll
+      for (int r = 0; r < WREGS; ++r) {
+        const int e = r * 128 + pt;
+        if (e < NT * 2 * N) {
+          float hi[4], lo[4];
+#pragma unroll
+          for (int c4 = 0; c4 < 4; ++c4) {
+            hi[c4] = __uint_as_float(to_tf32(wv[r][c4]));
+            lo[c4] = __uint_as_float(to_tf32(wv[r][c4] - hi[c4]));
+          }
+          reinterpret_cast<float4*>(b_big)[e] = make_float4(hi[0], hi[1], hi[2], hi[3]);
+          reinterpret_cast<float4*>(b_small)[e] = make_float4(lo[0], lo[1], lo[2], lo[3]);
+        }
+      }
+      if (k + 1 < total) load_weights(k + 1);
+      fence_proxy_async();  // the split weights are read by wgmma
+      bar_arrive(FULL + k % S, TC_THREADS);
+      if (k >= 1) {
+        const int kn = k - 1 + S;
+        if (kn < total) {
+          bar_sync(EMPTY + (k - 1) % S, TC_THREADS);
+          issue(kn);
+        }
+        cp_async_commit();
+      }
+      if (clustered && k % nchunks == nchunks - 1) coop::this_cluster().sync();  // the tile's exchange
+    }
+    if (clustered) coop::this_cluster().sync();
+    return;
   }
 
-  // Epilogue in float32: bias, LeakyReLU, PixelNorm over all cout channels.
+  // ---- The consumers. ----
+  for (int it = 0; it < my_tiles; ++it) {
+    const Tile tc = tile_of(it);
+    const int c0 = tc.c0, r0 = tc.r0, b = tc.b, ph0 = tc.ph0;
+    float acc[T][ND];
 #pragma unroll
-  for (int k = 0; k < CO; ++k) {
-    const int co = co_base + cgi * CO + k;
-    const float bk = (bias != nullptr && co < cout) ? bias[co] : 0.f;
+    for (int u = 0; u < T; ++u)
 #pragma unroll
-    for (int p = 0; p < ROWS; ++p) {
-      float u = acc[p][k] + bk;
-      if (use_slope) u = u >= 0.f ? u : slope * u;
-      acc[p][k] = u;
-    }
-  }
-  const bool clustered = pixel_norm && nsplit > 1;
-  if (pixel_norm) {
-    // Channel groups meet in shared memory ([cg][TH][TW], over the staging
-    // buffers, which the last __syncthreads above released), then the
-    // block's sum over its channels ([TH][TW]) meets the other splits'.
-    // Padded channels are 0.
-    float* red = smem;
-    float* part = smem + cg * TH * TW;
-#pragma unroll
-    for (int p = 0; p < ROWS; ++p) {
-      float s = 0.f;
-#pragma unroll
-      for (int k = 0; k < CO; ++k) s = fmaf(acc[p][k], acc[p][k], s);
-      red[(cgi * TH + rbase + p) * TW + col] = s;
-    }
-    __syncthreads();
-    float sum[ROWS];
-#pragma unroll
-    for (int p = 0; p < ROWS; ++p) {
-      float s = 0.f;
-      for (int g = 0; g < cg; ++g) s += red[(g * TH + rbase + p) * TW + col];
-      sum[p] = s;
-      if (clustered && cgi == 0) part[(rbase + p) * TW + col] = s;
-    }
-    if (clustered) {
-      coop::cluster_group cluster = coop::this_cluster();
-      cluster.sync();
-#pragma unroll
-      for (int p = 0; p < ROWS; ++p) {
-        float s = 0.f;
-        for (int k = 0; k < nsplit; ++k)
-          s += cluster.map_shared_rank(part, k)[(rbase + p) * TW + col];
-        sum[p] = s;
-      }
-    }
-#pragma unroll
-    for (int p = 0; p < ROWS; ++p) {
-      const float m = sum[p] / (float)cout;
-      if (msq != nullptr && cgi == 0 && split == 0) {
-        const int r = r0 + rbase + p, c = c0 + col;
-        if (r < H && c < W) msq[((size_t)b * H + r) * W + c] = m;
-      }
-      const float scale = rsqrtf(m + eps);
-#pragma unroll
-      for (int k = 0; k < CO; ++k) acc[p][k] *= scale;
-    }
-  }
+      for (int k = 0; k < ND; ++k) acc[u][k] = 0.f;
 
-  const int st = nphase == 4 ? 2 : 1;
-  const int Ho = H * st, Wo = W * st;
-  const int c = c0 + col;
+    for (int kc = 0; kc < nchunks; ++kc) {
+      const int q = it * nchunks + kc;
+      // The products go to d, which starts at zero, and d is added to acc
+      // in float32 (round to nearest) after each fragment row: the tensor
+      // cores' own additions truncate, and a chain of 3 x 9 x cin/8 of them
+      // into one accumulator would drift towards zero.
+      float d[T][ND];
 #pragma unroll
-  for (int p = 0; p < ROWS; ++p) {
-    const int r = r0 + rbase + p;
-    if (r >= H || c >= W) continue;
-    const size_t pix = (size_t)(r * st + oy) * Wo + c * st + ox;
+      for (int u = 0; u < T; ++u)
 #pragma unroll
-    for (int k = 0; k < CO; ++k) {
-      const int co = co_base + cgi * CO + k;
-      if (co < cout) y[((size_t)b * cout + co) * Ho * Wo + pix] = acc[p][k];
+        for (int k = 0; k < ND; ++k) d[u][k] = 0.f;
+      const float* cur = smem + (q % S) * G.stage;
+      bar_sync(FULL + q % S, TC_THREADS);
+      const uint64_t d_big = smem_desc(cur + TC_CK * G.plane, N * 16, 128);
+      const uint64_t d_small = smem_desc(cur + TC_CK * G.plane + G.bsplit, N * 16, 128);
+
+      // Products: each input row and column shift of the warpgroup's halo
+      // is loaded once as an A fragment, split in registers, and serves
+      // every tile (row, phase) whose tap it is.  Fragment of m64 x k8:
+      // pixels 16*wq + g (+8), channels t (+4).  Two fragments in registers
+      // at a time: a group's products are in flight while the next group's
+      // fragment is loaded and split.  Which tiles a fragment serves is
+      // fixed at compile time: OY, OX are the phase offsets of a block of
+      // K3 that holds fewer than four phases.
+      const float* a_base = cur + t * G.plane + (wg * RW) * TC_SW + 3 + 16 * wq + g;
+      auto products = [&](auto OY, auto OX) {
+#pragma unroll
+        for (int u = 0; u < T; ++u)
+#pragma unroll
+          for (int k = 0; k < ND; ++k) fence_operand(d[u][k]);
+        uint32_t hi[2][4], lo[2][4];
+#pragma unroll
+        for (int j = 0; j < RW + 2; ++j) {
+#pragma unroll
+          for (int s = 0; s < 3; ++s) {
+            const int f = (j * 3 + s) & 1;
+            const float* ap = a_base + j * TC_SW + s;
+            const float av[4] = {ap[0], ap[8], ap[4 * G.plane], ap[4 * G.plane + 8]};
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              hi[f][i] = to_tf32(av[i]);
+              lo[f][i] = to_tf32(av[i] - __uint_as_float(hi[f][i]));
+            }
+            wgmma_fence();
+#pragma unroll
+            for (int u = 0; u < T; ++u) {
+              const int ru = u / PPB, pu = u % PPB;
+              const int oy = K == 3 ? 0 : PPB == 4 ? pu >> 1 : decltype(OY)::value;
+              const int ox = K == 3 ? 0 : PPB == 4 ? pu & 1 : PPB == 2 ? pu : decltype(OX)::value;
+              const int dy = j - ru - oy, dx = s - ox;
+              if (dy >= 0 && dy < K && dx >= 0 && dx < K) {
+                const int tap = K == 3 ? dy * 3 + dx : pu * 4 + dy * 2 + dx;
+                const uint64_t off = (uint64_t)(tap * N * 32) >> 4;
+                Wgmma<N>::mma(d[u], hi[f], d_big + off);
+                Wgmma<N>::mma(d[u], hi[f], d_small + off);
+                Wgmma<N>::mma(d[u], lo[f], d_big + off);
+              }
+            }
+            wgmma_commit();
+            wgmma_wait<1>();
+          }
+          wgmma_wait<0>();
+#pragma unroll
+          for (int u = 0; u < T; ++u)
+#pragma unroll
+            for (int k = 0; k < ND; ++k) {
+              fence_operand(d[u][k]);
+              acc[u][k] += d[u][k];
+              d[u][k] = 0.f;
+              fence_operand(d[u][k]);
+            }
+        }
+      };
+      using I0 = std::integral_constant<int, 0>;
+      using I1 = std::integral_constant<int, 1>;
+      if constexpr (K == 3 || PPB == 4) {
+        products(I0{}, I0{});
+      } else if constexpr (PPB == 2) {
+        if (ph0 >> 1) products(I1{}, I0{});
+        else products(I0{}, I0{});
+      } else {
+        switch (ph0) {
+          case 0: products(I0{}, I0{}); break;
+          case 1: products(I0{}, I1{}); break;
+          case 2: products(I1{}, I0{}); break;
+          default: products(I1{}, I1{}); break;
+        }
+      }
+      if (q + S < total) bar_arrive(EMPTY + q % S, TC_THREADS);  // the stage goes back
+    }
+
+    // Epilogue in float32, from the registers.  A thread holds, of tile u,
+    // pixels m = 16*wq + g + 8*i and channels 8*j + 2*t + e as
+    // acc[u][4*j + 2*i + e].
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int co = co_base + 8 * j + 2 * t + e;
+        const float bk = (bias != nullptr && co < cout) ? bias[co] : 0.f;
+#pragma unroll
+        for (int u = 0; u < T; ++u)
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            float v = acc[u][4 * j + 2 * i + e] + bk;
+            if (use_slope) v = v >= 0.f ? v : slope * v;
+            acc[u][4 * j + 2 * i + e] = v;
+          }
+      }
+    if (pixel_norm) {
+      // A pixel's sum of u^2: the thread's channels in order, then the
+      // quad's four lanes, then (past 128 channels) the cluster's blocks in
+      // rank order, through a buffer of this tile's parity (a block reuses
+      // it two tiles later, after every block has passed the next tile's
+      // cluster barrier, so after every read of it).
+      float* pt = part + (it & 1) * (TC_WG * T * TC_W);
+      float sum[T][2];
+#pragma unroll
+      for (int u = 0; u < T; ++u)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          float sq = 0.f;
+#pragma unroll
+          for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              sq = fmaf(acc[u][4 * j + 2 * i + e], acc[u][4 * j + 2 * i + e], sq);
+          sq += __shfl_xor_sync(0xffffffffu, sq, 1);
+          sq += __shfl_xor_sync(0xffffffffu, sq, 2);
+          sum[u][i] = sq;
+          if (clustered && t == 0) pt[(wg * T + u) * TC_W + 16 * wq + g + 8 * i] = sq;
+        }
+      if (clustered) {
+        coop::cluster_group cluster = coop::this_cluster();
+        cluster.sync();
+#pragma unroll
+        for (int u = 0; u < T; ++u)
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            float sq = 0.f;
+            for (int k = 0; k < nsplit; ++k)
+              sq += cluster.map_shared_rank(pt, k)[(wg * T + u) * TC_W + 16 * wq + g + 8 * i];
+            sum[u][i] = sq;
+          }
+      }
+#pragma unroll
+      for (int u = 0; u < T; ++u)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const float m = sum[u][i] / (float)cout;
+          if (msq != nullptr && t == 0 && split == 0) {
+            const int r = r0 + wg * RW + u, c = c0 + 16 * wq + g + 8 * i;
+            if (r < H && c < W) msq[((size_t)b * H + r) * W + c] = m;
+          }
+          const float scale = rsqrtf(m + eps);
+#pragma unroll
+          for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) acc[u][4 * j + 2 * i + e] *= scale;
+        }
+    }
+
+    // Stores: a warp's store covers 8 consecutive pixels of 4 channels (32
+    // bytes each), or, where the block holds both column phases of K3's
+    // output row, the two phases of 8 pixels as 8-byte pairs (64 bytes).
+    const int st = nphase == 4 ? 2 : 1;
+    const size_t plane_o = (size_t)H * st * W * st;
+#pragma unroll
+    for (int u = 0; u < T; ++u) {
+      const int ru = u / PPB, pu = u % PPB;
+      const int ph = ph0 + pu;
+      const int oy = K == 2 ? ph >> 1 : 0, ox = K == 2 ? ph & 1 : 0;
+      if (PPB >= 2 && (pu & 1)) continue;  // stored with its ox = 0 partner
+      const int r = r0 + wg * RW + ru;
+      if (r >= H) continue;
+      float* yrow = y + (size_t)b * cout * plane_o + (size_t)(r * st + oy) * W * st;
+#pragma unroll
+      for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int co = co_base + 8 * j + 2 * t + e;
+          if (co >= cout) continue;
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int c = c0 + 16 * wq + g + 8 * i;
+            if (c >= W) continue;
+            float* dst = yrow + co * plane_o;
+            if constexpr (PPB >= 2)
+              *reinterpret_cast<float2*>(dst + 2 * c) =
+                  make_float2(acc[u][4 * j + 2 * i + e], acc[u + 1][4 * j + 2 * i + e]);
+            else
+              dst[c * st + ox] = acc[u][4 * j + 2 * i + e];
+          }
+        }
     }
   }
   // A block's shared memory must outlive the other blocks' reads of it.
@@ -490,12 +908,13 @@ inline int current_device(int* dev, const DeviceInfo** info) {
 
 inline int ceil_div(int a, int b) { return (a + b - 1) / b; }
 
-constexpr int LARGE_ROWS = 4, LARGE_CK = 8;  // the large shape
-constexpr int FLAT_CK = 8;                    // input channels a step, small shape
+constexpr int FLAT_CK = 8;  // input channels a step, small shape
 
 // How a conv of these sizes is launched.  shape 1: large images, 2: small.
+// tile_rows and ppb: the large shape's image rows and phases a tile; ntx,
+// nty, nz: its tiles along columns, rows and images x phase groups.
 struct ConvPlan {
-  int shape, cg, rg, nsplit, pr, S, csteps, cluster;
+  int shape, cg, rg, nsplit, pr, S, csteps, cluster, tile_rows, ppb, ntx, nty, nz;
   dim3 grid, block;
   size_t smem;  // bytes
 };
@@ -562,30 +981,40 @@ inline int plan_conv(int K, int B, int cin, int cout, int H, int W, int nphase,
   const size_t flat_floats = std::max(2 * buf, (size_t)COP * NP + 2 * NP);
   const bool flat_fits = flat_floats * sizeof(float) <= (size_t)info.smem_optin;
 
-  // The large shape once its grid fills half the SMs (from 64x64 at the
-  // train step's widths): there the sweep found it faster at every shape
-  // but the 80-channel ones, whose large tile has a single row group.
-  const long large_blocks = (long)ceil_div(W, 32) * ceil_div(H, LARGE_ROWS * rg) * B * nphase * nsplit;
-  int shape = (2 * large_blocks > info.sms || !flat_fits) ? 1 : 2;
+  // The large shape once its tiles fill half the SMs (from 32x32 at the
+  // train step's widths; scripts/torch_conv_sweep.py, PERF.md).
+  const TcGeom tg = tc_geom(K, cg * CO);
+  const long ntiles = (long)ceil_div(W, TC_W) * ceil_div(H, tg.th) * B * (nphase / tg.ppb);
+  const long large_blocks = ntiles * nsplit;
+  // Not below 32 columns, where a 64-column tile would be mostly halo.
+  int shape = ((2 * large_blocks > info.sms && W >= 32) || !flat_fits) ? 1 : 2;
 #ifdef MG_CONV_SWEEP
   const int fs = conv_force().shape;
   if (fs == 1 || (fs == 2 && flat_fits)) shape = fs;
 #endif
   p->shape = shape;
   if (shape == 1) {
-    const int th = LARGE_ROWS * rg;
-    p->rg = rg;
-    p->pr = LARGE_ROWS;
+    p->rg = TC_WG;
+    p->pr = tg.tiles;
     p->S = 1;
-    p->csteps = ceil_div(cin, LARGE_CK);
+    p->csteps = ceil_div(cin, TC_CK);
     p->cluster = pixel_norm && nsplit > 1 ? nsplit : 1;
-    p->block = dim3(32 * cg * rg);
-    p->grid = dim3(ceil_div(W, 32), ceil_div(H, th), B * nphase * nsplit);
-    if (p->grid.y > 65535 || p->grid.z > 65535) return (int)cudaErrorInvalidValue;
-    p->smem = sizeof(float) * ((size_t)KK * LARGE_CK * cg * CO +
-                               (((size_t)LARGE_CK * (th + 2) * (32 + 2) + 3) & ~(size_t)3));
+    p->tile_rows = tg.th;
+    p->ppb = tg.ppb;
+    p->ntx = ceil_div(W, TC_W);
+    p->nty = ceil_div(H, tg.th);
+    p->nz = B * (nphase / tg.ppb);
+    if (ntiles > 0x7fffffffL) return (int)cudaErrorInvalidValue;
+    p->smem = sizeof(float) * (size_t)tg.floats;
+    // Persistent: one block an SM, each walking its share of the tiles.
+    const long clusters = std::min<long>(ntiles, std::max(1, info.sms / nsplit));
+    p->block = dim3(TC_THREADS);
+    p->grid = dim3((unsigned)(clusters * nsplit));
     return 0;
   }
+  p->tile_rows = 0;
+  p->ppb = 1;
+  p->ntx = p->nty = p->nz = 0;
   p->rg = rgs;
   p->pr = pr;
   p->S = S;
@@ -621,9 +1050,9 @@ int launch(const ConvPlan& p, int dev, const DeviceInfo& info, cudaStream_t stre
   // attribute is an ordinary one.
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = p.shape == 2 ? p.cluster : 1;
+  attr[0].val.clusterDim.x = p.cluster;
   attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = p.shape == 1 ? p.cluster : 1;
+  attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = p.cluster > 1 ? 1 : 0;
   const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, args...);
@@ -645,10 +1074,19 @@ int launch_conv_tile(const float* x, const float* w, const float* bias, float* y
   err = plan_conv(K, B, cin, cout, H, W, nphase, pixel_norm, *info, &p);
   if (err != 0) return err;
   const int coutp = ceil_div(cout, CO) * CO;
-  if (p.shape == 1)
-    return launch<conv_tile_kernel<K, LARGE_ROWS, LARGE_CK>>(p, dev, *info, stream, x, w,
-                  bias, y, msq, cin, cout, coutp, H, W, p.rg, nphase, p.nsplit, slope,
-                  use_slope, pixel_norm, eps);
+  if (p.shape == 1) {
+#define MG_TC(CG)                                                                          \
+  case CG:                                                                                 \
+    return launch<conv_tc_kernel<K, CG * CO>>(p, dev, *info, stream, x, w, bias, y, msq,   \
+                                              cin, cout, coutp, H, W, nphase, p.nsplit,  \
+                                              p.ntx, p.nty, p.nz, slope, use_slope,      \
+                                              pixel_norm, eps)
+    switch (p.cg) {
+      MG_TC(1); MG_TC(2); MG_TC(3); MG_TC(4); MG_TC(5); MG_TC(6); MG_TC(7); MG_TC(8);
+      default: return (int)cudaErrorInvalidValue;
+    }
+#undef MG_TC
+  }
   const int N = B * H * W;
 #define MG_FLAT(PR)                                                                      \
   launch<conv_flat_kernel<K, PR, FLAT_CK>>(p, dev, *info, stream, x, w, bias, y, msq, \
@@ -667,7 +1105,9 @@ int launch_conv_tile(const float* x, const float* w, const float* bias, float* y
 
 // The plan the launcher takes for these sizes on the current device, for
 // measurement and tests: out = {shape, cluster blocks, S, nsplit, pixels a
-// lane, threads, blocks, shared-memory bytes}.  Returns a CUDA error code.
+// lane (large shape: accumulator tiles a warpgroup), threads, blocks,
+// shared-memory bytes, tile rows (large shape), phases a block (large
+// shape)}.  Returns a CUDA error code.
 extern "C" int mg_conv_plan(int K, int B, int cin, int cout, int H, int W, int nphase,
                             int pixel_norm, int* out) {
   int dev = 0;
@@ -677,9 +1117,9 @@ extern "C" int mg_conv_plan(int K, int B, int cin, int cout, int H, int W, int n
   mg::ConvPlan p;
   err = mg::plan_conv(K, B, cin, cout, H, W, nphase, pixel_norm, *info, &p);
   if (err != 0) return err;
-  const int v[8] = {p.shape, p.cluster, p.S, p.nsplit, p.pr, (int)p.block.x,
-                    (int)(p.grid.x * p.grid.y * p.grid.z), (int)p.smem};
-  for (int i = 0; i < 8; ++i) out[i] = v[i];
+  const int v[10] = {p.shape, p.cluster, p.S, p.nsplit, p.pr, (int)p.block.x,
+                     (int)(p.grid.x * p.grid.y * p.grid.z), (int)p.smem, p.tile_rows, p.ppb};
+  for (int i = 0; i < 10; ++i) out[i] = v[i];
   return 0;
 }
 

@@ -1,9 +1,11 @@
 // K3: conv3x3(upsample_nearest_2x(x)) as four sub-pixel phase convolutions
 // with 2x2 kernels (K = 4*cin), + bias + LeakyReLU + PixelNorm, float32.
 // Replaces musicgan_tpu/ops/conv.py::fused_upconv3x3 (Pallas kernel
-// _upconv_kernel).  The kernel body is conv_tile_kernel<2> in conv_tile.cuh,
-// with the phase a*2+b on blockIdx.z; phase results go straight to
-// (2i+a, 2j+b), the interleave that Mosaic refused in float32.
+// _upconv_kernel).  The kernel is conv_tile.cuh's template at K = 2:
+// conv_tc_kernel (large images, 3xTF32 on the tensor cores, up to four
+// phases a block) or conv_flat_kernel (small, the phase on blockIdx.y);
+// phase results go straight to (2i+a, 2j+b), the interleave that Mosaic
+// refused in float32.
 #include "conv_tile.cuh"
 
 // x: (B, cin, H, W); w: (4, cin, 4, coutp) from kernel_upconv_weights;

@@ -20,20 +20,19 @@ distributed shared memory, so PixelNorm takes up to
 ``MAX_PIXEL_NORM_CHANNELS`` (a portable cluster of 8 blocks of 128).
 
 What bounds them on an H100 depends on the image (``csrc/conv_tile.cuh``
-says how each shape works).  From 64x64 up: float32 operations.  A 3x3
-conv does 2 * 9 * cin FLOP per output value against 4 bytes stored, above
-the card's float32 ridge of about 20 FLOP/byte, so the CUDA cores are the
-limit; each thread holds 4 rows x 16 channels of accumulators and reads its
-16 weights as broadcast float4 loads from shared memory.  Up to 32x32 (the
-critic's last blocks, the generator's first) a conv is a few MFLOP and what
-bounds it is latency: serial steps over the input channels in too few
-blocks.  There the tile is a set of pixels of the flattened batch (so every
-weight staged serves all images), the input channels are split over a
-cluster of up to 8 blocks whose partial sums meet in distributed shared
-memory, and each step's weights arrive as 16-byte copies while the
-previous step computes.  The up-conv never writes the 4x-sized upsampled
-input: it runs the four 2x2 phase kernels on the small input.  Float32 on
-the CUDA cores is the first, simple form; tensor cores are later work.
+says how each shape works).  From 32x32 up at the train step's widths: an
+implicit GEMM on the tensor cores in 3xTF32 (each operand split into two
+TF32 parts, three products summed in float32, which keeps float32's
+accuracy; plain TF32 would not hold the conv bar), bound by those
+operations or, for the up-conv's largest output, by its bytes.  Below that
+a conv is a few MFLOP and what bounds it is latency: serial steps over the
+input channels in too few blocks.  There the tile is a set of pixels of the
+flattened batch (so every weight staged serves all images), the input
+channels are split over a cluster of up to 8 blocks whose partial sums meet
+in distributed shared memory, and each step's weights arrive as 16-byte
+copies while the previous step computes, in float32 on the CUDA cores.  The
+up-conv never writes the 4x-sized upsampled input: it runs the four 2x2
+phase kernels on the small input.
 
 Weights: the plain versions take OIHW; the kernels K1-K4 take the kernel
 layout of :func:`kernel_weights` / :func:`kernel_upconv_weights` (input
@@ -370,26 +369,35 @@ def fused_block(x, w1, b1, w2, b2, slope=0.2, eps=1e-8, w1_packed=None, w2_packe
     return y
 
 
-_PLAN_KEYS = ("shape", "cluster", "split_k", "nsplit", "pixels_a_lane", "threads", "blocks", "smem_bytes")
+_PLAN_KEYS = ("shape", "cluster", "split_k", "nsplit", "pixels_a_lane", "threads", "blocks",
+              "smem_bytes", "tile_rows", "phases_a_block")
+# The conv template's two routes (csrc/conv_tile.cuh): the large-image shape,
+# an implicit GEMM on the tensor cores in 3xTF32, and the small-image shape,
+# float32 on the CUDA cores.
+_ROUTES = {1: ("large", "large_tc"), 2: ("small", "small_fp32")}
 
 
 def conv_plan(kind: str, bsz: int, cin: int, cout: int, h: int, w: int, pixel_norm: bool) -> dict:
     """How K1/K2 (``kind="conv3x3"``) or K3 (``"upconv3x3"``) launches at
     these sizes on the current CUDA device, as the launcher plans it:
-    ``shape`` ("large" or "small"), the cluster's blocks, its split over
-    input channels, the channel splits, pixels a lane, threads a block,
-    blocks, shared memory.  Needs the card (the plan reads its SM count)."""
+    ``shape`` ("large" or "small") and its ``route`` ("large_tc" or
+    "small_fp32"), the cluster's blocks, its split over input channels, the
+    channel splits, pixels a lane (large shape: accumulator tiles of 64
+    pixels a warpgroup), threads a block, blocks, shared memory, and for the
+    large shape the ``tile`` (image rows x columns a block) and K3's phases
+    a block.  Needs the card (the plan reads its SM count)."""
     lib = _build.load(kind)
     fn = lib.mg_conv_plan
     fn.argtypes = [ctypes.c_int] * 8 + [ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
-    out = (ctypes.c_int * 8)()
+    out = (ctypes.c_int * len(_PLAN_KEYS))()
     k, nphase = (2, 4) if kind == "upconv3x3" else (3, 1)
     err = fn(k, bsz, cin, cout, h, w, nphase, int(pixel_norm), out)
     if err != 0:
         raise ValueError(f"conv_plan({kind}): CUDA error {err} for sizes {(bsz, cin, cout, h, w)}")
     plan = dict(zip(_PLAN_KEYS, out))
-    plan["shape"] = {1: "large", 2: "small"}[plan["shape"]]
+    plan["shape"], plan["route"] = _ROUTES[plan["shape"]]
+    plan["tile"] = (plan["tile_rows"], 64) if plan["shape"] == "large" else None
     return plan
 
 

@@ -10,10 +10,12 @@ imports that tree's ``musicgan_tpu_torch`` and measures, the same way for
 any tree:
 
 * the conv kernel (K1 with LeakyReLU and bias, K1 as input gradient, K2)
-  at every shape of one stage-7 train iteration at batch 6: device time of
-  the wrapper as the train step calls it (OIHW weights, packed inside),
-  and of ``F.conv2d`` on the same inputs, each from CUDA-graph replays
-  timed by CUDA events, so the host's time to issue a call is not counted;
+  at every shape of one stage-7 train iteration at batch 6, and K1 and K3
+  with PixelNorm at the 8 blocks of synthesis (5 clips x nb_vec 10): device
+  time of the wrapper as its caller calls it (OIHW weights, packed inside
+  for the train step, ahead for synthesis), and of ``F.conv2d`` on the same
+  inputs, each from CUDA-graph replays timed by CUDA events, so the host's
+  time to issue a call is not counted;
 * the host's time to issue one K1 call and one ``F.conv2d`` call (a tiny
   shape back to back, where the card waits on the host);
 * warm synthesis (5 clips x nb_vec 10 from ``gen_final.pt``): median of 20
@@ -97,6 +99,23 @@ def main() -> None:
         rows.append({"role": role, "shape": [b, cin, cout, hh, ww], "ms": smoke.time_ms(kernel),
                      "library_ms": smoke.time_ms(lambda: F.conv2d(x, wt, bb, padding=1))})
         del x
+    for i, (cin, cout) in enumerate(cfg.gen_channels):
+        hh, ww = cfg.latent_height * 2**i, cfg.latent_width * 10 * 2**i
+        x = torch.randn(5, cin, hh, ww, generator=rng, device=dev)
+        for role, co in (("synth_k1", cin), ("synth_k3", cout)):
+            wt = torch.randn(co, cin, 3, 3, generator=rng, device=dev) / (9 * cin) ** 0.5
+            bb = torch.randn(co, generator=rng, device=dev) * 0.1
+            if role == "synth_k1":
+                wp, xl = conv_ops.kernel_weights(wt), x
+                kernel = lambda: conv_ops.fused_conv3x3(x, wt, bb, 0.2, True, w_packed=wp)  # noqa: E731
+            else:
+                wp = conv_ops.kernel_upconv_weights(wt)
+                xl = F.interpolate(x, scale_factor=2, mode="nearest")
+                kernel = lambda: conv_ops.fused_upconv3x3(x, wt, bb, 0.2, True, w_packed=wp)  # noqa: E731
+            rows.append({"role": role, "shape": [5, cin, co, hh, ww], "ms": smoke.time_ms(kernel),
+                         "library_ms": smoke.time_ms(lambda: F.conv2d(xl, wt, bb, padding=1))})
+            del xl
+        del x
     torch.cuda.empty_cache()
 
     # The host's time to issue one call (back to back on a tiny shape, where
@@ -171,19 +190,20 @@ def main() -> None:
         "steps_per_s_stage7": n_c / ((n_c - 1) * med(d_s) + med(dg_s)),
         "chunk_ms": [1e3 * v for v in chunk_s], "steps_per_s_stage0": 10 / med(chunk_s),
     }
-    small = {}
+    small, sums = {}, {}
     for r in rows:
-        if r["shape"][3] <= 32:
-            s = small.setdefault(r["role"], [0.0, 0.0])
-            s[0] += r["ms"]
-            s[1] += r["library_ms"]
-    out["small_sums_ms"] = small
+        for part, keep in ((small, r["shape"][3] <= 32), (sums, True)):
+            if keep:
+                s = part.setdefault(r["role"], [0.0, 0.0])
+                s[0] += r["ms"]
+                s[1] += r["library_ms"]
+    out["small_sums_ms"], out["sums_ms"] = small, sums
     os.makedirs("chiprun_out", exist_ok=True)
     Path(f"chiprun_out/ab_{args.tag}.json").write_text(json.dumps(out, indent=1))
     print(f"[ab {args.tag}] {card}; conv up to 32x32, kernel / F.conv2d ms: "
           + ", ".join(f"{k} {v[0]:.4f} / {v[1]:.4f}" for k, v in small.items())
-          + f"; all shapes, kernel ms: " + ", ".join(
-              f"{k} {sum(r['ms'] for r in rows if r['role'] == k):.3f}" for k in small)
+          + "; all shapes, kernel / F.conv2d ms: " + ", ".join(
+              f"{k} {v[0]:.4f} / {v[1]:.4f}" for k, v in sums.items())
           + f"; host per call: K1 {host['k1_us']:.1f} us, F.conv2d {host['f_conv2d_us']:.1f} us"
           + f"; synthesis {out['synthesis_median_ms']:.3f} ms; stage 7 {1e3 * med(d_s):.2f} / "
           f"{1e3 * med(dg_s):.2f} ms = {out['steps_per_s_stage7']:.3f} steps/s; stage 0 "

@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
 """Sweep the conv template's launch plans on the card: at every conv shape
-of a stage-7 train iteration (batch 6) up to 64x64 and at synthesis's
-first six blocks (5 clips x nb_vec 10), the device time of the wrapper
-under each plan, against the launcher's own choice and ``F.conv2d``.
+of a stage-7 train iteration (batch 6) from 16x16 to 128x128 and at
+synthesis's eight blocks (5 clips x nb_vec 10), the device time of the
+wrapper under each plan, against the launcher's own choice and
+``F.conv2d``.
 
     python3 scripts/torch_conv_sweep.py
 
-Plans: the large-image shape, and the small-image shape at every (pixels
-a lane in 1, 2, 4) x (cluster split over input channels in 1, 2, 4, 8)
-that the cluster allows.  The script builds the kernels with
+Plans: the large-image shape (the tensor-core route, "large_tc"), and the
+small-image shape at every (pixels a lane in 1, 2, 4) x (cluster split over
+input channels in 1, 2, 4, 8) that the cluster allows.  The script builds the kernels with
 ``-DMG_CONV_SWEEP``, which compiles in ``mg_conv_force`` (a switch that
 forces the plan of every later launch) and gives the libraries other
 names; the libraries the port loads have no such switch.  Weights are packed
@@ -56,13 +57,13 @@ def force_plan(shape: int = 0, pixels_a_lane: int = 0, split_k: int = 0) -> None
 def cases(cfg: ModelConfig) -> list:
     """``(role, kind, (B, cin, cout, H, W), bias, slope, pixel_norm)``."""
     gen, disc = train_conv_shapes(cfg, TrainConfig().batch_size, 7)
-    small = lambda shapes: [s for s in shapes if s[3] <= 64]  # noqa: E731
+    swept = lambda shapes: [s for s in shapes if 16 <= s[3] <= 128]  # noqa: E731
     swap = lambda s: (s[0], s[2], s[1], s[3], s[4])  # noqa: E731
-    out = [("critic_fwd", "conv", s, True, 0.2, False) for s in small(disc)]
-    out += [("critic_dx", "conv", swap(s), False, None, False) for s in small(disc)]
-    out += [("gen_fwd", "msq", s, True, 0.2, True) for s in small(gen)]
-    out += [("gen_dx", "conv", swap(s), False, None, False) for s in small(gen[1:])]
-    for i, (c, o) in enumerate(cfg.gen_channels[:6]):
+    out = [("critic_fwd", "conv", s, True, 0.2, False) for s in swept(disc)]
+    out += [("critic_dx", "conv", swap(s), False, None, False) for s in swept(disc)]
+    out += [("gen_fwd", "msq", s, True, 0.2, True) for s in swept(gen)]
+    out += [("gen_dx", "conv", swap(s), False, None, False) for s in swept(gen[1:])]
+    for i, (c, o) in enumerate(cfg.gen_channels):
         h, w = cfg.latent_height * 2**i, cfg.latent_width * 10 * 2**i
         out += [("synth_k1", "conv", (5, c, c, h, w), True, 0.2, True),
                 ("synth_k3", "up", (5, c, o, h, w), True, 0.2, True)]

@@ -34,7 +34,7 @@ from musicgan_tpu_torch.models import load_reference_generator  # noqa: E402
 from musicgan_tpu_torch.ops import _build  # noqa: E402
 
 REPS = 5
-OWN_KERNELS = ("conv_tile_kernel", "conv_flat_kernel", "istft_kernel")
+OWN_KERNELS = ("conv_tc_kernel", "conv_flat_kernel", "istft_kernel")
 
 
 def busy_us(intervals) -> float:

@@ -53,7 +53,7 @@ from musicgan_tpu_torch.train import optim, step as step_mod  # noqa: E402
 from scripts.torch_profile_synthesis import busy_us  # noqa: E402
 
 REPS = 3
-OWN_KERNELS = ("conv_tile_kernel", "conv_flat_kernel")  # the conv template's two shapes
+OWN_KERNELS = ("conv_tc_kernel", "conv_flat_kernel")  # the conv template's two shapes
 LABEL = "mg:"
 
 
