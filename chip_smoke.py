@@ -15,12 +15,15 @@ the CUDA toolkit (``nvcc``).  Phases, each of which raises on failure:
    kernel, the plain version and one PyTorch library call computing the
    same function (the yardstick, used nowhere in the port), as device
    time from CUDA-graph replays where the function can be captured; each
-   conv row also prints the launch plan the conv template took;
+   conv row also prints the launch plan the conv template took; K5's second
+   route (the windowed iDFT) at a length outside its FFT's domain;
 3. run ``generate`` end to end through the entry point, with every launch
    counter set to 0 just before and read just after; check the five WAVs
    and hold the waveforms against the same latents through the plain
    versions on the card (with the counters showing that the kernel pass
-   launched every kernel and the plain pass none); time warm runs.
+   launched every kernel and the plain pass none), and print both float32
+   paths' image and waveform against the plain path in float64; time warm
+   runs.
 
 4. at the train step's shapes (stage 7, batch 6, full width): K2 at the 16
    generator convs, K1 at the 18 critic convs (up to 160 channels) and at
@@ -41,18 +44,20 @@ the CUDA toolkit (``nvcc``).  Phases, each of which raises on failure:
    float32 paths printed against the float64 ones and the kernels' held
    there (2-norm: generator 1e-2, critic 2e-2); warm timings.
 
-7. the whole-block kernel K4 at the shapes of every generator block that
-   ``fused_block_fits`` (blocks 5, 6, 7 of the 5 x nb_vec 10 call):
-   against its plain version and against K1 then K3, with its time beside
-   its bound, the plain version's, the pair's and two ``F.conv2d`` calls';
-   then ``generate`` with ``conv_impl="pallas_block"``, launches counted,
-   waveforms against the default path's, warm synthesis under both values;
+7. the whole-block kernel K4 at every generator block of the 5 x nb_vec 10
+   call, its time beside the pair's and conv1's recompute factor; at the
+   blocks its size rule ``fused_block_fits`` gives it (4 to 7) against its
+   plain version and against K1 then K3 at 1e-6, with its bound, the plain
+   version's time and two ``F.conv2d`` calls'; at one width past 128
+   channels against its plain version; then ``generate`` with
+   ``conv_impl="pallas_block"``, launches counted, waveforms against the
+   default path's, warm synthesis under both values;
 8. the ``train`` entry point at full width on a seeded synthetic corpus of
    24 samples, the schedule cut to 12 samples a stage so that 32 iterations
    pass through all eight stages with their fades: once uninterrupted
    (launches held against the formula summed over the trajectory, plus the
-   previews'), once uninterrupted and once stopped half way and resumed
-   under ``torch.backends.cudnn.deterministic`` (the two final states are
+   previews'), once uninterrupted again and once stopped half way and
+   resumed, no cuDNN flag set by the caller (the three final states are
    equal bit for bit), once streaming through the host pipeline, once as a
    subprocess of the CLI that is sent SIGTERM (exit code 75, a complete
    off-cadence save); the Saver's preview images; ``generate`` from the
@@ -129,12 +134,25 @@ PEAK_BYTES_S = 3.35e12
 TOL = {
     "fused_conv3x3": 1e-4, "fused_conv3x3_msq": 1e-4, "fused_upconv3x3": 1e-4,
     "istft_fused": 2e-4,
+    # The weight gradient sums up to 1.5 million pixels into outputs of order
+    # 1, held against the plain version in float64: float32 sums of that
+    # length keep about 1e-5.
+    "weight_grad3x3": 1e-4,
     # K4 is two convs, the second on the first's output: their errors
-    # compound.  The same bar holds K4 against K1 then K3: K4 sums in float32
-    # on the CUDA cores, the pair (large shape) in 3xTF32 on the tensor cores.
+    # compound (against K1 then K3: TOL_BLOCK_VS_PAIR).
     "fused_block": 2e-4,
 }
 TOL_MSQ_REL = 1e-4  # K2's mean-square map, relative to its largest value
+# K4 against K1 then K3 where both take the tensor-core route: K4 is built
+# from their pieces and sums every pixel in their order (bit for bit on an
+# H100); 1e-6 leaves room for nothing but a different rounding of one sum.
+TOL_BLOCK_VS_PAIR = 1e-6
+# K4 past 128 channels (a cluster of 2 blocks for each conv), at a size
+# where its tiles fill a quarter of the card.
+WIDE_BLOCK = (5, 144, 144, 160, 32, 320)
+# K5's second route (the windowed iDFT) is held at a length outside the
+# FFT's domain: n_fft 768 = 3 x 256, hop 256.
+DFT_LENGTH = (768, 256)
 # End to end, kernels vs plain versions on the same latents.  The image:
 # each conv disagrees by up to ~1.3e-5 (the per-shape check above), and
 # 16 convs compound it; an H100 showed 8.8e-4 with float32 kernels, so
@@ -183,13 +201,17 @@ SOURCES = {
     "fused_upconv3x3": ("musicgan_tpu_torch/csrc/upconv3x3.cu", "musicgan_tpu/ops/conv.py:139"),
     "istft_fused": ("musicgan_tpu_torch/csrc/istft.cu", "musicgan_tpu/ops/istft_pallas.py:60"),
     "fused_block": ("musicgan_tpu_torch/csrc/block3x3.cu", "musicgan_tpu/ops/conv.py:234"),
+    # No Pallas kernel: XLA's conv-backward-weights in the JAX package.
+    "weight_grad3x3": ("musicgan_tpu_torch/csrc/wgrad3x3.cu", "musicgan_tpu/ops/conv_vjp.py:107"),
 }
+IDFT = "istft_fused.idft"  # K5's second route, counted apart in read_launches
 WRAPPERS = {
     "fused_conv3x3": conv_ops.fused_conv3x3,
     "fused_conv3x3_msq": conv_ops.fused_conv3x3_msq,
     "fused_upconv3x3": conv_ops.fused_upconv3x3,
     "istft_fused": istft_ops.istft_fused,
     "fused_block": conv_ops.fused_block,
+    "weight_grad3x3": conv_vjp.weight_grad3x3,
 }
 
 # The train entry point (phase 8): 24 samples, 12 a stage at batch 6, so
@@ -200,13 +222,12 @@ LOOP_CFG = dict(
     fadein_lengths=(1,) + (12,) * 7, train_lengths=(12,) * 7, save_every=8, log_every=4,
     chunk_steps=4,
 )
-# A resumed run against the uninterrupted one is held bit for bit, under
-# torch.backends.cudnn.deterministic.  Without that flag cuDNN's float32
-# weight-gradient kernels sum in an order that changes from run to run: on
-# an H100 the same run twice differed by 1e-8 (relative 2-norm) after one
-# iteration and, through this schedule's random-init trajectory, by a tenth
-# after 32, so no tolerance on the default path would say anything about
-# resume.  The difference between the two settings is printed.
+# A resumed run against the uninterrupted one, and two uninterrupted runs,
+# are held bit for bit with no cuDNN flag set by the caller: the weight
+# gradient is the fixed-order kernel ops/conv_vjp.py::weight_grad3x3.  Under
+# cuDNN's default algorithms the same run twice differed on an H100 by 1e-8
+# (relative 2-norm) after one iteration and, through this schedule's
+# random-init trajectory, by a tenth after 32.
 
 
 def card_line() -> str:
@@ -277,16 +298,19 @@ def bound_ms(flops: float, nbytes: float, route: str | None = None) -> tuple[flo
 
 
 def measure(name, shape, kernel, plain, library, flops, nbytes, role="synthesis", plan=None,
-            graph_plain=True):
+            graph_plain=True, route=None, ref=None):
     """One kernel at one main-path shape: error against the plain version
     (raises past the tolerance) and the three times.  ``plan``: the conv
     template's launch plan for the shape, printed and kept; a conv row keeps
     its route, its bound under that route (``bound_ms``) and both the FP32
-    and the 3xTF32 bound."""
-    err = (kernel() - plain()).abs().max().item()
+    and the 3xTF32 bound; ``route`` gives a kernel without a plan its
+    route (K4: "large_tc"); ``ref``, where given, is the plain version the
+    error is read against (the weight gradient's, in float64), ``plain`` is
+    then only timed."""
+    err = (kernel() - (plain if ref is None else ref)()).abs().max().item()
     if not err <= TOL[name]:
         raise AssertionError(f"{name} {shape}: max abs err {err:.3e} > {TOL[name]:.0e}")
-    route = plan["route"] if plan is not None else None
+    route = plan["route"] if plan is not None else route
     b, by = bound_ms(flops, nbytes, route)
     row = {
         "name": name, "role": role, "shape": shape, "max_abs_err": err,
@@ -296,11 +320,12 @@ def measure(name, shape, kernel, plain, library, flops, nbytes, role="synthesis"
     }
     row["ops_ms"], row["bytes_ms"] = bound_terms(flops, nbytes, route)
     extra = ""
-    if plan is not None:
-        row["plan"] = plan
+    if route is not None:
         row["bound_fp32_ms"] = bound_ms(flops, nbytes)[0]
         row["bound_3xtf32_ms"] = bound_ms(flops, nbytes, "large_tc")[0]
         extra = f"  (FP32 {row['bound_fp32_ms']:.4f}, 3xTF32 {row['bound_3xtf32_ms']:.4f})"
+    if plan is not None:
+        row["plan"] = plan
         tile = (f"tile {plan['tile'][0]}x{plan['tile'][1]}, {plan['phases_a_block']} phases a block"
                 if plan["tile"] else f"{plan['pixels_a_lane']} pixels a lane")
         print(f"[plan]   {name:17s} {role:10s} {str(shape):26s} {plan['route']}, cluster of "
@@ -386,6 +411,30 @@ def check_kernels(gen, cfg: ModelConfig, dev) -> list[dict]:
                + 3 * n_fft + (n_fft // hop) ** 2 * hop),
         graph_plain=False,  # both build or check tables on the host
     ))
+    rows[-1]["route_name"] = "fft"
+
+    # K5's second route, the windowed iDFT, at a length outside the FFT's
+    # domain (n_fft not a power of two) and the synthesis call's frames: per
+    # output sample 2 * 2 * r * n_bins FLOP in float32.
+    n_fft, hop = DFT_LENGTH
+    n_bins = n_fft // 2 + 1
+    if istft_ops.uses_fft(n_fft, hop):
+        raise AssertionError(f"{DFT_LENGTH} takes the FFT route")
+    re2 = torch.randn(NB_MUSIC, n_bins, t, generator=rng, device=dev)
+    im2 = torch.randn(NB_MUSIC, n_bins, t, generator=rng, device=dev)
+    spec2 = torch.complex(re2, im2)
+    window2 = torch.from_numpy(hann_window(n_fft)).to(dev)
+    n_out = NB_MUSIC * (t - 1) * hop
+    rows.append(measure(
+        "istft_fused", (NB_MUSIC, n_bins, t, n_fft, hop),
+        lambda: istft_ops.istft_fused(re2, im2, n_fft, hop),
+        lambda: istft_real_imag(re2, im2, n_fft, hop),
+        lambda: torch.istft(spec2, n_fft, hop, window=window2, center=True, normalized=True),
+        n_out * 2.0 * 2 * (n_fft // hop) * n_bins,
+        4.0 * (2 * NB_MUSIC * n_bins * t + n_out + 2 * n_bins * n_fft + n_fft),
+        role="idft_route", graph_plain=False,
+    ))
+    rows[-1]["route_name"] = "idft"
     return rows
 
 
@@ -400,13 +449,42 @@ def plain_on_card():
     ]
 
 
+def istft_float64(real, imag, n_fft: int, hop: int) -> torch.Tensor:
+    """``audio/stft.py::istft_real_imag`` in float64 throughout (its window,
+    bases and envelope made in float64): the reference the float32 paths
+    are read against."""
+    dev = real.device
+    window = torch.from_numpy(hann_window(n_fft, np.float64)).to(dev)
+    n_bins = n_fft // 2 + 1
+    f = torch.arange(n_bins, dtype=torch.float64, device=dev)[:, None]
+    k = torch.arange(n_fft, dtype=torch.float64, device=dev)[None, :]
+    ang = 2.0 * math.pi * f * k / n_fft
+    weight = torch.full((n_bins, 1), 2.0 / n_fft, dtype=torch.float64, device=dev)
+    weight[0, 0] = weight[-1, 0] = 1.0 / n_fft
+    scale = torch.sqrt(torch.sum(window**2))
+    frames = ((real * scale).transpose(-1, -2) @ (torch.cos(ang) * weight)
+              + (imag * scale).transpose(-1, -2) @ (-torch.sin(ang) * weight)) * window
+    t, r = real.shape[-1], n_fft // hop
+    acc = frames.new_zeros(*frames.shape[:-2], t + r - 1, hop)
+    env = frames.new_zeros(t + r - 1, hop)
+    chunks, w2 = frames.reshape(*frames.shape[:-2], t, r, hop), (window**2).reshape(r, hop)
+    for j in range(r):
+        acc[..., j : j + t, :] += chunks[..., j, :]
+        env[j : j + t] += w2[j]
+    y = (acc / torch.clamp(env, min=1e-11)).reshape(*acc.shape[:-2], -1)
+    return y[..., n_fft // 2 : n_fft // 2 + (t - 1) * hop]
+
+
 def reset_launches() -> None:
     for fn in WRAPPERS.values():
         fn.launches = 0
+    istft_ops.istft_fused.idft_launches = 0
 
 
 def read_launches() -> dict:
-    return {name: fn.launches for name, fn in WRAPPERS.items()}
+    """Each wrapper's launches, and of K5's those on its iDFT route."""
+    return {**{name: fn.launches for name, fn in WRAPPERS.items()},
+            IDFT: istft_ops.istft_fused.idft_launches}
 
 
 def end_to_end(cfg: ModelConfig, dev) -> dict:
@@ -425,7 +503,8 @@ def end_to_end(cfg: ModelConfig, dev) -> dict:
     print(f"[e2e] generate wrote {len(paths)} WAVs in {cold_s:.2f} s; launches {launches}")
     expect = {
         "fused_conv3x3": cfg.n_stages, "fused_conv3x3_msq": 0,
-        "fused_upconv3x3": cfg.n_stages, "istft_fused": 1, "fused_block": 0,
+        "fused_upconv3x3": cfg.n_stages, "istft_fused": 1, "fused_block": 0, IDFT: 0,
+        "weight_grad3x3": 0,
     }
     if launches != expect:
         raise AssertionError(f"launch counts {launches} != {expect}")
@@ -472,6 +551,32 @@ def end_to_end(cfg: ModelConfig, dev) -> dict:
     if not (err_img <= TOL_IMAGE and err_wave <= TOL_WAVE):
         raise AssertionError("end-to-end output disagrees with the plain versions")
 
+    # Both float32 paths against the plain path in float64, for the margin
+    # of the two bars above (read, not held).
+    gen64 = load_reference_generator(str(CKPT), cfg, device=dev).double()
+    patches = plain_on_card()[:2] + [mock.patch.object(generate_mod, "istft_fused", istft_float64)]
+    for p in patches:
+        p.start()
+    try:
+        with torch.no_grad():
+            z64 = z.double()
+            img64 = gen64.forward_nchw(z64.permute(0, 3, 1, 2), cfg.n_stages - 1)
+            waves64 = generate_mod._synthesize(gen64, z64, cfg.n_stages - 1, cfg)
+    finally:
+        for p in patches:
+            p.stop()
+    waves_k = synth(gen, z).double()
+    float64 = {
+        "image_kernels": (img.double() - img64).abs().max().item(),
+        "image_cudnn": (img_plain.double() - img64).abs().max().item(),
+        "wave_kernels": (waves_k - waves64).abs().max().item(),
+        "wave_cudnn": (torch.from_numpy(waves_plain).to(dev).double() - waves64).abs().max().item(),
+    }
+    print(f"[e2e] against the plain path in float64: image, kernels {float64['image_kernels']:.3e}, "
+          f"cuDNN float32 {float64['image_cudnn']:.3e}; waveform, kernels {float64['wave_kernels']:.3e}, "
+          f"cuDNN float32 {float64['wave_cudnn']:.3e}")
+    del gen64, img64, waves64, waves_k
+
     # Warm runs, each timed alone to the end of its device work: synthesis
     # (WARM_REPS calls), then the whole entry point (5 calls).
     synth(gen, z)
@@ -503,7 +608,7 @@ def end_to_end(cfg: ModelConfig, dev) -> dict:
         "launches": launches, "cold_generate_s": cold_s,
         "warm_synthesis_s": synth_s, "warm_synthesis_median_s": med_synth,
         "warm_generate_s": gen_s, "warm_generate_median_s": med_gen, "audio_s": audio_s, "peak_bytes": peak,
-        "err_image": err_img, "err_wave": err_wave,
+        "err_image": err_img, "err_wave": err_wave, "float64": float64,
     }, np.stack(waves)
 
 
@@ -604,7 +709,37 @@ def check_train_kernels(cfg: ModelConfig, tcfg: TrainConfig, dev) -> list[dict]:
         + conv_rows("fused_conv3x3", "pn_wide", WIDE_PN_SHAPES, rng, dev, slope, True, True)
         + conv_rows("fused_conv3x3_msq", "pn_wide", WIDE_PN_SHAPES, rng, dev, slope, True)
         + upconv_rows(WIDE_PN_SHAPES, rng, dev, slope)
+        + wgrad_rows("gen", gen, rng, dev) + wgrad_rows("critic", disc, rng, dev)
     )
+
+
+def wgrad_rows(role, shapes, rng, dev):
+    """The weight-gradient kernel at every trainable conv of a stage-7
+    iteration, held against its plain version run in float64 (cuDNN's
+    float32, itself up to about 1e-4 off at some of these shapes on an
+    H100, is printed beside it), timed beside the plain version in float32
+    (cuDNN, TF32 off) and one call of cuDNN's default algorithms (the
+    yardstick).  The output gradient is scaled by 1 / sqrt(pixels) so that
+    the weight gradient is of order 1."""
+    rows = []
+    for bsz, cin, cout, h, w in shapes:
+        x = torch.randn(bsz, cin, h, w, generator=rng, device=dev)
+        d = torch.randn(bsz, cout, h, w, generator=rng, device=dev) / (bsz * h * w) ** 0.5
+        shape = (cout, cin, 3, 3)
+        px = bsz * h * w
+        ref = conv_vjp.weight_grad3x3_plain(x.double(), d.double(), shape).float()
+        rows.append(measure(
+            "weight_grad3x3", (bsz, cin, cout, h, w), lambda: conv_vjp.weight_grad3x3(x, d, shape),
+            lambda: conv_vjp.weight_grad3x3_plain(x, d, shape),
+            lambda: torch.nn.grad.conv2d_weight(x, shape, d, padding=1),
+            2.0 * px * cin * cout * 9, 4.0 * (px * cin + px * cout + 9 * cin * cout), role=role,
+            ref=lambda: ref,
+        ))
+        rows[-1]["plain_err_vs_float64"] = (conv_vjp.weight_grad3x3_plain(x, d, shape) - ref).abs().max().item()
+        print(f"[kernel] weight_grad3x3    {role:10s} {str((bsz, cin, cout, h, w)):26s} cuDNN float32 against "
+              f"the plain version in float64: {rows[-1]['plain_err_vs_float64']:.2e}")
+        del x, d, ref
+    return rows
 
 
 def rel_err(got: torch.Tensor, ref: torch.Tensor) -> float:
@@ -664,7 +799,7 @@ def check_function_and_gp(cfg: ModelConfig, tcfg: TrainConfig, dev) -> dict:
             y_kernel = y.detach()
             grads[name] = torch.autograd.grad((y * cot).sum(), leaves)
             n = sum(read_launches().values())
-            if n != (2 if name == "kernel" else 0):  # forward + input gradient
+            if n != (3 if name == "kernel" else 0):  # forward, input and weight gradients
                 raise AssertionError(f"conv3x3_act ({name}) launched {n} kernels")
         errs = [rel_err(g, r) for g, r in zip(grads["kernel"], grads["plain"])]
         print(f"[function] conv3x3_act {(b, cin, cout, h, w)} slope {slope} pn {pn}: "
@@ -731,13 +866,16 @@ def expected_train_launches(cfg: ModelConfig, stage: int, n_d_only: int, n_d_and
     convs and their input gradients, 3 c); a generator iteration adds K2 g
     times and K1 2 c + g - 1 times (critic forward and input gradients, and
     the generator's input gradients but the first conv's, whose input is the
-    latent)."""
+    latent).  The weight gradient runs once a trainable conv a backward
+    pass: 3 c times a critic iteration (the critic's loss through its two
+    forwards, and the penalty), g more with the generator."""
     g, c = 2 * (stage + 1), 2 * (stage + 2)
     n = n_d_only + n_d_and_g
     return {
         "fused_conv3x3": n * 7 * c + n_d_and_g * (2 * c + g - 1),
         "fused_conv3x3_msq": n * g + n_d_and_g * g,
-        "fused_upconv3x3": 0, "istft_fused": 0, "fused_block": 0,
+        "fused_upconv3x3": 0, "istft_fused": 0, "fused_block": 0, IDFT: 0,
+        "weight_grad3x3": n * 3 * c + n_d_and_g * g,
     }
 
 
@@ -954,19 +1092,40 @@ def pair_is_large(cin: int, cout: int, h: int, w: int) -> bool:
             and conv_ops.conv_plan("upconv3x3", NB_MUSIC, cin, cout, h, w, True)["route"] == "large_tc")
 
 
+def block_sizes(cfg: ModelConfig, i: int, nb_vec: int = NB_VEC, nb_music: int = NB_MUSIC) -> tuple:
+    """``(B, H, W)`` of generator block ``i``'s input in a synthesis call."""
+    return nb_music, cfg.latent_height * 2**i, cfg.latent_width * nb_vec * 2**i
+
+
 def check_block_kernel(gen, cfg: ModelConfig, dev) -> list[dict]:
-    """Phase 7: K4 at every block of the main path whose widths fit; at
-    the blocks that do not, its time beside the pair's, which is what
-    ``fused_block_fits`` rests on.  K4 is held to its plain version, and
-    to K1 then K3 at the same bar where that pair takes the large-image
-    route (there the two sum in float32 and in 3xTF32)."""
+    """Phase 7: K4 at every block of the main path, against its plain
+    version and, where K1 then K3 both take the tensor-core route, against
+    that pair at ``TOL_BLOCK_VS_PAIR`` (K4 sums in their order); its time
+    beside the pair's and conv1's recompute factor at every block, the
+    blocks that its size rule (``fused_block_fits``) gives it and those it
+    leaves to the pair alike; then K4 at one width past 128 channels."""
     rng = torch.Generator(device=dev).manual_seed(4)
     slope, eps = cfg.leaky_slope, cfg.pixel_norm_eps
     rows = []
+
+    def library_of(x, w1, b1, w2, b2):
+        mid_up = upsample_nearest_2x(conv_ops.conv3x3_plain(x, w1, b1, slope, True, eps))
+
+        def library():  # the two convolutions alone, without epilogues or the upsample
+            F.conv2d(x, w1, b1, padding=1)
+            return F.conv2d(mid_up, w2, b2, padding=1)
+        return library
+
+    def work(bsz, cin, cmid, cout, h, w):
+        px = bsz * h * w
+        return (2.0 * px * cmid * 9 * cin + 2.0 * 4 * px * cout * 4 * cmid,
+                4.0 * (px * cin + 4 * px * cout + 9 * cin * cmid + cmid + 16 * cmid * cout + cout))
+
+    taken = []
     for i, (cin, cout) in enumerate(cfg.gen_channels):
-        h, w = cfg.latent_height * 2**i, cfg.latent_width * NB_VEC * 2**i
+        bsz, h, w = block_sizes(cfg, i)
         blk = gen.blocks[i]
-        x = torch.randn(NB_MUSIC, cin, h, w, generator=rng, device=dev)
+        x = torch.randn(bsz, cin, h, w, generator=rng, device=dev)
         w1, b1 = blk.conv1.weight.detach(), blk.conv1.bias.detach()
         w2, b2 = blk.conv2.weight.detach(), blk.conv2.bias.detach()
         w1p, w2p = conv_ops.kernel_weights(w1), conv_ops.kernel_upconv_weights(w2)
@@ -978,48 +1137,69 @@ def check_block_kernel(gen, cfg: ModelConfig, dev) -> list[dict]:
             mid = conv_ops.fused_conv3x3(x, w1, b1, slope, True, eps, w_packed=w1p)
             return conv_ops.fused_upconv3x3(mid, w2, b2, slope, True, eps, w_packed=w2p)
 
+        takes = conv_ops.fused_block_fits(cin, cin, cout, size=(bsz, h, w), device=dev)
         large = pair_is_large(cin, cout, h, w)
-        if not conv_ops.fused_block_fits(cin, cin, cout):
-            tile_rows, _, passes = conv_ops.block_tile(cin, cout)
-            ref, tol = (pair if large else lambda: conv_ops.fused_block_plain(x, w1, b1, w2, b2, slope, eps),
-                        TOL["fused_block"])
-            err = (kernel() - ref()).abs().max().item()
-            print(f"[kernel] fused_block block {i} {(NB_MUSIC, cin, cin, cout, h, w)} does not fit "
-                  f"(tile {tile_rows} rows, {passes} passes a phase): K4 {time_ms(kernel):.4f} ms, "
-                  f"K1 then K3 {time_ms(pair):.4f} ms, err against {'the pair' if large else 'plain'} "
-                  f"{err:.2e} (tol {tol:.0e})")
-            if not err <= tol:
-                raise AssertionError(f"fused_block block {i} disagrees with {'K1 then K3' if large else 'plain'}")
+        plan = conv_ops.block_plan(bsz, cin, cin, cout, h, w)
+        if not takes:
+            err = (kernel() - conv_ops.fused_block_plain(x, w1, b1, w2, b2, slope, eps)).abs().max().item()
+            err_pair = (kernel() - pair()).abs().max().item()
+            k_ms, p_ms = time_ms(kernel), time_ms(pair)
+            print(f"[kernel] fused_block block {i} {(bsz, cin, cin, cout, h, w)} left to K1 then K3 "
+                  f"(pair on the tensor cores: {large}; runs of 8 rows fill half the card: no): K4 {k_ms:.4f} ms, "
+                  f"K1 then K3 {p_ms:.4f} ms, conv1 recompute {plan['recompute']:.3f}, err against plain "
+                  f"{err:.2e} (tol {TOL['fused_block']:.0e}), against the pair {err_pair:.2e}")
+            if not err <= TOL["fused_block"]:
+                raise AssertionError(f"fused_block block {i} disagrees with its plain version")
             continue
         if not large:
-            raise AssertionError(f"block {i}: K1 then K3 do not take the large-image route at the path's sizes")
-        mid_up = upsample_nearest_2x(conv_ops.conv3x3_plain(x, w1, b1, slope, True, eps))
-        px = NB_MUSIC * h * w
-
-        def library():  # the two convolutions alone, without epilogues or the upsample
-            F.conv2d(x, w1, b1, padding=1)
-            return F.conv2d(mid_up, w2, b2, padding=1)
-
+            raise AssertionError(f"block {i}: K4 taken where K1 then K3 are not both on the tensor cores")
+        taken.append(i)
         row = measure(
-            "fused_block", (NB_MUSIC, cin, cin, cout, h, w), kernel,
-            lambda: conv_ops.fused_block_plain(x, w1, b1, w2, b2, slope, eps), library,
-            2.0 * px * cin * 9 * cin + 2.0 * 4 * px * cout * 4 * cin,
-            4.0 * (px * cin + 4 * px * cout + 9 * cin * cin + cin + 16 * cin * cout + cout),
+            "fused_block", (bsz, cin, cin, cout, h, w), kernel,
+            lambda: conv_ops.fused_block_plain(x, w1, b1, w2, b2, slope, eps), library_of(x, w1, b1, w2, b2),
+            *work(bsz, cin, cin, cout, h, w), route="large_tc",
         )
         row["err_pair"] = (kernel() - pair()).abs().max().item()
+        row["equal_pair"] = bool(torch.equal(kernel(), pair()))
         row["pair_ms"] = time_ms(pair)
-        row["tile_rows"], row["smem_bytes"], _ = conv_ops.block_tile(cin, cout)
-        print(f"[kernel] fused_block block {i}: tile {row['tile_rows']} rows x 30, "
-              f"{row['smem_bytes']} B shared; against K1 then K3: err {row['err_pair']:.2e} "
-              f"(tol {TOL['fused_block']:.0e}), pair {row['pair_ms']:.4f} ms")
-        if not row["err_pair"] <= TOL["fused_block"]:
+        row["block_plan"], row["tile"] = plan, conv_ops.block_tile(cin, cout)
+        print(f"[kernel] fused_block block {i}: runs of {plan['run_rows']} rows x {conv_ops.BLOCK_STRIP} columns, "
+              f"{plan['units']} units over {plan['blocks']} blocks, conv1 recompute {plan['recompute']:.3f}, "
+              f"{row['tile']['smem_bytes']} B shared, {row['tile']['stages']} stages; against K1 then K3: "
+              f"err {row['err_pair']:.2e} (tol {TOL_BLOCK_VS_PAIR:.0e}), bit for bit {row['equal_pair']}, "
+              f"pair {row['pair_ms']:.4f} ms")
+        if not row["err_pair"] <= TOL_BLOCK_VS_PAIR:
             raise AssertionError(f"fused_block block {i} disagrees with K1 then K3")
         rows.append(row)
-        del mid_up
-    fitting = [r["shape"][1:4] for r in rows]
-    if (48, 48, 32) not in fitting or (32, 32, 16) not in fitting:
-        raise AssertionError(f"blocks 6 and 7 must take K4; fitting: {fitting}")
+    if 6 not in taken or 7 not in taken:
+        raise AssertionError(f"blocks 6 and 7 must take K4; taken: {taken}")
+    tot_k, tot_p = sum(r["ms"] for r in rows), sum(r["pair_ms"] for r in rows)
+    print(f"[sums]   fused_block blocks {taken}: K4 {tot_k:.4f} ms, K1 then K3 {tot_p:.4f} ms, "
+          f"bound {sum(r['bound_ms'] for r in rows):.4f} (3xTF32; bytes {sum(r['bytes_ms'] for r in rows):.4f})")
+
+    # A width past 128 channels: each conv split over a cluster of blocks.
+    bsz, cin, cmid, cout, h, w = WIDE_BLOCK
+    x = torch.randn(bsz, cin, h, w, generator=rng, device=dev)
+    w1 = torch.randn(cmid, cin, 3, 3, generator=rng, device=dev) / (9 * cin) ** 0.5
+    b1 = torch.randn(cmid, generator=rng, device=dev) * 0.1
+    w2 = torch.randn(cout, cmid, 3, 3, generator=rng, device=dev) / (9 * cmid) ** 0.5
+    b2 = torch.randn(cout, generator=rng, device=dev) * 0.1
+    row = measure(
+        "fused_block", WIDE_BLOCK, lambda: conv_ops.fused_block(x, w1, b1, w2, b2, slope, eps),
+        lambda: conv_ops.fused_block_plain(x, w1, b1, w2, b2, slope, eps), library_of(x, w1, b1, w2, b2),
+        *work(*WIDE_BLOCK), role="past_128", route="large_tc",
+    )
+    row["tile"] = conv_ops.block_tile(cmid, cout)
+    print(f"[kernel] fused_block past 128 channels {WIDE_BLOCK}: a cluster of {row['tile']['cluster']} "
+          f"blocks ({row['tile']['n1']} and {row['tile']['n2']} channels a block)")
+    rows.append(row)
     return rows
+
+
+def blocks_taking_k4(cfg: ModelConfig, dev, nb_vec: int, nb_music: int) -> int:
+    """How many blocks of a synthesis call K4's size rule gives K4."""
+    return sum(conv_ops.fused_block_fits(cin, cin, cout, size=block_sizes(cfg, i, nb_vec, nb_music), device=dev)
+               for i, (cin, cout) in enumerate(cfg.gen_channels))
 
 
 def warm_synthesis_s(synth, gen, z, n: int) -> list[float]:
@@ -1035,7 +1215,7 @@ def warm_synthesis_s(synth, gen, z, n: int) -> list[float]:
 def end_to_end_block(cfg: ModelConfig, dev, waves_default: np.ndarray) -> dict:
     """Phase 7, end to end: ``generate`` under ``conv_impl="pallas_block"``."""
     cfg_b = dataclasses.replace(cfg, conv_impl="pallas_block")
-    n_fit = sum(conv_ops.fused_block_fits(cin, cin, cout) for cin, cout in cfg.gen_channels)
+    n_fit = blocks_taking_k4(cfg, dev, NB_VEC, NB_MUSIC)
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_block_")
     reset_launches()
     paths = generate_mod.generate(
@@ -1046,7 +1226,8 @@ def end_to_end_block(cfg: ModelConfig, dev, waves_default: np.ndarray) -> dict:
     launches = read_launches()
     expect = {
         "fused_block": n_fit, "fused_conv3x3": cfg.n_stages - n_fit,
-        "fused_upconv3x3": cfg.n_stages - n_fit, "fused_conv3x3_msq": 0, "istft_fused": 1,
+        "fused_upconv3x3": cfg.n_stages - n_fit, "fused_conv3x3_msq": 0, "istft_fused": 1, IDFT: 0,
+        "weight_grad3x3": 0,
     }
     print(f"[e2e-block] generate with conv_impl='pallas_block': launches {launches}")
     if launches != expect:
@@ -1099,7 +1280,7 @@ def expected_loop_launches(tcfg: TrainConfig, cfg: ModelConfig, n_iters: int, st
     stage trajectory, plus one inference forward (K1 and K3 once a block)
     for the previews of every save."""
     by_stage, saves = loop_trajectory(tcfg, cfg, n_iters, start)
-    total = {name: 0 for name in WRAPPERS}
+    total = {name: 0 for name in (*WRAPPERS, IDFT)}
     for stage, (n_d, n_dg) in by_stage.items():
         for k, v in expected_train_launches(cfg, stage, n_d, n_dg).items():
             total[k] += v
@@ -1209,17 +1390,16 @@ def train_entry_point(cfg: ModelConfig, dev) -> dict:
     if have_mpl and len(pngs) != 2 * tcfg.nb_preview * n_saves:
         raise AssertionError(f"{len(pngs)} preview PNGs")
 
-    # (b) under cudnn.deterministic: uninterrupted again, and to half way by
-    # max_iters then on by resume.  The two must be equal bit for bit.
+    # (b) as users run it, no cuDNN flag set by the caller: uninterrupted
+    # again, and to half way by max_iters then on by resume.  All three
+    # must be equal bit for bit.
+    if torch.backends.cudnn.deterministic:
+        raise AssertionError("cudnn.deterministic is set before the train runs")
     out_u, out_b = os.path.join(work, "u"), os.path.join(work, "b")
-    torch.backends.cudnn.deterministic = True
-    try:
-        state_u, _, launches_u, _ = run_train("smoke", ds, out_u, tcfg, cfg, show=False, max_iters=LOOP_ITERS)
-        run_train("smoke", ds, out_b, tcfg, cfg, show=False, max_iters=half)
-        state_b, text_b, launches_b, _ = run_train(
-            "smoke", ds, out_b, tcfg, cfg, show=False, max_iters=LOOP_ITERS, resume=True)
-    finally:
-        torch.backends.cudnn.deterministic = False
+    state_u, _, launches_u, _ = run_train("smoke", ds, out_u, tcfg, cfg, show=False, max_iters=LOOP_ITERS)
+    run_train("smoke", ds, out_b, tcfg, cfg, show=False, max_iters=half)
+    state_b, text_b, launches_b, _ = run_train(
+        "smoke", ds, out_b, tcfg, cfg, show=False, max_iters=LOOP_ITERS, resume=True)
     resume_line = f"[resume] save_{half // tcfg.save_every - 1}: iter={half}"
     if resume_line not in text_b:
         raise AssertionError("the second half did not resume from the half-way save")
@@ -1232,15 +1412,17 @@ def train_entry_point(cfg: ModelConfig, dev) -> dict:
         with open(os.path.join(out, "checkpoints", f"save_{n_saves - 1}", "meta.json")) as f:
             metas.append(json.load(f))
     diff["exact"]["meta"] = metas[0] == metas[1]
-    print(f"[loop] under cudnn.deterministic, resumed at iteration {half} against uninterrupted: exact "
+    print(f"[loop] resumed at iteration {half} against uninterrupted, no cuDNN flag set: exact "
           f"{diff['exact']}; rel L2 {diff['rel_l2']}; largest absolute difference {diff['max_abs']:.3e} "
           f"(held at 0)")
     if not all(diff["exact"].values()) or max(diff["rel_l2"].values()) != 0.0 or diff["max_abs"] != 0.0:
         raise AssertionError(f"resume is not bit-exact: {diff}")
     spread = state_diff(state_a, state_u)
-    print(f"[loop] for scale, the same uninterrupted run under cuDNN's default kernels against the "
-          f"deterministic ones after {LOOP_ITERS} iterations: exact {spread['exact']}; rel L2 "
-          f"{({k: float(f'{v:.3e}') for k, v in spread['rel_l2'].items()})}")
+    print(f"[loop] two uninterrupted runs after {LOOP_ITERS} iterations: exact {spread['exact']}; rel L2 "
+          f"{({k: float(f'{v:.3e}') for k, v in spread['rel_l2'].items()})}; largest absolute difference "
+          f"{spread['max_abs']:.3e} (held at 0)")
+    if not all(spread["exact"].values()) or max(spread["rel_l2"].values()) != 0.0 or spread["max_abs"] != 0.0:
+        raise AssertionError(f"two uninterrupted runs differ: {spread}")
     del state_b, state_u
 
     # (d) streaming through the host pipeline (prepare_batch), stages 0-3.
@@ -1322,7 +1504,7 @@ def train_entry_point(cfg: ModelConfig, dev) -> dict:
 
     # generate from the run directory (the checkpoint branch), through K4.
     cfg_b = dataclasses.replace(cfg, conv_impl="pallas_block")
-    n_fit = sum(conv_ops.fused_block_fits(cin, cin, cout) for cin, cout in cfg.gen_channels)
+    n_fit = blocks_taking_k4(cfg, dev, 2, 2)
     reset_launches()
     paths = generate_mod.generate(
         os.path.join(work, "wav"), cfg.rand_channels, out_a, nb_vec=2, nb_music=2, seed=SEED,
@@ -1330,13 +1512,16 @@ def train_entry_point(cfg: ModelConfig, dev) -> dict:
     )
     got = read_launches()
     want = {"fused_block": n_fit, "fused_conv3x3": cfg.n_stages - n_fit,
-            "fused_upconv3x3": cfg.n_stages - n_fit, "fused_conv3x3_msq": 0, "istft_fused": 1}
+            "fused_upconv3x3": cfg.n_stages - n_fit, "fused_conv3x3_msq": 0, "istft_fused": 1, IDFT: 0,
+            "weight_grad3x3": 0}
     if got != want:
         raise AssertionError(f"generate from the run directory launched {got}, not {want}")
     for p in paths:
         wave, sr = load_wav(p)
         if sr != 44100 or wave.shape != ((2 * 512 - 1) * 256,) or not np.isfinite(wave).all():
             raise AssertionError(f"{p}: {sr} Hz, {wave.shape}")
+    if n_fit < 2:
+        raise AssertionError(f"blocks 6 and 7 of a 2-clip, nb_vec-2 call must take K4: {n_fit} blocks did")
     print(f"[loop] generate from the run directory with conv_impl='pallas_block': {len(paths)} WAVs, launches {got}")
 
     total = {k: launches[k] + launches_u[k] + launches_b[k] + launches_d[k] for k in launches}
@@ -1344,7 +1529,7 @@ def train_entry_point(cfg: ModelConfig, dev) -> dict:
         "launches": total, "launches_uninterrupted": launches, "wall_s": wall_a,
         "iterations_by_stage": {str(k): v for k, v in by_stage.items()},
         "steps_per_s_by_stage": {str(s): r for s, (_, r) in rates.items()},
-        "resume": diff, "default_vs_deterministic": spread, "streaming_worst_abs_diff": worst, "save_s": save_s, "restore_s": restore_s,
+        "resume": diff, "uninterrupted_twice": spread, "streaming_worst_abs_diff": worst, "save_s": save_s, "restore_s": restore_s,
         "state_bytes": size, "matplotlib": have_mpl, "preempt_iter": meta_c["iter_idx"],
     }
 
@@ -1384,21 +1569,33 @@ def main() -> None:
     loop = train_entry_point(cfg, dev)
 
     paths = (e2e, train_rec, e2e_block, loop)
+    launched = {k: sum(p["launches"][k] for p in paths) for k in (*WRAPPERS, IDFT)}
     kernels = []
     for name, (source, replaces) in SOURCES.items():
-        mine = [r for r in rows if r["name"] == name]
-        kernels.append({
-            "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": sum(p["launches"][name] for p in paths),
-            "max_abs_err": max(r["max_abs_err"] for r in mine),
-            **{k: sum(r[k] for r in mine) for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
-            "bound_by": "operations" if sum(r["ops_ms"] for r in mine)
-            >= sum(r["bytes_ms"] for r in mine) else "bytes",
-        })
-        if all("plan" in r for r in mine):  # the conv template: its routes and both bounds
-            kernels[-1]["conv_routes"] = sorted({r["route"] for r in mine})
-            for k in ("bound_fp32_ms", "bound_3xtf32_ms"):
-                kernels[-1][k] = sum(r[k] for r in mine)
+        # K5 has two routes, each its own entry; the iDFT route is on no path.
+        groups = ([("fft", launched[name] - launched[IDFT]), ("idft", launched[IDFT])]
+                  if name == "istft_fused" else [(None, launched[name])])
+        for route_name, n_launched in groups:
+            mine = [r for r in rows if r["name"] == name and r.get("route_name") == route_name]
+            entry = {
+                "name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": n_launched, "max_abs_err": max(r["max_abs_err"] for r in mine),
+                **{k: sum(r[k] for r in mine) for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+                "bound_by": "operations" if sum(r["ops_ms"] for r in mine)
+                >= sum(r["bytes_ms"] for r in mine) else "bytes",
+            }
+            if route_name is not None:
+                entry["kernel_route"] = route_name
+                entry["on_path"] = route_name == "fft"
+            if all("plan" in r for r in mine):  # the conv template: its routes
+                entry["conv_routes"] = sorted({r["route"] for r in mine})
+            if all("bound_fp32_ms" in r for r in mine):  # and both bounds, K4's too
+                for k in ("bound_fp32_ms", "bound_3xtf32_ms"):
+                    entry[k] = sum(r[k] for r in mine)
+            if name == "fused_block":
+                entry["pair_ms"] = sum(r["pair_ms"] for r in mine if "pair_ms" in r)
+                entry["max_abs_err_vs_pair"] = max(r["err_pair"] for r in mine if "err_pair" in r)
+            kernels.append(entry)
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(

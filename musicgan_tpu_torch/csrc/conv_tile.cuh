@@ -302,6 +302,287 @@ __device__ __forceinline__ void bar_arrive(int id, int n) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
 
+// ---- The pieces of the tensor-core route, shared by conv_tc_kernel (K1,
+// K2, K3) and block3x3.cu's whole-block kernel (K4), so that both sum every
+// output in one order.
+
+// The producer warpgroup (thread pt of 128) copies 8 input channels'
+// halo tile into planes [8][plane]: image rows r_first .. r_first + rows - 1,
+// columns c_first .. c_first + TC_SW - 1, zero outside the image and past
+// cin.  vec: 16-byte runs (W and c_first multiples of 4, x 16-byte aligned),
+// each wholly inside or outside the image.
+__device__ __forceinline__ void stage_input(float* a_s, const float* xb, const float* any,
+                                            int cin, int H, int W, int ci0, int r_first,
+                                            int rows, int c_first, int plane, int pt, bool vec) {
+  if (vec) {
+    for (int e = pt; e < TC_CK * rows * (TC_SW / 4); e += 128) {
+      const int qq = e % (TC_SW / 4), tt = e / (TC_SW / 4), rl = tt % rows, ci = tt / rows;
+      const int gr = r_first + rl, gc = c_first + 4 * qq, c = ci0 + ci;
+      const bool ok = c < cin && gr >= 0 && gr < H && gc >= 0 && gc < W;
+      cp_async16_cg(a_s + ci * plane + rl * TC_SW + 4 * qq,
+                    ok ? xb + ((size_t)c * H + gr) * W + gc : any, ok);
+    }
+  } else {
+    for (int e = pt; e < TC_CK * rows * TC_SW; e += 128) {
+      const int qq = e % TC_SW, tt = e / TC_SW, rl = tt % rows, ci = tt / rows;
+      const int gr = r_first + rl, gc = c_first + qq, c = ci0 + ci;
+      const bool ok = c < cin && gr >= 0 && gr < H && gc >= 0 && gc < W;
+      cp_async4(a_s + ci * plane + rl * TC_SW + qq, ok ? xb + ((size_t)c * H + gr) * W + gc : any, ok);
+    }
+  }
+}
+
+// A chunk's weights into the producer's registers (zero past cin and
+// coutp): its r-th (tap, channel quad, output channel) is e = 128 * r + pt,
+// the output channel fastest, so that a warp's loads are runs of channels.
+// K = 3: taps tap0 + 0 .. NT - 1 of w (cin, 9, coutp); K = 2: the phases
+// ph0 + tap / 4, sub-tap tap % 4 of w (4, cin, 4, coutp).
+template <int K, int NT, int N, int WREGS>
+__device__ __forceinline__ void load_weight_chunk(float (&wv)[WREGS][4], const float* __restrict__ w,
+                                                  int cin, int coutp, int co_base, int ci0, int tap0,
+                                                  int ph0, int pt) {
+#pragma unroll
+  for (int r = 0; r < WREGS; ++r) {
+    const int e = r * 128 + pt;
+    const int n = e % N, tt = e / N, cq = tt & 1, tap = tt >> 1;
+    const int co = co_base + n;
+#pragma unroll
+    for (int c4 = 0; c4 < 4; ++c4) {
+      const int c = ci0 + 4 * cq + c4;
+      const float* src = K == 3 ? w + ((size_t)c * 9 + tap0 + tap) * coutp + co
+                                : w + (((size_t)(ph0 + tap / 4) * cin + c) * 4 + tap % 4) * coutp + co;
+      wv[r][c4] = e < NT * 2 * N && c < cin && co < coutp ? __ldg(src) : 0.f;
+    }
+  }
+}
+
+// The chunk's weights split into big and small and written K-major, one
+// 16-byte word of 4 input channels each, [tap][quad][n][4] per plane.
+template <int NT, int N, int WREGS>
+__device__ __forceinline__ void store_split_weights(float* b_big, float* b_small,
+                                                    const float (&wv)[WREGS][4], int pt) {
+#pragma unroll
+  for (int r = 0; r < WREGS; ++r) {
+    const int e = r * 128 + pt;
+    if (e < NT * 2 * N) {
+      float hi[4], lo[4];
+#pragma unroll
+      for (int c4 = 0; c4 < 4; ++c4) {
+        hi[c4] = __uint_as_float(to_tf32(wv[r][c4]));
+        lo[c4] = __uint_as_float(to_tf32(wv[r][c4] - hi[c4]));
+      }
+      reinterpret_cast<float4*>(b_big)[e] = make_float4(hi[0], hi[1], hi[2], hi[3]);
+      reinterpret_cast<float4*>(b_small)[e] = make_float4(lo[0], lo[1], lo[2], lo[3]);
+    }
+  }
+}
+
+// A fragment of m64 x k8 from planes [channel][plane] (pixels 16*wq + g and
+// + 8, channels t and t + 4 of the thread; ap points at channel t, pixel
+// 16*wq + g), split in registers into big and small TF32 parts.
+__device__ __forceinline__ void load_split_a(uint32_t (&hi)[4], uint32_t (&lo)[4], const float* ap,
+                                             int plane) {
+  const float av[4] = {ap[0], ap[8], ap[4 * plane], ap[4 * plane + 8]};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    hi[i] = to_tf32(av[i]);
+    lo[i] = to_tf32(av[i] - __uint_as_float(hi[i]));
+  }
+}
+
+// One float32 product in 3xTF32: big*big + big*small + small*big.
+template <int N>
+__device__ __forceinline__ void mma3(float (&d)[N / 2], const uint32_t (&hi)[4], const uint32_t (&lo)[4],
+                                     uint64_t b_big, uint64_t b_small) {
+  Wgmma<N>::mma(d, hi, b_big);
+  Wgmma<N>::mma(d, hi, b_small);
+  Wgmma<N>::mma(d, lo, b_big);
+}
+
+template <int T, int ND>
+__device__ __forceinline__ void fence_tiles(float (&d)[T][ND]) {
+#pragma unroll
+  for (int u = 0; u < T; ++u)
+#pragma unroll
+    for (int k = 0; k < ND; ++k) fence_operand(d[u][k]);
+}
+
+// The tensor cores' own additions truncate, so products go to a fresh
+// accumulator d, which is added to the tile's in float32 (round to
+// nearest) after each fragment row and set to zero again.
+template <int T, int ND>
+__device__ __forceinline__ void add_fresh(float (&acc)[T][ND], float (&d)[T][ND]) {
+#pragma unroll
+  for (int u = 0; u < T; ++u)
+#pragma unroll
+    for (int k = 0; k < ND; ++k) {
+      fence_operand(d[u][k]);
+      acc[u][k] += d[u][k];
+      d[u][k] = 0.f;
+      fence_operand(d[u][k]);
+    }
+}
+
+// A chunk's products for a warpgroup's T accumulator tiles: each input row
+// j and column shift s of the halo is loaded once as an A fragment (row(j)
+// points at the thread's channel t, pixel 16*wq + g of input row j; + s
+// shifts it), split, and serves every tile (row, phase) whose tap it is.
+// Two fragments in registers at a time: a group's products are in flight
+// while the next one's fragment is loaded and split.  K = 3: RW rows, one
+// tile each, taps dy * 3 + dx; K = 2: RW rows of PPB phases, phase offsets
+// (oy, ox) compile-time (OY, OX where a block holds fewer than four
+// phases), taps pu * 4 + dy * 2 + dx.  After each input row the fresh
+// accumulators go into acc.
+template <int K, int N, int T, int PPB, int RW, int OY, int OX, typename Row>
+__device__ __forceinline__ void tc_products(float (&acc)[T][N / 2], float (&d)[T][N / 2], Row row,
+                                            int plane, uint64_t d_big, uint64_t d_small) {
+  fence_tiles(d);
+  uint32_t hi[2][4], lo[2][4];
+#pragma unroll
+  for (int j = 0; j < RW + 2; ++j) {
+    const float* rp = row(j);
+#pragma unroll
+    for (int s = 0; s < 3; ++s) {
+      const int f = (j * 3 + s) & 1;
+      load_split_a(hi[f], lo[f], rp + s, plane);
+      wgmma_fence();
+#pragma unroll
+      for (int u = 0; u < T; ++u) {
+        const int ru = u / PPB, pu = u % PPB;
+        const int oy = K == 3 ? 0 : PPB == 4 ? pu >> 1 : OY;
+        const int ox = K == 3 ? 0 : PPB == 4 ? pu & 1 : PPB == 2 ? pu : OX;
+        const int dy = j - ru - oy, dx = s - ox;
+        if (dy >= 0 && dy < K && dx >= 0 && dx < K) {
+          const int tap = K == 3 ? dy * 3 + dx : pu * 4 + dy * 2 + dx;
+          const uint64_t off = (uint64_t)(tap * N * 32) >> 4;
+          mma3<N>(d[u], hi[f], lo[f], d_big + off, d_small + off);
+        }
+      }
+      wgmma_commit();
+      wgmma_wait<1>();
+    }
+    wgmma_wait<0>();
+    add_fresh(acc, d);
+  }
+}
+
+// Bias and LeakyReLU on a warpgroup's tiles in registers.  A thread holds,
+// of tile u, pixels m = 16*wq + g + 8*i and channels 8*j + 2*t + e as
+// acc[u][4*j + 2*i + e].
+template <int T, int N>
+__device__ __forceinline__ void bias_lrelu(float (&acc)[T][N / 2], const float* __restrict__ bias,
+                                           int co_base, int cout, int t, float slope, int use_slope) {
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int co = co_base + 8 * j + 2 * t + e;
+      const float bk = (bias != nullptr && co < cout) ? bias[co] : 0.f;
+#pragma unroll
+      for (int u = 0; u < T; ++u)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          float v = acc[u][4 * j + 2 * i + e] + bk;
+          if (use_slope) v = v >= 0.f ? v : slope * v;
+          acc[u][4 * j + 2 * i + e] = v;
+        }
+    }
+}
+
+// PixelNorm's sum of u^2 for each of the thread's pixels: its channels in
+// order, then the quad's four lanes.
+template <int T, int N>
+__device__ __forceinline__ void pn_sums(const float (&acc)[T][N / 2], float (&sum)[T][2]) {
+#pragma unroll
+  for (int u = 0; u < T; ++u)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float sq = 0.f;
+#pragma unroll
+      for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) sq = fmaf(acc[u][4 * j + 2 * i + e], acc[u][4 * j + 2 * i + e], sq);
+      sq += __shfl_xor_sync(0xffffffffu, sq, 1);
+      sq += __shfl_xor_sync(0xffffffffu, sq, 2);
+      sum[u][i] = sq;
+    }
+}
+
+// The sums of the blocks of a cluster that share the pixels, in rank order
+// 0 .. nranks - 1: each writes its own to pt ([TC_WG][T][64]), the cluster
+// meets, each reads all.
+template <int T>
+__device__ __forceinline__ void pn_cluster_sums(float (&sum)[T][2], float* pt, int wg, int wq, int g,
+                                                int t, int nranks) {
+#pragma unroll
+  for (int u = 0; u < T; ++u)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      if (t == 0) pt[(wg * T + u) * TC_W + 16 * wq + g + 8 * i] = sum[u][i];
+  coop::cluster_group cluster = coop::this_cluster();
+  cluster.sync();
+#pragma unroll
+  for (int u = 0; u < T; ++u)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float sq = 0.f;
+      for (int k = 0; k < nranks; ++k)
+        sq += cluster.map_shared_rank(pt, k)[(wg * T + u) * TC_W + 16 * wq + g + 8 * i];
+      sum[u][i] = sq;
+    }
+}
+
+// The PixelNorm scale of pixel (u, i), from its mean of u^2 m.
+template <int T, int N>
+__device__ __forceinline__ void pn_scale(float (&acc)[T][N / 2], int u, int i, float m, float eps) {
+  const float scale = rsqrtf(m + eps);
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) acc[u][4 * j + 2 * i + e] *= scale;
+}
+
+// Stores of a warpgroup's tiles to y (B, cout, H * st, W * st): tile u is
+// image row r0 + u / PPB of phase ph0 + u % PPB, pixels c0 + m for m <
+// mlim; rows from rlim on are not stored.  A warp's store covers 8
+// consecutive pixels of 4 channels (32 bytes each), or, where the block
+// holds both column phases of K3's output row, the two phases of 8 pixels
+// as 8-byte pairs (64 bytes).
+template <int K, int T, int N, int PPB>
+__device__ __forceinline__ void store_tiles(const float (&acc)[T][N / 2], float* __restrict__ y, int b,
+                                            int cout, int co_base, int H, int W, int st, int r0, int c0,
+                                            int ph0, int rlim, int mlim, int wq, int g, int t) {
+  const size_t plane_o = (size_t)H * st * W * st;
+#pragma unroll
+  for (int u = 0; u < T; ++u) {
+    const int ru = u / PPB, pu = u % PPB;
+    const int ph = ph0 + pu;
+    const int oy = K == 2 ? ph >> 1 : 0, ox = K == 2 ? ph & 1 : 0;
+    if (PPB >= 2 && (pu & 1)) continue;  // stored with its ox = 0 partner
+    const int r = r0 + ru;
+    if (r >= rlim) continue;
+    float* yrow = y + (size_t)b * cout * plane_o + (size_t)(r * st + oy) * W * st;
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int co = co_base + 8 * j + 2 * t + e;
+        if (co >= cout) continue;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int m = 16 * wq + g + 8 * i, c = c0 + m;
+          if (m >= mlim || c >= W) continue;
+          float* dst = yrow + co * plane_o;
+          if constexpr (PPB >= 2)
+            *reinterpret_cast<float2*>(dst + 2 * c) =
+                make_float2(acc[u][4 * j + 2 * i + e], acc[u + 1][4 * j + 2 * i + e]);
+          else
+            dst[c * st + ox] = acc[u][4 * j + 2 * i + e];
+        }
+      }
+  }
+}
+
 // x: (B, cin, H, W); w: kernel layout; bias: (cout,) or null for none;
 // y: (B, cout, H, W), or (B, cout, 2H, 2W) when nphase == 4; msq: null, or
 // (B, 1, H, W) to receive the pre-norm mean over channels of u^2 (K2; needs
@@ -361,51 +642,17 @@ conv_tc_kernel(const float* __restrict__ x, const float* __restrict__ w,
     // ---- The producer. ----
     const int pt = tid - 128 * TC_WG;
     const bool vec = (W & 3) == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
-    // Copies of chunk q's halo tile (zero outside the image and past cin).
+    // Chunk q's halo tile and (one chunk ahead, into registers) its weights.
     auto issue = [&](int q) {
       const Tile tq = tile_of(q / nchunks);
-      const int ci0 = (q % nchunks) * TC_CK;
-      const float* xb = x + (size_t)tq.b * cin * H * W;
-      float* a_s = smem + (q % S) * G.stage;
-      if (vec) {  // 16-byte runs, each wholly inside or outside the image
-        for (int e = pt; e < TC_CK * SH * (TC_SW / 4); e += 128) {
-          const int qq = e % (TC_SW / 4), tt = e / (TC_SW / 4), rl = tt % SH, ci = tt / SH;
-          const int gr = tq.r0 - 1 + rl, gc = tq.c0 - 4 + 4 * qq, c = ci0 + ci;
-          const bool ok = c < cin && gr >= 0 && gr < H && gc >= 0 && gc < W;
-          cp_async16_cg(a_s + ci * G.plane + rl * TC_SW + 4 * qq,
-                        ok ? xb + ((size_t)c * H + gr) * W + gc : x, ok);
-        }
-      } else {
-        for (int e = pt; e < TC_CK * SH * TC_SW; e += 128) {
-          const int qq = e % TC_SW, tt = e / TC_SW, rl = tt % SH, ci = tt / SH;
-          const int gr = tq.r0 - 1 + rl, gc = tq.c0 - 4 + qq, c = ci0 + ci;
-          const bool ok = c < cin && gr >= 0 && gr < H && gc >= 0 && gc < W;
-          cp_async4(a_s + ci * G.plane + rl * TC_SW + qq,
-                    ok ? xb + ((size_t)c * H + gr) * W + gc : x, ok);
-        }
-      }
+      stage_input(smem + (q % S) * G.stage, x + (size_t)tq.b * cin * H * W, x, cin, H, W,
+                  (q % nchunks) * TC_CK, tq.r0 - 1, SH, tq.c0 - 4, G.plane, pt, vec);
     };
-    // Chunk q's weights into registers (zero past cin and coutp): a thread's
-    // r-th (tap, channel quad, output channel) is e = 128 * r + pt, the
-    // output channel fastest, so that a warp's loads are runs of channels.
     constexpr int WREGS = (NT * 2 * N + 127) / 128;
     float wv[WREGS][4];
     auto load_weights = [&](int q) {
       const Tile tq = tile_of(q / nchunks);
-      const int ci0 = (q % nchunks) * TC_CK;
-#pragma unroll
-      for (int r = 0; r < WREGS; ++r) {
-        const int e = r * 128 + pt;
-        const int n = e % N, tt = e / N, cq = tt & 1, tap = tt >> 1;
-        const int co = co_base + n;
-#pragma unroll
-        for (int c4 = 0; c4 < 4; ++c4) {
-          const int c = ci0 + 4 * cq + c4;
-          const float* src = K == 3 ? w + ((size_t)c * 9 + tap) * coutp + co
-                                    : w + (((size_t)(tq.ph0 + tap / 4) * cin + c) * 4 + tap % 4) * coutp + co;
-          wv[r][c4] = e < NT * 2 * N && c < cin && co < coutp ? __ldg(src) : 0.f;
-        }
-      }
+      load_weight_chunk<K, NT, N>(wv, w, cin, coutp, co_base, (q % nchunks) * TC_CK, 0, tq.ph0, pt);
     };
     // One commit group a chunk: chunk q is group q.  The first S are
     // issued here, chunk q + S when the consumers give back chunk q's stage.
@@ -421,26 +668,8 @@ conv_tc_kernel(const float* __restrict__ x, const float* __restrict__ w,
       else
         cp_async_wait<S - 2>();
       bar_sync(PRODUCER, 128);  // chunk k's input landed, every producer thread's copies
-      // Its weights (loaded one chunk ahead, below): a thread takes one
-      // (tap, channel quad, output channel) at a time and writes the 4 input
-      // channels' big and small values as one 16-byte word each of
-      // [tap][quad][n][4].
       float* b_big = smem + (k % S) * G.stage + TC_CK * G.plane;
-      float* b_small = b_big + G.bsplit;
-#pragma unroll
-      for (int r = 0; r < WREGS; ++r) {
-        const int e = r * 128 + pt;
-        if (e < NT * 2 * N) {
-          float hi[4], lo[4];
-#pragma unroll
-          for (int c4 = 0; c4 < 4; ++c4) {
-            hi[c4] = __uint_as_float(to_tf32(wv[r][c4]));
-            lo[c4] = __uint_as_float(to_tf32(wv[r][c4] - hi[c4]));
-          }
-          reinterpret_cast<float4*>(b_big)[e] = make_float4(hi[0], hi[1], hi[2], hi[3]);
-          reinterpret_cast<float4*>(b_small)[e] = make_float4(lo[0], lo[1], lo[2], lo[3]);
-        }
-      }
+      store_split_weights<NT, N>(b_big, b_big + G.bsplit, wv, pt);
       if (k + 1 < total) load_weights(k + 1);
       fence_proxy_async();  // the split weights are read by wgmma
       bar_arrive(FULL + k % S, TC_THREADS);
@@ -470,10 +699,6 @@ conv_tc_kernel(const float* __restrict__ x, const float* __restrict__ w,
 
     for (int kc = 0; kc < nchunks; ++kc) {
       const int q = it * nchunks + kc;
-      // The products go to d, which starts at zero, and d is added to acc
-      // in float32 (round to nearest) after each fragment row: the tensor
-      // cores' own additions truncate, and a chain of 3 x 9 x cin/8 of them
-      // into one accumulator would drift towards zero.
       float d[T][ND];
 #pragma unroll
       for (int u = 0; u < T; ++u)
@@ -483,136 +708,38 @@ conv_tc_kernel(const float* __restrict__ x, const float* __restrict__ w,
       bar_sync(FULL + q % S, TC_THREADS);
       const uint64_t d_big = smem_desc(cur + TC_CK * G.plane, N * 16, 128);
       const uint64_t d_small = smem_desc(cur + TC_CK * G.plane + G.bsplit, N * 16, 128);
-
-      // Products: each input row and column shift of the warpgroup's halo
-      // is loaded once as an A fragment, split in registers, and serves
-      // every tile (row, phase) whose tap it is.  Fragment of m64 x k8:
-      // pixels 16*wq + g (+8), channels t (+4).  Two fragments in registers
-      // at a time: a group's products are in flight while the next group's
-      // fragment is loaded and split.  Which tiles a fragment serves is
-      // fixed at compile time: OY, OX are the phase offsets of a block of
-      // K3 that holds fewer than four phases.
+      // Input row j of the warpgroup's halo; which tiles a fragment serves
+      // is fixed at compile time (OY, OX: the phase offsets of a block of
+      // K3 that holds fewer than four phases).
       const float* a_base = cur + t * G.plane + (wg * RW) * TC_SW + 3 + 16 * wq + g;
-      auto products = [&](auto OY, auto OX) {
-#pragma unroll
-        for (int u = 0; u < T; ++u)
-#pragma unroll
-          for (int k = 0; k < ND; ++k) fence_operand(d[u][k]);
-        uint32_t hi[2][4], lo[2][4];
-#pragma unroll
-        for (int j = 0; j < RW + 2; ++j) {
-#pragma unroll
-          for (int s = 0; s < 3; ++s) {
-            const int f = (j * 3 + s) & 1;
-            const float* ap = a_base + j * TC_SW + s;
-            const float av[4] = {ap[0], ap[8], ap[4 * G.plane], ap[4 * G.plane + 8]};
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-              hi[f][i] = to_tf32(av[i]);
-              lo[f][i] = to_tf32(av[i] - __uint_as_float(hi[f][i]));
-            }
-            wgmma_fence();
-#pragma unroll
-            for (int u = 0; u < T; ++u) {
-              const int ru = u / PPB, pu = u % PPB;
-              const int oy = K == 3 ? 0 : PPB == 4 ? pu >> 1 : decltype(OY)::value;
-              const int ox = K == 3 ? 0 : PPB == 4 ? pu & 1 : PPB == 2 ? pu : decltype(OX)::value;
-              const int dy = j - ru - oy, dx = s - ox;
-              if (dy >= 0 && dy < K && dx >= 0 && dx < K) {
-                const int tap = K == 3 ? dy * 3 + dx : pu * 4 + dy * 2 + dx;
-                const uint64_t off = (uint64_t)(tap * N * 32) >> 4;
-                Wgmma<N>::mma(d[u], hi[f], d_big + off);
-                Wgmma<N>::mma(d[u], hi[f], d_small + off);
-                Wgmma<N>::mma(d[u], lo[f], d_big + off);
-              }
-            }
-            wgmma_commit();
-            wgmma_wait<1>();
-          }
-          wgmma_wait<0>();
-#pragma unroll
-          for (int u = 0; u < T; ++u)
-#pragma unroll
-            for (int k = 0; k < ND; ++k) {
-              fence_operand(d[u][k]);
-              acc[u][k] += d[u][k];
-              d[u][k] = 0.f;
-              fence_operand(d[u][k]);
-            }
-        }
-      };
-      using I0 = std::integral_constant<int, 0>;
-      using I1 = std::integral_constant<int, 1>;
+      auto row = [&](int j) { return a_base + j * TC_SW; };
       if constexpr (K == 3 || PPB == 4) {
-        products(I0{}, I0{});
+        tc_products<K, N, T, PPB, RW, 0, 0>(acc, d, row, G.plane, d_big, d_small);
       } else if constexpr (PPB == 2) {
-        if (ph0 >> 1) products(I1{}, I0{});
-        else products(I0{}, I0{});
+        if (ph0 >> 1) tc_products<K, N, T, PPB, RW, 1, 0>(acc, d, row, G.plane, d_big, d_small);
+        else tc_products<K, N, T, PPB, RW, 0, 0>(acc, d, row, G.plane, d_big, d_small);
       } else {
         switch (ph0) {
-          case 0: products(I0{}, I0{}); break;
-          case 1: products(I0{}, I1{}); break;
-          case 2: products(I1{}, I0{}); break;
-          default: products(I1{}, I1{}); break;
+          case 0: tc_products<K, N, T, PPB, RW, 0, 0>(acc, d, row, G.plane, d_big, d_small); break;
+          case 1: tc_products<K, N, T, PPB, RW, 0, 1>(acc, d, row, G.plane, d_big, d_small); break;
+          case 2: tc_products<K, N, T, PPB, RW, 1, 0>(acc, d, row, G.plane, d_big, d_small); break;
+          default: tc_products<K, N, T, PPB, RW, 1, 1>(acc, d, row, G.plane, d_big, d_small); break;
         }
       }
       if (q + S < total) bar_arrive(EMPTY + q % S, TC_THREADS);  // the stage goes back
     }
 
-    // Epilogue in float32, from the registers.  A thread holds, of tile u,
-    // pixels m = 16*wq + g + 8*i and channels 8*j + 2*t + e as
-    // acc[u][4*j + 2*i + e].
-#pragma unroll
-    for (int j = 0; j < N / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int co = co_base + 8 * j + 2 * t + e;
-        const float bk = (bias != nullptr && co < cout) ? bias[co] : 0.f;
-#pragma unroll
-        for (int u = 0; u < T; ++u)
-#pragma unroll
-          for (int i = 0; i < 2; ++i) {
-            float v = acc[u][4 * j + 2 * i + e] + bk;
-            if (use_slope) v = v >= 0.f ? v : slope * v;
-            acc[u][4 * j + 2 * i + e] = v;
-          }
-      }
+    // Epilogue in float32, from the registers.
+    bias_lrelu<T, N>(acc, bias, co_base, cout, t, slope, use_slope);
     if (pixel_norm) {
       // A pixel's sum of u^2: the thread's channels in order, then the
       // quad's four lanes, then (past 128 channels) the cluster's blocks in
       // rank order, through a buffer of this tile's parity (a block reuses
       // it two tiles later, after every block has passed the next tile's
       // cluster barrier, so after every read of it).
-      float* pt = part + (it & 1) * (TC_WG * T * TC_W);
       float sum[T][2];
-#pragma unroll
-      for (int u = 0; u < T; ++u)
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          float sq = 0.f;
-#pragma unroll
-          for (int j = 0; j < N / 8; ++j)
-#pragma unroll
-            for (int e = 0; e < 2; ++e)
-              sq = fmaf(acc[u][4 * j + 2 * i + e], acc[u][4 * j + 2 * i + e], sq);
-          sq += __shfl_xor_sync(0xffffffffu, sq, 1);
-          sq += __shfl_xor_sync(0xffffffffu, sq, 2);
-          sum[u][i] = sq;
-          if (clustered && t == 0) pt[(wg * T + u) * TC_W + 16 * wq + g + 8 * i] = sq;
-        }
-      if (clustered) {
-        coop::cluster_group cluster = coop::this_cluster();
-        cluster.sync();
-#pragma unroll
-        for (int u = 0; u < T; ++u)
-#pragma unroll
-          for (int i = 0; i < 2; ++i) {
-            float sq = 0.f;
-            for (int k = 0; k < nsplit; ++k)
-              sq += cluster.map_shared_rank(pt, k)[(wg * T + u) * TC_W + 16 * wq + g + 8 * i];
-            sum[u][i] = sq;
-          }
-      }
+      pn_sums<T, N>(acc, sum);
+      if (clustered) pn_cluster_sums<T>(sum, part + (it & 1) * (TC_WG * T * TC_W), wg, wq, g, t, nsplit);
 #pragma unroll
       for (int u = 0; u < T; ++u)
 #pragma unroll
@@ -622,47 +749,11 @@ conv_tc_kernel(const float* __restrict__ x, const float* __restrict__ w,
             const int r = r0 + wg * RW + u, c = c0 + 16 * wq + g + 8 * i;
             if (r < H && c < W) msq[((size_t)b * H + r) * W + c] = m;
           }
-          const float scale = rsqrtf(m + eps);
-#pragma unroll
-          for (int j = 0; j < N / 8; ++j)
-#pragma unroll
-            for (int e = 0; e < 2; ++e) acc[u][4 * j + 2 * i + e] *= scale;
+          pn_scale<T, N>(acc, u, i, m, eps);
         }
     }
-
-    // Stores: a warp's store covers 8 consecutive pixels of 4 channels (32
-    // bytes each), or, where the block holds both column phases of K3's
-    // output row, the two phases of 8 pixels as 8-byte pairs (64 bytes).
-    const int st = nphase == 4 ? 2 : 1;
-    const size_t plane_o = (size_t)H * st * W * st;
-#pragma unroll
-    for (int u = 0; u < T; ++u) {
-      const int ru = u / PPB, pu = u % PPB;
-      const int ph = ph0 + pu;
-      const int oy = K == 2 ? ph >> 1 : 0, ox = K == 2 ? ph & 1 : 0;
-      if (PPB >= 2 && (pu & 1)) continue;  // stored with its ox = 0 partner
-      const int r = r0 + wg * RW + ru;
-      if (r >= H) continue;
-      float* yrow = y + (size_t)b * cout * plane_o + (size_t)(r * st + oy) * W * st;
-#pragma unroll
-      for (int j = 0; j < N / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int co = co_base + 8 * j + 2 * t + e;
-          if (co >= cout) continue;
-#pragma unroll
-          for (int i = 0; i < 2; ++i) {
-            const int c = c0 + 16 * wq + g + 8 * i;
-            if (c >= W) continue;
-            float* dst = yrow + co * plane_o;
-            if constexpr (PPB >= 2)
-              *reinterpret_cast<float2*>(dst + 2 * c) =
-                  make_float2(acc[u][4 * j + 2 * i + e], acc[u + 1][4 * j + 2 * i + e]);
-            else
-              dst[c * st + ox] = acc[u][4 * j + 2 * i + e];
-          }
-        }
-    }
+    store_tiles<K, T, N, PPB>(acc, y, b, cout, co_base, H, W, nphase == 4 ? 2 : 1, r0 + wg * RW, c0,
+                              ph0, H, TC_W, wq, g, t);
   }
   // A block's shared memory must outlive the other blocks' reads of it.
   if (clustered) coop::this_cluster().sync();

@@ -48,6 +48,22 @@
 //      written, consecutive threads on consecutive samples.
 // Shared memory: FR * (n_fft + 2) * 4 bytes a block (131,328 at n_fft 1024),
 // one block of 512 threads an SM.
+//
+// Every other length the TPU kernel takes (n_fft % hop == 0, any n_fft) goes
+// to a second kernel, istft_dft_kernel: the windowed iDFT as a product with
+// the bases WC, WS (n_bins, n_fft), the window and the normalized scale
+// folded in, summed over the r = n_fft / hop frame slices of each hop:
+//
+//   ola[b, q, h] = sum_{j<r} sum_f ( re[b, f, q-j] * WC[f, j*hop + h]
+//                                  + im[b, f, q-j] * WS[f, j*hop + h] )
+//
+// (re, im zero outside [0, T)), tiled like a GEMM: a block owns 64 hops x
+// 128 samples of a hop and loops over (j, re/im, f), so the (T, n_fft) frame
+// matrix never reaches device memory.  Its epilogue divides by the window-
+// square envelope (summed over the slices present, in slice order, clamped
+// at 1e-11) and writes only the samples left after the n_fft / 2 centring
+// trim.  2 * 2 * r * n_bins FLOP an output sample: bound by float32
+// operations, a simple kernel for lengths no path of the repo runs.
 #include "common.cuh"
 
 namespace {
@@ -309,7 +325,103 @@ int launch_istft(const float* re, const float* im, const float* tw, const float*
   return (int)cudaGetLastError();
 }
 
+constexpr int DFT_BM = 64;   // hops q a block
+constexpr int DFT_BN = 128;  // samples h of a hop a block
+constexpr int DFT_BK = 16;   // bins a shared-memory step
+constexpr int DFT_TM = 8;    // hops a thread
+constexpr int DFT_TN = 4;    // samples a thread
+constexpr int DFT_NT = (DFT_BM / DFT_TM) * (DFT_BN / DFT_TN);  // 256 threads
+
+__global__ void __launch_bounds__(DFT_NT)
+istft_dft_kernel(const float* __restrict__ re, const float* __restrict__ im,
+                 const float* __restrict__ wc, const float* __restrict__ ws,
+                 const float* __restrict__ win2, float* __restrict__ out, int nb, int T, int n_fft,
+                 int hop, int q_lo) {
+  __shared__ __align__(16) float As[DFT_BK][DFT_BM];
+  __shared__ __align__(16) float Bs[DFT_BK][DFT_BN];
+  const int tid = threadIdx.x, tx = tid % (DFT_BN / DFT_TN), ty = tid / (DFT_BN / DFT_TN);
+  const int n0 = blockIdx.x * DFT_BN, q0 = q_lo + blockIdx.y * DFT_BM, b = blockIdx.z;
+  const int r = n_fft / hop;
+
+  float acc[DFT_TM][DFT_TN];
+#pragma unroll
+  for (int i = 0; i < DFT_TM; ++i)
+#pragma unroll
+    for (int jj = 0; jj < DFT_TN; ++jj) acc[i][jj] = 0.f;
+
+  for (int j = 0; j < r; ++j) {
+    for (int part = 0; part < 2; ++part) {
+      const float* A = (part ? im : re) + (size_t)b * nb * T;
+      const float* Bm = (part ? ws : wc) + (size_t)j * hop;
+      for (int f0 = 0; f0 < nb; f0 += DFT_BK) {
+        for (int i = tid; i < DFT_BK * DFT_BM; i += DFT_NT) {
+          const int m = i % DFT_BM, f = f0 + i / DFT_BM, t = q0 + m - j;
+          const bool ok = f < nb && t >= 0 && t < T;
+          cp_async4(&As[i / DFT_BM][m], ok ? A + (size_t)f * T + t : A, ok);
+        }
+        for (int i = tid; i < DFT_BK * DFT_BN; i += DFT_NT) {
+          const int n = i % DFT_BN, f = f0 + i / DFT_BN;
+          const bool ok = f < nb && n0 + n < hop;
+          cp_async4(&Bs[i / DFT_BN][n], ok ? Bm + (size_t)f * n_fft + n0 + n : Bm, ok);
+        }
+        cp_async_wait_all();
+        __syncthreads();
+#pragma unroll
+        for (int k = 0; k < DFT_BK; ++k) {
+          const float4 a0 = *reinterpret_cast<const float4*>(&As[k][ty * DFT_TM]);
+          const float4 a1 = *reinterpret_cast<const float4*>(&As[k][ty * DFT_TM + 4]);
+          const float4 b0 = *reinterpret_cast<const float4*>(&Bs[k][tx * DFT_TN]);
+          const float a[DFT_TM] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+          const float bv[DFT_TN] = {b0.x, b0.y, b0.z, b0.w};
+#pragma unroll
+          for (int i = 0; i < DFT_TM; ++i)
+#pragma unroll
+            for (int jj = 0; jj < DFT_TN; ++jj) acc[i][jj] = fmaf(a[i], bv[jj], acc[i][jj]);
+        }
+        __syncthreads();
+      }
+    }
+  }
+
+  // COLA and the trim: sample n = q * hop + h - n_fft / 2 of the signal.
+  const long len = (long)(T - 1) * hop;
+#pragma unroll
+  for (int i = 0; i < DFT_TM; ++i) {
+    const int q = q0 + ty * DFT_TM + i;
+#pragma unroll
+    for (int jj = 0; jj < DFT_TN; ++jj) {
+      const int h = n0 + tx * DFT_TN + jj;
+      const long n = (long)q * hop + h - n_fft / 2;
+      if (h >= hop || n < 0 || n >= len) continue;
+      float env = 0.f;
+      for (int j = max(0, q - T + 1); j <= min(r - 1, q); ++j) env += win2[j * hop + h];
+      out[(size_t)b * len + n] = acc[i][jj] / fmaxf(env, 1e-11f);
+    }
+  }
+}
+
 }  // namespace
+
+// The second route, for every (n_fft, hop) with n_fft % hop == 0: re, im:
+// (B, n_bins, T); wc, ws: (n_bins, n_fft), the iDFT bases times the window
+// and the normalized scale; win2: (n_fft,) the window squared; out: (B, (T -
+// 1) * hop).  T >= 2.
+extern "C" int mg_istft_dft(const float* re, const float* im, const float* wc, const float* ws,
+                            const float* win2, float* out, int B, int n_bins, int T, int n_fft,
+                            int hop, cudaStream_t stream) {
+  if (B < 1 || B > 65535 || T < 2 || hop < 1 || n_fft < 1 || n_fft % hop != 0 ||
+      n_bins != n_fft / 2 + 1)
+    return (int)cudaErrorInvalidValue;
+  // The hops q whose samples survive the trim.
+  const long pad = n_fft / 2, len = (long)(T - 1) * hop;
+  const long q_lo = pad / hop, q_hi = (len + pad - 1) / hop;
+  const long rows = q_hi - q_lo + 1;
+  if ((rows + DFT_BM - 1) / DFT_BM > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid((hop + DFT_BN - 1) / DFT_BN, (unsigned)((rows + DFT_BM - 1) / DFT_BM), B);
+  istft_dft_kernel<<<grid, DFT_NT, 0, stream>>>(re, im, wc, ws, win2, out, n_bins, T, n_fft, hop,
+                                                (int)q_lo);
+  return (int)cudaGetLastError();
+}
 
 // re, im: (B, n_fft / 2 + 1, T); tw: (n_fft,) complex exp(2 pi i k / n_fft);
 // gwin: (n_fft,) window * scale / n_fft; inv_env: (r, r, hop), 1 / the

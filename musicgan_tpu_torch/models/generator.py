@@ -9,8 +9,9 @@ NHWC image out).  Each block is ``fused_conv3x3`` (conv1 + LeakyReLU +
 PixelNorm) then ``fused_upconv3x3`` (up2x + conv2 + LeakyReLU +
 PixelNorm): on the card they are the kernels K1 and K3, on the CPU their
 plain versions.  With ``ModelConfig.conv_impl == "pallas_block"`` a block
-whose widths ``fused_block_fits`` is one launch of ``fused_block`` (K4)
-instead, as in JAX's ``block_nchw``.  Each block packs its conv weights for
+that ``fused_block_fits`` at its sizes is one launch of ``fused_block``
+(K4) instead, as in JAX's ``block_nchw`` (on the CPU by an H100's rule:
+K4's plain version is the pair's own).  Each block packs its conv weights for
 the kernels once, not per call.  Heads and the fade-in are plain PyTorch, as
 they are XLA in JAX.
 
@@ -65,9 +66,12 @@ class GenBlock(nn.Module):
     def forward(
         self, x: torch.Tensor, slope: float, eps: float, use_block: bool = False
     ) -> torch.Tensor:
-        """``use_block``: take the whole-block kernel where the widths fit."""
+        """``use_block``: take the whole-block kernel where its size rule
+        (``ops.conv.fused_block_fits``) says so."""
         w1, w2 = self.conv1.weight, self.conv2.weight
-        if use_block and conv_ops.fused_block_fits(w1.shape[1], w1.shape[0], w2.shape[0]):
+        if use_block and conv_ops.fused_block_fits(
+            w1.shape[1], w1.shape[0], w2.shape[0], size=(x.shape[0], *x.shape[2:]), device=x.device
+        ):
             return conv_ops.fused_block(
                 x, w1, self.conv1.bias, w2, self.conv2.bias, slope, eps,
                 w1_packed=self._packed("conv1"), w2_packed=self._packed("conv2"),

@@ -2,7 +2,8 @@
 its plain PyTorch version: ``conv.fused_conv3x3``, ``conv.fused_conv3x3_msq``,
 ``conv.fused_upconv3x3``, ``conv.fused_block`` and
 ``istft_fused.istft_fused``; and
-``conv_vjp.conv3x3_act``, the trainable conv built on the first two."""
+``conv_vjp.conv3x3_act``, the trainable conv built on the first two and
+``conv_vjp.weight_grad3x3``, its weight gradient."""
 
 from .conv import (
     fused_block,

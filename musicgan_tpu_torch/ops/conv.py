@@ -10,14 +10,16 @@ pass of ``ops/conv_vjp.py`` needs; ``fused_upconv3x3`` (K3) replaces
 template, ``csrc/conv_tile.cuh``, built by ``csrc/conv3x3.cu`` (K1, K2) and
 ``csrc/upconv3x3.cu``.  ``fused_block`` (K4) replaces ``fused_block``
 (Pallas ``_block_kernel``): K1 with PixelNorm then K3 with PixelNorm in one
-launch, ``csrc/block3x3.cu``, the first conv's output kept in shared memory
-with a one-pixel halo that is set to zero outside the image.
+launch, ``csrc/block3x3.cu``, built from the template's tensor-core pieces
+so that it sums every pixel in their order; the first conv's output stays
+in a ring of rows in shared memory, zero outside the image.
 
 Widths: any ``cout``.  Past 128 channels the kernel splits the channel
 groups of a pixel over several thread blocks; with PixelNorm those blocks
 form one thread-block cluster and add each other's per-pixel sums through
 distributed shared memory, so PixelNorm takes up to
-``MAX_PIXEL_NORM_CHANNELS`` (a portable cluster of 8 blocks of 128).
+``MAX_PIXEL_NORM_CHANNELS`` (a portable cluster of 8 blocks of 128); K4
+the same for both its convs.
 
 What bounds them on an H100 depends on the image (``csrc/conv_tile.cuh``
 says how each shape works).  From 32x32 up at the train step's widths: an
@@ -50,6 +52,7 @@ launches in ``.launches``.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -274,64 +277,180 @@ def fused_block_plain(x, w1, b1, w2, b2, slope=0.2, eps=1e-8):
     return upconv3x3_plain(mid, w2, b2, slope, True, eps)
 
 
-# The shape of a K4 thread block (csrc/block3x3.cu): 8 warps, each thread 4
-# rows x 16 channels of the first conv's tile, which is 32 columns wide.
-_BLK_WARPS, _BLK_RA, _BLK_RB, _BLK_CK1, _BLK_CK2, _BLK_C1W = 8, 4, 2, 8, 16, 32
-# Widest conv of K4: eight warps of 16 channels, PixelNorm inside the block.
-MAX_BLOCK_CHANNELS = _BLK_WARPS * 16
+# K4's geometry (csrc/block3x3.cu), mirrored here so that the widths it
+# takes are known without the card: a cluster of up to 8 blocks of at most
+# 128 channels each for either conv, the conv template's tensor-core tiles
+# (m64 rows of 64 pixels, two consumer warpgroups), a ring of c1 rows in
+# shared memory.
+_TC_W, _TC_SW, _TC_CK, _TC_WG = 64, 72, 8, 2
+_TC_SMEM_BUDGET_FLOATS = 220 * 1024 // 4
 # Most dynamic shared memory a Hopper thread block may ask for.
 SMEM_OPTIN_BYTES = 232448
-# Fewest rows of a K4 tile that the generator takes the kernel for: at 6
-# rows x 30 columns the first conv is computed on (8 * 32) / (6 * 30) = 1.42
-# times the pixels; the next smaller tile has 2 rows and costs 2.13 times.
-MIN_BLOCK_ROWS = 6
-# Most passes over the tile's rows that the second conv may need for a
-# phase: each pass stages the phase's weights again and ends in barriers.
-# Block 0 of the generator (128 output channels: one row group, 7 passes)
-# measured 14 times the K1 + K3 pair's time on an H100.
-MAX_BLOCK_PASSES = 2
+# Most channels either conv of K4 takes: 8 blocks of 128 (a portable cluster).
+MAX_BLOCK_CHANNELS = MAX_PIXEL_NORM_CHANNELS
+# Output columns (of the input's resolution) a K4 strip makes: a c1 tile is
+# 64 columns, one m64 row of the tensor cores, two of them halo.
+BLOCK_STRIP = _TC_W - 2
 
 
-def block_tile(cmid: int, cout: int) -> tuple[int, int, int] | None:
-    """``(rows, shared-memory bytes, passes)`` of a K4 thread block at these
-    widths, as ``csrc/block3x3.cu`` lays it out, or None for widths it does
-    not take (more than ``MAX_BLOCK_CHANNELS``: K4's PixelNorm reduces
-    inside one thread block).
-    Eight warps of 16 channels x 4 rows make the first conv's tile, so it
-    has ``4 * (8 // ceil(cmid / 16))`` rows, two of them halo; the second
-    conv's ``8 // ceil(cout / 16)`` row groups make 2 rows each at a time,
-    so a phase takes ``passes`` turns over the tile."""
+def _tc_geom(k: int, n: int) -> tuple[int, int, int, int]:
+    """``(tiles, phases a block, rows a warpgroup, taps a stage)`` of the
+    conv template's tensor-core route at ``n`` channels a block
+    (``conv_tile.cuh::tc_geom``)."""
+    tiles = 8 if n <= 16 else 4 if n <= 32 else 2 if n <= 64 else 1
+    ppb = min(tiles, 4) if k == 2 else 1
+    return tiles, ppb, tiles // ppb, 9 if k == 3 else 4 * ppb
+
+
+def _block_ring(th1: int, th2: int) -> int:
+    nr = done = 0
+    for k in range(32):
+        nr = max(nr, (k + 1) * th1 - done * th2)
+        done = ((k + 1) * th1 - 2) // th2
+    return nr
+
+
+def _block_geom(n1: int, n2: int) -> dict:
+    def at(t1, dys):
+        _, ppb2, rw2, nt2 = _tc_geom(2, n2)
+        th1, th2 = _TC_WG * t1, _TC_WG * rw2
+        plane1 = ((th1 if dys else th1 + 2) * _TC_SW + 23) // 32 * 32 + 8
+        stage = max(_TC_CK * plane1 + 2 * (3 if dys else 9) * _TC_CK * n1, 2 * nt2 * _TC_CK * n2)
+        nr = _block_ring(th1, th2)
+        fixed = (n1 * ((nr * _TC_SW + 23) // 32 * 32 + 8) + _TC_WG * t1 * _TC_W
+                 + 2 * _TC_WG * _tc_geom(2, n2)[0] * _TC_W)
+        stages = min(4, (_TC_SMEM_BUDGET_FLOATS - fixed) // stage)
+        return {"t1": t1, "dys": dys, "th1": th1, "th2": th2, "ring_rows": nr, "stages": stages,
+                "smem_bytes": 4 * (stages * stage + fixed)}
+
+    t0 = min(_tc_geom(3, n1)[0], 4)
+    for dys in (0, 1):
+        t1 = t0
+        while t1 >= 1:
+            g = at(t1, dys)
+            if g["stages"] >= 2:
+                return g
+            t1 //= 2
+    return at(1, 1)
+
+
+def _block_width(c: int) -> tuple[int, int]:
+    """``(channels a block, blocks)`` of a conv of ``c`` channels in K4: as
+    the conv template splits them, the width rounded up to one K4 is built
+    for (16, 32, 48, 64, 96, 128)."""
+    groups = -(-c // 16)
+    nsplit = -(-groups // 8)
+    n = -(-groups // nsplit) * 16
+    return (n if n <= 64 else 96 if n <= 96 else 128), nsplit
+
+
+def block_tile(cmid: int, cout: int) -> dict | None:
+    """K4's geometry at these widths, as ``csrc/block3x3.cu`` lays it out
+    (``mg_block3x3_tile``), or None for widths it does not take (past
+    ``MAX_BLOCK_CHANNELS``): channels a block ``n1``, ``n2`` and blocks
+    ``nsplit1``, ``nsplit2`` of each conv, the ``cluster``, conv1's tiles a
+    warpgroup ``t1`` and whether a stage holds one kernel row (``dys``),
+    the rows of a conv1 tile ``th1`` and of a conv2 tile ``th2``, the c1
+    ring's rows, the stages and the shared memory."""
     if not (1 <= cmid <= MAX_BLOCK_CHANNELS and 1 <= cout <= MAX_BLOCK_CHANNELS):
         return None
-    cg_a, cg_b = -(-cmid // 16), -(-cout // 16)
-    rg_a, rg_b = _BLK_WARPS // cg_a, _BLK_WARPS // cg_b
-    r1 = _BLK_RA * rg_a
-    c1 = cg_a * 16 * r1 * _BLK_C1W
-    stage_a = _BLK_CK1 * (r1 + 2) * (_BLK_C1W + 2) + 9 * _BLK_CK1 * cg_a * 16
-    stage_b = 4 * _BLK_CK2 * cg_b * 16 + cg_b * rg_b * _BLK_RB * 32
-    return r1 - 2, 4 * (c1 + max(stage_a, stage_b)), -(-(r1 - 2) // (rg_b * _BLK_RB))
+    n1, nsplit1 = _block_width(cmid)
+    n2, nsplit2 = _block_width(cout)
+    if n2 == 16 and _block_geom(n1, 16)["stages"] < 2:
+        n2 = 32  # the ring conv2's 4-row tiles need does not fit
+    g = _block_geom(n1, n2)
+    if g["stages"] < 2:
+        return None
+    return {"n1": n1, "n2": n2, "nsplit1": nsplit1, "nsplit2": nsplit2,
+            "cluster": max(nsplit1, nsplit2), **g}
 
 
-def fused_block_fits(cin: int, cmid: int, cout: int) -> bool:
-    """Whether a generator block of these widths takes K4 (else the K1 + K3
-    pair).  The card's rule, from the kernel's own layout: its shared memory
-    (the first conv's whole tile for all ``cmid`` channels, plus staging)
-    must fit a thread block's ``SMEM_OPTIN_BYTES``, which it does at every
-    width PixelNorm allows; the tile, which shrinks as ``cmid`` grows
-    because a block's eight warps hold 16 channels x 4 rows each, must keep
-    ``MIN_BLOCK_ROWS`` rows, which holds up to 64 mid channels; and the
-    second conv must cover it in ``MAX_BLOCK_PASSES`` passes a phase, which
-    at those tiles holds up to 64 output channels.  Blocks 5, 6 and 7 of
-    the full-width generator fit.  ``cin`` does not enter: the input streams
-    through in steps of 8 channels."""
+_PLAN_BLOCK_KEYS = ("takes", "run_rows", "runs", "strips", "units", "blocks", "cluster", "c1_rows")
+
+
+@functools.lru_cache(maxsize=256)
+def _block_plan(bsz: int, cin: int, cmid: int, cout: int, h: int, w: int, device: int) -> dict:
+    lib = _build.load("block3x3")
+    fn = lib.mg_block3x3_plan
+    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_longlong)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_longlong * len(_PLAN_BLOCK_KEYS))()
+    with torch.cuda.device(device):
+        err = fn(bsz, cin, cmid, cout, h, w, out)
+    if err != 0:
+        raise ValueError(f"block_plan: CUDA error {err} for sizes {(bsz, cin, cmid, cout, h, w)}")
+    plan = dict(zip(_PLAN_BLOCK_KEYS, out))
+    plan["takes"] = bool(plan["takes"])
+    # conv1's pixels computed over those the block needs (c1 at H x W).
+    plan["recompute"] = plan["c1_rows"] * _TC_W / (bsz * h * w)
+    return plan
+
+
+def block_plan(bsz: int, cin: int, cmid: int, cout: int, h: int, w: int, device=None) -> dict:
+    """How K4 launches at these sizes on a CUDA device (the current one by
+    default), as its launcher plans it from the sizes and the SM count:
+    whether the generator ``takes`` it, the run of image rows a unit walks,
+    the runs and strips, units, blocks, cluster, and ``recompute``, conv1's
+    pixels computed over the c1 pixels needed.  Needs the card."""
+    dev = torch.device("cuda") if device is None else torch.device(device)
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    return dict(_block_plan(bsz, cin, cmid, cout, h, w, index))
+
+
+# SMs of an H100 SXM: the card the generator's rule is stated for where
+# the tensor is not on one (the CPU path, whose plain versions are the same
+# function either way).
+H100_SMS = 132
+
+
+def block_takes(bsz: int, cin: int, cmid: int, cout: int, h: int, w: int, sms: int) -> bool:
+    """K4's size rule (``csrc/block3x3.cu::plan_block``'s ``takes``): K1
+    and K3 both take the conv template's tensor-core route at the block's
+    sizes (their tiles fill half the ``sms``, from 32 columns) and units of
+    runs of 8 rows of K4's 62-column strips fill half the card's clusters,
+    so that little of conv1 is computed twice.  No timing."""
     tile = block_tile(cmid, cout)
-    return (
-        tile is not None and tile[0] >= MIN_BLOCK_ROWS
-        and tile[1] <= SMEM_OPTIN_BYTES and tile[2] <= MAX_BLOCK_PASSES
-    )
+    if tile is None or w < 32:
+        return False
+
+    def tc_blocks(k, c, nphase):
+        groups = -(-c // 16)
+        nsplit = -(-groups // 8)
+        tiles, ppb, rows, _ = _tc_geom(k, -(-groups // nsplit) * 16)
+        return -(-w // _TC_W) * -(-h // (_TC_WG * rows)) * bsz * (nphase // ppb) * nsplit
+
+    strips = bsz * -(-w // BLOCK_STRIP)
+    return (2 * tc_blocks(3, cmid, 1) > sms and 2 * tc_blocks(2, cout, 4) > sms
+            and 2 * strips * -(-h // 8) > max(1, sms // tile["cluster"]))
 
 
-_BLOCK_ARGS = [_build.PTR] * 6 + [_build.INT] * 6 + [_build.FLOAT] * 2
+def fused_block_fits(cin: int, cmid: int, cout: int, size=None, device=None) -> bool:
+    """Whether a generator block takes K4 (else the K1 + K3 pair).  By the
+    widths alone (``size`` None): K4 takes ``cmid`` and ``cout`` up to
+    ``MAX_BLOCK_CHANNELS``, every width of ``ModelConfig()`` (``cin``
+    streams through in steps of 8 channels).  With ``size = (B, H, W)``,
+    also the kernel's own size rule, :func:`block_takes`, for the SMs of
+    ``device`` (a CUDA one; otherwise an H100's): blocks 4 to 7 of a
+    5-clip, nb_vec-10 call on an H100."""
+    if block_tile(cmid, cout) is None:
+        return False
+    if size is None:
+        return True
+    dev = torch.device("cpu") if device is None else torch.device(device)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count if dev.type == "cuda" else H100_SMS
+    return block_takes(size[0], cin, cmid, cout, size[1], size[2], sms)
+
+
+_BLOCK_ARGS = [_build.PTR] * 7 + [_build.INT] * 6 + [_build.FLOAT] * 2
+
+
+@functools.lru_cache(maxsize=256)
+def _block_workspace(cin: int, cmid: int, cout: int) -> int:
+    """Floats of K4's workspace: every chunk's weights, split into the two
+    TF32 parts a launch makes once and its stages copy."""
+    fn = _build.load("block3x3").mg_block3x3_workspace
+    fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_longlong
+    return fn(cin, cmid, cout)
 
 
 def fused_block(x, w1, b1, w2, b2, slope=0.2, eps=1e-8, w1_packed=None, w2_packed=None):
@@ -361,8 +480,9 @@ def fused_block(x, w1, b1, w2, b2, slope=0.2, eps=1e-8, w1_packed=None, w2_packe
     x, w1p, b1, b1_ptr = _operands("block3x3", x, w1p, b1, True, cmid)
     _, w2p, b2, b2_ptr = _operands("block3x3", x, w2p, b2, True, cout)
     y = torch.empty(bsz, cout, 2 * h, 2 * wd, device=x.device, dtype=torch.float32)
+    ws = torch.empty(_block_workspace(cin, cmid, cout), device=x.device, dtype=torch.float32)
     _build.kernel("block3x3", "mg_block3x3", _BLOCK_ARGS)(
-        x.data_ptr(), w1p.data_ptr(), b1_ptr, w2p.data_ptr(), b2_ptr, y.data_ptr(),
+        x.data_ptr(), w1p.data_ptr(), b1_ptr, w2p.data_ptr(), b2_ptr, ws.data_ptr(), y.data_ptr(),
         bsz, cin, cmid, cout, h, wd, slope, eps, device=x.device,
     )
     fused_block.launches += 1

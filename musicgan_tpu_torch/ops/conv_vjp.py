@@ -21,9 +21,12 @@ Counterpart of ``musicgan_tpu/ops/conv_vjp.py::conv3x3_act`` (a
 * **backward, input gradient**: K1 on ``dpre`` with the 180-degree-rotated,
   in/out-swapped weights and no bias: the transpose of a 'SAME' 3x3 conv is
   a 'SAME' 3x3 conv.  It is launched on the card, never a library call.
-* **backward, weight and bias**: the weight gradient is the library's
-  conv-backward-weights (``torch.nn.grad.conv2d_weight``, with TF32 off), as
-  JAX leaves it to XLA; ``db = sum(dpre)``.
+* **backward, weight and bias**: the weight gradient is
+  :func:`weight_grad3x3`, a hand-written kernel (``csrc/wgrad3x3.cu``) that
+  sums in a fixed order, so a train run on the card gives the same bits
+  run after run and a resumed run equals the uninterrupted one (JAX leaves
+  it to XLA; its plain version is the library's conv-backward-weights);
+  ``db = sum(dpre)``.
 
 The Function is differentiable once (``once_differentiable``).  The WGAN-GP
 needs an input gradient inside the loss; ``models/discriminator.py::
@@ -41,9 +44,11 @@ from __future__ import annotations
 import torch
 from torch.autograd.function import once_differentiable
 
+from . import _build
 from .conv import conv3x3_plain, fused_conv3x3, fused_conv3x3_msq
 
-__all__ = ["conv3x3_act", "conv3x3_act_plain", "conv3x3_act_backward"]
+__all__ = ["conv3x3_act", "conv3x3_act_plain", "conv3x3_act_backward", "weight_grad3x3",
+           "weight_grad3x3_plain"]
 
 
 def conv3x3_act_plain(x, w, b, slope=0.2, pixel_norm=False, eps=1e-8):
@@ -51,15 +56,57 @@ def conv3x3_act_plain(x, w, b, slope=0.2, pixel_norm=False, eps=1e-8):
     return conv3x3_plain(x, w, b, slope, pixel_norm, eps)
 
 
-def _weight_grad(x, dpre, w_shape):
-    """The library's conv-backward-weights in float32 (cuDNN would take
-    TF32 by default)."""
+def weight_grad3x3_plain(x, dpre, w_shape):
+    """Plain version of :func:`weight_grad3x3`: the library's weight
+    gradient of a 3x3 'SAME' conv (TF32 off on the card, where cuDNN would
+    take it by default)."""
     tf32 = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
     try:
         return torch.nn.grad.conv2d_weight(x, w_shape, dpre, padding=1)
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
+
+
+_WGRAD_ARGS = [_build.PTR] * 4 + [_build.INT] * 5
+
+
+def weight_grad3x3(x, dpre, w_shape):
+    """Weight gradient ``(cout, cin, 3, 3)`` of a 3x3 'SAME' conv from its
+    input ``x`` ``(B, cin, H, W)`` and the gradient at its output ``dpre``
+    ``(B, cout, H, W)``.  On a CUDA tensor the kernel of
+    ``csrc/wgrad3x3.cu``, float32 summed in a fixed order, so the same
+    inputs give the same bits run after run (cuDNN's default algorithms do
+    not, and its deterministic ones lose accuracy at 512x512); on a CPU
+    tensor its plain version; anything else raises.  Counts its launches
+    in ``.launches``."""
+    if x.device.type == "cpu":
+        return weight_grad3x3_plain(x, dpre, w_shape)
+    if x.device.type != "cuda":
+        raise ValueError(f"weight_grad3x3: no kernel for device {x.device}")
+    bsz, cin, h, w = x.shape
+    cout = w_shape[0]
+    if tuple(w_shape) != (cout, cin, 3, 3) or dpre.shape != (bsz, cout, h, w):
+        raise ValueError(f"weight_grad3x3: {tuple(x.shape)}, {tuple(dpre.shape)} for weights {tuple(w_shape)}")
+    for t in (x, dpre):
+        if t.device != x.device or t.dtype != torch.float32:
+            raise ValueError(f"weight_grad3x3: every operand must be float32 on {x.device}")
+    x, dpre = x.contiguous(), dpre.contiguous()
+    fn = _build.load("wgrad3x3").mg_wgrad3x3_chunks
+    fn.argtypes, fn.restype = [_build.INT] * 5, _build.INT
+    with torch.cuda.device(x.device):
+        chunks = fn(bsz, cin, cout, h, w)
+    part = torch.empty(chunks, cout, cin, 9, device=x.device, dtype=torch.float32)
+    dw = torch.empty(cout, cin, 3, 3, device=x.device, dtype=torch.float32)
+    _build.kernel("wgrad3x3", "mg_wgrad3x3", _WGRAD_ARGS)(
+        x.data_ptr(), dpre.data_ptr(), part.data_ptr(), dw.data_ptr(), bsz, cin, cout, h, w,
+        device=x.device,
+    )
+    weight_grad3x3.launches += 1
+    return dw
+
+
+weight_grad3x3.launches = 0
 
 
 def conv3x3_act_backward(x, w, y, m, g, slope, pixel_norm, eps, needs=(True, True, True)):
@@ -79,7 +126,7 @@ def conv3x3_act_backward(x, w, y, m, g, slope, pixel_norm, eps, needs=(True, Tru
         w_t = w.flip(2, 3).transpose(0, 1)  # rot180, in/out swap (OIHW)
         dx = fused_conv3x3(dpre, w_t, None)
     if needs[1]:
-        dw = _weight_grad(x, dpre, w.shape)
+        dw = weight_grad3x3(x, dpre, w.shape)
     if needs[2]:
         db = dpre.sum(dim=(0, 2, 3))
     return dx, dw, db

@@ -22,16 +22,21 @@ The float64 host tables, cached per device: the twiddles
 (:func:`inverse_envelope_table`), which the kernel reads by the first and
 last frame slice each hop holds.
 
-Domain of the kernel: ``n_fft`` a power of two from 16 to 4096 (the
-model's is 1024), ``hop = n_fft / r`` with ``r`` below the frames a block
-transforms (:func:`kernel_frames`: 32 up to ``n_fft`` 1024, 16 at 2048, 8
-at 4096), any ``T`` and batch.  The wrapper raises for what the kernel
-does not take; it never falls back.
+Two routes, chosen by the lengths (never by an error): the FFT above for
+``n_fft`` a power of two from 16 to 4096 (the model's is 1024) with ``hop
+= n_fft / r`` and ``r`` below the frames a block transforms
+(:func:`kernel_frames`: 32 up to ``n_fft`` 1024, 16 at 2048, 8 at 4096);
+and for every other ``n_fft % hop == 0`` (as the TPU kernel takes) a
+windowed iDFT as a register-tiled product with the bases
+(:func:`windowed_idft_bases`), the overlap-add summed inside it and COLA and
+the trim in its epilogue (:func:`uses_fft`).  Any ``T`` and batch; the
+wrapper raises only where the TPU kernel asserts.
 
 Dispatch: a CPU tensor takes the plain version, the port's vocoder
 ``audio/stft.py::istft_real_imag``; a CUDA tensor launches the kernel;
 anything else raises.  ``istft_fused.launches`` counts launches (a signal
-of no samples, ``T = 1``, launches nothing).
+of no samples, ``T = 1``, launches nothing), ``istft_fused.idft_launches``
+those on the iDFT route.
 """
 
 from __future__ import annotations
@@ -43,7 +48,7 @@ import numpy as np
 import torch
 
 from . import _build
-from ..audio.stft import hann_window, istft_real_imag
+from ..audio.stft import _idft_bases, hann_window, istft_real_imag
 
 __all__ = [
     "istft_fused",
@@ -51,6 +56,8 @@ __all__ = [
     "window_table",
     "inverse_envelope_table",
     "kernel_frames",
+    "uses_fft",
+    "windowed_idft_bases",
 ]
 
 
@@ -108,6 +115,32 @@ def kernel_frames(n_fft: int) -> int:
     return fn(n_fft)
 
 
+def uses_fft(n_fft: int, hop: int) -> bool:
+    """Whether ``(n_fft, hop)`` takes the FFT route (else the iDFT route):
+    ``n_fft`` a power of two from 16 to 4096 and ``n_fft / hop`` below
+    :func:`kernel_frames`.  Needs the CUDA toolkit."""
+    return n_fft & (n_fft - 1) == 0 and 16 <= n_fft <= 4096 and n_fft // hop < kernel_frames(n_fft)
+
+
+@functools.lru_cache(maxsize=8)
+def windowed_idft_bases(n_fft: int, normalized: bool, device: torch.device):
+    """The iDFT route's operands on ``device``: the inverse real-DFT bases
+    ``(n_bins, n_fft)`` (``audio/stft.py::_idft_bases``) times the window
+    and the ``normalized=True`` scale, made in float64 and rounded once;
+    and the window squared in float32, as ``cola_trim`` makes it."""
+    cos_ib, sin_ib = _idft_bases(n_fft)
+    w = hann_window(n_fft, np.float64)
+    scale = np.sqrt(np.sum(w**2)) if normalized else 1.0
+    bases = tuple(
+        torch.from_numpy((b.astype(np.float64) * w[None, :] * scale).astype(np.float32)).to(device)
+        for b in (cos_ib, sin_ib)
+    )
+    return (*bases, torch.from_numpy(hann_window(n_fft)).to(device) ** 2)
+
+
+_DFT_ARGS = [_build.PTR] * 6 + [_build.INT] * 5
+
+
 def istft_fused(real, imag, n_fft: int = 1024, hop: int = 256, normalized: bool = True):
     """Inverse STFT from ``(B, n_bins, T)`` (or unbatched ``(n_bins, T)``)
     real/imag parts -> ``(B, (T-1)*hop)`` signals; the same function as
@@ -117,13 +150,6 @@ def istft_fused(real, imag, n_fft: int = 1024, hop: int = 256, normalized: bool 
         return istft_real_imag(real, imag, n_fft, hop, normalized)
     if real.device.type != "cuda":
         raise ValueError(f"istft_fused: no kernel for device {real.device}")
-    frames = kernel_frames(n_fft)
-    if not n_fft // hop < frames:
-        raise ValueError(
-            f"istft_fused: the kernel takes n_fft a power of two from 16 to 4096 and "
-            f"n_fft / hop below the frames a block transforms ({frames} at this n_fft), "
-            f"not n_fft {n_fft}, hop {hop}"
-        )
     unbatched = real.ndim == 2
     if unbatched:
         real, imag = real[None], imag[None]
@@ -136,13 +162,22 @@ def istft_fused(real, imag, n_fft: int = 1024, hop: int = 256, normalized: bool 
     y = torch.empty(bsz, (t - 1) * hop, device=real.device, dtype=torch.float32)
     if t > 1:
         real, imag = real.contiguous(), imag.contiguous()
-        tw, gwin, inv_env = _tables(n_fft, hop, normalized, real.device)
-        _build.kernel("istft", "mg_istft", _ISTFT_ARGS)(
-            real.data_ptr(), imag.data_ptr(), tw.data_ptr(), gwin.data_ptr(),
-            inv_env.data_ptr(), y.data_ptr(), bsz, n_bins, t, n_fft, hop, device=real.device,
-        )
+        if uses_fft(n_fft, hop):
+            tw, gwin, inv_env = _tables(n_fft, hop, normalized, real.device)
+            _build.kernel("istft", "mg_istft", _ISTFT_ARGS)(
+                real.data_ptr(), imag.data_ptr(), tw.data_ptr(), gwin.data_ptr(),
+                inv_env.data_ptr(), y.data_ptr(), bsz, n_bins, t, n_fft, hop, device=real.device,
+            )
+        else:
+            wc, ws, win2 = windowed_idft_bases(n_fft, normalized, real.device)
+            _build.kernel("istft", "mg_istft_dft", _DFT_ARGS)(
+                real.data_ptr(), imag.data_ptr(), wc.data_ptr(), ws.data_ptr(), win2.data_ptr(),
+                y.data_ptr(), bsz, n_bins, t, n_fft, hop, device=real.device,
+            )
+            istft_fused.idft_launches += 1
         istft_fused.launches += 1
     return y[0] if unbatched else y
 
 
 istft_fused.launches = 0
+istft_fused.idft_launches = 0  # of them on the iDFT route

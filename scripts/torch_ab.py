@@ -18,20 +18,29 @@ any tree:
   time to issue a call is not counted;
 * the host's time to issue one K1 call and one ``F.conv2d`` call (a tiny
   shape back to back, where the card waits on the host);
+* the whole-block kernel K4 at blocks 4-7 of that synthesis call, and K1
+  then K3 at the same blocks, device time as above;
+* the bits of K1, K2, K3 and K5 at those shapes: a SHA-256 of each output,
+  so that two trees can be held to the same bits;
 * warm synthesis (5 clips x nb_vec 10 from ``gen_final.pt``): median of 20
-  calls, each timed to the end of its device work;
+  calls, each timed to the end of its device work, under
+  ``conv_impl="pallas_up"`` and ``"pallas_block"`` in turns;
 * the train step at stage 7 (medians of 10 critic-only and 10 critic +
   generator iterations, steps/s at n_critic 5) and at stage 0 (median of
   10 chunks of 10).
 
 Results go to ``chiprun_out/ab_<NAME>.json``; a summary is printed.  Run
 the trees in turns in one call (parent, change, change, parent) and
-compare only within it.
+compare only within it.  ``python3 scripts/torch_ab.py --compare A1 B1``
+then prints which kernel outputs differ in their bits between two runs
+(exit code 1 if any does).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import hashlib
 import importlib.util
 import json
 import os
@@ -45,9 +54,18 @@ HERE = Path(__file__).resolve().parent.parent  # the checkout this script is in
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--root", required=True)
-    ap.add_argument("--tag", required=True)
+    ap.add_argument("--root")
+    ap.add_argument("--tag")
+    ap.add_argument("--compare", nargs=2, metavar=("TAG_A", "TAG_B"))
     args = ap.parse_args()
+    if args.compare:
+        a, b = (json.loads(Path(f"chiprun_out/ab_{t}.json").read_text())["bits"] for t in args.compare)
+        differ = sorted(k for k in a.keys() | b.keys() if a.get(k) != b.get(k))
+        print(f"[ab bits] {args.compare[0]} against {args.compare[1]}: {len(a)} outputs, "
+              f"{len(differ)} differ" + "".join(f"\n  {k}" for k in differ))
+        sys.exit(1 if differ else 0)
+    if not (args.root and args.tag):
+        ap.error("--root and --tag, or --compare")
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root))
 
@@ -65,6 +83,12 @@ def main() -> None:
     # The yardstick of this checkout's chip_smoke.py (its timing and the
     # train step's conv shapes), for every tree alike; it imports the
     # package of ROOT, which comes first on the path.
+    from musicgan_tpu_torch.ops import conv_vjp
+
+    # chip_smoke.py names every wrapper of this checkout; a tree from before
+    # the weight-gradient kernel has no such wrapper, which only its launch
+    # counting (not used here) would read.
+    conv_vjp.__dict__.setdefault("weight_grad3x3", None)
     spec = importlib.util.spec_from_file_location("chip_smoke", HERE / "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
@@ -87,7 +111,11 @@ def main() -> None:
              + [("critic_dx", (b, co, ci, hh, ww), False, None) for b, ci, co, hh, ww in disc]
              + [("gen_dx", (b, co, ci, hh, ww), False, None) for b, ci, co, hh, ww in gen[1:]])
     rng = torch.Generator(device=dev).manual_seed(2)
-    rows = []
+    rows, bits = [], {}
+
+    def digest(role, shape, y):
+        bits[f"{role} {list(shape)}"] = hashlib.sha256(y.contiguous().cpu().numpy().tobytes()).hexdigest()
+
     for role, (b, cin, cout, hh, ww), bias, slope in cases:
         x = torch.randn(b, cin, hh, ww, generator=rng, device=dev)
         wt = torch.randn(cout, cin, 3, 3, generator=rng, device=dev) / (9 * cin) ** 0.5
@@ -98,7 +126,10 @@ def main() -> None:
             kernel = lambda: conv_ops.fused_conv3x3(x, wt, bb, slope)  # noqa: E731
         rows.append({"role": role, "shape": [b, cin, cout, hh, ww], "ms": smoke.time_ms(kernel),
                      "library_ms": smoke.time_ms(lambda: F.conv2d(x, wt, bb, padding=1))})
-        del x
+        y = kernel()
+        for j, t in enumerate(y if isinstance(y, tuple) else (y,)):
+            digest(f"{role}.{j}", (b, cin, cout, hh, ww), t)
+        del x, y
     for i, (cin, cout) in enumerate(cfg.gen_channels):
         hh, ww = cfg.latent_height * 2**i, cfg.latent_width * 10 * 2**i
         x = torch.randn(5, cin, hh, ww, generator=rng, device=dev)
@@ -114,7 +145,32 @@ def main() -> None:
                 kernel = lambda: conv_ops.fused_upconv3x3(x, wt, bb, 0.2, True, w_packed=wp)  # noqa: E731
             rows.append({"role": role, "shape": [5, cin, co, hh, ww], "ms": smoke.time_ms(kernel),
                          "library_ms": smoke.time_ms(lambda: F.conv2d(xl, wt, bb, padding=1))})
+            digest(role, (5, cin, co, hh, ww), kernel())
             del xl
+        del x
+    torch.cuda.empty_cache()
+    re_, im_ = (torch.randn(5, 513, 5120, generator=rng, device=dev) for _ in range(2))
+    digest("istft", (5, 513, 5120), smoke.istft_ops.istft_fused(re_, im_, 1024, 256))
+    del re_, im_
+
+    # K4 at the blocks of synthesis that take it on an H100 (4-7), with the
+    # shipped generator's weights, against K1 then K3.
+    ckpt = root / "saved_models" / "quality_r4" / "gen_final.pt"
+    g = load_reference_generator(str(ckpt), cfg, device=dev)
+    blocks = []
+    for i in (4, 5, 6, 7):
+        cin, cout = cfg.gen_channels[i]
+        hh, ww = cfg.latent_height * 2**i, cfg.latent_width * 10 * 2**i
+        x = torch.randn(5, cin, hh, ww, generator=rng, device=dev)
+        blk = g.blocks[i]
+        w1, b1 = blk.conv1.weight.detach(), blk.conv1.bias.detach()
+        w2, b2 = blk.conv2.weight.detach(), blk.conv2.bias.detach()
+        w1p, w2p = conv_ops.kernel_weights(w1), conv_ops.kernel_upconv_weights(w2)
+        k4 = lambda: conv_ops.fused_block(x, w1, b1, w2, b2, 0.2, 1e-8, w1_packed=w1p, w2_packed=w2p)  # noqa: E731
+        pair = lambda: conv_ops.fused_upconv3x3(  # noqa: E731
+            conv_ops.fused_conv3x3(x, w1, b1, 0.2, True, 1e-8, w_packed=w1p), w2, b2, 0.2, True, 1e-8, w_packed=w2p)
+        blocks.append({"block": i, "shape": [5, cin, cin, cout, hh, ww], "ms": smoke.time_ms(k4),
+                       "pair_ms": smoke.time_ms(pair), "max_abs_vs_pair": (k4() - pair()).abs().max().item()})
         del x
     torch.cuda.empty_cache()
 
@@ -138,22 +194,25 @@ def main() -> None:
     host = {"k1_us": host_us(lambda: conv_ops.fused_conv3x3(x, wt, bb, 0.2)),
             "f_conv2d_us": host_us(lambda: F.conv2d(x, wt, bb, padding=1))}
 
-    # Warm synthesis.
-    ckpt = root / "saved_models" / "quality_r4" / "gen_final.pt"
-    g = load_reference_generator(str(ckpt), cfg, device=dev)
+    # Warm synthesis under both values of conv_impl, in turns.
+    gens = {"pallas_up": g, "pallas_block": load_reference_generator(
+        str(ckpt), dataclasses.replace(cfg, conv_impl="pallas_block"), device=dev)}
     z = torch.randn((5, cfg.latent_height, cfg.latent_width * 10, cfg.rand_channels),
                     generator=torch.Generator(device=dev).manual_seed(0), device=dev)
     synth = generate_mod.synthesize_fn(cfg, cfg.n_stages - 1)
-    for _ in range(3):
-        synth(g, z)
+    for gg in gens.values():
+        for _ in range(3):
+            synth(gg, z)
     torch.cuda.synchronize()
-    synth_s = []
-    for _ in range(20):
-        t0 = time.perf_counter()
-        synth(g, z)
-        torch.cuda.synchronize()
-        synth_s.append(time.perf_counter() - t0)
-    del g
+    synth_by = {k: [] for k in gens}
+    for k in ("pallas_up", "pallas_block", "pallas_block", "pallas_up"):
+        for _ in range(10):
+            t0 = time.perf_counter()
+            synth(gens[k], z)
+            torch.cuda.synchronize()
+            synth_by[k].append(time.perf_counter() - t0)
+    synth_s = synth_by["pallas_up"]
+    del g, gens
     torch.cuda.empty_cache()
 
     # The train step.
@@ -186,6 +245,9 @@ def main() -> None:
     out = {
         "tag": args.tag, "root": str(root), "card": card, "rows": rows, "host_per_call": host,
         "synthesis_ms": [1e3 * v for v in synth_s], "synthesis_median_ms": 1e3 * med(synth_s),
+        "synthesis_block_ms": [1e3 * v for v in synth_by["pallas_block"]],
+        "synthesis_block_median_ms": 1e3 * med(synth_by["pallas_block"]),
+        "k4_blocks": blocks, "bits": bits,
         "d_only_ms": [1e3 * v for v in d_s], "d_and_g_ms": [1e3 * v for v in dg_s],
         "steps_per_s_stage7": n_c / ((n_c - 1) * med(d_s) + med(dg_s)),
         "chunk_ms": [1e3 * v for v in chunk_s], "steps_per_s_stage0": 10 / med(chunk_s),
@@ -205,7 +267,10 @@ def main() -> None:
           + "; all shapes, kernel / F.conv2d ms: " + ", ".join(
               f"{k} {v[0]:.4f} / {v[1]:.4f}" for k, v in sums.items())
           + f"; host per call: K1 {host['k1_us']:.1f} us, F.conv2d {host['f_conv2d_us']:.1f} us"
-          + f"; synthesis {out['synthesis_median_ms']:.3f} ms; stage 7 {1e3 * med(d_s):.2f} / "
+          + "; K4 / K1 then K3 ms: " + ", ".join(
+              f"block {r['block']} {r['ms']:.4f} / {r['pair_ms']:.4f}" for r in blocks)
+          + f"; synthesis {out['synthesis_median_ms']:.3f} ms, under pallas_block "
+          f"{out['synthesis_block_median_ms']:.3f} ms; stage 7 {1e3 * med(d_s):.2f} / "
           f"{1e3 * med(dg_s):.2f} ms = {out['steps_per_s_stage7']:.3f} steps/s; stage 0 "
           f"{out['steps_per_s_stage0']:.1f} steps/s", flush=True)
 

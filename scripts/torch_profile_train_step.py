@@ -102,7 +102,7 @@ def instrument(roles: list):
         mock.patch.object(conv_vjp, "fused_conv3x3", k1_logged),
         mock.patch.object(conv_vjp, "fused_conv3x3_msq", k2_logged),
         mock.patch.object(conv_vjp, "conv3x3_act_backward", backward_logged),
-        mock.patch.object(conv_vjp, "_weight_grad", labelled("weight gradient (library)", conv_vjp._weight_grad)),
+        mock.patch.object(conv_vjp, "weight_grad3x3", labelled("weight gradient", conv_vjp.weight_grad3x3)),
         mock.patch.object(conv_ops, "kernel_weights", labelled("weight packing", conv_ops.kernel_weights)),
         mock.patch.object(optim.AdamPerLeaf, "update", labelled("Adam", optim.AdamPerLeaf.update)),
         mock.patch.object(step_mod, "grower_transform", labelled("input pipeline", transforms.grower_transform)),

@@ -64,6 +64,19 @@ def test_fused_block_matches_jax_interpret(b, cin, cmid, cout, h, w):
     np.testing.assert_allclose(got.numpy(), ref, atol=1e-4)
 
 
+# Past 128 channels the card splits each conv over a cluster of blocks.
+@pytest.mark.parametrize("b,cin,cmid,cout,h,w", [(1, 8, 144, 136, 5, 9), (1, 4, 136, 24, 3, 6)])
+def test_fused_block_past_128_channels_matches_jax_interpret(b, cin, cmid, cout, h, w):
+    """atol 2e-5: the first conv sums 72 products, the second 4 x 144."""
+    x, w1, b1, w2, b2 = _block_inputs(cmid + cout, b, cin, cmid, cout, h, w)
+    ref = np.asarray(jax_fused_block(*(jnp.asarray(a) for a in (x, w1, b1, w2, b2)),
+                                     slope=0.2, eps=1e-8, interpret=True))
+    got = conv_ops.fused_block(
+        torch.from_numpy(x), _oihw(w1), torch.from_numpy(b1), _oihw(w2), torch.from_numpy(b2), 0.2, 1e-8)
+    assert got.shape == (b, cout, 2 * h, 2 * w)
+    np.testing.assert_allclose(got.numpy(), ref, atol=2e-5)
+
+
 def test_fused_block_plain_is_the_pair_and_takes_packed_weights():
     x, w1, b1, w2, b2 = _block_inputs(3, 2, 6, 10, 4, 5, 9)
     xt, b1t, b2t = (torch.from_numpy(a) for a in (x, b1, b2))
@@ -85,26 +98,39 @@ def test_fused_block_device_rule():
 
 
 def test_fused_block_fits_is_the_cards_rule():
-    """True for blocks 6 and 7 of the full-width generator (the two JAX
-    runs through its block kernel in float32); worked out from the kernel's
-    tile: its shared memory fits a thread block at every width PixelNorm
-    allows, the tile keeps at least ``MIN_BLOCK_ROWS`` rows up to 64 mid
-    channels, and the second conv covers it in ``MAX_BLOCK_PASSES`` passes a
-    phase up to 64 output channels."""
+    """True for blocks 4 to 7 of the full-width generator at the main
+    path's sizes (5 clips, nb_vec 10) on an H100, blocks 6 and 7 being the
+    two JAX runs through its block kernel in float32: there K1 and K3 both
+    take the tensor-core route and runs of 8 rows of K4's 62-column strips
+    fill half the card.  By the widths alone K4 takes every block: its geometry
+    (the conv template's tiles, a ring of c1 rows, a cluster past 128
+    channels) fits a thread block's shared memory at every width up to
+    1,024."""
     chans = ModelConfig().gen_channels
-    fits = [conv_ops.fused_block_fits(cin, cin, cout) for cin, cout in chans]
+    sizes = [(5, 2 * 2**i, 20 * 2**i) for i in range(len(chans))]
+    fits = [conv_ops.fused_block_fits(cin, cin, cout, size=s) for (cin, cout), s in zip(chans, sizes)]
     assert fits[6] and fits[7]
-    assert fits == [False, False, False, False, False, True, True, True]
-    for cmid, cout in [(1, 1), (16, 128), (32, 16), (48, 32), (64, 64), (65, 16), (128, 128), (32, 128)]:
-        rows, smem, passes = conv_ops.block_tile(cmid, cout)
-        assert rows == 4 * (8 // -(-cmid // 16)) - 2
-        assert passes == -(-rows // (2 * (8 // -(-cout // 16))))
-        assert smem <= conv_ops.SMEM_OPTIN_BYTES
-        assert conv_ops.fused_block_fits(3, cmid, cout) == (
-            rows >= conv_ops.MIN_BLOCK_ROWS and passes <= conv_ops.MAX_BLOCK_PASSES)
-    assert conv_ops.block_tile(32, 128)[2] == 7 and conv_ops.block_tile(32, 16)[2] == 1
-    assert conv_ops.block_tile(129, 16) is None and conv_ops.block_tile(16, 129) is None
-    assert not conv_ops.fused_block_fits(16, 129, 16)
+    assert fits == [False, False, False, False, True, True, True, True]
+    assert all(conv_ops.fused_block_fits(cin, cin, cout) for cin, cout in chans)
+    # A short call (2 clips, nb_vec 2) leaves blocks 4 and 5 to the pair:
+    # their strips would not fill half the card.
+    small = [conv_ops.fused_block_fits(cin, cin, cout, size=(2, 2 * 2**i, 4 * 2**i))
+             for i, (cin, cout) in enumerate(chans)]
+    assert small == [False] * 6 + [True, True]
+    for cmid, cout in [(1, 1), (16, 128), (32, 16), (48, 32), (64, 48), (65, 16), (128, 128), (32, 128),
+                       (136, 144), (1024, 16), (16, 1024)]:
+        tile = conv_ops.block_tile(cmid, cout)
+        assert tile["smem_bytes"] <= conv_ops.SMEM_OPTIN_BYTES and 2 <= tile["stages"] <= 4
+        assert tile["cluster"] == max(-(-cmid // 128), -(-cout // 128)) <= 8
+        assert tile["n1"] * tile["nsplit1"] >= cmid and tile["n2"] * tile["nsplit2"] >= cout
+        assert tile["ring_rows"] >= tile["th2"] + 2
+        assert conv_ops.fused_block_fits(3, cmid, cout)
+    # The three blocks of the path hold each conv's channels as K1 and K3 do.
+    for cmid, cout in [(64, 48), (48, 32), (32, 16)]:
+        tile = conv_ops.block_tile(cmid, cout)
+        assert (tile["n1"], tile["n2"], tile["cluster"]) == (cmid, cout, 1)
+    assert conv_ops.block_tile(1025, 16) is None and conv_ops.block_tile(16, 1025) is None
+    assert not conv_ops.fused_block_fits(16, 1025, 16)
 
 
 @pytest.mark.parametrize("alpha", [1.0, 0.3])
@@ -131,11 +157,14 @@ def test_generator_takes_the_block_kernel_only_where_it_fits(monkeypatch):
             conv_ops, name,
             lambda x, *a, _real=real, _key=key, **kw: (calls[_key].append(x.shape[1]), _real(x, *a, **kw))[1],
         )
+    # At 8 clips of a 2 x 66 latent only block 3 (16 x 528) is large
+    # enough for K4's size rule on an H100; block 2 (8 x 264) has too few
+    # strips to fill the card.
     wide = ModelConfig(
         rand_channels=8, conv_impl="pallas_block",
-        gen_channels=((8, 80), (80, 70), (70, 16), (16, 4)),  # (8, 80) needs 15 passes, 80 and 70 two-row tiles
+        gen_channels=((8, 80), (80, 70), (70, 16), (16, 4)),
     )
-    z = torch.randn(1, 8, 2, 2, generator=torch.Generator().manual_seed(0))
+    z = torch.randn(8, 8, 2, 66, generator=torch.Generator().manual_seed(0))
     with torch.no_grad():
         y_block = Generator(wide, seed=3).forward_nchw(z, 3)
         assert calls == {"block": [16], "conv": [8, 80, 70], "up": [8, 80, 70]}

@@ -166,3 +166,17 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch(rng, op):
     torch.testing.assert_close(got, ref, atol=0, rtol=0)
     after = (conv.fused_conv3x3.launches, conv.fused_upconv3x3.launches, istft_fused.launches)
     assert after == before
+
+
+# Lengths outside the card's FFT route (n_fft not a power of two, or n_fft /
+# hop past the frames an FFT block holds): the port takes any n_fft % hop ==
+# 0, as the TPU kernel does.
+@pytest.mark.parametrize("n_fft,hop", [(96, 32), (768, 256), (1024, 16), (99, 33)])
+def test_istft_fused_other_lengths_match_jax(rng, n_fft, hop):
+    t = 24
+    real = rng.normal(size=(2, n_fft // 2 + 1, t)).astype(np.float32)
+    imag = rng.normal(size=(2, n_fft // 2 + 1, t)).astype(np.float32)
+    got = istft_fused(torch.from_numpy(real), torch.from_numpy(imag), n_fft, hop).numpy()
+    ref = np.asarray(jax_istft_fused(jnp.asarray(real), jnp.asarray(imag), n_fft, hop, interpret=True))
+    assert got.shape == ref.shape == (2, (t - 1) * hop)
+    np.testing.assert_allclose(got, ref, atol=1e-5, rtol=0)

@@ -117,6 +117,32 @@ def test_conv3x3_act_subgradient_at_zero_is_one():
     assert float(dx[0, 0, 1, 1]) == float(dx_hand[0, 0, 1, 1]) == 18.0
 
 
+@pytest.mark.parametrize("b,cin,cout,h,w", [(2, 3, 5, 7, 9), (1, 16, 8, 4, 4), (3, 8, 40, 5, 1)])
+def test_weight_grad3x3_matches_jax(b, cin, cout, h, w):
+    """The weight gradient on the CPU (the kernel's plain version, no launch)
+    against JAX's: the vjp of its 3x3 'SAME' conv in the weights, 1e-5
+    relative to the largest value."""
+    rng = np.random.default_rng(b + cin + cout)
+    x = rng.standard_normal((b, cin, h, w)).astype(np.float32)
+    d = rng.standard_normal((b, cout, h, w)).astype(np.float32)
+    w_hwio = np.zeros((3, 3, cin, cout), np.float32)
+
+    def conv(w_):
+        return jax.lax.conv_general_dilated(
+            jnp.asarray(x), w_, (1, 1), "SAME", dimension_numbers=("NCHW", "HWIO", "NCHW"))
+
+    _, vjp = jax.vjp(conv, jnp.asarray(w_hwio))
+    ref = np.asarray(vjp(jnp.asarray(d))[0]).transpose(3, 2, 0, 1)  # HWIO -> OIHW
+    n0 = conv_vjp.weight_grad3x3.launches
+    got = conv_vjp.weight_grad3x3(torch.from_numpy(x), torch.from_numpy(d), (cout, cin, 3, 3))
+    assert conv_vjp.weight_grad3x3.launches == n0
+    assert got.shape == (cout, cin, 3, 3)
+    np.testing.assert_allclose(got.numpy(), ref, atol=1e-5 * np.abs(ref).max())
+    with pytest.raises(ValueError, match="no kernel for device"):
+        conv_vjp.weight_grad3x3(torch.from_numpy(x).to("meta"), torch.from_numpy(d).to("meta"),
+                                (cout, cin, 3, 3))
+
+
 def test_conv3x3_act_refuses_other_devices():
     x = torch.zeros(1, 1, 3, 3, device="meta")
     with pytest.raises(ValueError, match="no kernel for device"):
