@@ -61,7 +61,20 @@ the CUDA toolkit (``nvcc``).  Phases, each of which raises on failure:
    equal bit for bit), once streaming through the host pipeline, once as a
    subprocess of the CLI that is sent SIGTERM (exit code 75, a complete
    off-cadence save); the Saver's preview images; ``generate`` from the
-   run directory through K4; the time of a save and of a restore.
+   run directory through K4; the time of a save and of a restore;
+9. bf16 synthesis: K1, K3 and K4 in bf16 at the main path's shapes against
+   their bf16 plain versions (one bf16 ulp + 1e-5 elementwise; K4, two
+   roundings in a chain, 1e-2 in the relative 2-norm), K4 bf16 against K1
+   bf16 then K3 bf16 bit for bit, each timed beside its plain
+   version, ``F.conv2d`` on bf16 tensors and its bound (dense bf16 or
+   bytes); ``generate`` once under each of ``pallas``, ``pallas_bf16``,
+   ``pallas_up_bf16`` and ``pallas_block_bf16``, launches counted (the bf16
+   ones apart), the five WAVs checked, each image and waveform against the
+   bf16 plain path on the card, the float32 default path (the bf16 image
+   held at 0.08 in the relative 2-norm against both, ``pallas`` at 2e-3
+   max-abs) and the plain path in float64; warm synthesis
+   under ``pallas_up``, ``pallas_up_bf16``, ``pallas_block`` and
+   ``pallas_block_bf16`` in turns.
 
 The last lines are a ``{"kernels": [...]}`` record, the ``nvidia-smi``
 line, and ``{"ok": true, "device": {...}}``.  Per-shape numbers also go
@@ -478,6 +491,8 @@ def istft_float64(real, imag, n_fft: int, hop: int) -> torch.Tensor:
 def reset_launches() -> None:
     for fn in WRAPPERS.values():
         fn.launches = 0
+        if hasattr(fn, "bf16_launches"):
+            fn.bf16_launches = 0
     istft_ops.istft_fused.idft_launches = 0
 
 
@@ -1534,6 +1549,327 @@ def train_entry_point(cfg: ModelConfig, dev) -> dict:
     }
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: bf16 synthesis (conv_impl "pallas_bf16", "pallas_up_bf16",
+# "pallas_block_bf16") and the float32 "pallas" impl.
+
+# H100 SXM dense bf16 on the tensor cores: the operations bound of a bf16
+# kernel, whatever route it takes.
+PEAK_BF16_FLOPS = 989e12
+# A bf16 kernel against its plain version (float32 on the same bf16
+# operands, rounded once): within one bf16 ulp elementwise, plus 1e-5 for
+# results near zero whose float32 sums, taken in another order, fall on
+# the two sides of LeakyReLU's kink.
+BF16_ULP, BF16_ABS = 2.0**-7, 1e-5
+# K4 bf16 against its plain version: two bf16 roundings in a chain.  K4
+# equals K1 bf16 then K3 bf16 bit for bit (held), and each of those is
+# within one ulp of its plain version (held); but where conv1's output
+# lands one ulp off the plain one, conv2 and PixelNorm carry that into
+# every output that reads it as an absolute change, |w2| x ulp(c1) x the
+# pixel's scale, which no ulp of the output bounds (outputs near zero;
+# this phase prints how many outputs lie past one ulp, about 1e-4 of them
+# on an H100).  So K4 is held against its plain version in the 2-norm,
+# relative: bf16's own rounding is 2^-9 rms; 1e-2.
+TOL_K4_BF16_L2 = 1e-2
+# The bf16 image against the float32 default path's, in the 2-norm relative
+# to it.  bf16 rounds every activation (2^-9 relative) and 16 convs,
+# PixelNorm and the phase head's tanh compound it: on this generator the
+# exact bf16 path (the plain versions, the JAX package's semantics) lies
+# about 0.03 from float32 (this phase prints it), almost all of it in the
+# phase channel, with
+# single pixels far apart where the phase's tanh saturates the other way,
+# and so does the JAX package's own "pallas_up_bf16"
+# (tests/test_torch_bf16.py::test_bf16_synthesis_of_the_shipped_generator_matches_jax).
+# The JAX package's max-abs bar of 0.08 (its TINY_MODEL at random init) does
+# not transfer to the trained generator.  Held at 0.08 in the 2-norm, for
+# the kernels against the float32 path and against the bf16 plain path
+# alike; the max-abs differences are printed.
+TOL_IMAGE_BF16_L2 = 0.08
+BF16_SOURCES = {
+    "fused_conv3x3_bf16": ("musicgan_tpu_torch/csrc/conv3x3_bf16.cu", "musicgan_tpu/ops/conv.py:90"),
+    "fused_upconv3x3_bf16": ("musicgan_tpu_torch/csrc/upconv3x3_bf16.cu", "musicgan_tpu/ops/conv.py:139"),
+    "fused_block_bf16": ("musicgan_tpu_torch/csrc/block3x3_bf16.cu", "musicgan_tpu/ops/conv.py:234"),
+}
+BF16_WRAPPERS = {
+    "fused_conv3x3_bf16": conv_ops.fused_conv3x3,
+    "fused_upconv3x3_bf16": conv_ops.fused_upconv3x3,
+    "fused_block_bf16": conv_ops.fused_block,
+}
+NEW_IMPLS = ("pallas", "pallas_bf16", "pallas_up_bf16", "pallas_block_bf16")
+
+
+def read_bf16_launches() -> dict:
+    return {name: fn.bf16_launches for name, fn in BF16_WRAPPERS.items()}
+
+
+def bf16_err(got: torch.Tensor, ref: torch.Tensor) -> tuple[float, int]:
+    """Max abs difference of two bf16 tensors and how many elements lie
+    past one bf16 ulp (+ ``BF16_ABS``)."""
+    if got.dtype != torch.bfloat16 or ref.dtype != torch.bfloat16 or got.shape != ref.shape:
+        raise AssertionError(f"bf16 check of {got.dtype} {tuple(got.shape)} against {ref.dtype} {tuple(ref.shape)}")
+    a, b = got.float(), ref.float()
+    diff = (a - b).abs()
+    bad = int((diff > BF16_ULP * torch.maximum(a.abs(), b.abs()) + BF16_ABS).sum())
+    return diff.max().item(), bad
+
+
+def measure_bf16(name, shape, kernel, plain, library, flops, nbytes, plan=None, l2_tol=None) -> dict:
+    """One bf16 kernel at one main-path shape: held within one bf16 ulp
+    (+ ``BF16_ABS``) of its plain version elementwise, or, with ``l2_tol``,
+    within that in the 2-norm relative to it (raises otherwise); its time,
+    the plain version's and the library call's, and its bound (operations
+    at dense bf16, bytes at the memory rate, the larger)."""
+    got, ref = kernel(), plain()
+    err, past_one = bf16_err(got, ref)
+    l2 = rel_l2(got.float(), ref.float())
+    if (past_one if l2_tol is None else not l2 <= l2_tol):
+        raise AssertionError(f"{name} {shape}: {past_one} elements past one bf16 ulp of the plain version, "
+                             f"max abs err {err:.3e}, relative 2-norm {l2:.3e} (tol {l2_tol})")
+    del got, ref
+    t_ops, t_bytes = 1e3 * flops / PEAK_BF16_FLOPS, 1e3 * nbytes / PEAK_BYTES_S
+    row = {
+        "name": name, "role": "synthesis", "dtype": "bfloat16", "shape": shape, "max_abs_err": err,
+        "ms": time_ms(kernel), "plain_ms": time_ms(plain), "library_ms": time_ms(library),
+        "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "ops_ms": t_ops, "bytes_ms": t_bytes, "flops": flops, "bytes": nbytes, "past_one_ulp": past_one,
+        "l2_err": l2,
+    }
+    where = ""
+    if plan is not None:
+        row["plan"], row["route"] = plan, plan["route"]
+        tile = (f"tile {plan['tile'][0]}x{plan['tile'][1]}, {plan['phases_a_block']} phases a block"
+                if plan["tile"] else f"{plan['pixels_a_lane']} pixels a lane")
+        where = (f"  [{plan['route']}, cluster of {plan['cluster']} ({plan['split_k']} x {plan['nsplit']}), "
+                 f"{tile}, {plan['blocks']} blocks, {plan['smem_bytes']} B shared]")
+    print(f"[bf16]   {name:20s} {str(shape):26s} err {err:.2e} ({past_one} past one ulp, 2-norm {l2:.1e})"
+          f"  kernel {row['ms']:.4f} ms"
+          f"  plain {row['plain_ms']:.4f}  library {row['library_ms']:.4f}  bound {row['bound_ms']:.4f} "
+          f"({row['bound_by']}: ops {t_ops:.4f}, bytes {t_bytes:.4f})  share {row['bound_ms'] / row['ms']:.2f}"
+          f"{where}")
+    return row
+
+
+def check_bf16_kernels(gen, cfg: ModelConfig, dev) -> list[dict]:
+    """Phase 9: K1, K3 and K4 in bf16 at the main path's shapes (5 clips x
+    nb_vec 10, the shipped generator's weights): each against its bf16
+    plain version, K4 against K1 bf16 then K3 bf16 bit for bit where both
+    take the tensor-core route, with their times and bounds.  The library
+    call: ``F.conv2d`` on bf16 tensors without the epilogue (for K3 on the
+    upsampled input; for K4 both convs)."""
+    rng = torch.Generator(device=dev).manual_seed(9)
+    slope, eps, bf = cfg.leaky_slope, cfg.pixel_norm_eps, torch.bfloat16
+    rows = []
+    for i, (cin, cout) in enumerate(cfg.gen_channels):
+        bsz, h, w = block_sizes(cfg, i)
+        blk = gen.blocks[i]
+        x = torch.randn(bsz, cin, h, w, generator=rng, device=dev).to(bf)
+        w1, b1 = blk.conv1.weight.detach(), blk.conv1.bias.detach()
+        w2, b2 = blk.conv2.weight.detach(), blk.conv2.bias.detach()
+        w1p, w2p = conv_ops.kernel_weights(w1, bf), conv_ops.kernel_upconv_weights(w2, bf)
+        w1b, b1b, w2b, b2b = w1.to(bf), b1.to(bf), w2.to(bf), b2.to(bf)
+        xu = upsample_nearest_2x(x)
+        px = bsz * h * w
+        rows.append(measure_bf16(
+            "fused_conv3x3_bf16", (bsz, cin, cin, h, w),
+            lambda: conv_ops.fused_conv3x3(x, w1, b1, slope, True, eps, w_packed=w1p),
+            lambda: conv_ops.conv3x3_plain(x, w1, b1, slope, True, eps),
+            lambda: F.conv2d(x, w1b, b1b, padding=1),
+            2.0 * px * cin * 9 * cin, 2.0 * (2 * px * cin + 9 * cin * cin) + 4.0 * cin,
+            plan=conv_ops.conv_plan("conv3x3", bsz, cin, cin, h, w, True, bf),
+        ))
+        rows.append(measure_bf16(
+            "fused_upconv3x3_bf16", (bsz, cin, cout, h, w),
+            lambda: conv_ops.fused_upconv3x3(x, w2, b2, slope, True, eps, w_packed=w2p),
+            lambda: conv_ops.upconv3x3_plain(x, w2, b2, slope, True, eps),
+            lambda: F.conv2d(xu, w2b, b2b, padding=1),
+            2.0 * 4 * px * cout * 4 * cin, 2.0 * (px * cin + 4 * px * cout + 16 * cin * cout) + 4.0 * cout,
+            plan=conv_ops.conv_plan("upconv3x3", bsz, cin, cout, h, w, True, bf),
+        ))
+        if not conv_ops.fused_block_fits(cin, cin, cout, size=(bsz, h, w), device=dev):
+            continue
+
+        def kernel():
+            return conv_ops.fused_block(x, w1, b1, w2, b2, slope, eps, w1_packed=w1p, w2_packed=w2p)
+
+        def pair():
+            mid = conv_ops.fused_conv3x3(x, w1, b1, slope, True, eps, w_packed=w1p)
+            return conv_ops.fused_upconv3x3(mid, w2, b2, slope, True, eps, w_packed=w2p)
+
+        mid_up = upsample_nearest_2x(conv_ops.conv3x3_plain(x, w1, b1, slope, True, eps))
+
+        def library():
+            F.conv2d(x, w1b, b1b, padding=1)
+            return F.conv2d(mid_up, w2b, b2b, padding=1)
+
+        row = measure_bf16(
+            "fused_block_bf16", (bsz, cin, cin, cout, h, w), kernel,
+            lambda: conv_ops.fused_block_plain(x, w1, b1, w2, b2, slope, eps), library,
+            2.0 * px * cin * 9 * cin + 2.0 * 4 * px * cout * 4 * cin,
+            2.0 * (px * cin + 4 * px * cout + 9 * cin * cin + 16 * cin * cout) + 4.0 * (cin + cout),
+            l2_tol=TOL_K4_BF16_L2,
+        )
+        if not pair_is_large(cin, cout, h, w):
+            raise AssertionError(f"block {i}: K4 bf16 taken where K1 then K3 are not both on the tensor cores")
+        row["equal_pair"] = bool(torch.equal(kernel(), pair()))
+        row["pair_ms"] = time_ms(pair)
+        print(f"[bf16]   fused_block_bf16 block {i}: against K1 bf16 then K3 bf16 bit for bit "
+              f"{row['equal_pair']}, pair {row['pair_ms']:.4f} ms")
+        if not row["equal_pair"]:
+            raise AssertionError(f"fused_block_bf16 block {i} differs from K1 bf16 then K3 bf16")
+        rows.append(row)
+        del mid_up
+        del xu
+    for name in BF16_SOURCES:
+        mine = [r for r in rows if r["name"] == name]
+        print(f"[sums]   {name:20s} {len(mine)} shapes: kernel {sum(r['ms'] for r in mine):.4f} ms, plain "
+              f"{sum(r['plain_ms'] for r in mine):.4f}, library {sum(r['library_ms'] for r in mine):.4f}, "
+              f"bound {sum(r['bound_ms'] for r in mine):.4f}")
+    return rows
+
+
+def plain_on_card_all():
+    """``plain_on_card``'s patches and K4's: the synthesis path through its
+    plain versions in any impl and dtype."""
+    return plain_on_card() + [mock.patch.object(
+        conv_ops, "fused_block",
+        lambda *a, w1_packed=None, w2_packed=None: conv_ops.fused_block_plain(*a))]
+
+
+def end_to_end_new_impls(cfg: ModelConfig, dev) -> dict:
+    """Phase 9, end to end: ``generate`` once under each new impl, the
+    launch counters set to 0 before and read after; each image and waveform
+    against the bf16 plain path on the card (bf16 impls), the float32
+    default path and the plain path in float64; warm synthesis under
+    ``pallas_up``, ``pallas_up_bf16``, ``pallas_block`` and
+    ``pallas_block_bf16`` in turns."""
+    acfg = AudioConfig()
+    stage = cfg.n_stages - 1
+    z = main_path_latent(cfg, dev)
+    zc = z.permute(0, 3, 1, 2)
+    synth = generate_mod.synthesize_fn(cfg, stage)
+    n_samples = (cfg.latent_width * NB_VEC * 2 ** cfg.n_stages - 1) * acfg.stft_stride
+    gen_default = load_reference_generator(str(CKPT), cfg, device=dev)
+    with torch.no_grad():
+        img_default = gen_default.forward_nchw(zc, stage)
+    waves_default = synth(gen_default, z)
+
+    gen64 = load_reference_generator(str(CKPT), cfg, device=dev).double()
+    patches = plain_on_card()[:2] + [mock.patch.object(generate_mod, "istft_fused", istft_float64)]
+    for p in patches:
+        p.start()
+    try:
+        with torch.no_grad():
+            img64 = gen64.forward_nchw(zc.double(), stage)
+            waves64 = generate_mod._synthesize(gen64, z.double(), stage, cfg)
+    finally:
+        for p in patches:
+            p.stop()
+    del gen64
+
+    n_fit = blocks_taking_k4(cfg, dev, NB_VEC, NB_MUSIC)
+    n = cfg.n_stages
+    expect = {
+        "pallas": ({"fused_conv3x3": 2 * n}, {}),
+        "pallas_bf16": ({"fused_conv3x3": 2 * n}, {"fused_conv3x3_bf16": 2 * n}),
+        "pallas_up_bf16": ({"fused_conv3x3": n, "fused_upconv3x3": n},
+                           {"fused_conv3x3_bf16": n, "fused_upconv3x3_bf16": n}),
+        "pallas_block_bf16": ({"fused_conv3x3": n - n_fit, "fused_upconv3x3": n - n_fit, "fused_block": n_fit},
+                              {"fused_conv3x3_bf16": n - n_fit, "fused_upconv3x3_bf16": n - n_fit,
+                               "fused_block_bf16": n_fit}),
+    }
+    rec = {"fitting_blocks": n_fit, "impls": {}}
+    for impl in NEW_IMPLS:
+        cfg_i = dataclasses.replace(cfg, conv_impl=impl)
+        out_dir = tempfile.mkdtemp(prefix=f"chip_smoke_{impl}_")
+        reset_launches()
+        paths = generate_mod.generate(
+            out_dir, cfg.rand_channels, str(CKPT), nb_vec=NB_VEC, nb_music=NB_MUSIC,
+            seed=SEED, model_cfg=cfg_i, device="cuda",
+        )
+        torch.cuda.synchronize()
+        launches, bf16_launches = read_launches(), read_bf16_launches()
+        want = {**{k: 0 for k in launches}, **expect[impl][0], "istft_fused": 1}
+        want_bf16 = {**{k: 0 for k in bf16_launches}, **expect[impl][1]}
+        print(f"[e2e-new] generate with conv_impl={impl!r}: launches {launches}, of them in bf16 {bf16_launches}")
+        if launches != want or bf16_launches != want_bf16:
+            raise AssertionError(f"{impl}: launch counts {launches}, {bf16_launches} != {want}, {want_bf16}")
+        waves = []
+        for p in paths:
+            wave, sr = load_wav(p)
+            if sr != acfg.sample_rate or wave.shape != (n_samples,):
+                raise AssertionError(f"{p}: {sr} Hz, {wave.shape} samples")
+            if not np.isfinite(wave).all() or np.abs(wave).max() < 1e-3:
+                raise AssertionError(f"{p}: non-finite or silent waveform")
+            waves.append(wave)
+        if len(waves) != NB_MUSIC:
+            raise AssertionError(f"{impl}: {len(waves)} WAVs")
+        waves = torch.from_numpy(np.stack(waves)).to(dev)
+
+        gen = load_reference_generator(str(CKPT), cfg_i, device=dev)
+        with torch.no_grad():
+            img = gen.forward_nchw(zc, stage)
+        if img.dtype != torch.float32 or not torch.isfinite(img).all():
+            raise AssertionError(f"{impl}: image {img.dtype}, finite {bool(torch.isfinite(img).all())}")
+        errs = {
+            "image_vs_default": (img - img_default).abs().max().item(),
+            "image_vs_float64": (img.double() - img64).abs().max().item(),
+            "image_l2_vs_default": rel_l2(img, img_default),
+            "image_share_past_0.08_vs_default": ((img - img_default).abs() > 0.08).float().mean().item(),
+            "wave_vs_default": (waves - waves_default).abs().max().item(),
+            "wave_vs_float64": (waves.double() - waves64).abs().max().item(),
+        }
+        if impl.endswith("_bf16"):
+            patches = plain_on_card_all()
+            for p in patches:
+                p.start()
+            reset_launches()
+            try:
+                with torch.no_grad():
+                    img_plain = gen.forward_nchw(zc, stage)
+                waves_plain = synth(gen, z)
+            finally:
+                for p in patches:
+                    p.stop()
+            if any(read_launches().values()):
+                raise AssertionError(f"the plain bf16 pass launched kernels: {read_launches()}")
+            errs["image_vs_bf16_plain"] = (img - img_plain).abs().max().item()
+            errs["image_l2_vs_bf16_plain"] = rel_l2(img, img_plain)
+            errs["image_l2_bf16_plain_vs_default"] = rel_l2(img_plain, img_default)
+            errs["wave_vs_bf16_plain"] = (waves - waves_plain).abs().max().item()
+            del img_plain, waves_plain
+        print(f"[e2e-new] {impl}: image against " + ", ".join(
+            f"{k[6:]} {v:.3e}" for k, v in errs.items() if k.startswith("image")) + "; waveform against " +
+            ", ".join(f"{k[5:]} {v:.3e}" for k, v in errs.items() if k.startswith("wave")))
+        if impl.endswith("_bf16"):
+            if not (errs["image_l2_vs_default"] <= TOL_IMAGE_BF16_L2
+                    and errs["image_l2_vs_bf16_plain"] <= TOL_IMAGE_BF16_L2):
+                raise AssertionError(f"{impl}: image {errs['image_l2_vs_default']:.3e} (2-norm, relative) from "
+                                     f"the float32 path, {errs['image_l2_vs_bf16_plain']:.3e} from the bf16 plain "
+                                     f"path (tol {TOL_IMAGE_BF16_L2})")
+        elif not errs["image_vs_default"] <= TOL_IMAGE:
+            raise AssertionError(f"{impl}: image {errs['image_vs_default']:.3e} from the float32 default path")
+        rec["impls"][impl] = {"launches": launches, "bf16_launches": bf16_launches, **errs}
+        del gen, img
+
+    # Warm synthesis in turns within this one process: each impl's half of
+    # WARM_REPS forwards, then backwards.
+    order = ("pallas_up", "pallas_up_bf16", "pallas_block", "pallas_block_bf16")
+    gens = {k: load_reference_generator(str(CKPT), dataclasses.replace(cfg, conv_impl=k), device=dev) for k in order}
+    times = {k: [] for k in order}
+    for k in order:
+        warm_synthesis_s(synth, gens[k], z, 2)
+    for k in order + order[::-1]:
+        times[k] += warm_synthesis_s(synth, gens[k], z, WARM_REPS // 2)
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    audio_s = NB_MUSIC * n_samples / acfg.sample_rate
+    print("[e2e-new] warm synthesis, median of " + str(WARM_REPS) + " each: " + ", ".join(
+        f"{k} {med[k] * 1e3:.3f} ms (min {min(times[k]) * 1e3:.3f}; {audio_s / med[k]:.0f} audio-s/s)" for k in order))
+    rec.update({"warm_synthesis_s": times, "warm_synthesis_median_s": med})
+    rec["launches"] = {k: sum(r["launches"][k] for r in rec["impls"].values()) for k in (*WRAPPERS, IDFT)}
+    rec["bf16_launches"] = {k: sum(r["bf16_launches"][k] for r in rec["impls"].values()) for k in BF16_WRAPPERS}
+    return rec
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
@@ -1567,9 +1903,20 @@ def main() -> None:
     e2e_block = end_to_end_block(cfg, dev, waves)
     torch.cuda.empty_cache()
     loop = train_entry_point(cfg, dev)
+    torch.cuda.empty_cache()
 
-    paths = (e2e, train_rec, e2e_block, loop)
+    gen = load_reference_generator(str(CKPT), cfg, device=dev)
+    bf16_rows = check_bf16_kernels(gen, cfg, dev)
+    del gen
+    torch.cuda.empty_cache()
+    e2e_new = end_to_end_new_impls(cfg, dev)
+    torch.cuda.empty_cache()
+
+    paths = (e2e, train_rec, e2e_block, loop, e2e_new)
+    # The float32 kernels' launches: a wrapper's count less its bf16 ones.
     launched = {k: sum(p["launches"][k] for p in paths) for k in (*WRAPPERS, IDFT)}
+    for name, fn in BF16_WRAPPERS.items():
+        launched[fn.__name__] -= e2e_new["bf16_launches"][name]
     kernels = []
     for name, (source, replaces) in SOURCES.items():
         # K5 has two routes, each its own entry; the iDFT route is on no path.
@@ -1596,11 +1943,26 @@ def main() -> None:
                 entry["pair_ms"] = sum(r["pair_ms"] for r in mine if "pair_ms" in r)
                 entry["max_abs_err_vs_pair"] = max(r["err_pair"] for r in mine if "err_pair" in r)
             kernels.append(entry)
+    for name, (source, replaces) in BF16_SOURCES.items():
+        mine = [r for r in bf16_rows if r["name"] == name]
+        entry = {
+            "name": name, "route": "cuda", "source": source, "replaces": replaces, "dtype": "bfloat16",
+            "launches": e2e_new["bf16_launches"][name], "max_abs_err": max(r["max_abs_err"] for r in mine),
+            **{k: sum(r[k] for r in mine) for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+            "bound_by": "operations" if sum(r["ops_ms"] for r in mine) >= sum(r["bytes_ms"] for r in mine)
+            else "bytes",
+        }
+        if all("plan" in r for r in mine):
+            entry["conv_routes"] = sorted({r["route"] for r in mine})
+        if name == "fused_block_bf16":
+            entry["pair_ms"] = sum(r["pair_ms"] for r in mine)
+        kernels.append(entry)
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "shapes": rows, "end_to_end": e2e, "gradients": grads, "train": train_rec,
-         "end_to_end_block": e2e_block, "train_entry_point": loop, "kernels": kernels}, indent=1))
+         "end_to_end_block": e2e_block, "train_entry_point": loop, "bf16_shapes": bf16_rows,
+         "end_to_end_new_impls": e2e_new, "kernels": kernels}, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -7,8 +7,10 @@ checkpoint, or a checkpoint of this package's ``train``, through the
 generator and the iSTFT vocoder to WAV files), the WGAN-GP train step
 (generator, critic, hand-unrolled gradient penalty, per-leaf Adam) and the
 train loop around it (growth schedule, dataset, checkpoints with bit-exact
-resume, previews, metrics, stall watchdog), on five hand-written CUDA
-kernels (``ops/``, sources in ``csrc/``).  Its entry points are
+resume, previews, metrics, stall watchdog), on hand-written CUDA kernels
+(``ops/``, sources in ``csrc/``): the five TPU kernels' counterparts, K1, K3
+and K4 also in bf16 (the ``*_bf16`` inference impls), and the conv's weight
+gradient.  Its entry points are
 ``generate.generate``, ``generate.synthesize_fn``, ``train.train``,
 ``python -m musicgan_tpu_torch generate|train``, ``train.init_train_state``,
 ``train.build_step`` and ``train.build_chunk_step``; they run on ``cuda``

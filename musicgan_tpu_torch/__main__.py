@@ -4,7 +4,11 @@
     python -m musicgan_tpu_torch train RUN -i DATASET_DIR -o OUT_DIR \\
         [--resume] [--max-iters N] [--batch-size 6] ... [--device cuda|cpu]
     python -m musicgan_tpu_torch generate CKPT 32 -o /out [-n 10] [-m 5] \\
-        [--seed 0] [--conv-impl pallas_up|pallas_block] [--device cuda|cpu]
+        [--seed 0] [--conv-impl IMPL] [--device cuda|cpu]
+
+``--conv-impl`` (``ModelConfig.conv_impl``): ``pallas_up`` (default),
+``pallas_block``, ``pallas``, or any of them with ``_bf16`` (the same
+blocks in bf16 through the bf16 kernels).
 
 ``CKPT`` is a reference ``gen_*.pt`` file or a run directory of ``train``
 (or its ``checkpoints`` or a ``save_N`` directory).  ``train`` exits 75
@@ -17,6 +21,8 @@ flushed: run it again with ``--resume``.  The JAX CLI's ``--max-restarts``,
 from __future__ import annotations
 
 import argparse
+
+from .config import CONV_IMPLS
 
 _DEVICE_HELP = (
     "'cuda' (default; the hand-written kernels) or 'cpu' (their plain "
@@ -77,9 +83,10 @@ def main(argv=None) -> None:
     p.add_argument("-m", "--nb-music", type=int, default=5)
     p.add_argument("-o", "--output-dir", type=str, required=True)
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--conv-impl", type=str, default="pallas_up",
-                   help="'pallas_up' (default: conv + up-conv kernels) or "
-                        "'pallas_block' (the whole-block kernel where it fits)")
+    p.add_argument("--conv-impl", type=str, default="pallas_up", choices=CONV_IMPLS,
+                   help="'pallas_up' (default: conv + up-conv kernels), 'pallas_block' "
+                        "(the whole-block kernel where it fits), 'pallas' (conv, up2x, "
+                        "conv); '_bf16' runs the same in bf16")
     p.add_argument("--device", type=str, default="cuda", help=_DEVICE_HELP)
 
     args = parser.parse_args(argv)

@@ -13,12 +13,15 @@ import dataclasses
 import json
 from typing import Optional, Tuple
 
-# The names musicgan_tpu.config.ModelConfig.conv_impl takes; two are ported.
+# The names musicgan_tpu.config.ModelConfig.conv_impl takes; the Pallas
+# inference impls are ported, in float32 and bf16.
 _JAX_CONV_IMPLS = (
     "auto", "xla", "subpixel", "pallas", "pallas_up", "pallas_block",
     "pallas_bf16", "pallas_up_bf16", "pallas_block_bf16", "pallas_train", "pallas_gp",
 )
-CONV_IMPLS = ("pallas_up", "pallas_block")
+CONV_IMPLS = (
+    "pallas_up", "pallas_block", "pallas", "pallas_bf16", "pallas_up_bf16", "pallas_block_bf16",
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,18 +68,20 @@ class ModelConfig:
     # ``synthesize_fn``, the Saver's previews): "pallas_up" runs each block
     # as the conv kernel and the up-conv kernel (K1 + K3), "pallas_block"
     # runs a block as the one whole-block kernel (K4) where
-    # ``ops.conv.fused_block_fits`` and as the pair elsewhere.  The names are
-    # the JAX package's; the train step does not read this.
+    # ``ops.conv.fused_block_fits`` and as the pair elsewhere, "pallas" as
+    # the conv kernel, a plain up2x and the conv kernel again (K1 + K1).
+    # The "_bf16" names run the same in bf16 (the package's bf16 inference
+    # path).  The names are the JAX package's; the train step does not read
+    # this.
     conv_impl: str = "pallas_up"
 
     def __post_init__(self):
         if self.conv_impl in CONV_IMPLS:
             return
         if self.conv_impl in _JAX_CONV_IMPLS:
-            where = "section B item 8" if self.conv_impl.endswith("bf16") else "section B"
             raise NotImplementedError(
                 f"conv_impl {self.conv_impl!r} is not ported: musicgan_tpu_torch runs "
-                f"{CONV_IMPLS} in float32 (ROADMAP.md {where})"
+                f"{CONV_IMPLS} (ROADMAP.md section B)"
             )
         raise ValueError(f"unknown conv_impl {self.conv_impl!r}; one of {CONV_IMPLS}")
 
@@ -111,7 +116,7 @@ class TrainConfig:
     log_every: int = 200
     nb_preview: int = 6
     seed: int = 0
-    compute_dtype: str = "float32"   # the only one ported (ROADMAP B8)
+    compute_dtype: str = "float32"   # the only one ported (ROADMAP A20)
     data_axis: str = "data"          # mesh axis name; data parallelism is ROADMAP A16
     max_stage: Optional[int] = None  # cap growth (e.g. 3 for 32x32 runs)
     chunk_steps: int = 10            # iterations per ``build_chunk_step`` call;
@@ -133,8 +138,8 @@ class TrainConfig:
     def __post_init__(self):
         if self.compute_dtype != "float32":
             raise NotImplementedError(
-                f"compute_dtype {self.compute_dtype!r}: only float32 is ported; "
-                "bf16 I/O of the conv kernels is ROADMAP.md section B item 8"
+                f"compute_dtype {self.compute_dtype!r}: only float32 training is ported; "
+                "bf16 training (XLA's convs in the JAX package) is ROADMAP.md section A item A20"
             )
 
 

@@ -49,3 +49,10 @@ __device__ __forceinline__ void cp_async_wait_all() {
 extern "C" const char* mg_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
+
+// The same for 8 bytes (both addresses 8-byte aligned): four bf16 values.
+__device__ __forceinline__ void cp_async8(void* dst, const void* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d), "l"(src),
+               "r"(valid ? 8 : 0));
+}

@@ -13,8 +13,8 @@ extern "C" int mg_conv3x3(const float* x, const float* w, const float* bias,
                           float* y, int B, int cin, int cout, int H, int W,
                           float slope, int use_slope, int pixel_norm, float eps,
                           cudaStream_t stream) {
-  return mg::launch_conv_tile<3>(x, w, bias, y, nullptr, B, cin, cout, H, W, 1,
-                                 slope, use_slope, pixel_norm, eps, stream);
+  return mg::launch_conv_tile<float, 3>(x, w, bias, y, nullptr, B, cin, cout, H, W, 1,
+                                        slope, use_slope, pixel_norm, eps, stream);
 }
 
 // As mg_conv3x3 with PixelNorm; msq: (B, 1, H, W), the mean over channels of
@@ -24,6 +24,12 @@ extern "C" int mg_conv3x3_msq(const float* x, const float* w, const float* bias,
                               int H, int W, float slope, int use_slope, float eps,
                               cudaStream_t stream) {
   if (msq == nullptr) return (int)cudaErrorInvalidValue;
-  return mg::launch_conv_tile<3>(x, w, bias, y, msq, B, cin, cout, H, W, 1,
-                                 slope, use_slope, 1, eps, stream);
+  return mg::launch_conv_tile<float, 3>(x, w, bias, y, msq, B, cin, cout, H, W, 1,
+                                        slope, use_slope, 1, eps, stream);
+}
+
+// The launch plan at these sizes (conv_tile.cuh::conv_plan_out).
+extern "C" int mg_conv_plan(int K, int B, int cin, int cout, int H, int W, int nphase,
+                            int pixel_norm, int* out) {
+  return mg::conv_plan_out<float>(K, B, cin, cout, H, W, nphase, pixel_norm, out);
 }

@@ -106,9 +106,31 @@
 //       FMAs run;
 //     - taps that leave every image (all but the centre at 1x1) are neither
 //       staged nor computed.
+//
+// Element types.  Every kernel of the template (and K4's) takes its
+// activations and weights in float32 or in bf16 (the element type E; the
+// bias, the accumulation and the epilogue are float32 in both, and the
+// output is rounded to E once, to nearest even).  bf16 mirrors the JAX
+// package's out_dtype=bfloat16 path.  The large shape then runs one bf16
+// wgmma m64nNk16 a step in place of 3xTF32's three m64nNk8: 16 input
+// channels a chunk, the A fragment's pairs of channels packed into 32-bit
+// registers, B one K-major plane with the same 128-byte core matrices (8
+// output channels x 16 bytes), so a chunk's words, the descriptors and the
+// tap offsets are those of float32's.  The input planes hold `plane` bf16
+// elements (half the bytes; 16 channels fill what 8 float32 channels did),
+// staged by 8-byte copies so that the columns staged are float32's.  The
+// fresh accumulator a fragment row stays: the tensor cores' additions inside
+// a wgmma truncate in bf16 as in TF32.  The small shape reads bf16, stages
+// it as float32 (plain loads: cp.async copies no fewer than 4 bytes) and
+// runs the same float32 FMAs.  The bf16 instantiations live in sources of
+// their own (conv3x3_bf16.cu, upconv3x3_bf16.cu, block3x3_bf16.cu), so a
+// library never holds a kernel of both types: g++ makes the function-local
+// statics of template instances (launch's opt-in flags) unique across the
+// process, and two libraries holding the same instance would share them.
 #pragma once
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 
 #include <algorithm>
 #include <cstdint>
@@ -119,6 +141,34 @@
 namespace mg {
 
 namespace coop = cooperative_groups;
+
+using bf16 = __nv_bfloat16;
+
+// Per element type: input channels a chunk (one k8 step of TF32, one k16
+// step of bf16) and the weight planes a stage holds (3xTF32's big and small
+// parts, or bf16's one).
+template <typename E>
+struct Elem;
+template <>
+struct Elem<float> {
+  static constexpr int CK = 8, PLANES = 2;
+};
+template <>
+struct Elem<bf16> {
+  static constexpr int CK = 16, PLANES = 1;
+};
+template <typename E>
+constexpr bool is_f32 = std::is_same<E, float>::value;
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
+template <typename E>
+__device__ __forceinline__ E from_f32(float v) {
+  if constexpr (is_f32<E>)
+    return v;
+  else
+    return __float2bfloat16_rn(v);
+}
 
 constexpr int CO = 16;         // output channels per warp
 constexpr int MAX_CG = 8;      // channel groups (warps of CO channels) per block
@@ -231,6 +281,108 @@ struct Wgmma<128> {
   }
 };
 
+// The same in bf16: one product of m64 x N x k16, A (16 input channels of the
+// 64 pixels, packed pairs) from registers, B K-major from shared memory,
+// float32 accumulation (bf16 x bf16 products are exact in float32).
+template <int N>
+struct WgmmaBf16;
+
+template <>
+struct WgmmaBf16<16> {
+  static __device__ __forceinline__ void mma(float (&d)[8], const uint32_t (&a)[4], uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "{%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct WgmmaBf16<32> {
+  static __device__ __forceinline__ void mma(float (&d)[16], const uint32_t (&a)[4], uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct WgmmaBf16<48> {
+  static __device__ __forceinline__ void mma(float (&d)[24], const uint32_t (&a)[4], uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23}, "
+        "{%24, %25, %26, %27}, %28, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct WgmmaBf16<64> {
+  static __device__ __forceinline__ void mma(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct WgmmaBf16<80> {
+  static __device__ __forceinline__ void mma(float (&d)[40], const uint32_t (&a)[4], uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39}, "
+        "{%40, %41, %42, %43}, %44, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct WgmmaBf16<96> {
+  static __device__ __forceinline__ void mma(float (&d)[48], const uint32_t (&a)[4], uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
+        "{%48, %49, %50, %51}, %52, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct WgmmaBf16<112> {
+  static __device__ __forceinline__ void mma(float (&d)[56], const uint32_t (&a)[4], uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %61, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55}, "
+        "{%56, %57, %58, %59}, %60, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct WgmmaBf16<128> {
+  static __device__ __forceinline__ void mma(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
 __device__ __forceinline__ uint32_t to_tf32(float v) {
   uint32_t r;
   asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
@@ -256,14 +408,15 @@ __device__ __forceinline__ void fence_proxy_async() {
 // Shared-memory matrix descriptor, no swizzle, K-major: core matrices of 8
 // rows x 16 bytes; lbo: bytes between the two core matrices along K, sbo:
 // bytes between core matrices 8 rows apart.
-__device__ __forceinline__ uint64_t smem_desc(const float* p, uint32_t lbo, uint32_t sbo) {
+__device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo, uint32_t sbo) {
   const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
   return (uint64_t)((a & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(sbo >> 4) << 32);
 }
 
 constexpr int TC_W = 64;          // tile columns: the 64 rows of one wgmma
 constexpr int TC_SW = TC_W + 8;   // staged columns, image columns c0-4 .. c0+67
-constexpr int TC_CK = 8;          // input channels a stage: one k8 step
+constexpr int TC_CK = 8;          // float32 input channels a stage (one k8 step); the
+                                  // words a stage's input plane row and weights count in
 constexpr int TC_WG = 2;          // consumer warpgroups a block (the products)
 constexpr int TC_THREADS = 128 * (TC_WG + 1);  // and one producer warpgroup (the copies)
 constexpr int TC_SMEM_BUDGET = 220 * 1024;      // bytes of stages and sums a block
@@ -273,12 +426,14 @@ constexpr int TC_SMEM_BUDGET = 220 * 1024;      // bytes of stages and sums a bl
 // holds (at most 64 floats a thread); ppb: K3's phases a block (the tiles of
 // one input row are its phases where they fit); rows: image rows a
 // warpgroup owns; th: rows a tile; nt: weight taps a stage holds; plane: an
-// input channel's staged halo tile; stage: a stage's input and split
-// weights; stages: as many as the budget holds, 2 to 4.
+// input channel's staged halo tile (elements); stage: a stage's input and
+// weight planes (planes: 2 for float32's split, 1 for bf16), in 4-byte
+// words; stages: as many as the budget holds, 2 to 4.  A bf16 stage has
+// float32's input words (16 channels of half the bytes) and one plane.
 struct TcGeom {
   int tiles, ppb, rows, th, nt, plane, bsplit, stage, stages, floats;
 };
-__host__ __device__ constexpr TcGeom tc_geom(int K, int N) {
+__host__ __device__ constexpr TcGeom tc_geom(int K, int N, int planes = 2) {
   const int tiles = N <= 16 ? 8 : N <= 32 ? 4 : N <= 64 ? 2 : 1;
   const int ppb = K == 2 ? (tiles < 4 ? tiles : 4) : 1;
   const int rows = tiles / ppb, th = TC_WG * rows;
@@ -288,7 +443,7 @@ __host__ __device__ constexpr TcGeom tc_geom(int K, int N) {
   // fall in 32 distinct banks.
   const int plane = (sh * TC_SW + 23) / 32 * 32 + 8;
   const int bsplit = nt * TC_CK * N;  // one of the two split weight planes
-  const int stage = TC_CK * plane + 2 * bsplit;
+  const int stage = TC_CK * plane + planes * bsplit;
   const int part = 2 * TC_WG * tiles * TC_W;
   const int fit = (TC_SMEM_BUDGET / 4 - part) / stage;
   const int stages = fit > 4 ? 4 : fit;
@@ -303,40 +458,66 @@ __device__ __forceinline__ void bar_arrive(int id, int n) {
 }
 
 // ---- The pieces of the tensor-core route, shared by conv_tc_kernel (K1,
-// K2, K3) and block3x3.cu's whole-block kernel (K4), so that both sum every
+// K2, K3) and block3x3.cuh's whole-block kernel (K4), so that both sum every
 // output in one order.
 
-// The producer warpgroup (thread pt of 128) copies 8 input channels'
-// halo tile into planes [8][plane]: image rows r_first .. r_first + rows - 1,
-// columns c_first .. c_first + TC_SW - 1, zero outside the image and past
-// cin.  vec: 16-byte runs (W and c_first multiples of 4, x 16-byte aligned),
-// each wholly inside or outside the image.
-__device__ __forceinline__ void stage_input(float* a_s, const float* xb, const float* any,
-                                            int cin, int H, int W, int ci0, int r_first,
-                                            int rows, int c_first, int plane, int pt, bool vec) {
+// Four consecutive elements of one channel row: 16 bytes of float32 (L2
+// only: the input is read once a tile), 8 of bf16.
+__device__ __forceinline__ void cp_async_x4(float* dst, const float* src, bool valid) {
+  cp_async16_cg(dst, src, valid);
+}
+__device__ __forceinline__ void cp_async_x4(bf16* dst, const bf16* src, bool valid) {
+  cp_async8(dst, src, valid);
+}
+
+// The producer warpgroup (thread pt of 128) copies a chunk's input channels'
+// halo tile (Elem<E>::CK of them) into planes [CK][plane]: image rows
+// r_first .. r_first + rows - 1, columns c_first .. c_first + TC_SW - 1, zero
+// outside the image and past cin.  vec: runs of 4 elements (W and c_first
+// multiples of 4, x aligned to 4 elements), each wholly inside or outside
+// the image.  Otherwise one element at a time: 4-byte copies of float32,
+// plain loads and stores of bf16.
+template <typename E>
+__device__ __forceinline__ void stage_input(E* a_s, const E* xb, const E* any, int cin, int H, int W,
+                                            int ci0, int r_first, int rows, int c_first, int plane,
+                                            int pt, bool vec) {
+  constexpr int CK = Elem<E>::CK;
   if (vec) {
-    for (int e = pt; e < TC_CK * rows * (TC_SW / 4); e += 128) {
+    for (int e = pt; e < CK * rows * (TC_SW / 4); e += 128) {
       const int qq = e % (TC_SW / 4), tt = e / (TC_SW / 4), rl = tt % rows, ci = tt / rows;
       const int gr = r_first + rl, gc = c_first + 4 * qq, c = ci0 + ci;
       const bool ok = c < cin && gr >= 0 && gr < H && gc >= 0 && gc < W;
-      cp_async16_cg(a_s + ci * plane + rl * TC_SW + 4 * qq,
-                    ok ? xb + ((size_t)c * H + gr) * W + gc : any, ok);
+      cp_async_x4(a_s + ci * plane + rl * TC_SW + 4 * qq, ok ? xb + ((size_t)c * H + gr) * W + gc : any, ok);
     }
-  } else {
-    for (int e = pt; e < TC_CK * rows * TC_SW; e += 128) {
-      const int qq = e % TC_SW, tt = e / TC_SW, rl = tt % rows, ci = tt / rows;
-      const int gr = r_first + rl, gc = c_first + qq, c = ci0 + ci;
-      const bool ok = c < cin && gr >= 0 && gr < H && gc >= 0 && gc < W;
-      cp_async4(a_s + ci * plane + rl * TC_SW + qq, ok ? xb + ((size_t)c * H + gr) * W + gc : any, ok);
-    }
+    return;
+  }
+  for (int e = pt; e < CK * rows * TC_SW; e += 128) {
+    const int qq = e % TC_SW, tt = e / TC_SW, rl = tt % rows, ci = tt / rows;
+    const int gr = r_first + rl, gc = c_first + qq, c = ci0 + ci;
+    const bool ok = c < cin && gr >= 0 && gr < H && gc >= 0 && gc < W;
+    const E* src = ok ? xb + ((size_t)c * H + gr) * W + gc : any;
+    if constexpr (is_f32<E>)
+      cp_async4(a_s + ci * plane + rl * TC_SW + qq, src, ok);
+    else
+      a_s[ci * plane + rl * TC_SW + qq] = ok ? *src : from_f32<E>(0.f);
   }
 }
 
 // A chunk's weights into the producer's registers (zero past cin and
-// coutp): its r-th (tap, channel quad, output channel) is e = 128 * r + pt,
-// the output channel fastest, so that a warp's loads are runs of channels.
-// K = 3: taps tap0 + 0 .. NT - 1 of w (cin, 9, coutp); K = 2: the phases
-// ph0 + tap / 4, sub-tap tap % 4 of w (4, cin, 4, coutp).
+// coutp): its r-th (tap, channel group, output channel) is e = 128 * r + pt,
+// the output channel fastest, so that a warp's loads are runs of channels; a
+// group is 4 float32 channels (one 16-byte word of TF32's k8) or 8 bf16
+// channels (one of bf16's k16, as 4 words of pairs, the lower channel in the
+// low half).  K = 3: taps tap0 + 0 .. NT - 1 of w (cin, 9, coutp); K = 2: the
+// phases ph0 + tap / 4, sub-tap tap % 4 of w (4, cin, 4, coutp).  The
+// address is formed before the bounds test: formed inside it, float32 K3
+// ran 7% slower over synthesis's blocks on an H100 (scripts/torch_ab.py),
+// with the same bits.
+template <int K, typename T>
+__device__ __forceinline__ const T* weight_at(const T* w, int cin, int coutp, int c, int tap, int ph0, int co) {
+  return K == 3 ? w + ((size_t)c * 9 + tap) * coutp + co
+                : w + (((size_t)(ph0 + tap / 4) * cin + c) * 4 + tap % 4) * coutp + co;
+}
 template <int K, int NT, int N, int WREGS>
 __device__ __forceinline__ void load_weight_chunk(float (&wv)[WREGS][4], const float* __restrict__ w,
                                                   int cin, int coutp, int co_base, int ci0, int tap0,
@@ -349,9 +530,31 @@ __device__ __forceinline__ void load_weight_chunk(float (&wv)[WREGS][4], const f
 #pragma unroll
     for (int c4 = 0; c4 < 4; ++c4) {
       const int c = ci0 + 4 * cq + c4;
-      const float* src = K == 3 ? w + ((size_t)c * 9 + tap0 + tap) * coutp + co
-                                : w + (((size_t)(ph0 + tap / 4) * cin + c) * 4 + tap % 4) * coutp + co;
+      const float* src = weight_at<K>(w, cin, coutp, c, tap0 + tap, ph0, co);
       wv[r][c4] = e < NT * 2 * N && c < cin && co < coutp ? __ldg(src) : 0.f;
+    }
+  }
+}
+template <int K, int NT, int N, int WREGS>
+__device__ __forceinline__ void load_weight_chunk(uint32_t (&wv)[WREGS][4], const bf16* __restrict__ w,
+                                                  int cin, int coutp, int co_base, int ci0, int tap0,
+                                                  int ph0, int pt) {
+  const unsigned short* wu = reinterpret_cast<const unsigned short*>(w);
+#pragma unroll
+  for (int r = 0; r < WREGS; ++r) {
+    const int e = r * 128 + pt;
+    const int n = e % N, tt = e / N, oct = tt & 1, tap = tt >> 1;
+    const int co = co_base + n;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      uint32_t half[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int c = ci0 + 8 * oct + 2 * i + h;
+        const unsigned short* src = weight_at<K>(wu, cin, coutp, c, tap0 + tap, ph0, co);
+        half[h] = e < NT * 2 * N && c < cin && co < coutp ? __ldg(src) : 0u;
+      }
+      wv[r][i] = half[0] | (half[1] << 16);
     }
   }
 }
@@ -377,6 +580,25 @@ __device__ __forceinline__ void store_split_weights(float* b_big, float* b_small
   }
 }
 
+// The chunk's weights as a stage holds them, from b on (bsplit words a
+// plane): float32 split into its two TF32 planes; bf16 as they are, one
+// plane [tap][octet][n][8], the same 16-byte words in the same places.
+template <int NT, int N, int WREGS>
+__device__ __forceinline__ void store_stage_weights(float* b, int bsplit, const float (&wv)[WREGS][4], int pt) {
+  store_split_weights<NT, N>(b, b + bsplit, wv, pt);
+}
+template <int NT, int N, int WREGS>
+__device__ __forceinline__ void store_stage_weights(float* b, int, const uint32_t (&wv)[WREGS][4], int pt) {
+#pragma unroll
+  for (int r = 0; r < WREGS; ++r) {
+    const int e = r * 128 + pt;
+    if (e < NT * 2 * N) reinterpret_cast<uint4*>(b)[e] = make_uint4(wv[r][0], wv[r][1], wv[r][2], wv[r][3]);
+  }
+}
+// The producer's registers for a chunk's weights.
+template <typename E, int WREGS>
+using WeightRegs = std::conditional_t<is_f32<E>, float[WREGS][4], uint32_t[WREGS][4]>;
+
 // A fragment of m64 x k8 from planes [channel][plane] (pixels 16*wq + g and
 // + 8, channels t and t + 4 of the thread; ap points at channel t, pixel
 // 16*wq + g), split in registers into big and small TF32 parts.
@@ -398,6 +620,40 @@ __device__ __forceinline__ void mma3(float (&d)[N / 2], const uint32_t (&hi)[4],
   Wgmma<N>::mma(d, hi, b_small);
   Wgmma<N>::mma(d, lo, b_big);
 }
+
+// A thread's A fragment and its products, per element type.  The thread's
+// first channel of a chunk is CH * t: float32's m64 x k8 fragment holds
+// channels t, t + 4 of pixels 16*wq + g and + 8; bf16's m64 x k16 fragment
+// holds channels 2t, 2t + 1, 2t + 8, 2t + 9 of them, pairs (2t, 2t + 1) and
+// (2t + 8, 2t + 9) packed into one register each, the lower channel in the
+// low half: registers (g; 2t), (g + 8; 2t), (g; 2t + 8), (g + 8; 2t + 8).
+template <typename E>
+struct AFrag;
+template <>
+struct AFrag<float> {
+  static constexpr int CH = 1;
+  uint32_t hi[4], lo[4];
+  __device__ __forceinline__ void load(const float* ap, int plane) { load_split_a(hi, lo, ap, plane); }
+  template <int N>
+  __device__ __forceinline__ void mma(float (&d)[N / 2], uint64_t b_big, uint64_t b_small) const {
+    mma3<N>(d, hi, lo, b_big, b_small);
+  }
+};
+template <>
+struct AFrag<bf16> {
+  static constexpr int CH = 2;
+  uint32_t a[4];
+  __device__ __forceinline__ void load(const bf16* ap, int plane) {
+    const unsigned short* p = reinterpret_cast<const unsigned short*>(ap);
+    const int o[4] = {0, 8, 8 * plane, 8 * plane + 8};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[i] = (uint32_t)p[o[i]] | ((uint32_t)p[o[i] + plane] << 16);
+  }
+  template <int N>
+  __device__ __forceinline__ void mma(float (&d)[N / 2], uint64_t b, uint64_t) const {
+    WgmmaBf16<N>::mma(d, a, b);
+  }
+};
 
 template <int T, int ND>
 __device__ __forceinline__ void fence_tiles(float (&d)[T][ND]) {
@@ -425,26 +681,26 @@ __device__ __forceinline__ void add_fresh(float (&acc)[T][ND], float (&d)[T][ND]
 
 // A chunk's products for a warpgroup's T accumulator tiles: each input row
 // j and column shift s of the halo is loaded once as an A fragment (row(j)
-// points at the thread's channel t, pixel 16*wq + g of input row j; + s
-// shifts it), split, and serves every tile (row, phase) whose tap it is.
-// Two fragments in registers at a time: a group's products are in flight
-// while the next one's fragment is loaded and split.  K = 3: RW rows, one
+// points at the thread's first channel, pixel 16*wq + g of input row j; + s
+// shifts it), split (float32), and serves every tile (row, phase) whose tap
+// it is.  Two fragments in registers at a time: a group's products are in
+// flight while the next one's fragment is loaded.  K = 3: RW rows, one
 // tile each, taps dy * 3 + dx; K = 2: RW rows of PPB phases, phase offsets
 // (oy, ox) compile-time (OY, OX where a block holds fewer than four
 // phases), taps pu * 4 + dy * 2 + dx.  After each input row the fresh
-// accumulators go into acc.
-template <int K, int N, int T, int PPB, int RW, int OY, int OX, typename Row>
+// accumulators go into acc.  d_small: float32's small TF32 plane (bf16: 0).
+template <typename E, int K, int N, int T, int PPB, int RW, int OY, int OX, typename Row>
 __device__ __forceinline__ void tc_products(float (&acc)[T][N / 2], float (&d)[T][N / 2], Row row,
                                             int plane, uint64_t d_big, uint64_t d_small) {
   fence_tiles(d);
-  uint32_t hi[2][4], lo[2][4];
+  AFrag<E> fr[2];
 #pragma unroll
   for (int j = 0; j < RW + 2; ++j) {
-    const float* rp = row(j);
+    const E* rp = row(j);
 #pragma unroll
     for (int s = 0; s < 3; ++s) {
       const int f = (j * 3 + s) & 1;
-      load_split_a(hi[f], lo[f], rp + s, plane);
+      fr[f].load(rp + s, plane);
       wgmma_fence();
 #pragma unroll
       for (int u = 0; u < T; ++u) {
@@ -455,7 +711,7 @@ __device__ __forceinline__ void tc_products(float (&acc)[T][N / 2], float (&d)[T
         if (dy >= 0 && dy < K && dx >= 0 && dx < K) {
           const int tap = K == 3 ? dy * 3 + dx : pu * 4 + dy * 2 + dx;
           const uint64_t off = (uint64_t)(tap * N * 32) >> 4;
-          mma3<N>(d[u], hi[f], lo[f], d_big + off, d_small + off);
+          fr[f].template mma<N>(d[u], d_big + off, d_small + off);
         }
       }
       wgmma_commit();
@@ -542,14 +798,21 @@ __device__ __forceinline__ void pn_scale(float (&acc)[T][N / 2], int u, int i, f
     for (int e = 0; e < 2; ++e) acc[u][4 * j + 2 * i + e] *= scale;
 }
 
-// Stores of a warpgroup's tiles to y (B, cout, H * st, W * st): tile u is
-// image row r0 + u / PPB of phase ph0 + u % PPB, pixels c0 + m for m <
-// mlim; rows from rlim on are not stored.  A warp's store covers 8
-// consecutive pixels of 4 channels (32 bytes each), or, where the block
-// holds both column phases of K3's output row, the two phases of 8 pixels
-// as 8-byte pairs (64 bytes).
-template <int K, int T, int N, int PPB>
-__device__ __forceinline__ void store_tiles(const float (&acc)[T][N / 2], float* __restrict__ y, int b,
+// Two horizontally adjacent output pixels (K3's column phases) in one store.
+__device__ __forceinline__ void store_pair(float* dst, float a, float b) {
+  *reinterpret_cast<float2*>(dst) = make_float2(a, b);
+}
+__device__ __forceinline__ void store_pair(bf16* dst, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(a, b);
+}
+
+// Stores of a warpgroup's tiles to y (B, cout, H * st, W * st), rounded to
+// E: tile u is image row r0 + u / PPB of phase ph0 + u % PPB, pixels c0 + m
+// for m < mlim; rows from rlim on are not stored.  A warp's store covers 8
+// consecutive pixels of 4 channels, or, where the block holds both column
+// phases of K3's output row, the two phases of 8 pixels as pairs.
+template <typename E, int K, int T, int N, int PPB>
+__device__ __forceinline__ void store_tiles(const float (&acc)[T][N / 2], E* __restrict__ y, int b,
                                             int cout, int co_base, int H, int W, int st, int r0, int c0,
                                             int ph0, int rlim, int mlim, int wq, int g, int t) {
   const size_t plane_o = (size_t)H * st * W * st;
@@ -561,7 +824,7 @@ __device__ __forceinline__ void store_tiles(const float (&acc)[T][N / 2], float*
     if (PPB >= 2 && (pu & 1)) continue;  // stored with its ox = 0 partner
     const int r = r0 + ru;
     if (r >= rlim) continue;
-    float* yrow = y + (size_t)b * cout * plane_o + (size_t)(r * st + oy) * W * st;
+    E* yrow = y + (size_t)b * cout * plane_o + (size_t)(r * st + oy) * W * st;
 #pragma unroll
     for (int j = 0; j < N / 8; ++j)
 #pragma unroll
@@ -572,12 +835,11 @@ __device__ __forceinline__ void store_tiles(const float (&acc)[T][N / 2], float*
         for (int i = 0; i < 2; ++i) {
           const int m = 16 * wq + g + 8 * i, c = c0 + m;
           if (m >= mlim || c >= W) continue;
-          float* dst = yrow + co * plane_o;
+          E* dst = yrow + co * plane_o;
           if constexpr (PPB >= 2)
-            *reinterpret_cast<float2*>(dst + 2 * c) =
-                make_float2(acc[u][4 * j + 2 * i + e], acc[u + 1][4 * j + 2 * i + e]);
+            store_pair(dst + 2 * c, acc[u][4 * j + 2 * i + e], acc[u + 1][4 * j + 2 * i + e]);
           else
-            dst[c * st + ox] = acc[u][4 * j + 2 * i + e];
+            dst[c * st + ox] = from_f32<E>(acc[u][4 * j + 2 * i + e]);
         }
       }
   }
@@ -593,19 +855,21 @@ __device__ __forceinline__ void store_tiles(const float (&acc)[T][N / 2], float*
 // With PixelNorm and nsplit > 1 the nsplit blocks of a tile are one cluster.
 //
 // Warp-specialised: the producer warpgroup stages the block's sequence of
-// chunks (a tile's 8 input channels each) into a ring of stages, a stage
-// at a time: the input by cp.async, the weights loaded, split into big and
-// small and transposed to K-major; it hands a stage over by a named
-// barrier (full) and takes it back by another (empty).  The two consumer
-// warpgroups multiply and run the epilogue.
-template <int K, int N>
+// chunks (a tile's Elem<E>::CK input channels each) into a ring of stages,
+// a stage at a time: the input by cp.async, the weights loaded (float32:
+// split into big and small) and transposed to K-major; it hands a stage
+// over by a named barrier (full) and takes it back by another (empty).  The
+// two consumer warpgroups multiply and run the epilogue.  E: float32 or
+// bf16 x, w and y (the bias and msq are float32).
+template <typename E, int K, int N>
 __global__ void __launch_bounds__(TC_THREADS, 1)
-conv_tc_kernel(const float* __restrict__ x, const float* __restrict__ w,
-               const float* __restrict__ bias, float* __restrict__ y,
+conv_tc_kernel(const E* __restrict__ x, const E* __restrict__ w,
+               const float* __restrict__ bias, E* __restrict__ y,
                float* __restrict__ msq, int cin, int cout, int coutp, int H, int W,
                int nphase, int nsplit, int ntx, int nty, int nz, float slope, int use_slope,
                int pixel_norm, float eps) {
-  constexpr TcGeom G = tc_geom(K, N);
+  constexpr int CK = Elem<E>::CK, PL = Elem<E>::PLANES;
+  constexpr TcGeom G = tc_geom(K, N, PL);
   constexpr int T = G.tiles, PPB = G.ppb, RW = G.rows, TH = G.th, NT = G.nt, S = G.stages;
   constexpr int SH = TH + 2, ND = N / 2;
   static_assert(S >= 2, "two stages must fit");
@@ -614,8 +878,9 @@ conv_tc_kernel(const float* __restrict__ x, const float* __restrict__ w,
   constexpr int FULL = 1, EMPTY = 1 + S, PRODUCER = 1 + 2 * S;
   extern __shared__ __align__(128) float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  // Stage s: input [8][plane], then big and small weights [NT][2][N][4]
-  // (K-major, 128-byte core matrices); then PixelNorm's sums, 2 x [WG][T][64].
+  // Stage s: input [CK][plane] of E, then the weight planes [NT][2][N][16
+  // bytes] (K-major, 128-byte core matrices; float32: big, then small); then
+  // PixelNorm's sums, 2 x [WG][T][64].
   float* part = smem + S * G.stage;
 
   const int tid = threadIdx.x, lane = tid & 31, wq = (tid >> 5) & 3, wg = tid >> 7;
@@ -625,7 +890,7 @@ conv_tc_kernel(const float* __restrict__ x, const float* __restrict__ w,
   const int co_base = split * N;
   const int ntiles = ntx * nty * nz;
   const int my_tiles = cid < ntiles ? (ntiles - cid + ncl - 1) / ncl : 0;
-  const int nchunks = (cin + TC_CK - 1) / TC_CK;
+  const int nchunks = (cin + CK - 1) / CK;
   const int total = my_tiles * nchunks;
   const bool clustered = pixel_norm && nsplit > 1;
 
@@ -641,18 +906,18 @@ conv_tc_kernel(const float* __restrict__ x, const float* __restrict__ w,
   if (wg == TC_WG) {
     // ---- The producer. ----
     const int pt = tid - 128 * TC_WG;
-    const bool vec = (W & 3) == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+    const bool vec = (W & 3) == 0 && (reinterpret_cast<uintptr_t>(x) & (4 * sizeof(E) - 1)) == 0;
     // Chunk q's halo tile and (one chunk ahead, into registers) its weights.
     auto issue = [&](int q) {
       const Tile tq = tile_of(q / nchunks);
-      stage_input(smem + (q % S) * G.stage, x + (size_t)tq.b * cin * H * W, x, cin, H, W,
-                  (q % nchunks) * TC_CK, tq.r0 - 1, SH, tq.c0 - 4, G.plane, pt, vec);
+      stage_input(reinterpret_cast<E*>(smem + (q % S) * G.stage), x + (size_t)tq.b * cin * H * W, x, cin,
+                  H, W, (q % nchunks) * CK, tq.r0 - 1, SH, tq.c0 - 4, G.plane, pt, vec);
     };
     constexpr int WREGS = (NT * 2 * N + 127) / 128;
-    float wv[WREGS][4];
+    WeightRegs<E, WREGS> wv;
     auto load_weights = [&](int q) {
       const Tile tq = tile_of(q / nchunks);
-      load_weight_chunk<K, NT, N>(wv, w, cin, coutp, co_base, (q % nchunks) * TC_CK, 0, tq.ph0, pt);
+      load_weight_chunk<K, NT, N>(wv, w, cin, coutp, co_base, (q % nchunks) * CK, 0, tq.ph0, pt);
     };
     // One commit group a chunk: chunk q is group q.  The first S are
     // issued here, chunk q + S when the consumers give back chunk q's stage.
@@ -668,10 +933,9 @@ conv_tc_kernel(const float* __restrict__ x, const float* __restrict__ w,
       else
         cp_async_wait<S - 2>();
       bar_sync(PRODUCER, 128);  // chunk k's input landed, every producer thread's copies
-      float* b_big = smem + (k % S) * G.stage + TC_CK * G.plane;
-      store_split_weights<NT, N>(b_big, b_big + G.bsplit, wv, pt);
+      store_stage_weights<NT, N>(smem + (k % S) * G.stage + TC_CK * G.plane, G.bsplit, wv, pt);
       if (k + 1 < total) load_weights(k + 1);
-      fence_proxy_async();  // the split weights are read by wgmma
+      fence_proxy_async();  // the weights are read by wgmma
       bar_arrive(FULL + k % S, TC_THREADS);
       if (k >= 1) {
         const int kn = k - 1 + S;
@@ -707,23 +971,24 @@ conv_tc_kernel(const float* __restrict__ x, const float* __restrict__ w,
       const float* cur = smem + (q % S) * G.stage;
       bar_sync(FULL + q % S, TC_THREADS);
       const uint64_t d_big = smem_desc(cur + TC_CK * G.plane, N * 16, 128);
-      const uint64_t d_small = smem_desc(cur + TC_CK * G.plane + G.bsplit, N * 16, 128);
+      const uint64_t d_small = PL == 2 ? smem_desc(cur + TC_CK * G.plane + G.bsplit, N * 16, 128) : 0;
       // Input row j of the warpgroup's halo; which tiles a fragment serves
       // is fixed at compile time (OY, OX: the phase offsets of a block of
       // K3 that holds fewer than four phases).
-      const float* a_base = cur + t * G.plane + (wg * RW) * TC_SW + 3 + 16 * wq + g;
+      const E* a_base = reinterpret_cast<const E*>(cur) + AFrag<E>::CH * t * G.plane + (wg * RW) * TC_SW + 3 +
+                        16 * wq + g;
       auto row = [&](int j) { return a_base + j * TC_SW; };
       if constexpr (K == 3 || PPB == 4) {
-        tc_products<K, N, T, PPB, RW, 0, 0>(acc, d, row, G.plane, d_big, d_small);
+        tc_products<E, K, N, T, PPB, RW, 0, 0>(acc, d, row, G.plane, d_big, d_small);
       } else if constexpr (PPB == 2) {
-        if (ph0 >> 1) tc_products<K, N, T, PPB, RW, 1, 0>(acc, d, row, G.plane, d_big, d_small);
-        else tc_products<K, N, T, PPB, RW, 0, 0>(acc, d, row, G.plane, d_big, d_small);
+        if (ph0 >> 1) tc_products<E, K, N, T, PPB, RW, 1, 0>(acc, d, row, G.plane, d_big, d_small);
+        else tc_products<E, K, N, T, PPB, RW, 0, 0>(acc, d, row, G.plane, d_big, d_small);
       } else {
         switch (ph0) {
-          case 0: tc_products<K, N, T, PPB, RW, 0, 0>(acc, d, row, G.plane, d_big, d_small); break;
-          case 1: tc_products<K, N, T, PPB, RW, 0, 1>(acc, d, row, G.plane, d_big, d_small); break;
-          case 2: tc_products<K, N, T, PPB, RW, 1, 0>(acc, d, row, G.plane, d_big, d_small); break;
-          default: tc_products<K, N, T, PPB, RW, 1, 1>(acc, d, row, G.plane, d_big, d_small); break;
+          case 0: tc_products<E, K, N, T, PPB, RW, 0, 0>(acc, d, row, G.plane, d_big, d_small); break;
+          case 1: tc_products<E, K, N, T, PPB, RW, 0, 1>(acc, d, row, G.plane, d_big, d_small); break;
+          case 2: tc_products<E, K, N, T, PPB, RW, 1, 0>(acc, d, row, G.plane, d_big, d_small); break;
+          default: tc_products<E, K, N, T, PPB, RW, 1, 1>(acc, d, row, G.plane, d_big, d_small); break;
         }
       }
       if (q + S < total) bar_arrive(EMPTY + q % S, TC_THREADS);  // the stage goes back
@@ -752,8 +1017,8 @@ conv_tc_kernel(const float* __restrict__ x, const float* __restrict__ w,
           pn_scale<T, N>(acc, u, i, m, eps);
         }
     }
-    store_tiles<K, T, N, PPB>(acc, y, b, cout, co_base, H, W, nphase == 4 ? 2 : 1, r0 + wg * RW, c0,
-                              ph0, H, TC_W, wq, g, t);
+    store_tiles<E, K, T, N, PPB>(acc, y, b, cout, co_base, H, W, nphase == 4 ? 2 : 1, r0 + wg * RW, c0,
+                                 ph0, H, TC_W, wq, g, t);
   }
   // A block's shared memory must outlive the other blocks' reads of it.
   if (clustered) coop::this_cluster().sync();
@@ -765,11 +1030,12 @@ conv_tc_kernel(const float* __restrict__ x, const float* __restrict__ w,
 // [split * COP, split * COP + COP), input-channel steps [ks * csteps,
 // ks * csteps + csteps).  The S blocks of a (tile, split) are one cluster;
 // with PixelNorm and nsplit > 1 the nsplit * S blocks of a tile are.
-// blockIdx.y is the phase.
-template <int K, int PR, int CK>
+// blockIdx.y is the phase.  E: float32 or bf16 x, w and y; shared memory and
+// the arithmetic are float32 in both (bf16 is staged by plain loads).
+template <typename E, int K, int PR, int CK>
 __global__ void __launch_bounds__(256, 2)
-conv_flat_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                 const float* __restrict__ bias, float* __restrict__ y,
+conv_flat_kernel(const E* __restrict__ x, const E* __restrict__ w,
+                 const float* __restrict__ bias, E* __restrict__ y,
                  float* __restrict__ msq, int cin, int cout, int coutp, int H, int W,
                  int N, int rg, int nphase, int nsplit, int S, int csteps, float slope,
                  int use_slope, int pixel_norm, float eps) {
@@ -822,7 +1088,7 @@ conv_flat_kernel(const float* __restrict__ x, const float* __restrict__ w,
   const int total_steps = (cin + CK - 1) / CK;
   const int s_begin = ks * csteps;
   const int nsteps = max(0, min(csteps, total_steps - s_begin));
-  const float* wp = w + (size_t)ph * cin * KK * coutp;
+  const E* wp = w + (size_t)ph * cin * KK * coutp;
 
   auto stage = [&](int step, float* buf) {
     const int ci0 = (s_begin + step) * CK;
@@ -832,18 +1098,32 @@ conv_flat_kernel(const float* __restrict__ x, const float* __restrict__ w,
       if (!(live >> tap & 1)) continue;
       const int c = ci0 + cil, co = co_base + 4 * j4;
       const bool ok = c < cin && co < coutp;
-      cp_async16(buf + t * COP + 4 * j4, ok ? wp + ((size_t)c * KK + tap) * coutp + co : wp, ok);
+      const E* src = ok ? wp + ((size_t)c * KK + tap) * coutp + co : wp;
+      if constexpr (is_f32<E>) {
+        cp_async16(buf + t * COP + 4 * j4, src, ok);
+      } else {
+        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (ok) {
+          const uint2 u = __ldg(reinterpret_cast<const uint2*>(src));
+          v = make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                          __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+        }
+        *reinterpret_cast<float4*>(buf + t * COP + 4 * j4) = v;
+      }
     }
     float* a_s = buf + WBUF;
     for (int e = threadIdx.x; e < L; e += blockDim.x) {
       const int q = p0 - W - 1 + e;
       const bool inside = e < ZERO && q >= 0 && q < N;
       const int bq = inside ? q / HW : 0;
-      const float* src = x + (inside ? (size_t)bq * cin * HW + (q - bq * HW) : 0);
+      const E* src = x + (inside ? (size_t)bq * cin * HW + (q - bq * HW) : 0);
 #pragma unroll
       for (int ci = 0; ci < CK; ++ci) {
         const bool ok = inside && ci0 + ci < cin;
-        cp_async4(a_s + ci * L + e, ok ? src + (size_t)(ci0 + ci) * HW : x, ok);
+        if constexpr (is_f32<E>)
+          cp_async4(a_s + ci * L + e, ok ? src + (size_t)(ci0 + ci) * HW : x, ok);
+        else
+          a_s[ci * L + e] = ok ? to_f32(src[(size_t)(ci0 + ci) * HW]) : 0.f;
       }
     }
   };
@@ -966,7 +1246,7 @@ conv_flat_kernel(const float* __restrict__ x, const float* __restrict__ w,
     float v = red[co * NP + sl0 + j];
     if (pixel_norm) v *= scl[j];
     const int bq = p / HW, rem = p - bq * HW, r = rem / W, c = rem - r * W;
-    y[((size_t)bq * cout + gco) * Ho * Wo + (size_t)(r * sts + oy) * Wo + c * sts + ox] = v;
+    y[((size_t)bq * cout + gco) * Ho * Wo + (size_t)(r * sts + oy) * Wo + c * sts + ox] = from_f32<E>(v);
   }
   // A block's shared memory must outlive the other blocks' reads of it.
   if (csize > 1) coop::this_cluster().sync();
@@ -1024,8 +1304,11 @@ inline ConvForce& conv_force() {
 }
 #endif
 
+// planes: the weight planes a large-shape stage holds (Elem<E>::PLANES),
+// which sets its shared memory only; every other choice is the same for
+// both element types.
 inline int plan_conv(int K, int B, int cin, int cout, int H, int W, int nphase,
-                     int pixel_norm, const DeviceInfo& info, ConvPlan* p) {
+                     int pixel_norm, const DeviceInfo& info, ConvPlan* p, int planes = 2) {
   if (B < 1 || cin < 1 || cout < 1 || H < 1 || W < 1) return (int)cudaErrorInvalidValue;
   const int KK = K * K;
   const int cgt = ceil_div(cout, CO);        // channel groups in all
@@ -1074,7 +1357,7 @@ inline int plan_conv(int K, int B, int cin, int cout, int H, int W, int nphase,
 
   // The large shape once its tiles fill half the SMs (from 32x32 at the
   // train step's widths; scripts/torch_conv_sweep.py, PERF.md).
-  const TcGeom tg = tc_geom(K, cg * CO);
+  const TcGeom tg = tc_geom(K, cg * CO, planes);
   const long ntiles = (long)ceil_div(W, TC_W) * ceil_div(H, tg.th) * B * (nphase / tg.ppb);
   const long large_blocks = ntiles * nsplit;
   // Not below 32 columns, where a 64-column tile would be mostly halo.
@@ -1151,8 +1434,8 @@ int launch(const ConvPlan& p, int dev, const DeviceInfo& info, cudaStream_t stre
   return (int)cudaGetLastError();
 }
 
-template <int K>
-int launch_conv_tile(const float* x, const float* w, const float* bias, float* y,
+template <typename E, int K>
+int launch_conv_tile(const E* x, const E* w, const float* bias, E* y,
                      float* msq, int B, int cin, int cout, int H, int W, int nphase,
                      float slope, int use_slope, int pixel_norm, float eps,
                      cudaStream_t stream) {
@@ -1162,16 +1445,16 @@ int launch_conv_tile(const float* x, const float* w, const float* bias, float* y
   int err = current_device(&dev, &info);
   if (err != 0) return err;
   ConvPlan p;
-  err = plan_conv(K, B, cin, cout, H, W, nphase, pixel_norm, *info, &p);
+  err = plan_conv(K, B, cin, cout, H, W, nphase, pixel_norm, *info, &p, Elem<E>::PLANES);
   if (err != 0) return err;
   const int coutp = ceil_div(cout, CO) * CO;
   if (p.shape == 1) {
-#define MG_TC(CG)                                                                          \
-  case CG:                                                                                 \
-    return launch<conv_tc_kernel<K, CG * CO>>(p, dev, *info, stream, x, w, bias, y, msq,   \
-                                              cin, cout, coutp, H, W, nphase, p.nsplit,  \
-                                              p.ntx, p.nty, p.nz, slope, use_slope,      \
-                                              pixel_norm, eps)
+#define MG_TC(CG)                                                                            \
+  case CG:                                                                                   \
+    return launch<conv_tc_kernel<E, K, CG * CO>>(p, dev, *info, stream, x, w, bias, y, msq,  \
+                                                 cin, cout, coutp, H, W, nphase, p.nsplit, \
+                                                 p.ntx, p.nty, p.nz, slope, use_slope,     \
+                                                 pixel_norm, eps)
     switch (p.cg) {
       MG_TC(1); MG_TC(2); MG_TC(3); MG_TC(4); MG_TC(5); MG_TC(6); MG_TC(7); MG_TC(8);
       default: return (int)cudaErrorInvalidValue;
@@ -1179,8 +1462,8 @@ int launch_conv_tile(const float* x, const float* w, const float* bias, float* y
 #undef MG_TC
   }
   const int N = B * H * W;
-#define MG_FLAT(PR)                                                                      \
-  launch<conv_flat_kernel<K, PR, FLAT_CK>>(p, dev, *info, stream, x, w, bias, y, msq, \
+#define MG_FLAT(PR)                                                                         \
+  launch<conv_flat_kernel<E, K, PR, FLAT_CK>>(p, dev, *info, stream, x, w, bias, y, msq, \
          cin, cout, coutp, H, W, N, p.rg, nphase, p.nsplit, p.S, p.csteps, slope,      \
          use_slope, pixel_norm, eps)
   switch (p.pr) {
@@ -1192,27 +1475,28 @@ int launch_conv_tile(const float* x, const float* w, const float* bias, float* y
 #undef MG_FLAT
 }
 
-}  // namespace mg
-
 // The plan the launcher takes for these sizes on the current device, for
 // measurement and tests: out = {shape, cluster blocks, S, nsplit, pixels a
 // lane (large shape: accumulator tiles a warpgroup), threads, blocks,
 // shared-memory bytes, tile rows (large shape), phases a block (large
-// shape)}.  Returns a CUDA error code.
-extern "C" int mg_conv_plan(int K, int B, int cin, int cout, int H, int W, int nphase,
-                            int pixel_norm, int* out) {
+// shape)}.  Returns a CUDA error code.  Each source exports it
+// (mg_conv_plan) for its own element type.
+template <typename E>
+int conv_plan_out(int K, int B, int cin, int cout, int H, int W, int nphase, int pixel_norm, int* out) {
   int dev = 0;
-  const mg::DeviceInfo* info = nullptr;
-  int err = mg::current_device(&dev, &info);
+  const DeviceInfo* info = nullptr;
+  int err = current_device(&dev, &info);
   if (err != 0) return err;
-  mg::ConvPlan p;
-  err = mg::plan_conv(K, B, cin, cout, H, W, nphase, pixel_norm, *info, &p);
+  ConvPlan p;
+  err = plan_conv(K, B, cin, cout, H, W, nphase, pixel_norm, *info, &p, Elem<E>::PLANES);
   if (err != 0) return err;
   const int v[10] = {p.shape, p.cluster, p.S, p.nsplit, p.pr, (int)p.block.x,
                      (int)(p.grid.x * p.grid.y * p.grid.z), (int)p.smem, p.tile_rows, p.ppb};
   for (int i = 0; i < 10; ++i) out[i] = v[i];
   return 0;
 }
+
+}  // namespace mg
 
 #ifdef MG_CONV_SWEEP
 extern "C" void mg_conv_force(int shape, int pr, int S) {

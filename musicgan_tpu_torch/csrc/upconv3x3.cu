@@ -14,6 +14,12 @@ extern "C" int mg_upconv3x3(const float* x, const float* w, const float* bias,
                             float* y, int B, int cin, int cout, int H, int W,
                             float slope, int use_slope, int pixel_norm, float eps,
                             cudaStream_t stream) {
-  return mg::launch_conv_tile<2>(x, w, bias, y, nullptr, B, cin, cout, H, W, 4,
-                                 slope, use_slope, pixel_norm, eps, stream);
+  return mg::launch_conv_tile<float, 2>(x, w, bias, y, nullptr, B, cin, cout, H, W, 4,
+                                        slope, use_slope, pixel_norm, eps, stream);
+}
+
+// The launch plan at these sizes (conv_tile.cuh::conv_plan_out).
+extern "C" int mg_conv_plan(int K, int B, int cin, int cout, int H, int W, int nphase,
+                            int pixel_norm, int* out) {
+  return mg::conv_plan_out<float>(K, B, cin, cout, H, W, nphase, pixel_norm, out);
 }

@@ -3,7 +3,9 @@
 Counterpart of ``musicgan_tpu/generate.py``.  The generator runs its
 blocks through the fused conv kernels (K1 and K3, or the whole-block kernel
 K4 where ``ModelConfig.conv_impl == "pallas_block"`` and
-``ops.conv.fused_block_fits`` at the block's sizes), the magnitude/phase image
+``ops.conv.fused_block_fits`` at the block's sizes, or K1 twice around a
+plain up2x under ``"pallas"``; in bf16 under the ``_bf16`` names, the image
+float32 either way), the magnitude/phase image
 is turned into spectra in plain PyTorch (bark unscale, phase prefix sum,
 cos/sin, per music as JAX's ``vmap`` does), and the fused iSTFT kernel
 (K5) vocodes the whole batch in one launch.

@@ -1,6 +1,7 @@
 """Progressive-growing generator as an ``nn.Module`` (counterpart of
-``musicgan_tpu/models/generator.py``, impls ``"pallas_up"`` and
-``"pallas_block"`` in float32).
+``musicgan_tpu/models/generator.py``, impls ``"pallas"``, ``"pallas_up"``
+and ``"pallas_block"``, each in float32 and, with the suffix ``_bf16``, in
+bf16).
 
 All 8 blocks and all 8 ToMagnPhase heads exist from construction, as in
 JAX, so the parameter set never changes shape.  Internally NCHW; the
@@ -11,9 +12,14 @@ PixelNorm): on the card they are the kernels K1 and K3, on the CPU their
 plain versions.  With ``ModelConfig.conv_impl == "pallas_block"`` a block
 that ``fused_block_fits`` at its sizes is one launch of ``fused_block``
 (K4) instead, as in JAX's ``block_nchw`` (on the CPU by an H100's rule:
-K4's plain version is the pair's own).  Each block packs its conv weights for
-the kernels once, not per call.  Heads and the fade-in are plain PyTorch, as
-they are XLA in JAX.
+K4's plain version is the pair's own).  ``"pallas"`` runs K1, a plain
+nearest up2x, then K1 again.  The ``_bf16`` impls round the latent to bf16
+and run the same blocks in bf16 (JAX's ``_generator_forward_nchw`` with
+``compute_dtype=bfloat16``): the bf16 kernels, float32 inside, a bf16
+activation between them.  Each block packs its conv weights for the
+kernels once per dtype and layout, not per call.  Heads and the fade-in are
+plain PyTorch in float32 (the heads upcast their input), as they are XLA in
+JAX, so the image is float32 either way.
 
 Training runs :meth:`Generator.forward_nchw_train` instead (counterpart of
 ``_generator_forward_nchw_train``, impl ``"pallas_train"``): each block is
@@ -48,41 +54,52 @@ class GenBlock(nn.Module):
         super().__init__()
         self.conv1 = nn.Conv2d(cin, cin, 3, padding=1, device=device)
         self.conv2 = nn.Conv2d(cin, cout, 3, padding=1, device=device)
-        self._packs: dict[str, tuple] = {}
+        self._packs: dict[tuple, tuple] = {}
 
-    def _packed(self, name: str) -> torch.Tensor:
-        """The kernels' layout of conv ``name``'s weight (``kernel_weights``
-        for ``conv1``, ``kernel_upconv_weights`` for ``conv2``: K1, K3 and
-        K4 read the same), made once and kept until the weight changes (in
-        place, which bumps its version, or by a move to other storage)."""
+    def _packed(self, name: str, dtype: torch.dtype = torch.float32, upconv: bool | None = None) -> torch.Tensor:
+        """The kernels' layout of conv ``name``'s weight in ``dtype``
+        (``kernel_upconv_weights`` where ``upconv``, by default for
+        ``conv2``, else ``kernel_weights``: K1, K3 and K4 read the same),
+        made once and kept until the weight changes (in place, which bumps
+        its version, or by a move to other storage).  Each dtype and layout
+        has its own entry."""
+        upconv = name == "conv2" if upconv is None else upconv
         w = getattr(self, name).weight
         key = (w.device, w.data_ptr(), w._version)
-        hit = self._packs.get(name)
+        hit = self._packs.get((name, dtype, upconv))
         if hit is None or hit[0] != key:
-            pack = conv_ops.kernel_weights if name == "conv1" else conv_ops.kernel_upconv_weights
-            hit = self._packs[name] = (key, pack(w.detach()))
+            pack = conv_ops.kernel_upconv_weights if upconv else conv_ops.kernel_weights
+            hit = self._packs[(name, dtype, upconv)] = (key, pack(w.detach(), dtype))
         return hit[1]
 
     def forward(
-        self, x: torch.Tensor, slope: float, eps: float, use_block: bool = False
+        self, x: torch.Tensor, slope: float, eps: float, use_block: bool = False,
+        use_upconv: bool = True,
     ) -> torch.Tensor:
-        """``use_block``: take the whole-block kernel where its size rule
-        (``ops.conv.fused_block_fits``) says so."""
-        w1, w2 = self.conv1.weight, self.conv2.weight
+        """Dtype: ``x``'s (float32 or bf16), in and out.  ``use_block``: take
+        the whole-block kernel where its size rule
+        (``ops.conv.fused_block_fits``) says so; ``use_upconv`` False: conv2
+        as K1 on the input upsampled (impl ``"pallas"``)."""
+        w1, w2, dt = self.conv1.weight, self.conv2.weight, x.dtype
         if use_block and conv_ops.fused_block_fits(
             w1.shape[1], w1.shape[0], w2.shape[0], size=(x.shape[0], *x.shape[2:]), device=x.device
         ):
             return conv_ops.fused_block(
                 x, w1, self.conv1.bias, w2, self.conv2.bias, slope, eps,
-                w1_packed=self._packed("conv1"), w2_packed=self._packed("conv2"),
+                w1_packed=self._packed("conv1", dt, False), w2_packed=self._packed("conv2", dt, True),
             )
         x = conv_ops.fused_conv3x3(
             x, self.conv1.weight, self.conv1.bias, slope, True, eps,
-            w_packed=self._packed("conv1"),
+            w_packed=self._packed("conv1", dt, False),
         )
+        if not (use_upconv or use_block):
+            return conv_ops.fused_conv3x3(
+                upsample_nearest_2x(x), self.conv2.weight, self.conv2.bias, slope, True, eps,
+                w_packed=self._packed("conv2", dt, False),
+            )
         return conv_ops.fused_upconv3x3(
             x, self.conv2.weight, self.conv2.bias, slope, True, eps,
-            w_packed=self._packed("conv2"),
+            w_packed=self._packed("conv2", dt, True),
         )
 
     def forward_train(self, x: torch.Tensor, slope: float, eps: float) -> torch.Tensor:
@@ -116,8 +133,10 @@ class Generator(nn.Module):
     def _head(self, i: int, x: torch.Tensor) -> torch.Tensor:
         """ToMagnPhase head: 1x1 conv + tanh, as a batched ``(2, C) @
         (C, H*W)`` product on the NCHW activation itself (an einsum over
-        ``bchw``, or a broadcast matmul, first copies it)."""
+        ``bchw``, or a broadcast matmul, first copies it).  A bf16 input is
+        upcast first (JAX's ``_head_nchw``)."""
         h = self.heads[i]
+        x = x.to(h.weight.dtype)
         b, c, hh, ww = x.shape
         w = h.weight[:, :, 0, 0].expand(b, -1, -1)
         y = torch.bmm(w, x.reshape(b, c, hh * ww))
@@ -125,13 +144,19 @@ class Generator(nn.Module):
 
     def forward_nchw(self, z: torch.Tensor, stage: int, alpha: float = 1.0) -> torch.Tensor:
         """``(B, C, h, w)`` latent -> ``(B, 2, h * 2^(stage+1), w *
-        2^(stage+1))`` magn/phase image in [-1, 1]."""
+        2^(stage+1))`` magn/phase image in [-1, 1], float32.  ``conv_impl``
+        gives three things, as in JAX's ``generator_forward``: the blocks'
+        dtype (bf16 for the ``_bf16`` names: ``z`` is rounded to it), the
+        up-conv (``pallas_up*``) or K1 on the upsampled input (``pallas``,
+        ``pallas_bf16``), and the whole-block kernel (``pallas_block*``)."""
         slope, eps = self.cfg.leaky_slope, self.cfg.pixel_norm_eps
-        use_block = self.cfg.conv_impl == "pallas_block"
-        out = z
+        impl = self.cfg.conv_impl
+        use_block = impl.startswith("pallas_block")
+        use_upconv = impl.startswith("pallas_up")
+        out = z.to(torch.bfloat16) if impl.endswith("_bf16") else z
         for i in range(stage):
-            out = self.blocks[i](out, slope, eps, use_block)
-        out_mp = self._head(stage, self.blocks[stage](out, slope, eps, use_block))
+            out = self.blocks[i](out, slope, eps, use_block, use_upconv)
+        out_mp = self._head(stage, self.blocks[stage](out, slope, eps, use_block, use_upconv))
         # At alpha == 1 the fade term (1 - alpha) * old is exactly zero (tanh
         # is finite), so it is not computed: synthesis always runs there.
         if stage > 0 and alpha != 1.0:

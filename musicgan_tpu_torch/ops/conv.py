@@ -10,9 +10,23 @@ pass of ``ops/conv_vjp.py`` needs; ``fused_upconv3x3`` (K3) replaces
 template, ``csrc/conv_tile.cuh``, built by ``csrc/conv3x3.cu`` (K1, K2) and
 ``csrc/upconv3x3.cu``.  ``fused_block`` (K4) replaces ``fused_block``
 (Pallas ``_block_kernel``): K1 with PixelNorm then K3 with PixelNorm in one
-launch, ``csrc/block3x3.cu``, built from the template's tensor-core pieces
+launch, ``csrc/block3x3.cuh``, built from the template's tensor-core pieces
 so that it sums every pixel in their order; the first conv's output stays
 in a ring of rows in shared memory, zero outside the image.
+
+Dtypes: each of K1, K3 and K4 takes float32 in and out, or bf16 in and out
+(the JAX functions' ``out_dtype=jnp.bfloat16`` with bf16 activations): the
+bf16 kernels are their own sources (``csrc/conv3x3_bf16.cu``,
+``upconv3x3_bf16.cu``, ``block3x3_bf16.cu``) of the same templates, one
+bf16 ``wgmma`` a step where float32 takes three.  The weights are rounded
+to bf16 after packing (for K3 and K4's conv2, the summed sub-pixel phase
+kernels), the bias stays float32, products are exact and summed in
+float32, the epilogue runs in float32, and the output is rounded to bf16
+once; K4 holds conv1's output in bf16, so it is K1 bf16 then K3 bf16.  A
+mixed pair (bf16 in, float32 out) raises ``NotImplementedError``: the JAX
+functions allow it, no path uses it (ROADMAP.md section B item 8b).  K2
+stays float32 (training).  Each wrapper counts its bf16 launches apart in
+``.bf16_launches`` (they are also in ``.launches``).
 
 Widths: any ``cout``.  Past 128 channels the kernel splits the channel
 groups of a pixel over several thread blocks; with PixelNorm those blocks
@@ -36,9 +50,10 @@ copies while the previous step computes, in float32 on the CUDA cores.  The
 up-conv never writes the 4x-sized upsampled input: it runs the four 2x2
 phase kernels on the small input.
 
-Weights: the plain versions take OIHW; the kernels K1-K4 take the kernel
-layout of :func:`kernel_weights` / :func:`kernel_upconv_weights` (input
-channel, tap, output channel fastest, padded to 16 channels).  The
+Weights: the plain versions take OIHW (float32, rounded to bf16 inside
+where the input is bf16); the kernels K1-K4 take the kernel layout of
+:func:`kernel_weights` / :func:`kernel_upconv_weights` (input channel, tap,
+output channel fastest, padded to 16 channels) in the input's dtype.  The
 generator makes them once per weight version (``models/generator.py``) and
 passes them as ``w_packed``.  :func:`pack_weights` /
 :func:`pack_upconv_weights` keep the JAX package's layout, which the tests
@@ -59,9 +74,9 @@ import torch
 from . import _build
 from ..models.layers import (
     conv2d,
-    conv3x3_on_nearest_up2x,
     leaky_relu,
     pixel_norm,
+    subpixel_conv,
     subpixel_phase_kernels,
 )
 
@@ -88,6 +103,26 @@ __all__ = [
 MAX_PIXEL_NORM_CHANNELS = 8 * 128
 # Output channels rounded up to this in the kernel layout.
 _CO = 16
+# The element types a kernel takes (in and out alike).
+KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def out_dtype_of(name: str, x: torch.Tensor, out_dtype=None) -> torch.dtype:
+    """The output dtype of a conv call: ``x``'s unless ``out_dtype`` says
+    otherwise.  A pair that differs (the JAX functions' bf16 in, float32
+    out) is not ported."""
+    out = x.dtype if out_dtype is None else out_dtype
+    if out != x.dtype:
+        raise NotImplementedError(
+            f"{name}: {x.dtype} in and {out} out is not ported; the kernels take float32 or "
+            "bfloat16 in and out alike (ROADMAP.md section B item 8b)"
+        )
+    return out
+
+
+def _lib(name: str, dtype: torch.dtype) -> str:
+    """The source (library) of kernel ``name`` for ``dtype``."""
+    return f"{name}_bf16" if dtype == torch.bfloat16 else name
 
 
 def pack_weights(w: torch.Tensor) -> torch.Tensor:
@@ -118,26 +153,28 @@ def _pad_cout(w: torch.Tensor) -> torch.Tensor:
     return w if extra == 0 else torch.cat([w, w.new_zeros(extra, *w.shape[1:])])
 
 
-def kernel_weights(w: torch.Tensor) -> torch.Tensor:
+def kernel_weights(w: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """OIHW ``(cout, cin, 3, 3)`` -> the layout K1 and K2 read,
     ``(cin, 9, coutp)``: taps ordered ``(dy, dx)``, the output channel
     fastest and zero from ``cout`` to ``coutp`` (``cout`` rounded up to 16).
     The weights of one input channel and one tap for a block's channels are
-    then one run of 16-byte copies.  It is :func:`pack_weights` permuted."""
+    then one run of 16-byte copies.  It is :func:`pack_weights` permuted,
+    rounded to ``dtype`` after packing (the bf16 kernels' weights)."""
     cout, cin, kh, kw = w.shape
     assert (kh, kw) == (3, 3)
-    return _pad_cout(w).permute(1, 2, 3, 0).reshape(cin, 9, -1).contiguous()
+    return _pad_cout(w).permute(1, 2, 3, 0).reshape(cin, 9, -1).to(dtype).contiguous()
 
 
-def kernel_upconv_weights(w: torch.Tensor) -> torch.Tensor:
+def kernel_upconv_weights(w: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """OIHW ``(cout, cin, 3, 3)`` -> the layout K3 reads,
     ``(4, cin, 4, coutp)``: :func:`pack_upconv_weights`'s four sub-pixel
     phase kernels, each laid out as :func:`kernel_weights` lays out a 3x3
-    kernel."""
+    kernel; rounded to ``dtype`` after the phase sums, as the JAX package
+    rounds ``pack_upconv_weights(w)``."""
     cout, cin, kh, kw = w.shape
     assert (kh, kw) == (3, 3)
     phases = [k.permute(1, 2, 3, 0).reshape(cin, 4, -1) for k in subpixel_phase_kernels(_pad_cout(w))]
-    return torch.stack(phases, dim=0).contiguous()
+    return torch.stack(phases, dim=0).to(dtype).contiguous()
 
 
 def _epilogue(y, slope, pixel_norm_, eps):
@@ -148,10 +185,16 @@ def _epilogue(y, slope, pixel_norm_, eps):
     return y
 
 
-def conv3x3_plain(x, w, b, slope=None, pixel_norm=False, eps=1e-8):
+def conv3x3_plain(x, w, b, slope=None, pixel_norm=False, eps=1e-8, out_dtype=None):
     """Plain version of K1: ``(B, cin, H, W)`` and OIHW weights ->
-    ``(B, cout, H, W)``.  ``b`` may be None (no bias)."""
-    return _epilogue(conv2d(x, w, b), slope, pixel_norm, eps)
+    ``(B, cout, H, W)``.  ``b`` may be None (no bias).  A bf16 ``x`` is
+    computed in float32 (never a bf16 convolution: the products of bf16
+    operands are exact there) on the weights rounded to bf16, and the
+    output rounded to ``out_dtype`` (``x``'s by default) once."""
+    out = out_dtype_of("conv3x3_plain", x, out_dtype)
+    if x.dtype == torch.bfloat16:
+        x, w = x.float(), w.to(torch.bfloat16).float()
+    return _epilogue(conv2d(x, w, b), slope, pixel_norm, eps).to(out)
 
 
 def conv3x3_msq_plain(x, w, b, slope=None, eps=1e-8):
@@ -163,10 +206,15 @@ def conv3x3_msq_plain(x, w, b, slope=None, eps=1e-8):
     return u * torch.rsqrt(m + eps), m
 
 
-def upconv3x3_plain(x, w, b, slope=None, pixel_norm=False, eps=1e-8):
+def upconv3x3_plain(x, w, b, slope=None, pixel_norm=False, eps=1e-8, out_dtype=None):
     """Plain version of K3: ``(B, cin, H, W)`` and OIHW weights ->
-    ``(B, cout, 2H, 2W)``."""
-    return _epilogue(conv3x3_on_nearest_up2x(x, w, b), slope, pixel_norm, eps)
+    ``(B, cout, 2H, 2W)``.  A bf16 ``x``: the four summed phase kernels
+    rounded to bf16, the rest as :func:`conv3x3_plain`."""
+    out = out_dtype_of("upconv3x3_plain", x, out_dtype)
+    phases = subpixel_phase_kernels(w)  # conv3x3_on_nearest_up2x's decomposition
+    if x.dtype == torch.bfloat16:
+        x, phases = x.float(), [k.to(torch.bfloat16).float() for k in phases]
+    return _epilogue(subpixel_conv(x, phases, b), slope, pixel_norm, eps).to(out)
 
 
 _CONV_TAIL = [_build.INT] * 5 + [_build.FLOAT, _build.INT]
@@ -175,11 +223,18 @@ _MSQ_ARGS = [_build.PTR] * 5 + _CONV_TAIL + [_build.FLOAT]
 
 
 def _operands(name, x, w_packed, b, pixel_norm, cout):
-    """Check the operands of a conv kernel; returns them contiguous with the
-    bias's address (0 for none)."""
-    for t in (x, w_packed) if b is None else (x, w_packed, b):
-        if t.device != x.device or t.dtype != torch.float32:
-            raise ValueError(f"{name}: every operand must be float32 on {x.device}")
+    """Check the operands of a conv kernel: ``x`` and ``w_packed`` of one
+    dtype the kernels take (float32 or bf16), the bias float32, all on
+    ``x``'s device; returns them contiguous with the bias's address (0 for
+    none)."""
+    if x.dtype not in KERNEL_DTYPES:
+        raise ValueError(f"{name}: x is {x.dtype}; the kernels take float32 or bfloat16")
+    for t, dt in ((x, x.dtype), (w_packed, x.dtype)) + (() if b is None else ((b, torch.float32),)):
+        if t.device != x.device or t.dtype != dt:
+            raise ValueError(
+                f"{name}: operand of {t.dtype} on {t.device}; x and its packed weights must be "
+                f"{x.dtype} and the bias float32, all on {x.device}"
+            )
     if b is not None and b.shape != (cout,):
         raise ValueError(f"{name}: bias {tuple(b.shape)} for {cout} output channels")
     if pixel_norm and cout > MAX_PIXEL_NORM_CHANNELS:
@@ -190,25 +245,27 @@ def _operands(name, x, w_packed, b, pixel_norm, cout):
     return x.contiguous(), w_packed.contiguous(), b, 0 if b is None else b.data_ptr()
 
 
-def _kernel_layout(name, w, w_packed, upconv):
-    """The kernel-layout weights: ``w_packed`` if given (checked), else made
-    from the OIHW ``w``."""
+def _kernel_layout(name, w, w_packed, upconv, dtype=torch.float32):
+    """The kernel-layout weights in ``dtype``: ``w_packed`` if given
+    (checked), else made from the OIHW ``w``."""
     cout, cin = w.shape[:2]
     coutp = -(-cout // _CO) * _CO
     want = (4, cin, 4, coutp) if upconv else (cin, 9, coutp)
     if w_packed is None:
-        return kernel_upconv_weights(w) if upconv else kernel_weights(w)
+        return kernel_upconv_weights(w, dtype) if upconv else kernel_weights(w, dtype)
     if tuple(w_packed.shape) != want:
         raise ValueError(f"{name}: packed weights {tuple(w_packed.shape)}, not {want}")
     return w_packed
 
 
 def _launch(name, x, w_packed, b, cout, out_hw, slope, pixel_norm, eps):
-    """Check the operands, allocate the output and launch ``mg_<name>``."""
+    """Check the operands, allocate the output and launch ``mg_<name>`` (or
+    ``mg_<name>_bf16``) for ``x``'s dtype."""
     bsz, cin, h, w = x.shape
     x, w_packed, b, b_ptr = _operands(name, x, w_packed, b, pixel_norm, cout)
-    y = torch.empty(bsz, cout, *out_hw, device=x.device, dtype=torch.float32)
-    _build.kernel(name, f"mg_{name}", _CONV_ARGS)(
+    y = torch.empty(bsz, cout, *out_hw, device=x.device, dtype=x.dtype)
+    lib = _lib(name, x.dtype)
+    _build.kernel(lib, f"mg_{lib}", _CONV_ARGS)(
         x.data_ptr(), w_packed.data_ptr(), b_ptr, y.data_ptr(),
         bsz, cin, cout, h, w, 0.0 if slope is None else slope,
         int(slope is not None), int(pixel_norm), eps, device=x.device,
@@ -216,18 +273,26 @@ def _launch(name, x, w_packed, b, cout, out_hw, slope, pixel_norm, eps):
     return y
 
 
-def fused_conv3x3(x, w, b, slope=None, pixel_norm=False, eps=1e-8, w_packed=None):
+def _count(wrapper, dtype) -> None:
+    wrapper.launches += 1
+    if dtype == torch.bfloat16:
+        wrapper.bf16_launches += 1
+
+
+def fused_conv3x3(x, w, b, slope=None, pixel_norm=False, eps=1e-8, w_packed=None, out_dtype=None):
     """3x3 'SAME' conv on NCHW ``(B, cin, H, W)`` with OIHW weights ->
     ``(B, cout, H, W)``, with the bias / LeakyReLU / PixelNorm epilogue.
-    ``b`` may be None (no bias: the input-gradient convs).
-    ``w_packed``: ``kernel_weights(w)`` made ahead, for the kernel."""
+    ``b`` may be None (no bias: the input-gradient convs).  ``x`` float32 or
+    bf16; ``out_dtype`` ``x``'s (the default; another raises).
+    ``w_packed``: ``kernel_weights(w, x.dtype)`` made ahead, for the kernel."""
+    out_dtype_of("fused_conv3x3", x, out_dtype)
     if x.device.type == "cpu":
         return conv3x3_plain(x, w, b, slope, pixel_norm, eps)
     if x.device.type != "cuda":
         raise ValueError(f"fused_conv3x3: no kernel for device {x.device}")
-    wp = _kernel_layout("fused_conv3x3", w, w_packed, False)
+    wp = _kernel_layout("fused_conv3x3", w, w_packed, False, x.dtype)
     y = _launch("conv3x3", x, wp, b, w.shape[0], x.shape[2:], slope, pixel_norm, eps)
-    fused_conv3x3.launches += 1
+    _count(fused_conv3x3, x.dtype)
     return y
 
 
@@ -240,6 +305,8 @@ def fused_conv3x3_msq(x, w, b, slope=None, eps=1e-8, w_packed=None):
         return conv3x3_msq_plain(x, w, b, slope, eps)
     if x.device.type != "cuda":
         raise ValueError(f"fused_conv3x3_msq: no kernel for device {x.device}")
+    if x.dtype != torch.float32:
+        raise ValueError(f"fused_conv3x3_msq: x is {x.dtype}; the training kernel K2 takes float32")
     wp = _kernel_layout("fused_conv3x3_msq", w, w_packed, False)
     bsz, cin, h, wd = x.shape
     cout = w.shape[0]
@@ -255,29 +322,33 @@ def fused_conv3x3_msq(x, w, b, slope=None, eps=1e-8, w_packed=None):
     return y, m
 
 
-def fused_upconv3x3(x, w, b, slope=None, pixel_norm=False, eps=1e-8, w_packed=None):
+def fused_upconv3x3(x, w, b, slope=None, pixel_norm=False, eps=1e-8, w_packed=None, out_dtype=None):
     """``conv3x3(upsample_nearest_2x(x))`` on NCHW ``(B, cin, H, W)`` with
-    OIHW weights -> ``(B, cout, 2H, 2W)``, with the fused epilogue.
-    ``w_packed``: ``kernel_upconv_weights(w)`` made ahead, for the kernel."""
+    OIHW weights -> ``(B, cout, 2H, 2W)``, with the fused epilogue.  Dtypes
+    as :func:`fused_conv3x3`.  ``w_packed``: ``kernel_upconv_weights(w,
+    x.dtype)`` made ahead, for the kernel."""
+    out_dtype_of("fused_upconv3x3", x, out_dtype)
     if x.device.type == "cpu":
         return upconv3x3_plain(x, w, b, slope, pixel_norm, eps)
     if x.device.type != "cuda":
         raise ValueError(f"fused_upconv3x3: no kernel for device {x.device}")
-    wp = _kernel_layout("fused_upconv3x3", w, w_packed, True)
+    wp = _kernel_layout("fused_upconv3x3", w, w_packed, True, x.dtype)
     h, w_ = x.shape[2:]
     y = _launch("upconv3x3", x, wp, b, w.shape[0], (2 * h, 2 * w_), slope, pixel_norm, eps)
-    fused_upconv3x3.launches += 1
+    _count(fused_upconv3x3, x.dtype)
     return y
 
 
-def fused_block_plain(x, w1, b1, w2, b2, slope=0.2, eps=1e-8):
+def fused_block_plain(x, w1, b1, w2, b2, slope=0.2, eps=1e-8, out_dtype=None):
     """Plain version of K4: :func:`conv3x3_plain` then :func:`upconv3x3_plain`,
-    both with LeakyReLU and PixelNorm."""
+    both with LeakyReLU and PixelNorm; conv1's output in ``x``'s dtype (the
+    JAX kernel's c1 scratch), so in bf16 it is the bf16 pair's."""
+    out = out_dtype_of("fused_block_plain", x, out_dtype)
     mid = conv3x3_plain(x, w1, b1, slope, True, eps)
-    return upconv3x3_plain(mid, w2, b2, slope, True, eps)
+    return upconv3x3_plain(mid, w2, b2, slope, True, eps, out)
 
 
-# K4's geometry (csrc/block3x3.cu), mirrored here so that the widths it
+# K4's geometry (csrc/block3x3.cuh), mirrored here so that the widths it
 # takes are known without the card: a cluster of up to 8 blocks of at most
 # 128 channels each for either conv, the conv template's tensor-core tiles
 # (m64 rows of 64 pixels, two consumer warpgroups), a ring of c1 rows in
@@ -345,7 +416,7 @@ def _block_width(c: int) -> tuple[int, int]:
 
 
 def block_tile(cmid: int, cout: int) -> dict | None:
-    """K4's geometry at these widths, as ``csrc/block3x3.cu`` lays it out
+    """K4's geometry at these widths, as ``csrc/block3x3.cuh`` lays it out
     (``mg_block3x3_tile``), or None for widths it does not take (past
     ``MAX_BLOCK_CHANNELS``): channels a block ``n1``, ``n2`` and blocks
     ``nsplit1``, ``nsplit2`` of each conv, the ``cluster``, conv1's tiles a
@@ -370,6 +441,7 @@ _PLAN_BLOCK_KEYS = ("takes", "run_rows", "runs", "strips", "units", "blocks", "c
 
 @functools.lru_cache(maxsize=256)
 def _block_plan(bsz: int, cin: int, cmid: int, cout: int, h: int, w: int, device: int) -> dict:
+    # The float32 library's: K4's plan is the same at both dtypes.
     lib = _build.load("block3x3")
     fn = lib.mg_block3x3_plan
     fn.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_longlong)]
@@ -404,7 +476,7 @@ H100_SMS = 132
 
 
 def block_takes(bsz: int, cin: int, cmid: int, cout: int, h: int, w: int, sms: int) -> bool:
-    """K4's size rule (``csrc/block3x3.cu::plan_block``'s ``takes``): K1
+    """K4's size rule (``csrc/block3x3.cuh::plan_block``'s ``takes``): K1
     and K3 both take the conv template's tensor-core route at the block's
     sizes (their tiles fill half the ``sms``, from 32 columns) and units of
     runs of 8 rows of K4's 62-column strips fill half the card's clusters,
@@ -445,21 +517,24 @@ _BLOCK_ARGS = [_build.PTR] * 7 + [_build.INT] * 6 + [_build.FLOAT] * 2
 
 
 @functools.lru_cache(maxsize=256)
-def _block_workspace(cin: int, cmid: int, cout: int) -> int:
-    """Floats of K4's workspace: every chunk's weights, split into the two
-    TF32 parts a launch makes once and its stages copy."""
-    fn = _build.load("block3x3").mg_block3x3_workspace
+def _block_workspace(cin: int, cmid: int, cout: int, lib: str) -> int:
+    """4-byte words of K4's workspace in library ``lib``: every chunk's
+    weights as its stages hold them (float32: split into the two TF32
+    parts), laid out once a launch and copied by its stages."""
+    fn = _build.load(lib).mg_block3x3_workspace
     fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_longlong
     return fn(cin, cmid, cout)
 
 
-def fused_block(x, w1, b1, w2, b2, slope=0.2, eps=1e-8, w1_packed=None, w2_packed=None):
+def fused_block(x, w1, b1, w2, b2, slope=0.2, eps=1e-8, w1_packed=None, w2_packed=None, out_dtype=None):
     """A whole generator block on NCHW ``(B, cin, H, W)`` with OIHW weights
     ``w1`` ``(cmid, cin, 3, 3)`` and ``w2`` ``(cout, cmid, 3, 3)`` ->
     ``(B, cout, 2H, 2W)``: ``pn(lrelu(conv3x3(x)))``, kept on the chip, then
-    ``pn(lrelu(conv3x3(up2x(.))))``, in one launch.  ``w1_packed``,
-    ``w2_packed``: ``kernel_weights(w1)`` and ``kernel_upconv_weights(w2)``
-    made ahead, the layouts K1 and K3 read too."""
+    ``pn(lrelu(conv3x3(up2x(.))))``, in one launch.  Dtypes as
+    :func:`fused_conv3x3`.  ``w1_packed``, ``w2_packed``:
+    ``kernel_weights(w1, x.dtype)`` and ``kernel_upconv_weights(w2,
+    x.dtype)`` made ahead, the layouts K1 and K3 read too."""
+    out_dtype_of("fused_block", x, out_dtype)
     if x.device.type == "cpu":
         return fused_block_plain(x, w1, b1, w2, b2, slope, eps)
     if x.device.type != "cuda":
@@ -468,8 +543,8 @@ def fused_block(x, w1, b1, w2, b2, slope=0.2, eps=1e-8, w1_packed=None, w2_packe
     cmid, cout = w1.shape[0], w2.shape[0]
     if w1.shape[1] != cin or w2.shape[1] != cmid:
         raise ValueError(f"fused_block: weights {tuple(w1.shape)}, {tuple(w2.shape)} for {cin} input channels")
-    w1p = _kernel_layout("fused_block", w1, w1_packed, False)
-    w2p = _kernel_layout("fused_block", w2, w2_packed, True)
+    w1p = _kernel_layout("fused_block", w1, w1_packed, False, x.dtype)
+    w2p = _kernel_layout("fused_block", w2, w2_packed, True, x.dtype)
     if block_tile(cmid, cout) is None:
         raise ValueError(
             f"fused_block: PixelNorm over {cmid} or {cout} > {MAX_BLOCK_CHANNELS} "
@@ -479,25 +554,27 @@ def fused_block(x, w1, b1, w2, b2, slope=0.2, eps=1e-8, w1_packed=None, w2_packe
         raise ValueError("fused_block: both convs carry a bias")
     x, w1p, b1, b1_ptr = _operands("block3x3", x, w1p, b1, True, cmid)
     _, w2p, b2, b2_ptr = _operands("block3x3", x, w2p, b2, True, cout)
-    y = torch.empty(bsz, cout, 2 * h, 2 * wd, device=x.device, dtype=torch.float32)
-    ws = torch.empty(_block_workspace(cin, cmid, cout), device=x.device, dtype=torch.float32)
-    _build.kernel("block3x3", "mg_block3x3", _BLOCK_ARGS)(
+    y = torch.empty(bsz, cout, 2 * h, 2 * wd, device=x.device, dtype=x.dtype)
+    lib = _lib("block3x3", x.dtype)
+    ws = torch.empty(_block_workspace(cin, cmid, cout, lib), device=x.device, dtype=torch.float32)
+    _build.kernel(lib, f"mg_{lib}", _BLOCK_ARGS)(
         x.data_ptr(), w1p.data_ptr(), b1_ptr, w2p.data_ptr(), b2_ptr, ws.data_ptr(), y.data_ptr(),
         bsz, cin, cmid, cout, h, wd, slope, eps, device=x.device,
     )
-    fused_block.launches += 1
+    _count(fused_block, x.dtype)
     return y
 
 
 _PLAN_KEYS = ("shape", "cluster", "split_k", "nsplit", "pixels_a_lane", "threads", "blocks",
               "smem_bytes", "tile_rows", "phases_a_block")
 # The conv template's two routes (csrc/conv_tile.cuh): the large-image shape,
-# an implicit GEMM on the tensor cores in 3xTF32, and the small-image shape,
-# float32 on the CUDA cores.
+# an implicit GEMM on the tensor cores (3xTF32, or bf16), and the
+# small-image shape, float32 on the CUDA cores.
 _ROUTES = {1: ("large", "large_tc"), 2: ("small", "small_fp32")}
 
 
-def conv_plan(kind: str, bsz: int, cin: int, cout: int, h: int, w: int, pixel_norm: bool) -> dict:
+def conv_plan(kind: str, bsz: int, cin: int, cout: int, h: int, w: int, pixel_norm: bool,
+              dtype: torch.dtype = torch.float32) -> dict:
     """How K1/K2 (``kind="conv3x3"``) or K3 (``"upconv3x3"``) launches at
     these sizes on the current CUDA device, as the launcher plans it:
     ``shape`` ("large" or "small") and its ``route`` ("large_tc" or
@@ -505,8 +582,9 @@ def conv_plan(kind: str, bsz: int, cin: int, cout: int, h: int, w: int, pixel_no
     channel splits, pixels a lane (large shape: accumulator tiles of 64
     pixels a warpgroup), threads a block, blocks, shared memory, and for the
     large shape the ``tile`` (image rows x columns a block) and K3's phases
-    a block.  Needs the card (the plan reads its SM count)."""
-    lib = _build.load(kind)
+    a block; ``dtype`` the kernel's (bf16: the same plan, with its shared
+    memory).  Needs the card (the plan reads its SM count)."""
+    lib = _build.load(_lib(kind, dtype))
     fn = lib.mg_conv_plan
     fn.argtypes = [ctypes.c_int] * 8 + [ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
@@ -521,7 +599,7 @@ def conv_plan(kind: str, bsz: int, cin: int, cout: int, h: int, w: int, pixel_no
     return plan
 
 
-fused_conv3x3.launches = 0
+fused_conv3x3.launches = fused_conv3x3.bf16_launches = 0
 fused_conv3x3_msq.launches = 0
-fused_upconv3x3.launches = 0
-fused_block.launches = 0
+fused_upconv3x3.launches = fused_upconv3x3.bf16_launches = 0
+fused_block.launches = fused_block.bf16_launches = 0

@@ -567,3 +567,123 @@ def test_weight_grad3x3_kernel_matches_plain(cuda, b, cin, cout, h, w):
     assert torch.equal(conv_vjp.weight_grad3x3(x, d, (cout, cin, 3, 3)), got)
     with pytest.raises(ValueError, match="float32"):
         conv_vjp.weight_grad3x3(x.double(), d.double(), (cout, cin, 3, 3))
+
+
+# ---- bf16 I/O of K1, K3 and K4 (csrc/*_bf16.cu).  The plain versions run
+# in float32 on the same bf16-rounded operands and round once: a kernel is
+# held within one bf16 ulp of them elementwise, plus 1e-5 for results near
+# zero that the two sums' float32 rounding moves across LeakyReLU's kink.
+
+def assert_within_bf16_ulp(got, ref):
+    assert got.dtype == ref.dtype == torch.bfloat16 and got.shape == ref.shape
+    a, b = got.float(), ref.float()
+    bad = (a - b).abs() > 2.0**-7 * torch.maximum(a.abs(), b.abs()) + 1e-5
+    assert not bad.any(), f"{int(bad.sum())} of {bad.numel()} past one bf16 ulp"
+
+
+def assert_k4_bf16_close(got, ref):
+    """K4 bf16 (or K1 bf16 then K3 bf16) against the plain block: two bf16
+    roundings in a chain.  Where conv1's output lands one ulp off the plain
+    one, conv2 and PixelNorm carry that into the outputs that read it as an
+    absolute change no ulp of the output bounds, so the block is held in
+    the 2-norm, relative (``chip_smoke.py``'s ``TOL_K4_BF16_L2``, 1e-2)."""
+    assert got.dtype == ref.dtype == torch.bfloat16 and got.shape == ref.shape
+    a, b = got.float(), ref.float()
+    assert ((a - b).norm() / b.norm()).item() <= 1e-2
+
+
+# Both routes: small images (block 0-2 of synthesis cut down, ragged,
+# PixelNorm past 128 channels) and the tensor cores (ragged columns and
+# rows, every channel count a block takes, a cluster of 3 past 128).
+BF16_SHAPES = [
+    (2, 32, 128, 2, 20), (1, 5, 7, 3, 37), (6, 131, 144, 4, 4), (2, 12, 20, 9, 33),
+    (2, 5, 7, 130, 300), (3, 21, 20, 96, 130), (4, 16, 32, 70, 130), (3, 48, 64, 64, 70),
+    (2, 64, 112, 64, 70), (1, 24, 272, 64, 70), (1, 128, 128, 32, 64),
+]
+
+
+@pytest.mark.parametrize("epilogue", ["pixel_norm", "leaky_relu"])
+@pytest.mark.parametrize("b,cin,cout,h,w", BF16_SHAPES)
+def test_bf16_k1_k3_match_plain(cuda, b, cin, cout, h, w, epilogue):
+    pn = epilogue == "pixel_norm"
+    x, wt, bias = _conv_inputs(21, b, cin, cout, h, w, cuda)
+    x = x.to(torch.bfloat16)
+    n0 = (conv_ops.fused_conv3x3.bf16_launches, conv_ops.fused_upconv3x3.bf16_launches)
+    got = conv_ops.fused_conv3x3(x, wt, bias, 0.2, pn)
+    assert_within_bf16_ulp(got, conv_ops.conv3x3_plain(x, wt, bias, 0.2, pn))
+    up = conv_ops.fused_upconv3x3(x, wt, bias, 0.2, pn, w_packed=conv_ops.kernel_upconv_weights(wt, torch.bfloat16))
+    assert_within_bf16_ulp(up, conv_ops.upconv3x3_plain(x, wt, bias, 0.2, pn))
+    assert (conv_ops.fused_conv3x3.bf16_launches, conv_ops.fused_upconv3x3.bf16_launches) == (n0[0] + 1, n0[1] + 1)
+    plan = conv_ops.conv_plan("conv3x3", b, cin, cout, h, w, pn, torch.bfloat16)
+    assert plan["route"] == conv_ops.conv_plan("conv3x3", b, cin, cout, h, w, pn)["route"]
+
+
+@pytest.mark.parametrize("b,cin,cmid,cout,h,w", BLOCK_SHAPES + [(2, 16, 16, 16, 33, 70), (1, 48, 48, 32, 130, 300)])
+def test_bf16_k4_matches_plain_and_equals_the_bf16_pair(cuda, b, cin, cmid, cout, h, w):
+    """Where K1 and K3 both take the tensor-core route, K4 bf16 equals K1
+    bf16 then K3 bf16 bit for bit (the ring holds c1 rounded as K1 bf16
+    stores it); everywhere it is within ``assert_k4_bf16_close`` of its
+    plain version."""
+    x, w1, b1, w2, b2 = _block_inputs(22, b, cin, cmid, cout, h, w, cuda)
+    x = x.to(torch.bfloat16)
+    n0 = conv_ops.fused_block.bf16_launches
+    got = conv_ops.fused_block(x, w1, b1, w2, b2)
+    assert conv_ops.fused_block.bf16_launches == n0 + 1
+    if _pair_is_large(b, cin, cmid, cout, h, w):
+        mid = conv_ops.fused_conv3x3(x, w1, b1, 0.2, True)
+        assert torch.equal(got, conv_ops.fused_upconv3x3(mid, w2, b2, 0.2, True))
+    assert_k4_bf16_close(got, conv_ops.fused_block_plain(x, w1, b1, w2, b2))
+
+
+def test_bf16_k4_past_128_channels(cuda):
+    x, w1, b1, w2, b2 = _block_inputs(23, 2, 144, 144, 160, 32, 100, cuda)
+    x = x.to(torch.bfloat16)
+    assert conv_ops.block_tile(144, 160)["cluster"] == 2
+    assert_k4_bf16_close(conv_ops.fused_block(x, w1, b1, w2, b2), conv_ops.fused_block_plain(x, w1, b1, w2, b2))
+
+
+def test_bf16_kernels_refuse_a_mixed_pair_and_mixed_operands(cuda):
+    x, wt, bias = _conv_inputs(24, 1, 8, 16, 8, 64, cuda)
+    xb = x.to(torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        conv_ops.fused_conv3x3(xb, wt, bias, 0.2, True, out_dtype=torch.float32)
+    with pytest.raises(ValueError):
+        conv_ops.fused_conv3x3(xb, wt, bias, 0.2, True, w_packed=conv_ops.kernel_weights(wt))
+    with pytest.raises(ValueError):
+        conv_ops.fused_conv3x3_msq(xb, wt, bias, 0.2)
+
+
+@pytest.mark.parametrize("impl", ["pallas_bf16", "pallas_up_bf16", "pallas_block_bf16", "pallas"])
+def test_generator_new_impls_on_the_card(cuda, impl):
+    """The inference forward under the new impls at full width, 2 clips of
+    nb_vec 10, stage 7: the bf16 kernels launched (K4 under
+    ``pallas_block_bf16``), a float32 image; ``"pallas"`` within 2e-3 of the
+    float32 default path's (the float32 kernels' end-to-end bar), a bf16
+    impl within 0.08 of it in the 2-norm, relative (``chip_smoke.py``'s
+    ``TOL_IMAGE_BF16_L2``: bf16's rounding of every activation through 16
+    convs and PixelNorm, which the exact bf16 plain path shows as well)."""
+    import dataclasses
+
+    from musicgan_tpu_torch.config import ModelConfig
+    from musicgan_tpu_torch.models import Generator
+
+    cfg = ModelConfig(conv_impl=impl)
+    gen = Generator(cfg, device=cuda, seed=4)
+    ref = Generator(dataclasses.replace(cfg, conv_impl="pallas_up"), device=cuda, seed=4)
+    z = torch.randn(2, 32, 2, 20, generator=torch.Generator(device=cuda).manual_seed(0), device=cuda)
+    wrappers = (conv_ops.fused_conv3x3, conv_ops.fused_upconv3x3, conv_ops.fused_block)
+    n0 = [(f.launches, f.bf16_launches) for f in wrappers]
+    with torch.no_grad():
+        got = gen.forward_nchw(z, 7)
+        torch.cuda.synchronize()
+        n1 = [(f.launches, f.bf16_launches) for f in wrappers]
+        want = ref.forward_nchw(z, 7)
+    d = [(a[0] - b[0], a[1] - b[1]) for a, b in zip(n1, n0)]
+    expect = {"pallas": [(16, 0), (0, 0), (0, 0)], "pallas_bf16": [(16, 16), (0, 0), (0, 0)],
+              "pallas_up_bf16": [(8, 8), (8, 8), (0, 0)], "pallas_block_bf16": [(5, 5), (5, 5), (3, 3)]}
+    assert d == expect[impl]
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    if impl == "pallas":
+        assert (got - want).abs().max().item() <= 2e-3
+    else:
+        assert ((got - want).norm() / want.norm()).item() <= 0.08
