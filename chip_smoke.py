@@ -30,6 +30,11 @@ the CUDA toolkit (``nvcc``).  Phases, each of which raises on failure:
    every input-gradient conv (swapped channels, no bias), each against its
    plain version, with the three times as in phase 2 and the sums over the
    shapes up to 32x32; then K1, K2 and K3 with PixelNorm past 128 channels;
+   the weight-gradient kernel at the 34 trainable convs against its plain
+   version in float64, each with its launch plan (its route by the size
+   rule) and both bounds, and the pass's sums by role, over the shapes up
+   to 64x64 and by route beside the plain version's and cuDNN's default
+   algorithms';
 5. the trainable conv ``conv3x3_act`` on the card: its input, weight and
    bias gradients against autograd through the plain version; the
    hand-unrolled gradient-penalty input gradient at stage 7 against
@@ -135,11 +140,13 @@ WARM_REPS = 20  # warm synthesis calls timed one by one; the median is quoted
 
 # H100 SXM published peaks: float32 outside the tensor cores, TF32 on the
 # tensor cores (dense), HBM3.  The conv template's large-image route
-# (plan route "large_tc") multiplies in 3xTF32: three TF32 products for
-# each float32 product, so its operations bound is 3 * flops / 495e12.
+# (plan route "large_tc") and the weight-gradient kernel's tensor-core
+# route (conv_vjp.WGRAD_TC) multiply in 3xTF32: three TF32 products for
+# each float32 product, so their operations bound is 3 * flops / 495e12.
 PEAK_FP32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES_S = 3.35e12
+TC_ROUTES = ("large_tc", conv_vjp.WGRAD_TC)
 
 # Kernel vs plain version, both float32 on the card: the sums run in
 # another order (K up to 9 * 128 = 1152 products for the convs, 4104 for
@@ -300,8 +307,9 @@ def time_ms(fn, graph: bool = True) -> float:
 def bound_terms(flops: float, nbytes: float, route: str | None = None) -> tuple[float, float]:
     """The two lower bounds of a function's time in ms: its operations at the
     peak rate of the route that computes them (3xTF32 on the tensor cores
-    for "large_tc", else float32 FMA) and its bytes at the memory rate."""
-    ops = 3 * flops / PEAK_TF32_FLOPS if route == "large_tc" else flops / PEAK_FP32_FLOPS
+    for the routes of TC_ROUTES, else float32 FMA) and its bytes at the
+    memory rate."""
+    ops = 3 * flops / PEAK_TF32_FLOPS if route in TC_ROUTES else flops / PEAK_FP32_FLOPS
     return 1e3 * ops, 1e3 * nbytes / PEAK_BYTES_S
 
 
@@ -317,9 +325,9 @@ def measure(name, shape, kernel, plain, library, flops, nbytes, role="synthesis"
     template's launch plan for the shape, printed and kept; a conv row keeps
     its route, its bound under that route (``bound_ms``) and both the FP32
     and the 3xTF32 bound; ``route`` gives a kernel without a plan its
-    route (K4: "large_tc"); ``ref``, where given, is the plain version the
-    error is read against (the weight gradient's, in float64), ``plain`` is
-    then only timed."""
+    route (K4: "large_tc"; the weight gradient: its plan's); ``ref``,
+    where given, is the plain version the error is read against (the
+    weight gradient's, in float64), ``plain`` is then only timed."""
     err = (kernel() - (plain if ref is None else ref)()).abs().max().item()
     if not err <= TOL[name]:
         raise AssertionError(f"{name} {shape}: max abs err {err:.3e} > {TOL[name]:.0e}")
@@ -734,27 +742,65 @@ def wgrad_rows(role, shapes, rng, dev):
     float32, itself up to about 1e-4 off at some of these shapes on an
     H100, is printed beside it), timed beside the plain version in float32
     (cuDNN, TF32 off) and one call of cuDNN's default algorithms (the
-    yardstick).  The output gradient is scaled by 1 / sqrt(pixels) so that
-    the weight gradient is of order 1."""
+    yardstick).  Each row keeps the launch plan and its route (3xTF32 on
+    the tensor cores, or float32 FMAs for images up to 16x16), so its
+    bound is the route's and both bounds are kept.  The output gradient is scaled by 1 / sqrt(pixels) so that the
+    weight gradient is of order 1."""
     rows = []
     for bsz, cin, cout, h, w in shapes:
         x = torch.randn(bsz, cin, h, w, generator=rng, device=dev)
         d = torch.randn(bsz, cout, h, w, generator=rng, device=dev) / (bsz * h * w) ** 0.5
         shape = (cout, cin, 3, 3)
         px = bsz * h * w
+        plan = conv_vjp.wgrad_kernel_plan(bsz, cin, cout, h, w)
+        if plan["route"] == conv_vjp.WGRAD_TC:
+            how = (f"wgmma N {3 * plan['nb']} ({plan['nb']} output channels x 3 ky) x {plan['nsplit']}, "
+                   f"{plan['tiles']} m64 tiles a block x {plan['groups']}, chunks of {plan['tr']}x{plan['tc']}, "
+                   f"{plan['stages']} stages, {plan['kblocks']} runs of up to {plan['cpb']} chunks")
+        else:
+            how = (f"{plan['nti']} x {plan['nto']} tiles of 32 x 32 channels, a cluster of {plan['cluster']} "
+                   f"a tile, {plan['rpb']} image rows a block in chunks of {plan['rch']}")
+        print(f"[plan]   weight_grad3x3    {role:10s} {str((bsz, cin, cout, h, w)):26s} {plan['route']}, "
+              f"{how}, {plan['blocks']} blocks, {plan['smem']} B")
         ref = conv_vjp.weight_grad3x3_plain(x.double(), d.double(), shape).float()
         rows.append(measure(
             "weight_grad3x3", (bsz, cin, cout, h, w), lambda: conv_vjp.weight_grad3x3(x, d, shape),
             lambda: conv_vjp.weight_grad3x3_plain(x, d, shape),
             lambda: torch.nn.grad.conv2d_weight(x, shape, d, padding=1),
             2.0 * px * cin * cout * 9, 4.0 * (px * cin + px * cout + 9 * cin * cout), role=role,
-            ref=lambda: ref,
+            route=plan["route"], ref=lambda: ref,
         ))
+        rows[-1]["wgrad_plan"] = plan
         rows[-1]["plain_err_vs_float64"] = (conv_vjp.weight_grad3x3_plain(x, d, shape) - ref).abs().max().item()
         print(f"[kernel] weight_grad3x3    {role:10s} {str((bsz, cin, cout, h, w)):26s} cuDNN float32 against "
               f"the plain version in float64: {rows[-1]['plain_err_vs_float64']:.2e}")
         del x, d, ref
     return rows
+
+
+def print_wgrad_sums(rows) -> None:
+    """The weight gradient's pass summed by role, over all 34 convs, over
+    those up to 64x64 and over each route's: kernel, plain version and
+    cuDNN's default, both bounds and the share of the route's; and the
+    slowest shape up to 64x64 against cuDNN's default."""
+    mine = [r for r in rows if r["name"] == "weight_grad3x3"]
+    parts = {"all": lambda r: True, "up to 64x64": lambda r: r["shape"][3] <= 64}
+    parts.update({route: lambda r, route=route: r["route"] == route for route in conv_vjp.WGRAD_ROUTES})
+    for role in ("gen", "critic", "all"):
+        for part, keep in parts.items():
+            sel = [r for r in mine if role in ("all", r["role"]) and keep(r)]
+            if not sel:
+                continue
+            tot = {k: sum(r[k] for r in sel) for k in
+                   ("ms", "plain_ms", "library_ms", "bound_ms", "bound_fp32_ms", "bound_3xtf32_ms")}
+            print(f"[wgrad]  {role:6s} {part:11s} {len(sel):2d} shapes: kernel {tot['ms']:.4f} ms, plain "
+                  f"{tot['plain_ms']:.4f}, cuDNN default {tot['library_ms']:.4f}, bound {tot['bound_ms']:.4f} "
+                  f"(FP32 {tot['bound_fp32_ms']:.4f}, 3xTF32 {tot['bound_3xtf32_ms']:.4f}), share "
+                  f"{tot['bound_ms'] / tot['ms']:.2f}")
+    small = [r for r in mine if r["shape"][3] <= 64]
+    worst = max(small, key=lambda r: r["ms"] / r["library_ms"])
+    print(f"[wgrad]  slowest against cuDNN's default up to 64x64: {worst['role']} {tuple(worst['shape'])} "
+          f"{worst['ms']:.4f} ms against {worst['library_ms']:.4f} ({worst['ms'] / worst['library_ms']:.2f}x)")
 
 
 def rel_err(got: torch.Tensor, ref: torch.Tensor) -> float:
@@ -1891,6 +1937,7 @@ def main() -> None:
     tcfg = TrainConfig()
     rows += check_train_kernels(cfg, tcfg, dev)
     print_row_sums(rows)
+    print_wgrad_sums(rows)
     grads = check_function_and_gp(cfg, tcfg, dev)
     torch.cuda.empty_cache()
     train_rec = train_path(cfg, tcfg, dev)
@@ -1934,6 +1981,8 @@ def main() -> None:
             if route_name is not None:
                 entry["kernel_route"] = route_name
                 entry["on_path"] = route_name == "fft"
+            if name == "weight_grad3x3":
+                entry["kernel_routes"] = sorted({r["route"] for r in mine})
             if all("plan" in r for r in mine):  # the conv template: its routes
                 entry["conv_routes"] = sorted({r["route"] for r in mine})
             if all("bound_fp32_ms" in r for r in mine):  # and both bounds, K4's too

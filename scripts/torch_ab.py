@@ -22,6 +22,11 @@ any tree:
   then K3 at the same blocks, device time as above;
 * the bits of K1, K2, K3 and K5 at those shapes: a SHA-256 of each output,
   so that two trees can be held to the same bits;
+* the weight gradient (``ops/conv_vjp.py::weight_grad3x3``) at the 34
+  trainable convs of that iteration: device time from CUDA-graph replays
+  beside one call of cuDNN's default algorithms (TF32 off), and a SHA-256
+  of each output (kept apart from K1-K5's: a redesigned kernel changes
+  them);
 * warm synthesis (5 clips x nb_vec 10 from ``gen_final.pt``): median of 20
   calls, each timed to the end of its device work, under
   ``conv_impl="pallas_up"`` and ``"pallas_block"`` in turns;
@@ -32,8 +37,8 @@ any tree:
 Results go to ``chiprun_out/ab_<NAME>.json``; a summary is printed.  Run
 the trees in turns in one call (parent, change, change, parent) and
 compare only within it.  ``python3 scripts/torch_ab.py --compare A1 B1``
-then prints which kernel outputs differ in their bits between two runs
-(exit code 1 if any does).
+then prints which kernel outputs of K1-K5 differ in their bits between two
+runs (exit code 1 if any does), and how many weight gradients differ.
 """
 
 from __future__ import annotations
@@ -59,10 +64,14 @@ def main() -> None:
     ap.add_argument("--compare", nargs=2, metavar=("TAG_A", "TAG_B"))
     args = ap.parse_args()
     if args.compare:
-        a, b = (json.loads(Path(f"chiprun_out/ab_{t}.json").read_text())["bits"] for t in args.compare)
+        runs = [json.loads(Path(f"chiprun_out/ab_{t}.json").read_text()) for t in args.compare]
+        a, b = (r["bits"] for r in runs)
         differ = sorted(k for k in a.keys() | b.keys() if a.get(k) != b.get(k))
         print(f"[ab bits] {args.compare[0]} against {args.compare[1]}: {len(a)} outputs, "
               f"{len(differ)} differ" + "".join(f"\n  {k}" for k in differ))
+        wa, wb = (r.get("wgrad_bits", {}) for r in runs)
+        print(f"[ab bits] weight gradients: {len(wa)} outputs, "
+              f"{sum(wa.get(k) != wb.get(k) for k in wa.keys() | wb.keys())} differ")
         sys.exit(1 if differ else 0)
     if not (args.root and args.tag):
         ap.error("--root and --tag, or --compare")
@@ -87,8 +96,10 @@ def main() -> None:
 
     # chip_smoke.py names every wrapper of this checkout; a tree from before
     # the weight-gradient kernel has no such wrapper, which only its launch
-    # counting (not used here) would read.
+    # counting (not used here) would read, nor (before its tensor-core form)
+    # its route's name.
     conv_vjp.__dict__.setdefault("weight_grad3x3", None)
+    conv_vjp.__dict__.setdefault("WGRAD_TC", None)  # read by chip_smoke.py at import
     spec = importlib.util.spec_from_file_location("chip_smoke", HERE / "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
@@ -148,6 +159,23 @@ def main() -> None:
             digest(role, (5, cin, co, hh, ww), kernel())
             del xl
         del x
+    torch.cuda.empty_cache()
+
+    # The weight gradient at the 34 trainable convs (its own generator, so
+    # the inputs above stay those of earlier trees).
+    wrng = torch.Generator(device=dev).manual_seed(5)
+    wgrad, wgrad_bits = [], {}
+    for role, shapes in (("gen", gen), ("critic", disc)):
+        for b, cin, cout, hh, ww in shapes:
+            x = torch.randn(b, cin, hh, ww, generator=wrng, device=dev)
+            d = torch.randn(b, cout, hh, ww, generator=wrng, device=dev) / (b * hh * ww) ** 0.5
+            shape = (cout, cin, 3, 3)
+            kernel = lambda: conv_vjp.weight_grad3x3(x, d, shape)  # noqa: E731
+            wgrad.append({"role": role, "shape": [b, cin, cout, hh, ww], "ms": smoke.time_ms(kernel),
+                          "library_ms": smoke.time_ms(lambda: torch.nn.grad.conv2d_weight(x, shape, d, padding=1))})
+            wgrad_bits[f"{role} {[b, cin, cout, hh, ww]}"] = hashlib.sha256(
+                kernel().cpu().numpy().tobytes()).hexdigest()
+            del x, d
     torch.cuda.empty_cache()
     re_, im_ = (torch.randn(5, 513, 5120, generator=rng, device=dev) for _ in range(2))
     digest("istft", (5, 513, 5120), smoke.istft_ops.istft_fused(re_, im_, 1024, 256))
@@ -247,7 +275,7 @@ def main() -> None:
         "synthesis_ms": [1e3 * v for v in synth_s], "synthesis_median_ms": 1e3 * med(synth_s),
         "synthesis_block_ms": [1e3 * v for v in synth_by["pallas_block"]],
         "synthesis_block_median_ms": 1e3 * med(synth_by["pallas_block"]),
-        "k4_blocks": blocks, "bits": bits,
+        "k4_blocks": blocks, "bits": bits, "wgrad": wgrad, "wgrad_bits": wgrad_bits,
         "d_only_ms": [1e3 * v for v in d_s], "d_and_g_ms": [1e3 * v for v in dg_s],
         "steps_per_s_stage7": n_c / ((n_c - 1) * med(d_s) + med(dg_s)),
         "chunk_ms": [1e3 * v for v in chunk_s], "steps_per_s_stage0": 10 / med(chunk_s),
@@ -260,12 +288,17 @@ def main() -> None:
                 s[0] += r["ms"]
                 s[1] += r["library_ms"]
     out["small_sums_ms"], out["sums_ms"] = small, sums
+    wsum = {part: [sum(r[k] for r in wgrad if part == "all" or r["shape"][3] <= 64) for k in ("ms", "library_ms")]
+            for part in ("all", "up to 64x64")}
+    out["wgrad_sums_ms"] = wsum
     os.makedirs("chiprun_out", exist_ok=True)
     Path(f"chiprun_out/ab_{args.tag}.json").write_text(json.dumps(out, indent=1))
     print(f"[ab {args.tag}] {card}; conv up to 32x32, kernel / F.conv2d ms: "
           + ", ".join(f"{k} {v[0]:.4f} / {v[1]:.4f}" for k, v in small.items())
           + "; all shapes, kernel / F.conv2d ms: " + ", ".join(
               f"{k} {v[0]:.4f} / {v[1]:.4f}" for k, v in sums.items())
+          + "; weight gradient, kernel / cuDNN default ms: " + ", ".join(
+              f"{k} {v[0]:.4f} / {v[1]:.4f}" for k, v in wsum.items())
           + f"; host per call: K1 {host['k1_us']:.1f} us, F.conv2d {host['f_conv2d_us']:.1f} us"
           + "; K4 / K1 then K3 ms: " + ", ".join(
               f"block {r['block']} {r['ms']:.4f} / {r['pair_ms']:.4f}" for r in blocks)

@@ -17,8 +17,11 @@ launched for:
   (critic convs), K1 as the transposed conv of the gradient penalty, K1 as
   an input gradient.  The roles come from the order of the wrapper calls,
   which is the order of the kernel's launches on the stream;
+* the weight-gradient kernel (``csrc/wgrad3x3.cu``: the small route's one
+  launch, or the tensor-core route's products and, where its plan has
+  several runs, the second launch that adds them) by name;
 * PyTorch's kernels by the labelled region of the step that launched them:
-  weight packing for the kernels, the library's weight gradient, the
+  weight packing for the kernels, the weight gradient's workspace, the
   elementwise epilogue gradient (the rest of ``conv3x3_act``'s backward),
   Adam, the input pipeline, and everything else (heads, pools, upsamples,
   LeakyReLU masks of the penalty, losses, autograd's accumulation).
@@ -29,6 +32,7 @@ no JAX.
 
 from __future__ import annotations
 
+import functools
 import json
 import sys
 import time
@@ -54,6 +58,8 @@ from scripts.torch_profile_synthesis import busy_us  # noqa: E402
 
 REPS = 3
 OWN_KERNELS = ("conv_tc_kernel", "conv_flat_kernel")  # the conv template's two shapes
+WGRAD_KERNELS = ("wgrad_tc_kernel", "wgrad_reduce_kernel", "wgrad_small_kernel")  # csrc/wgrad3x3.cu
+WGRAD = "weight gradient kernel (csrc/wgrad3x3.cu)"
 LABEL = "mg:"
 
 
@@ -61,9 +67,15 @@ def is_own(name: str) -> bool:
     return any(k in name for k in OWN_KERNELS)
 
 
-def labelled(name, fn):
-    """``fn`` inside a profiler range ``mg:<name>``."""
+def is_wgrad(name: str) -> bool:
+    return any(k in name for k in WGRAD_KERNELS)
 
+
+def labelled(name, fn):
+    """``fn`` inside a profiler range ``mg:<name>`` (its attributes, such as
+    a launch count, carried over)."""
+
+    @functools.wraps(fn)
     def wrapped(*args, **kwargs):
         with record_function(LABEL + name):
             return fn(*args, **kwargs)
@@ -158,18 +170,22 @@ def profile_kind(step, state, x, roles: list) -> dict:
     for e, role in zip(own, roles):
         by_cat[role][0] += e.time_range.end - e.time_range.start
         by_cat[role][1] += 1
+    wgrad = [e for e in kernels if is_wgrad(e.name)]
+    wgrad_total = sum(e.time_range.end - e.time_range.start for e in wgrad)
+    by_cat[WGRAD][0] += wgrad_total
+    by_cat[WGRAD][1] += len(wgrad)
     # PyTorch's kernels by the labelled region of the op that launched them.
     attributed = 0.0
     for e in events:
         if e.device_type == torch.autograd.DeviceType.CPU and e.kernels and not e.name.startswith(LABEL):
-            kept = [k for k in e.kernels if not is_own(k.name)]
+            kept = [k for k in e.kernels if not (is_own(k.name) or is_wgrad(k.name))]
             t = sum(k.duration for k in kept)
             by_cat[region_of(e)][0] += t
             by_cat[region_of(e)][1] += len(kept)
             attributed += t
     total = sum(t for t, _ in by_name.values())
     own_total = sum(e.time_range.end - e.time_range.start for e in own)
-    by_cat["not attributed to an op"][0] += total - own_total - attributed
+    by_cat["not attributed to an op"][0] += total - own_total - wgrad_total - attributed
 
     def table(d):
         return sorted(

@@ -545,11 +545,21 @@ def test_large_route_is_bit_for_bit_repeatable(cuda, b, cin, cout, h, w):
 
 
 # The weight gradient: the stage-7 iteration's largest shapes, ragged and
-# wide channel counts (tiles of 32), one pixel, a batch that ends inside a
-# chunk of 1024 pixels.
+# wide channel counts, one pixel, a batch that ends inside a run of chunks;
+# and the plan's boundaries (ops/conv_vjp.py::wgrad_plan): 16 output
+# channels a block (N 48, up to 3 m64 tiles a block: cin 48 at cout 16) or
+# 32 (N 96, one tile), past 32 split over blocks (cout 33 .. 160), several
+# groups of tiles and last tiles of padding slabs, chunk columns below 64
+# and a ragged last column of chunks (W 8, 12, 63, 65), widths no multiple
+# of 4 (4-byte copies in place of TMA), one run (no second launch) and
+# many, the path's smallest images (since the size rule, on the small
+# route up to 16x16).
 @pytest.mark.parametrize("b,cin,cout,h,w", [
     (6, 32, 16, 512, 512), (6, 16, 32, 512, 512), (6, 32, 32, 128, 128), (2, 5, 7, 13, 37),
     (6, 160, 160, 4, 4), (1, 3, 70, 1, 1), (3, 33, 65, 17, 19),
+    (6, 160, 160, 1, 1), (6, 144, 160, 2, 2), (6, 128, 144, 4, 4), (2, 40, 129, 9, 12), (1, 16, 17, 5, 64),
+    (2, 32, 48, 31, 65), (1, 96, 16, 16, 64), (3, 20, 33, 3, 8), (6, 64, 64, 64, 64), (6, 80, 96, 32, 32),
+    (4, 48, 64, 2, 63), (1, 1, 1, 1, 1), (2, 48, 16, 12, 20),
 ])
 def test_weight_grad3x3_kernel_matches_plain(cuda, b, cin, cout, h, w):
     """The fixed-order weight-gradient kernel against its plain version run
@@ -567,6 +577,50 @@ def test_weight_grad3x3_kernel_matches_plain(cuda, b, cin, cout, h, w):
     assert torch.equal(conv_vjp.weight_grad3x3(x, d, (cout, cin, 3, 3)), got)
     with pytest.raises(ValueError, match="float32"):
         conv_vjp.weight_grad3x3(x.double(), d.double(), (cout, cin, 3, 3))
+
+
+_WGRAD_PLAN_SHAPES = [
+    (6, 32, 16, 512, 512), (6, 16, 32, 512, 512), (6, 64, 64, 64, 64), (6, 160, 160, 1, 1), (6, 144, 160, 2, 2),
+    (6, 128, 144, 4, 4), (6, 112, 96, 16, 16), (6, 96, 80, 32, 32), (6, 32, 48, 256, 256), (2, 5, 7, 13, 37),
+    (1, 3, 70, 1, 1), (2, 40, 129, 9, 12), (1, 96, 16, 16, 64), (2, 32, 48, 31, 65), (1, 1, 1, 1, 1),
+    (2, 48, 16, 12, 20),
+]
+
+
+def test_wgrad_plan_mirrors_the_launcher(cuda):
+    """ops/conv_vjp.py::wgrad_plan (Python, tested on the CPU) gives the
+    plan the launcher makes on the card, at the card's SM count: on the
+    size rule's route, and on each route forced where it takes the sizes."""
+    for shape in _WGRAD_PLAN_SHAPES:
+        for route in (None, *conv_vjp.WGRAD_ROUTES):
+            if route == conv_vjp.WGRAD_SMALL and shape[4] > 64:
+                continue
+            got = conv_vjp.wgrad_kernel_plan(*shape, route=route)
+            want = conv_vjp.wgrad_plan(*shape, sms=got["sms"], route=route)
+            assert got == {k: want[k] for k in got}, (shape, route)
+            assert route is None or got["route"] == route
+
+
+# Both routes forced on both sides of the size rule (16x16), at the small
+# route's boundaries: one block a tile and clusters of 2-8, rows a chunk
+# below rows a block (16x16 at 96 channels), chunks across images,
+# ragged channel tiles (33, 65, 129), one pixel, widths 1-20.
+@pytest.mark.parametrize("route", ["tc_3xtf32", "small_fp32"])
+@pytest.mark.parametrize("b,cin,cout,h,w", [
+    (6, 160, 160, 1, 1), (6, 32, 128, 4, 4), (6, 112, 128, 8, 8), (6, 96, 96, 16, 16), (6, 96, 80, 17, 17),
+    (2, 160, 160, 16, 16), (3, 33, 65, 5, 7), (1, 3, 129, 1, 20), (5, 40, 16, 16, 3), (1, 1, 1, 1, 1),
+])
+def test_weight_grad3x3_routes_match_plain(cuda, route, b, cin, cout, h, w):
+    """Each route of the weight gradient, forced, against the plain version
+    run in float64 at 1e-5 relative to the largest value, and the same bits
+    again."""
+    rng = np.random.default_rng(b * cin + cout + h)
+    x = torch.tensor(rng.standard_normal((b, cin, h, w)), dtype=torch.float32, device=cuda)
+    d = torch.tensor(rng.standard_normal((b, cout, h, w)), dtype=torch.float32, device=cuda)
+    got = conv_vjp.weight_grad3x3(x, d, (cout, cin, 3, 3), route=route)
+    ref = conv_vjp.weight_grad3x3_plain(x.double(), d.double(), (cout, cin, 3, 3))
+    assert float((got.double() - ref).abs().max() / ref.abs().max()) < 1e-5
+    assert torch.equal(conv_vjp.weight_grad3x3(x, d, (cout, cin, 3, 3), route=route), got)
 
 
 # ---- bf16 I/O of K1, K3 and K4 (csrc/*_bf16.cu).  The plain versions run
