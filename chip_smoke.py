@@ -69,7 +69,10 @@ the CUDA toolkit (``nvcc``).  Phases, each of which raises on failure:
    run directory through K4; the time of a save and of a restore;
 9. bf16 synthesis: K1, K3 and K4 in bf16 at the main path's shapes against
    their bf16 plain versions (one bf16 ulp + 1e-5 elementwise; K4, two
-   roundings in a chain, 1e-2 in the relative 2-norm), K4 bf16 against K1
+   roundings in a chain, 1e-2 in the relative 2-norm), K1 bf16 and K3 bf16
+   (``csrc/conv_bf16.cuh``) each with its launch plan, its route
+   (``small_bf16_tc`` or ``large_bf16_tc``) and tile, held equal to the
+   plan mirror ``ops/conv_bf16.py::plan``; K4 bf16 against K1
    bf16 then K3 bf16 bit for bit, each timed beside its plain
    version, ``F.conv2d`` on bf16 tensors and its bound (dense bf16 or
    bytes); ``generate`` once under each of ``pallas``, ``pallas_bf16``,
@@ -121,6 +124,7 @@ from musicgan_tpu_torch.models import (
 from musicgan_tpu_torch.models.layers import upsample_nearest_2x
 from musicgan_tpu_torch.ops import _build
 from musicgan_tpu_torch.ops import conv as conv_ops
+from musicgan_tpu_torch.ops import conv_bf16
 from musicgan_tpu_torch.ops import conv_vjp
 from musicgan_tpu_torch.ops import istft_fused as istft_ops
 from musicgan_tpu_torch.train import (
@@ -1683,16 +1687,31 @@ def measure_bf16(name, shape, kernel, plain, library, flops, nbytes, plan=None, 
     where = ""
     if plan is not None:
         row["plan"], row["route"] = plan, plan["route"]
-        tile = (f"tile {plan['tile'][0]}x{plan['tile'][1]}, {plan['phases_a_block']} phases a block"
-                if plan["tile"] else f"{plan['pixels_a_lane']} pixels a lane")
-        where = (f"  [{plan['route']}, cluster of {plan['cluster']} ({plan['split_k']} x {plan['nsplit']}), "
-                 f"{tile}, {plan['blocks']} blocks, {plan['smem_bytes']} B shared]")
+        where = (f"  [{plan['route']}, tile {plan['nb']} x {plan['th']} x {plan['tc']} (images x rows x "
+                 f"columns), {plan['mb']} m64 blocks x {plan['ppb']} phases, weights "
+                 f"{'resident' if plan['resident'] else 'streamed'}, {plan['stages']} stages, "
+                 f"{plan['nwg']} warpgroups, cluster of {plan['cluster']}, {plan['ntiles']} tiles, "
+                 f"{plan['blocks']} blocks, {plan['smem_bytes']} B shared]")
     print(f"[bf16]   {name:20s} {str(shape):26s} err {err:.2e} ({past_one} past one ulp, 2-norm {l2:.1e})"
           f"  kernel {row['ms']:.4f} ms"
-          f"  plain {row['plain_ms']:.4f}  library {row['library_ms']:.4f}  bound {row['bound_ms']:.4f} "
-          f"({row['bound_by']}: ops {t_ops:.4f}, bytes {t_bytes:.4f})  share {row['bound_ms'] / row['ms']:.2f}"
-          f"{where}")
+          f"  plain {row['plain_ms']:.4f}  library {row['library_ms']:.4f} ({row['ms'] / row['library_ms']:.2f}x)"
+          f"  bound {row['bound_ms']:.4f} ({row['bound_by']}: ops {t_ops:.4f}, bytes {t_bytes:.4f})"
+          f"  share {row['bound_ms'] / row['ms']:.2f}{where}")
     return row
+
+
+def bf16_plan(kind: str, bsz: int, cin: int, cout: int, h: int, w: int, dev) -> dict:
+    """K1 bf16 / K3 bf16's launch plan at these sizes, held equal to the plan
+    mirror ``ops/conv_bf16.py::plan`` at the card's SM count."""
+    plan = conv_ops.conv_plan(kind, bsz, cin, cout, h, w, True, torch.bfloat16)
+    mirror = conv_bf16.plan(3 if kind == "conv3x3" else 2, bsz, cin, cout, h, w, True,
+                            torch.cuda.get_device_properties(dev).multi_processor_count)
+    keys = ("route", "tc", "th", "nb", "ntiles", "resident", "stages", "nwg", "blocks", "smem_bytes", "n",
+            "nsplit", "cluster", "mb", "ppb")
+    if any(plan[k] != mirror[k] for k in keys):
+        raise AssertionError(f"{kind} bf16 {(bsz, cin, cout, h, w)}: the launcher's plan "
+                             f"{ {k: plan[k] for k in keys} } is not the mirror's { {k: mirror[k] for k in keys} }")
+    return plan
 
 
 def check_bf16_kernels(gen, cfg: ModelConfig, dev) -> list[dict]:
@@ -1711,25 +1730,26 @@ def check_bf16_kernels(gen, cfg: ModelConfig, dev) -> list[dict]:
         x = torch.randn(bsz, cin, h, w, generator=rng, device=dev).to(bf)
         w1, b1 = blk.conv1.weight.detach(), blk.conv1.bias.detach()
         w2, b2 = blk.conv2.weight.detach(), blk.conv2.bias.detach()
-        w1p, w2p = conv_ops.kernel_weights(w1, bf), conv_ops.kernel_upconv_weights(w2, bf)
+        w1p, w2p = conv_ops.kernel_weights(w1, bf), conv_ops.kernel_upconv_weights(w2, bf)  # K4's
+        w1t, w2t = conv_ops.kernel_weights_tc(w1), conv_ops.kernel_weights_tc(w2, True)  # K1 bf16's, K3 bf16's
         w1b, b1b, w2b, b2b = w1.to(bf), b1.to(bf), w2.to(bf), b2.to(bf)
         xu = upsample_nearest_2x(x)
         px = bsz * h * w
         rows.append(measure_bf16(
             "fused_conv3x3_bf16", (bsz, cin, cin, h, w),
-            lambda: conv_ops.fused_conv3x3(x, w1, b1, slope, True, eps, w_packed=w1p),
+            lambda: conv_ops.fused_conv3x3(x, w1, b1, slope, True, eps, w_packed=w1t),
             lambda: conv_ops.conv3x3_plain(x, w1, b1, slope, True, eps),
             lambda: F.conv2d(x, w1b, b1b, padding=1),
             2.0 * px * cin * 9 * cin, 2.0 * (2 * px * cin + 9 * cin * cin) + 4.0 * cin,
-            plan=conv_ops.conv_plan("conv3x3", bsz, cin, cin, h, w, True, bf),
+            plan=bf16_plan("conv3x3", bsz, cin, cin, h, w, dev),
         ))
         rows.append(measure_bf16(
             "fused_upconv3x3_bf16", (bsz, cin, cout, h, w),
-            lambda: conv_ops.fused_upconv3x3(x, w2, b2, slope, True, eps, w_packed=w2p),
+            lambda: conv_ops.fused_upconv3x3(x, w2, b2, slope, True, eps, w_packed=w2t),
             lambda: conv_ops.upconv3x3_plain(x, w2, b2, slope, True, eps),
             lambda: F.conv2d(xu, w2b, b2b, padding=1),
             2.0 * 4 * px * cout * 4 * cin, 2.0 * (px * cin + 4 * px * cout + 16 * cin * cout) + 4.0 * cout,
-            plan=conv_ops.conv_plan("upconv3x3", bsz, cin, cout, h, w, True, bf),
+            plan=bf16_plan("upconv3x3", bsz, cin, cout, h, w, dev),
         ))
         if not conv_ops.fused_block_fits(cin, cin, cout, size=(bsz, h, w), device=dev):
             continue
@@ -1738,8 +1758,8 @@ def check_bf16_kernels(gen, cfg: ModelConfig, dev) -> list[dict]:
             return conv_ops.fused_block(x, w1, b1, w2, b2, slope, eps, w1_packed=w1p, w2_packed=w2p)
 
         def pair():
-            mid = conv_ops.fused_conv3x3(x, w1, b1, slope, True, eps, w_packed=w1p)
-            return conv_ops.fused_upconv3x3(mid, w2, b2, slope, True, eps, w_packed=w2p)
+            mid = conv_ops.fused_conv3x3(x, w1, b1, slope, True, eps, w_packed=w1t)
+            return conv_ops.fused_upconv3x3(mid, w2, b2, slope, True, eps, w_packed=w2t)
 
         mid_up = upsample_nearest_2x(conv_ops.conv3x3_plain(x, w1, b1, slope, True, eps))
 

@@ -107,26 +107,24 @@
 //     - taps that leave every image (all but the centre at 1x1) are neither
 //       staged nor computed.
 //
-// Element types.  Every kernel of the template (and K4's) takes its
-// activations and weights in float32 or in bf16 (the element type E; the
-// bias, the accumulation and the epilogue are float32 in both, and the
-// output is rounded to E once, to nearest even).  bf16 mirrors the JAX
-// package's out_dtype=bfloat16 path.  The large shape then runs one bf16
-// wgmma m64nNk16 a step in place of 3xTF32's three m64nNk8: 16 input
-// channels a chunk, the A fragment's pairs of channels packed into 32-bit
-// registers, B one K-major plane with the same 128-byte core matrices (8
-// output channels x 16 bytes), so a chunk's words, the descriptors and the
-// tap offsets are those of float32's.  The input planes hold `plane` bf16
-// elements (half the bytes; 16 channels fill what 8 float32 channels did),
-// staged by 8-byte copies so that the columns staged are float32's.  The
-// fresh accumulator a fragment row stays: the tensor cores' additions inside
-// a wgmma truncate in bf16 as in TF32.  The small shape reads bf16, stages
-// it as float32 (plain loads: cp.async copies no fewer than 4 bytes) and
-// runs the same float32 FMAs.  The bf16 instantiations live in sources of
-// their own (conv3x3_bf16.cu, upconv3x3_bf16.cu, block3x3_bf16.cu), so a
-// library never holds a kernel of both types: g++ makes the function-local
-// statics of template instances (launch's opt-in flags) unique across the
-// process, and two libraries holding the same instance would share them.
+// Element types.  The tensor-core pieces take activations and weights in
+// float32 or in bf16 (the element type E; the bias, the accumulation and
+// the epilogue are float32 in both, and the output is rounded to E once, to
+// nearest even): K1, K2 and K3 use them at float32, K4 (block3x3.cuh) at
+// both.  In bf16 a step is one wgmma m64nNk16 in place of 3xTF32's three
+// m64nNk8: 16 input channels a chunk, the A fragment's pairs of channels
+// packed into 32-bit registers, B one K-major plane with the same 128-byte
+// core matrices (8 output channels x 16 bytes), so a chunk's words, the
+// descriptors and the tap offsets are those of float32's.  The input planes
+// hold `plane` bf16 elements (half the bytes), staged by 8-byte copies so
+// that the columns staged are float32's.  The fresh accumulator a fragment
+// row stays: the tensor cores' additions inside a wgmma truncate in bf16 as
+// in TF32.  K1 bf16 and K3 bf16 are a kernel of their own (conv_bf16.cuh)
+// that sums in this order, so K4 bf16 gives their bits.  The small shape
+// is float32 only.  Each library holds the instances of one type
+// (block3x3_bf16.cu the bf16 ones): g++ makes the function-local statics of
+// template instances (launch's opt-in flags) unique across the process,
+// and two libraries holding the same instance would share them.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -160,8 +158,6 @@ struct Elem<bf16> {
 template <typename E>
 constexpr bool is_f32 = std::is_same<E, float>::value;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
 template <typename E>
 __device__ __forceinline__ E from_f32(float v) {
   if constexpr (is_f32<E>)
@@ -1054,8 +1050,8 @@ conv_tc_kernel(const E* __restrict__ x, const E* __restrict__ w,
 // [split * COP, split * COP + COP), input-channel steps [ks * csteps,
 // ks * csteps + csteps).  The S blocks of a (tile, split) are one cluster;
 // with PixelNorm and nsplit > 1 the nsplit * S blocks of a tile are.
-// blockIdx.y is the phase.  E: float32 or bf16 x, w and y; shared memory and
-// the arithmetic are float32 in both (bf16 is staged by plain loads).
+// blockIdx.y is the phase.  E: float32 (K1 bf16 and K3 bf16 are
+// conv_bf16.cuh's).
 template <typename E, int K, int PR, int CK>
 __global__ void __launch_bounds__(256, 2)
 conv_flat_kernel(const E* __restrict__ x, const E* __restrict__ w,
@@ -1063,6 +1059,7 @@ conv_flat_kernel(const E* __restrict__ x, const E* __restrict__ w,
                  float* __restrict__ msq, int cin, int cout, int coutp, int H, int W,
                  int N, int rg, int nphase, int nsplit, int S, int csteps, float slope,
                  int use_slope, int pixel_norm, float eps) {
+  static_assert(is_f32<E>, "the small shape is float32 only");
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   constexpr int KK = K * K;
@@ -1122,18 +1119,7 @@ conv_flat_kernel(const E* __restrict__ x, const E* __restrict__ w,
       if (!(live >> tap & 1)) continue;
       const int c = ci0 + cil, co = co_base + 4 * j4;
       const bool ok = c < cin && co < coutp;
-      const E* src = ok ? wp + ((size_t)c * KK + tap) * coutp + co : wp;
-      if constexpr (is_f32<E>) {
-        cp_async16(buf + t * COP + 4 * j4, src, ok);
-      } else {
-        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (ok) {
-          const uint2 u = __ldg(reinterpret_cast<const uint2*>(src));
-          v = make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
-                          __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
-        }
-        *reinterpret_cast<float4*>(buf + t * COP + 4 * j4) = v;
-      }
+      cp_async16(buf + t * COP + 4 * j4, ok ? wp + ((size_t)c * KK + tap) * coutp + co : wp, ok);
     }
     float* a_s = buf + WBUF;
     for (int e = threadIdx.x; e < L; e += blockDim.x) {
@@ -1144,10 +1130,7 @@ conv_flat_kernel(const E* __restrict__ x, const E* __restrict__ w,
 #pragma unroll
       for (int ci = 0; ci < CK; ++ci) {
         const bool ok = inside && ci0 + ci < cin;
-        if constexpr (is_f32<E>)
-          cp_async4(a_s + ci * L + e, ok ? src + (size_t)(ci0 + ci) * HW : x, ok);
-        else
-          a_s[ci * L + e] = ok ? to_f32(src[(size_t)(ci0 + ci) * HW]) : 0.f;
+        cp_async4(a_s + ci * L + e, ok ? src + (size_t)(ci0 + ci) * HW : x, ok);
       }
     }
   };
@@ -1328,11 +1311,8 @@ inline ConvForce& conv_force() {
 }
 #endif
 
-// planes: the weight planes a large-shape stage holds (Elem<E>::PLANES),
-// which sets its shared memory only; every other choice is the same for
-// both element types.
 inline int plan_conv(int K, int B, int cin, int cout, int H, int W, int nphase,
-                     int pixel_norm, const DeviceInfo& info, ConvPlan* p, int planes = 2) {
+                     int pixel_norm, const DeviceInfo& info, ConvPlan* p) {
   if (B < 1 || cin < 1 || cout < 1 || H < 1 || W < 1) return (int)cudaErrorInvalidValue;
   const int KK = K * K;
   const int cgt = ceil_div(cout, CO);        // channel groups in all
@@ -1381,7 +1361,7 @@ inline int plan_conv(int K, int B, int cin, int cout, int H, int W, int nphase,
 
   // The large shape once its tiles fill half the SMs (from 32x32 at the
   // train step's widths; scripts/torch_conv_sweep.py, PERF.md).
-  const TcGeom tg = tc_geom(K, cg * CO, planes);
+  const TcGeom tg = tc_geom(K, cg * CO);
   const long ntiles = (long)ceil_div(W, TC_W) * ceil_div(H, tg.th) * B * (nphase / tg.ppb);
   const long large_blocks = ntiles * nsplit;
   // Not below 32 columns, where a 64-column tile would be mostly halo.
@@ -1469,7 +1449,7 @@ int launch_conv_tile(const E* x, const E* w, const float* bias, E* y,
   int err = current_device(&dev, &info);
   if (err != 0) return err;
   ConvPlan p;
-  err = plan_conv(K, B, cin, cout, H, W, nphase, pixel_norm, *info, &p, Elem<E>::PLANES);
+  err = plan_conv(K, B, cin, cout, H, W, nphase, pixel_norm, *info, &p);
   if (err != 0) return err;
   const int coutp = ceil_div(cout, CO) * CO;
   if (p.shape == 1) {
@@ -1512,7 +1492,7 @@ int conv_plan_out(int K, int B, int cin, int cout, int H, int W, int nphase, int
   int err = current_device(&dev, &info);
   if (err != 0) return err;
   ConvPlan p;
-  err = plan_conv(K, B, cin, cout, H, W, nphase, pixel_norm, *info, &p, Elem<E>::PLANES);
+  err = plan_conv(K, B, cin, cout, H, W, nphase, pixel_norm, *info, &p);
   if (err != 0) return err;
   const int v[10] = {p.shape, p.cluster, p.S, p.nsplit, p.pr, (int)p.block.x,
                      (int)(p.grid.x * p.grid.y * p.grid.z), (int)p.smem, p.tile_rows, p.ppb};

@@ -56,20 +56,27 @@ class GenBlock(nn.Module):
         self.conv2 = nn.Conv2d(cin, cout, 3, padding=1, device=device)
         self._packs: dict[tuple, tuple] = {}
 
-    def _packed(self, name: str, dtype: torch.dtype = torch.float32, upconv: bool | None = None) -> torch.Tensor:
+    def _packed(self, name: str, dtype: torch.dtype = torch.float32, upconv: bool | None = None,
+                tc: bool = False) -> torch.Tensor:
         """The kernels' layout of conv ``name``'s weight in ``dtype``
         (``kernel_upconv_weights`` where ``upconv``, by default for
-        ``conv2``, else ``kernel_weights``: K1, K3 and K4 read the same),
-        made once and kept until the weight changes (in place, which bumps
-        its version, or by a move to other storage).  Each dtype and layout
-        has its own entry."""
+        ``conv2``, else ``kernel_weights``: K1, K3 and K4 read the same;
+        ``tc``: ``kernel_weights_tc``, the bf16 pack of K1 bf16 and K3
+        bf16), made once and kept until the weight changes (in place, which
+        bumps its version, or by a move to other storage).  Each dtype and
+        layout has its own entry."""
         upconv = name == "conv2" if upconv is None else upconv
         w = getattr(self, name).weight
         key = (w.device, w.data_ptr(), w._version)
-        hit = self._packs.get((name, dtype, upconv))
+        hit = self._packs.get((name, dtype, upconv, tc))
         if hit is None or hit[0] != key:
-            pack = conv_ops.kernel_upconv_weights if upconv else conv_ops.kernel_weights
-            hit = self._packs[(name, dtype, upconv)] = (key, pack(w.detach(), dtype))
+            if tc:
+                pack = conv_ops.kernel_weights_tc(w.detach(), upconv)
+            elif upconv:
+                pack = conv_ops.kernel_upconv_weights(w.detach(), dtype)
+            else:
+                pack = conv_ops.kernel_weights(w.detach(), dtype)
+            hit = self._packs[(name, dtype, upconv, tc)] = (key, pack)
         return hit[1]
 
     def forward(
@@ -88,18 +95,19 @@ class GenBlock(nn.Module):
                 x, w1, self.conv1.bias, w2, self.conv2.bias, slope, eps,
                 w1_packed=self._packed("conv1", dt, False), w2_packed=self._packed("conv2", dt, True),
             )
+        tc = dt == torch.bfloat16 and x.device.type == "cuda"  # K1 bf16 and K3 bf16 read their own pack
         x = conv_ops.fused_conv3x3(
             x, self.conv1.weight, self.conv1.bias, slope, True, eps,
-            w_packed=self._packed("conv1", dt, False),
+            w_packed=self._packed("conv1", dt, False, tc),
         )
         if not (use_upconv or use_block):
             return conv_ops.fused_conv3x3(
                 upsample_nearest_2x(x), self.conv2.weight, self.conv2.bias, slope, True, eps,
-                w_packed=self._packed("conv2", dt, False),
+                w_packed=self._packed("conv2", dt, False, tc),
             )
         return conv_ops.fused_upconv3x3(
             x, self.conv2.weight, self.conv2.bias, slope, True, eps,
-            w_packed=self._packed("conv2", dt, True),
+            w_packed=self._packed("conv2", dt, True, tc),
         )
 
     def forward_train(self, x: torch.Tensor, slope: float, eps: float) -> torch.Tensor:

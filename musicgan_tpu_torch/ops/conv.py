@@ -17,8 +17,11 @@ in a ring of rows in shared memory, zero outside the image.
 Dtypes: each of K1, K3 and K4 takes float32 in and out, or bf16 in and out
 (the JAX functions' ``out_dtype=jnp.bfloat16`` with bf16 activations): the
 bf16 kernels are their own sources (``csrc/conv3x3_bf16.cu``,
-``upconv3x3_bf16.cu``, ``block3x3_bf16.cu``) of the same templates, one
-bf16 ``wgmma`` a step where float32 takes three.  The weights are rounded
+``upconv3x3_bf16.cu``, ``block3x3_bf16.cu``).  K4 bf16 is its float32
+template at bf16, one bf16 ``wgmma`` a step where float32 takes three; K1
+bf16 and K3 bf16 are a kernel of their own, ``csrc/conv_bf16.cuh``, on the
+tensor cores at every size, with its plan mirrored and its weight pack made
+by ``ops/conv_bf16.py``.  The weights are rounded
 to bf16 after packing (for K3 and K4's conv2, the summed sub-pixel phase
 kernels), the bias stays float32, products are exact and summed in
 float32, the epilogue runs in float32, and the output is rounded to bf16
@@ -35,8 +38,9 @@ distributed shared memory, so PixelNorm takes up to
 ``MAX_PIXEL_NORM_CHANNELS`` (a portable cluster of 8 blocks of 128); K4
 the same for both its convs.
 
-What bounds them on an H100 depends on the image (``csrc/conv_tile.cuh``
-says how each shape works).  From 32x32 up at the train step's widths: an
+What bounds the float32 kernels on an H100 depends on the image
+(``csrc/conv_tile.cuh`` says how each shape works; K1 bf16 and K3 bf16 are
+bound by their bytes at every large shape, ``csrc/conv_bf16.cuh``).  From 32x32 up at the train step's widths: an
 implicit GEMM on the tensor cores in 3xTF32 (each operand split into two
 TF32 parts, three products summed in float32, which keeps float32's
 accuracy; plain TF32 would not hold the conv bar), bound by those
@@ -72,6 +76,7 @@ import functools
 import torch
 
 from . import _build
+from . import conv_bf16
 from ..models.layers import (
     conv2d,
     leaky_relu,
@@ -90,6 +95,7 @@ __all__ = [
     "pack_upconv_weights",
     "kernel_weights",
     "kernel_upconv_weights",
+    "kernel_weights_tc",
     "conv_plan",
     "conv3x3_plain",
     "conv3x3_msq_plain",
@@ -177,6 +183,15 @@ def kernel_upconv_weights(w: torch.Tensor, dtype: torch.dtype = torch.float32) -
     return torch.stack(phases, dim=0).to(dtype).contiguous()
 
 
+def kernel_weights_tc(w: torch.Tensor, upconv: bool = False) -> torch.Tensor:
+    """OIHW ``(cout, cin, 3, 3)`` -> the pack K1 bf16 (``upconv`` False)
+    or K3 bf16 reads: :func:`kernel_weights` / :func:`kernel_upconv_weights`
+    in bf16, moved into ``wgmma``'s K-major tiles by
+    ``ops/conv_bf16.py::tc_weights`` (the same bf16 values)."""
+    wk = kernel_upconv_weights(w, torch.bfloat16) if upconv else kernel_weights(w, torch.bfloat16)
+    return conv_bf16.tc_weights(wk, upconv, w.shape[0])
+
+
 def _epilogue(y, slope, pixel_norm_, eps):
     if slope is not None:
         y = leaky_relu(y, slope)
@@ -219,6 +234,8 @@ def upconv3x3_plain(x, w, b, slope=None, pixel_norm=False, eps=1e-8, out_dtype=N
 
 _CONV_TAIL = [_build.INT] * 5 + [_build.FLOAT, _build.INT]
 _CONV_ARGS = [_build.PTR] * 4 + _CONV_TAIL + [_build.INT, _build.FLOAT]
+# The bf16 kernels also take a forced route and tile width (0: the size rule's).
+_CONV_BF16_ARGS = _CONV_ARGS + [_build.INT, _build.INT]
 _MSQ_ARGS = [_build.PTR] * 5 + _CONV_TAIL + [_build.FLOAT]
 
 
@@ -258,18 +275,43 @@ def _kernel_layout(name, w, w_packed, upconv, dtype=torch.float32):
     return w_packed
 
 
-def _launch(name, x, w_packed, b, cout, out_hw, slope, pixel_norm, eps):
+def _bf16_weights(name, w, w_packed, upconv):
+    """K1 bf16 / K3 bf16's weight pack (``kernel_weights_tc``): ``w_packed``
+    as given where it is that pack, moved from the kernel layout where it
+    is :func:`kernel_weights` / :func:`kernel_upconv_weights` in bf16 (the
+    layout K4 reads), else made from the OIHW ``w``."""
+    cout, cin = w.shape[:2]
+    want = conv_bf16.tc_weights_shape(2 if upconv else 3, cin, cout)
+    if w_packed is None:
+        wp = kernel_weights_tc(w, upconv)
+    elif w_packed.dim() == len(want):
+        if tuple(w_packed.shape) != want:
+            raise ValueError(f"{name}: packed weights {tuple(w_packed.shape)}, not {want}")
+        wp = w_packed
+    else:
+        wp = conv_bf16.tc_weights(_kernel_layout(name, w, w_packed, upconv, torch.bfloat16), upconv, cout)
+    # The kernel copies the pack by 16-byte bulk copies.
+    return wp if wp.data_ptr() % 16 == 0 else wp.clone()
+
+
+def _launch(name, x, w_packed, b, cout, out_hw, slope, pixel_norm, eps, route=None, tc=0):
     """Check the operands, allocate the output and launch ``mg_<name>`` (or
-    ``mg_<name>_bf16``) for ``x``'s dtype."""
+    ``mg_<name>_bf16``, with its forced ``route`` name and tile width
+    ``tc`` where given) for ``x``'s dtype."""
     bsz, cin, h, w = x.shape
     x, w_packed, b, b_ptr = _operands(name, x, w_packed, b, pixel_norm, cout)
     y = torch.empty(bsz, cout, *out_hw, device=x.device, dtype=x.dtype)
     lib = _lib(name, x.dtype)
-    _build.kernel(lib, f"mg_{lib}", _CONV_ARGS)(
-        x.data_ptr(), w_packed.data_ptr(), b_ptr, y.data_ptr(),
-        bsz, cin, cout, h, w, 0.0 if slope is None else slope,
-        int(slope is not None), int(pixel_norm), eps, device=x.device,
-    )
+    args = [x.data_ptr(), w_packed.data_ptr(), b_ptr, y.data_ptr(),
+            bsz, cin, cout, h, w, 0.0 if slope is None else slope,
+            int(slope is not None), int(pixel_norm), eps]
+    if x.dtype == torch.bfloat16:
+        _build.kernel(lib, f"mg_{lib}", _CONV_BF16_ARGS)(
+            *args, 0 if route is None else conv_bf16.ROUTE_CODES[route], tc, device=x.device)
+    elif route is not None or tc:
+        raise ValueError(f"{name}: a forced route or tile width is for the bf16 kernels only")
+    else:
+        _build.kernel(lib, f"mg_{lib}", _CONV_ARGS)(*args, device=x.device)
     return y
 
 
@@ -279,19 +321,26 @@ def _count(wrapper, dtype) -> None:
         wrapper.bf16_launches += 1
 
 
-def fused_conv3x3(x, w, b, slope=None, pixel_norm=False, eps=1e-8, w_packed=None, out_dtype=None):
+def fused_conv3x3(x, w, b, slope=None, pixel_norm=False, eps=1e-8, w_packed=None, out_dtype=None,
+                  route=None, tc=0):
     """3x3 'SAME' conv on NCHW ``(B, cin, H, W)`` with OIHW weights ->
     ``(B, cout, H, W)``, with the bias / LeakyReLU / PixelNorm epilogue.
     ``b`` may be None (no bias: the input-gradient convs).  ``x`` float32 or
     bf16; ``out_dtype`` ``x``'s (the default; another raises).
-    ``w_packed``: ``kernel_weights(w, x.dtype)`` made ahead, for the kernel."""
+    ``w_packed``: ``kernel_weights(w, x.dtype)`` made ahead, for the kernel
+    (bf16: or ``kernel_weights_tc(w)``, the pack K1 bf16 reads).  ``route``
+    and ``tc`` force K1 bf16's route (``"small_bf16_tc"``,
+    ``"large_bf16_tc"``) and tile width, for measurements and tests."""
     out_dtype_of("fused_conv3x3", x, out_dtype)
     if x.device.type == "cpu":
         return conv3x3_plain(x, w, b, slope, pixel_norm, eps)
     if x.device.type != "cuda":
         raise ValueError(f"fused_conv3x3: no kernel for device {x.device}")
-    wp = _kernel_layout("fused_conv3x3", w, w_packed, False, x.dtype)
-    y = _launch("conv3x3", x, wp, b, w.shape[0], x.shape[2:], slope, pixel_norm, eps)
+    if x.dtype == torch.bfloat16:
+        wp = _bf16_weights("fused_conv3x3", w, w_packed, False)
+    else:
+        wp = _kernel_layout("fused_conv3x3", w, w_packed, False, x.dtype)
+    y = _launch("conv3x3", x, wp, b, w.shape[0], x.shape[2:], slope, pixel_norm, eps, route, tc)
     _count(fused_conv3x3, x.dtype)
     return y
 
@@ -322,19 +371,25 @@ def fused_conv3x3_msq(x, w, b, slope=None, eps=1e-8, w_packed=None):
     return y, m
 
 
-def fused_upconv3x3(x, w, b, slope=None, pixel_norm=False, eps=1e-8, w_packed=None, out_dtype=None):
+def fused_upconv3x3(x, w, b, slope=None, pixel_norm=False, eps=1e-8, w_packed=None, out_dtype=None,
+                    route=None, tc=0):
     """``conv3x3(upsample_nearest_2x(x))`` on NCHW ``(B, cin, H, W)`` with
     OIHW weights -> ``(B, cout, 2H, 2W)``, with the fused epilogue.  Dtypes
     as :func:`fused_conv3x3`.  ``w_packed``: ``kernel_upconv_weights(w,
-    x.dtype)`` made ahead, for the kernel."""
+    x.dtype)`` made ahead, for the kernel (bf16: or
+    ``kernel_weights_tc(w, upconv=True)``).  ``route``, ``tc``: as
+    :func:`fused_conv3x3`'s, for K3 bf16."""
     out_dtype_of("fused_upconv3x3", x, out_dtype)
     if x.device.type == "cpu":
         return upconv3x3_plain(x, w, b, slope, pixel_norm, eps)
     if x.device.type != "cuda":
         raise ValueError(f"fused_upconv3x3: no kernel for device {x.device}")
-    wp = _kernel_layout("fused_upconv3x3", w, w_packed, True, x.dtype)
+    if x.dtype == torch.bfloat16:
+        wp = _bf16_weights("fused_upconv3x3", w, w_packed, True)
+    else:
+        wp = _kernel_layout("fused_upconv3x3", w, w_packed, True, x.dtype)
     h, w_ = x.shape[2:]
-    y = _launch("upconv3x3", x, wp, b, w.shape[0], (2 * h, 2 * w_), slope, pixel_norm, eps)
+    y = _launch("upconv3x3", x, wp, b, w.shape[0], (2 * h, 2 * w_), slope, pixel_norm, eps, route, tc)
     _count(fused_upconv3x3, x.dtype)
     return y
 
@@ -568,28 +623,52 @@ def fused_block(x, w1, b1, w2, b2, slope=0.2, eps=1e-8, w1_packed=None, w2_packe
 _PLAN_KEYS = ("shape", "cluster", "split_k", "nsplit", "pixels_a_lane", "threads", "blocks",
               "smem_bytes", "tile_rows", "phases_a_block")
 # The conv template's two routes (csrc/conv_tile.cuh): the large-image shape,
-# an implicit GEMM on the tensor cores (3xTF32, or bf16), and the
-# small-image shape, float32 on the CUDA cores.
+# an implicit GEMM on the tensor cores in 3xTF32, and the small-image shape,
+# float32 on the CUDA cores.
 _ROUTES = {1: ("large", "large_tc"), 2: ("small", "small_fp32")}
+_PLAN_BF16_KEYS = ("route_code", "tc", "th", "nb", "ntiles", "resident", "stages", "nwg", "blocks",
+                   "smem_bytes", "n", "nsplit", "cluster", "mb", "ppb", "sms")
 
 
 def conv_plan(kind: str, bsz: int, cin: int, cout: int, h: int, w: int, pixel_norm: bool,
-              dtype: torch.dtype = torch.float32) -> dict:
+              dtype: torch.dtype = torch.float32, route: str | None = None, tc: int = 0) -> dict:
     """How K1/K2 (``kind="conv3x3"``) or K3 (``"upconv3x3"``) launches at
-    these sizes on the current CUDA device, as the launcher plans it:
-    ``shape`` ("large" or "small") and its ``route`` ("large_tc" or
-    "small_fp32"), the cluster's blocks, its split over input channels, the
-    channel splits, pixels a lane (large shape: accumulator tiles of 64
+    these sizes on the current CUDA device, as the launcher plans it.
+    float32: ``shape`` ("large" or "small") and its ``route`` ("large_tc"
+    or "small_fp32"), the cluster's blocks, its split over input channels,
+    the channel splits, pixels a lane (large shape: accumulator tiles of 64
     pixels a warpgroup), threads a block, blocks, shared memory, and for the
     large shape the ``tile`` (image rows x columns a block) and K3's phases
-    a block; ``dtype`` the kernel's (bf16: the same plan, with its shared
-    memory).  Needs the card (the plan reads its SM count)."""
+    a block.  bf16 (K1 bf16, K3 bf16, ``csrc/conv_bf16.cuh``): the keys of
+    ``ops/conv_bf16.py::plan`` that the launcher reports (``route``
+    "small_bf16_tc" or "large_bf16_tc", ``tc``, ``th``, ``nb``, ...), with
+    ``tile`` ``(th, tc)`` and ``phases_a_block``; ``route`` and ``tc``
+    force them as the wrapper's do.  Needs the card (the plan reads its SM
+    count)."""
+    k, nphase = (2, 4) if kind == "upconv3x3" else (3, 1)
     lib = _build.load(_lib(kind, dtype))
+    if dtype == torch.bfloat16:
+        fn = lib.mg_conv_bf16_plan
+        fn.argtypes = [ctypes.c_int] * 9 + [ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
+        out = (ctypes.c_int * len(_PLAN_BF16_KEYS))()
+        code = 0 if route is None else conv_bf16.ROUTE_CODES[route]
+        err = fn(k, bsz, cin, cout, h, w, int(pixel_norm), code, tc, out)
+        if err != 0:
+            raise ValueError(f"conv_plan({kind}, bf16): CUDA error {err} for sizes {(bsz, cin, cout, h, w)}")
+        plan = dict(zip(_PLAN_BF16_KEYS, out))
+        plan["route"] = conv_bf16.ROUTES[plan["route_code"]]
+        plan["resident"] = bool(plan["resident"])
+        plan["tile"] = (plan["th"], plan["tc"])
+        plan["phases_a_block"] = plan["ppb"]
+        plan["threads"] = 128 * plan["nwg"]
+        return plan
+    if route is not None or tc:
+        raise ValueError("conv_plan: a forced route or tile width is for the bf16 kernels only")
     fn = lib.mg_conv_plan
     fn.argtypes = [ctypes.c_int] * 8 + [ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
     out = (ctypes.c_int * len(_PLAN_KEYS))()
-    k, nphase = (2, 4) if kind == "upconv3x3" else (3, 1)
     err = fn(k, bsz, cin, cout, h, w, nphase, int(pixel_norm), out)
     if err != 0:
         raise ValueError(f"conv_plan({kind}): CUDA error {err} for sizes {(bsz, cin, cout, h, w)}")

@@ -1,0 +1,249 @@
+"""The bf16 conv kernels K1 bf16 and K3 bf16 (``csrc/conv_bf16.cuh``): their
+launch plan, mirrored here from the sizes and the SM count alone, and the
+weight pack they read.
+
+Both kernels are one implicit GEMM on the tensor cores, bf16 ``wgmma``
+m64nNk16 with A and B read from shared memory by descriptor.  A tile is a
+window of the input: ``nb`` images (``nb`` > 1 only for whole images), of
+each ``th`` rows and ``tc`` columns, staged with a halo of one row above
+and below each image and of one column left (and ``sw - tc - 1`` right),
+landing by TMA as ``[row][16 channels][sw + 16]`` (image columns from ``c0
+- 8``: a box starts on 16 bytes; an odd number of 16-byte units a channel
+row keeps the transposition's reads in distinct banks; zero outside the
+image), then transposed in
+shared memory to channels innermost, ``[octet][position][8 channels]``,
+position ``row * sw + column``.  There a tap ``(dy, dx)`` is the same
+window shifted by ``dy * sw + dx`` positions, a 16-byte-aligned start
+address, so one descriptor per tap and m64 block serves as A; the output
+positions of a tile are the ``64 * mb`` positions from ``sw + 1`` on (some
+are halo or right-hand columns, computed and not stored).  B is the weight
+pack of :func:`tc_weights`, resident in shared memory for the whole launch
+where it fits, else copied a chunk of 16 input channels at a time.
+
+Routes: ``small_bf16_tc`` when a tile holds whole images (``th == H``,
+``tc >= W``; several images fold into one tile), ``large_bf16_tc`` for row
+bands of one image.  The size rule, :func:`plan`, takes the tile of least
+modelled time over both (``_tile_cost4``); no timing, so a conv sums in the
+same order run after run, and every route sums a pixel in one order:
+chunks of 16 input channels in order, in each the kernel rows ``dy`` in
+order, each row's column taps ``dx`` in order into a fresh accumulator that
+is then added to the tile's in float32 (the order of ``conv_tile.cuh``'s
+tensor-core route, which K4 bf16 also keeps, so K4 bf16 equals K1 bf16 then
+K3 bf16 bit for bit).
+"""
+
+from __future__ import annotations
+
+import torch
+
+__all__ = [
+    "ROUTES",
+    "SMEM_BUDGET",
+    "channel_split",
+    "geometry",
+    "plan",
+    "routes_for",
+    "tc_weights",
+    "tc_weights_shape",
+]
+
+# Route codes of the C launcher (0: the size rule's).
+ROUTES = {1: "small_bf16_tc", 2: "large_bf16_tc"}
+ROUTE_CODES = {name: code for code, name in ROUTES.items()}
+# Most dynamic shared memory a Hopper block may ask for (232,448 bytes),
+# less room for the mbarriers' alignment.
+SMEM_BUDGET = 232448 - 1024
+MAX_TC = 224          # widest tile: a TMA box of tc + 24 columns, at most 256
+CHUNK = 16            # input channels a chunk (one k16 step)
+MAX_PIXEL_NORM_SPLITS = 8  # a portable cluster
+
+
+def channel_split(cout: int) -> tuple[int, int]:
+    """``(N, nsplit)``: output channels a block (a multiple of 16, at most
+    128) and the blocks a pixel's channels are split over."""
+    groups = -(-cout // 16)
+    nsplit = -(-groups // 8)
+    return 16 * -(-groups // nsplit), nsplit
+
+
+def _acc_tiles(n: int) -> int:
+    """m64 x n accumulators a warpgroup holds (two register sets of them:
+    the tile's sums and the fresh one, 128 floats a thread)."""
+    return 8 if n <= 16 else 4 if n <= 32 else 2 if n <= 64 else 1
+
+
+def geometry(k: int, n: int) -> dict:
+    """Per tile at ``n`` channels a block: ``mb`` m64 blocks of positions,
+    ``ppb`` sub-pixel phases (K3: all four up to 32 channels, else the two
+    of one output row parity), ``taps`` a phase, ``wtaps`` the taps of the
+    weights a tile reads (all of them, or K3's two phases)."""
+    if k == 3:
+        return {"mb": _acc_tiles(n), "ppb": 1, "taps": 9, "wtaps": 9}
+    ppb = 4 if n <= 32 else 2
+    return {"mb": max(1, _acc_tiles(n) // ppb), "ppb": ppb, "taps": 4, "wtaps": 4 * ppb}
+
+
+def _wgmma_clk4(n: int) -> int:
+    """Modelled clocks (times 4) of one m64nNk16 on an SM: its products at
+    2048 bf16 MACs a clock, or its operands (2 KB of A, 32n bytes of B) at
+    128 bytes of shared memory a clock, the larger."""
+    return max(2 * n, 64 + n)
+
+
+def _smem(k, n, g, nwg, sw, rows_w, resident, stages, nchunks, nsplit, pixel_norm) -> int:
+    """Bytes of shared memory a block takes (``conv_bf16.cuh::cb_layout``)."""
+    raw = 32 * rows_w * (sw + 16)
+    wchunk = 32 * n * g["wtaps"]
+    ptrans = _round(max(rows_w * sw + 1, 64 * g["mb"] + 2 * sw + 2), 8)
+    trans = 32 * ptrans
+    out = g["ppb"] * n * (8 * g["mb"] + 1) * 16
+    region = _round(max(trans, out), 128)
+    stage = _round(raw + (0 if resident else wchunk), 128)
+    wres = nchunks * 32 * n * (9 if k == 3 else 16) if resident else 0
+    part = 2 * g["mb"] * g["ppb"] * 64 * 4 if pixel_norm and nsplit > 1 else 0
+    return wres + nwg * (stages * stage + region) + part + 8 * (nwg * 4 + 1)
+
+
+def _round(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def _stages_and_residency(k, n, g, nwg, sw, rows_w, nchunks, nsplit, pixel_norm):
+    """``(resident, stages, smem)``: the weights resident where two stages
+    fit beside them, the stages as many as fit up to 4; None where not even
+    two streamed stages fit."""
+    for resident in (True, False):
+        best = None
+        for stages in (4, 3, 2):
+            s = _smem(k, n, g, nwg, sw, rows_w, resident, stages, nchunks, nsplit, pixel_norm)
+            if s <= SMEM_BUDGET:
+                best = (resident, stages, s)
+                break
+        if best is not None:
+            return best
+    return None
+
+
+# Modelled fixed clocks of a tile: its epilogue (bias, LeakyReLU, PixelNorm,
+# the staging of its outputs) and its stores, 2.5-4K clocks a tile at
+# synthesis's large shapes (a clock64 profile of the kernel on an NVIDIA
+# H100 80GB HBM3 at 700 W; PERF.md §6).
+TILE_FIXED_CLK = 2500
+
+
+def _tile_cost4(k, n, g, nchunks, streamed, sw, rows_w, outputs) -> int:
+    """Modelled clocks (times 4, integers, so that the C launcher's rule is
+    the same to the last bit) of one tile on an SM: each chunk's work, its
+    products and its transposition (3 clocks a staged position, as
+    profiled), or its copies (the window at 32 bytes a clock from L2, and
+    the weights where they stream), whichever is longer; then the tile's
+    stores (64 bytes a clock) and its fixed cost."""
+    rw = sw + 16
+    work = g["mb"] * g["ppb"] * g["taps"] * _wgmma_clk4(n) + 12 * rows_w * rw
+    copies = 4 * (rows_w * rw + (g["wtaps"] * n if streamed else 0))
+    return nchunks * max(work, copies) + outputs * g["ppb"] * n // 8 + 4 * TILE_FIXED_CLK
+
+
+def plan(k: int, bsz: int, cin: int, cout: int, h: int, w: int, pixel_norm: bool, sms: int,
+         route: int = 0, tc: int = 0) -> dict:
+    """The launch plan of K1 bf16 (``k=3``) or K3 bf16 (``k=2``) at these
+    sizes on a card of ``sms`` SMs: ``conv_bf16.cuh::plan_cb`` in Python.
+    ``route``: 0 for the size rule, 1 (``small_bf16_tc``) or 2
+    (``large_bf16_tc``) to force one; ``tc`` (a multiple of 16) forces
+    the tile's columns (both for measurements and tests only).  Raises
+    ValueError where no tile fits (or the forced ones have none).
+
+    The rule: every tile of ``tc`` columns (multiples of 16 up to 240 and
+    the width rounded up), ``th`` rows and, for whole images, ``nb``
+    images, whose output positions fit the warpgroup's ``64 * mb`` and
+    whose stages fit in shared memory, is costed as ``ceil(tiles * nsplit
+    / sms)`` rounds of :func:`_tile_cost4`; the least cost wins (ties: the
+    widest, then tallest, then most images, the order tried).  A block
+    holds two warpgroups, each walking its own tiles, unless every block
+    gets one tile or PixelNorm meets across a cluster (then one)."""
+    if min(bsz, cin, cout, h, w) < 1 or k not in (2, 3) or route not in (0, 1, 2):
+        raise ValueError(f"plan: sizes {(k, bsz, cin, cout, h, w)}, route {route}")
+    n, nsplit = channel_split(cout)
+    if pixel_norm and nsplit > MAX_PIXEL_NORM_SPLITS:
+        raise ValueError(f"plan: PixelNorm over {cout} channels")
+    clustered = bool(pixel_norm and nsplit > 1)
+    g = geometry(k, n)
+    nchunks = -(-cin // CHUNK)
+    budget = 64 * g["mb"]
+    nph = 2 if g["ppb"] == 2 else 1
+    best = None
+    for tcc in range(min(MAX_TC, _round(w, 16)), 0, -16):
+        if tc and tcc != tc:
+            continue
+        sw = tcc + 8
+        ntx = -(-w // tcc)
+        whole = tcc >= w
+        for th in range(min(h, budget // sw + 1), 0, -1):
+            for nb in (range(bsz, 0, -1) if whole and th == h else (1,)):
+                span = ((nb - 1) * (th + 2) + th - 1) * sw + tcc
+                rt = 1 if whole and th == h else 2
+                if span > budget or (route and rt != route):
+                    continue
+                rows_w = nb * (th + 2)
+                ntiles = ntx * -(-h // th) * -(-bsz // nb) * nph
+                ncl = min(ntiles, max(1, sms // nsplit))
+                nwg = 1 if clustered or ntiles <= ncl else 2
+                fit = _stages_and_residency(k, n, g, nwg, sw, rows_w, nchunks, nsplit, pixel_norm)
+                if fit is None:
+                    continue
+                resident, stages, smem = fit
+                cost = -(-ntiles * nsplit // sms) * _tile_cost4(
+                    k, n, g, nchunks, not resident, sw, rows_w, nb * th * min(tcc, w))
+                if best is None or cost < best[0]:
+                    best = (cost, dict(route=ROUTES[rt], route_code=rt, tc=tcc, sw=sw, th=th, nb=nb,
+                                       ntx=ntx, nty=-(-h // th), nbz=-(-bsz // nb), nph=nph, ntiles=ntiles,
+                                       resident=resident, stages=stages, smem_bytes=smem, nwg=nwg,
+                                       blocks=ncl * nsplit))
+    if best is None:
+        raise ValueError(f"plan: no tile (route {route}, tc {tc}) fits sizes {(k, bsz, cin, cout, h, w)}")
+    p = best[1]
+    p.update(n=n, nsplit=nsplit, cluster=nsplit if clustered else 1, threads=128 * p["nwg"],
+             nchunks=nchunks, cost=best[0], **g)
+    return p
+
+
+def routes_for(k: int, bsz: int, cin: int, cout: int, h: int, w: int, pixel_norm: bool, sms: int) -> list[str]:
+    """The routes that have a tile at these sizes."""
+    out = []
+    for code, name in ROUTES.items():
+        try:
+            plan(k, bsz, cin, cout, h, w, pixel_norm, sms, code)
+        except ValueError:
+            continue
+        out.append(name)
+    return out
+
+
+def tc_weights_shape(k: int, cin: int, cout: int) -> tuple[int, ...]:
+    n, nsplit = channel_split(cout)
+    return (nsplit, -(-cin // CHUNK), 9 if k == 3 else 16, 2, n, 8)
+
+
+def tc_weights(wk: torch.Tensor, upconv: bool, cout: int) -> torch.Tensor:
+    """The pack K1 bf16 / K3 bf16 read, from the kernel layout
+    ``wk`` (``kernel_weights``: ``(cin, 9, coutp)``, or
+    ``kernel_upconv_weights``: ``(4, cin, 4, coutp)``, in the kernel's
+    dtype): ``(nsplit, chunks, taps, 2, N, 8)``, a chunk's taps each
+    ``[octet][output channel][8 input channels]`` (``wgmma``'s K-major B in
+    128-byte core matrices), K3's taps phase-major (``phase * 4 + tap``),
+    zero past ``cin`` and ``cout``.  The same values as ``wk``, moved."""
+    if upconv:
+        _, cin, _, coutp = wk.shape
+        t = wk.permute(1, 0, 2, 3).reshape(cin, 16, coutp)      # (cin, phase * 4 + tap, coutp)
+    else:
+        cin, _, coutp = wk.shape
+        t = wk
+    taps = t.shape[1]
+    n, nsplit = channel_split(cout)
+    nchunks = -(-cin // CHUNK)
+    full = t.new_zeros(nchunks * CHUNK, taps, nsplit * n)
+    width = min(coutp, nsplit * n)
+    full[:cin, :, :width] = t[:, :, :width]
+    full[:, :, cout:] = 0
+    # (chunk, octet, i, tap, split, n) -> (split, chunk, tap, octet, n, i)
+    return full.reshape(nchunks, 2, 8, taps, nsplit, n).permute(4, 0, 3, 1, 5, 2).contiguous()

@@ -22,6 +22,11 @@ any tree:
   then K3 at the same blocks, device time as above;
 * the bits of K1, K2, K3 and K5 at those shapes: a SHA-256 of each output,
   so that two trees can be held to the same bits;
+* K1 bf16, K3 bf16 and K4 bf16 with PixelNorm at the 8 blocks of that
+  synthesis call (bf16 inputs of their own stream, the shipped generator's
+  weights packed ahead in the layout each tree's kernel reads): device time
+  beside ``F.conv2d`` on bf16 tensors, and a SHA-256 of each output, kept
+  apart from the float32 ones;
 * the weight gradient (``ops/conv_vjp.py::weight_grad3x3``) at the 34
   trainable convs of that iteration: device time from CUDA-graph replays
   beside one call of cuDNN's default algorithms (TF32 off), and a SHA-256
@@ -29,7 +34,8 @@ any tree:
   them);
 * warm synthesis (5 clips x nb_vec 10 from ``gen_final.pt``): median of 20
   calls, each timed to the end of its device work, under
-  ``conv_impl="pallas_up"`` and ``"pallas_block"`` in turns;
+  ``conv_impl="pallas_up"``, ``"pallas_block"``, ``"pallas_up_bf16"`` and
+  ``"pallas_block_bf16"`` in turns;
 * the train step at stage 7 (medians of 10 critic-only and 10 critic +
   generator iterations, steps/s at n_critic 5) and at stage 0 (median of
   10 chunks of 10).
@@ -38,7 +44,12 @@ Results go to ``chiprun_out/ab_<NAME>.json``; a summary is printed.  Run
 the trees in turns in one call (parent, change, change, parent) and
 compare only within it.  ``python3 scripts/torch_ab.py --compare A1 B1``
 then prints which kernel outputs of K1-K5 differ in their bits between two
-runs (exit code 1 if any does), and how many weight gradients differ.
+runs (exit code 1 if any does), and how many weight gradients and bf16
+outputs differ.  ``python3 scripts/torch_ab.py --bf16-table A1 A2 B1 B2``
+prints the bf16 rows as a markdown table: each shape's mean time over the
+first runs (the parent's) and over the others, ``F.conv2d``'s mean over
+all, and the bound (bf16 operations at 989 TFLOP/s or bytes at 3.35 TB/s,
+the larger) with the share of it each reaches.
 """
 
 from __future__ import annotations
@@ -52,9 +63,56 @@ import os
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent.parent  # the checkout this script is in
+
+
+def bf16_bound_ms(role: str, shape: list) -> tuple[float, str]:
+    """The least time of a bf16 row (``chip_smoke.py`` phase 9's terms):
+    its operations at dense bf16 (989 TFLOP/s) or its bytes (each input
+    read once, the output written once) at 3.35 TB/s, the larger."""
+    if role == "synth_k1_bf16":
+        b, cin, _, h, w = shape
+        px = b * h * w
+        flops, nbytes = 2.0 * px * cin * 9 * cin, 2.0 * (2 * px * cin + 9 * cin * cin) + 4.0 * cin
+    elif role == "synth_k3_bf16":
+        b, cin, cout, h, w = shape
+        px = b * h * w
+        flops = 2.0 * 4 * px * cout * 4 * cin
+        nbytes = 2.0 * (px * cin + 4 * px * cout + 16 * cin * cout) + 4.0 * cout
+    else:
+        b, cin, _, cout, h, w = shape
+        px = b * h * w
+        flops = 2.0 * px * cin * 9 * cin + 2.0 * 4 * px * cout * 4 * cin
+        nbytes = 2.0 * (px * cin + 4 * px * cout + 9 * cin * cin + 16 * cin * cout) + 4.0 * (cin + cout)
+    t_ops, t_bytes = 1e3 * flops / 989e12, 1e3 * nbytes / 3.35e12
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def bf16_table(tags) -> None:
+    runs = [json.loads(Path(f"chiprun_out/ab_{t}.json").read_text()) for t in tags]
+    print(f"card: {runs[0]['card']}; parent = {tags[0]}, {tags[1]}; change = {tags[2]}, {tags[3]}")
+    print("| kernel | block | shape | parent ms | change ms | F.conv2d ms | change / F.conv2d | bound ms | share |")
+    print("|---|---|---|---|---|---|---|---|---|")
+    sums = {}
+    for i, row in enumerate(runs[0]["bf16_rows"]):
+        rows = [r["bf16_rows"][i] for r in runs]
+        par = sum(r["ms"] for r in rows[:2]) / 2
+        new = sum(r["ms"] for r in rows[2:]) / 2
+        lib = sum(r["library_ms"] for r in rows) / 4
+        bound, by = bf16_bound_ms(row["role"], row["shape"])
+        s = sums.setdefault(row["role"], [0.0, 0.0, 0.0, 0.0])
+        for j, v in enumerate((par, new, lib, bound)):
+            s[j] += v
+        print(f"| {row['role']} | {row['block']} | {tuple(row['shape'])} | {par:.4f} | {new:.4f} | {lib:.4f} | "
+              f"{new / lib:.2f} | {bound:.4f} ({by}) | {bound / new:.2f} |")
+    for role, (par, new, lib, bound) in sums.items():
+        print(f"| {role} | sum | | {par:.4f} | {new:.4f} | {lib:.4f} | {new / lib:.2f} | {bound:.4f} | {bound / new:.2f} |")
+    for t, r in zip(tags, runs):
+        print(f"{t}: synthesis median ms " + ", ".join(
+            f"{k} {v:.3f}" for k, v in r.get("synthesis_by_impl_median_ms", {}).items()))
 
 
 def main() -> None:
@@ -62,7 +120,11 @@ def main() -> None:
     ap.add_argument("--root")
     ap.add_argument("--tag")
     ap.add_argument("--compare", nargs=2, metavar=("TAG_A", "TAG_B"))
+    ap.add_argument("--bf16-table", nargs=4, metavar=("A1", "A2", "B1", "B2"))
     args = ap.parse_args()
+    if args.bf16_table:
+        bf16_table(args.bf16_table)
+        return
     if args.compare:
         runs = [json.loads(Path(f"chiprun_out/ab_{t}.json").read_text()) for t in args.compare]
         a, b = (r["bits"] for r in runs)
@@ -72,6 +134,9 @@ def main() -> None:
         wa, wb = (r.get("wgrad_bits", {}) for r in runs)
         print(f"[ab bits] weight gradients: {len(wa)} outputs, "
               f"{sum(wa.get(k) != wb.get(k) for k in wa.keys() | wb.keys())} differ")
+        ba, bb = (r.get("bf16_bits", {}) for r in runs)
+        bdiff = sorted(k for k in ba.keys() | bb.keys() if ba.get(k) != bb.get(k))
+        print(f"[ab bits] bf16 outputs: {len(ba)}, {len(bdiff)} differ" + "".join(f"\n  {k}" for k in bdiff))
         sys.exit(1 if differ else 0)
     if not (args.root and args.tag):
         ap.error("--root and --tag, or --compare")
@@ -100,6 +165,13 @@ def main() -> None:
     # its route's name.
     conv_vjp.__dict__.setdefault("weight_grad3x3", None)
     conv_vjp.__dict__.setdefault("WGRAD_TC", None)  # read by chip_smoke.py at import
+    # Nor, before the bf16 kernels' redesign, their plan module, which
+    # chip_smoke.py imports (and uses only in its own phase 9).
+    import musicgan_tpu_torch.ops as ops_pkg
+
+    if importlib.util.find_spec("musicgan_tpu_torch.ops.conv_bf16") is None:
+        stub = types.ModuleType("musicgan_tpu_torch.ops.conv_bf16")
+        sys.modules[stub.__name__] = ops_pkg.conv_bf16 = stub
     spec = importlib.util.spec_from_file_location("chip_smoke", HERE / "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
@@ -181,10 +253,48 @@ def main() -> None:
     digest("istft", (5, 513, 5120), smoke.istft_ops.istft_fused(re_, im_, 1024, 256))
     del re_, im_
 
-    # K4 at the blocks of synthesis that take it on an H100 (4-7), with the
-    # shipped generator's weights, against K1 then K3.
+    # K1 bf16, K3 bf16 and K4 bf16 at the 8 blocks of synthesis, the shipped
+    # generator's weights, inputs of their own stream.  The weights go in
+    # the layout the tree's K1 bf16 / K3 bf16 read (kernel_weights_tc where
+    # it has one, else the kernel layout K4 reads as well).
     ckpt = root / "saved_models" / "quality_r4" / "gen_final.pt"
     g = load_reference_generator(str(ckpt), cfg, device=dev)
+    brng = torch.Generator(device=dev).manual_seed(9)
+    bf, bf16_rows, bf16_bits = torch.bfloat16, [], {}
+    tc_pack = getattr(conv_ops, "kernel_weights_tc", None)
+    for i, (cin, cout) in enumerate(cfg.gen_channels):
+        hh, ww = cfg.latent_height * 2**i, cfg.latent_width * 10 * 2**i
+        x = torch.randn(5, cin, hh, ww, generator=brng, device=dev).to(bf)
+        blk = g.blocks[i]
+        w1, b1 = blk.conv1.weight.detach(), blk.conv1.bias.detach()
+        w2, b2 = blk.conv2.weight.detach(), blk.conv2.bias.detach()
+        k1p, k3p = conv_ops.kernel_weights(w1, bf), conv_ops.kernel_upconv_weights(w2, bf)
+        w1p, w2p = (tc_pack(w1), tc_pack(w2, True)) if tc_pack else (k1p, k3p)
+        xu = F.interpolate(x, scale_factor=2, mode="nearest")
+        mid_up = F.interpolate(conv_ops.fused_conv3x3(x, w1, b1, 0.2, True, w_packed=w1p), scale_factor=2,
+                               mode="nearest")
+        w1b, b1b, w2b, b2b = w1.to(bf), b1.to(bf), w2.to(bf), b2.to(bf)
+        cases = {
+            "synth_k1_bf16": (lambda: conv_ops.fused_conv3x3(x, w1, b1, 0.2, True, w_packed=w1p),  # noqa: E731
+                              lambda: F.conv2d(x, w1b, b1b, padding=1), [5, cin, cin, hh, ww]),
+            "synth_k3_bf16": (lambda: conv_ops.fused_upconv3x3(x, w2, b2, 0.2, True, w_packed=w2p),  # noqa: E731
+                              lambda: F.conv2d(xu, w2b, b2b, padding=1), [5, cin, cout, hh, ww]),
+            "synth_k4_bf16": (lambda: conv_ops.fused_block(x, w1, b1, w2, b2, 0.2, 1e-8,  # noqa: E731
+                                                           w1_packed=k1p, w2_packed=k3p),
+                              lambda: (F.conv2d(x, w1b, b1b, padding=1), F.conv2d(mid_up, w2b, b2b, padding=1)),
+                              [5, cin, cin, cout, hh, ww]),
+        }
+        for role, (kernel, library, shape) in cases.items():
+            bf16_rows.append({"role": role, "block": i, "shape": shape, "ms": smoke.time_ms(kernel),
+                              "library_ms": smoke.time_ms(library)})
+            y = kernel()
+            bf16_bits[f"{role} {shape}"] = hashlib.sha256(y.view(torch.int16).cpu().numpy().tobytes()).hexdigest()
+            del y
+        del x, xu, mid_up
+    torch.cuda.empty_cache()
+
+    # K4 at the blocks of synthesis that take it on an H100 (4-7), with the
+    # shipped generator's weights, against K1 then K3.
     blocks = []
     for i in (4, 5, 6, 7):
         cin, cout = cfg.gen_channels[i]
@@ -222,9 +332,10 @@ def main() -> None:
     host = {"k1_us": host_us(lambda: conv_ops.fused_conv3x3(x, wt, bb, 0.2)),
             "f_conv2d_us": host_us(lambda: F.conv2d(x, wt, bb, padding=1))}
 
-    # Warm synthesis under both values of conv_impl, in turns.
-    gens = {"pallas_up": g, "pallas_block": load_reference_generator(
-        str(ckpt), dataclasses.replace(cfg, conv_impl="pallas_block"), device=dev)}
+    # Warm synthesis under the float32 and bf16 impls, in turns.
+    gens = {"pallas_up": g, **{impl: load_reference_generator(
+        str(ckpt), dataclasses.replace(cfg, conv_impl=impl), device=dev)
+        for impl in ("pallas_block", "pallas_up_bf16", "pallas_block_bf16")}}
     z = torch.randn((5, cfg.latent_height, cfg.latent_width * 10, cfg.rand_channels),
                     generator=torch.Generator(device=dev).manual_seed(0), device=dev)
     synth = generate_mod.synthesize_fn(cfg, cfg.n_stages - 1)
@@ -233,7 +344,8 @@ def main() -> None:
             synth(gg, z)
     torch.cuda.synchronize()
     synth_by = {k: [] for k in gens}
-    for k in ("pallas_up", "pallas_block", "pallas_block", "pallas_up"):
+    for k in ("pallas_up", "pallas_block", "pallas_up_bf16", "pallas_block_bf16",
+              "pallas_block_bf16", "pallas_up_bf16", "pallas_block", "pallas_up"):
         for _ in range(10):
             t0 = time.perf_counter()
             synth(gens[k], z)
@@ -275,6 +387,9 @@ def main() -> None:
         "synthesis_ms": [1e3 * v for v in synth_s], "synthesis_median_ms": 1e3 * med(synth_s),
         "synthesis_block_ms": [1e3 * v for v in synth_by["pallas_block"]],
         "synthesis_block_median_ms": 1e3 * med(synth_by["pallas_block"]),
+        "synthesis_by_impl_median_ms": {k: 1e3 * med(v) for k, v in synth_by.items()},
+        "synthesis_by_impl_ms": {k: [1e3 * t for t in v] for k, v in synth_by.items()},
+        "bf16_rows": bf16_rows, "bf16_bits": bf16_bits,
         "k4_blocks": blocks, "bits": bits, "wgrad": wgrad, "wgrad_bits": wgrad_bits,
         "d_only_ms": [1e3 * v for v in d_s], "d_and_g_ms": [1e3 * v for v in dg_s],
         "steps_per_s_stage7": n_c / ((n_c - 1) * med(d_s) + med(dg_s)),
@@ -291,6 +406,12 @@ def main() -> None:
     wsum = {part: [sum(r[k] for r in wgrad if part == "all" or r["shape"][3] <= 64) for k in ("ms", "library_ms")]
             for part in ("all", "up to 64x64")}
     out["wgrad_sums_ms"] = wsum
+    bsum = {}
+    for r in bf16_rows:
+        s = bsum.setdefault(r["role"], [0.0, 0.0])
+        s[0] += r["ms"]
+        s[1] += r["library_ms"]
+    out["bf16_sums_ms"] = bsum
     os.makedirs("chiprun_out", exist_ok=True)
     Path(f"chiprun_out/ab_{args.tag}.json").write_text(json.dumps(out, indent=1))
     print(f"[ab {args.tag}] {card}; conv up to 32x32, kernel / F.conv2d ms: "
@@ -302,8 +423,11 @@ def main() -> None:
           + f"; host per call: K1 {host['k1_us']:.1f} us, F.conv2d {host['f_conv2d_us']:.1f} us"
           + "; K4 / K1 then K3 ms: " + ", ".join(
               f"block {r['block']} {r['ms']:.4f} / {r['pair_ms']:.4f}" for r in blocks)
-          + f"; synthesis {out['synthesis_median_ms']:.3f} ms, under pallas_block "
-          f"{out['synthesis_block_median_ms']:.3f} ms; stage 7 {1e3 * med(d_s):.2f} / "
+          + "; bf16 8 blocks, kernel / F.conv2d ms: " + ", ".join(
+              f"{k} {v[0]:.4f} / {v[1]:.4f}" for k, v in bsum.items())
+          + "; synthesis ms: " + ", ".join(
+              f"{k} {v:.3f}" for k, v in out["synthesis_by_impl_median_ms"].items())
+          + f"; stage 7 {1e3 * med(d_s):.2f} / "
           f"{1e3 * med(dg_s):.2f} ms = {out['steps_per_s_stage7']:.3f} steps/s; stage 0 "
           f"{out['steps_per_s_stage0']:.1f} steps/s", flush=True)
 

@@ -5,7 +5,7 @@ synthesis's eight blocks (5 clips x nb_vec 10), the device time of the
 wrapper under each plan, against the launcher's own choice and
 ``F.conv2d``.
 
-    python3 scripts/torch_conv_sweep.py
+    python3 scripts/torch_conv_sweep.py [--part fp32|bf16|all]
 
 Plans: the large-image shape (the tensor-core route, "large_tc"), and the
 small-image shape at every (pixels a lane in 1, 2, 4) x (cluster split over
@@ -18,10 +18,20 @@ ahead; times are CUDA-graph replays timed by CUDA events
 (``csrc/conv_tile.cuh::plan_conv``) was fitted to.  Every plan's output is
 held against the plain version at 1e-4.  Results go to
 ``chiprun_out/conv_sweep.json``.
+
+The bf16 part (K1 bf16 and K3 bf16, ``csrc/conv_bf16.cuh``) times, at
+synthesis's 16 shapes and a few ragged ones, the size rule's tile
+(``ops/conv_bf16.py::plan``) against each route forced and a set of tile
+widths forced within each (the wrappers' ``route`` and ``tc``: no special
+build), with ``F.conv2d`` on bf16 tensors beside; every forced plan is held
+within one bf16 ulp of the plain version and to the size rule's bits (every
+tile sums a pixel in one order).  Results go to
+``chiprun_out/conv_sweep_bf16.json``.
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import json
 import sys
@@ -38,9 +48,15 @@ from musicgan_tpu_torch.config import ModelConfig, TrainConfig  # noqa: E402
 from musicgan_tpu_torch.models.layers import upsample_nearest_2x  # noqa: E402
 from musicgan_tpu_torch.ops import _build  # noqa: E402
 from musicgan_tpu_torch.ops import conv as conv_ops  # noqa: E402
+from musicgan_tpu_torch.ops import conv_bf16  # noqa: E402
 
 TOL = 1e-4
 _build.NVCC_FLAGS = (*_build.NVCC_FLAGS, "-DMG_CONV_SWEEP")
+# Tile widths the bf16 part forces (where a tile of that width fits).
+BF16_TC = (16, 32, 48, 64, 80, 96, 128, 160, 240)
+# Ragged bf16 shapes (B, cin, cout, H, W): W no multiple of 8 or of 64,
+# channels no multiple of 16, one image.
+BF16_RAGGED = [(2, 12, 20, 9, 33), (1, 24, 40, 64, 70), (3, 21, 20, 96, 130), (2, 5, 7, 130, 300)]
 
 
 def force_plan(shape: int = 0, pixels_a_lane: int = 0, split_k: int = 0) -> None:
@@ -70,7 +86,68 @@ def cases(cfg: ModelConfig) -> list:
     return out
 
 
+def sweep_bf16(card: str, dev) -> None:
+    """K1 bf16 / K3 bf16 under the size rule's plan, each route and tile
+    width forced, beside F.conv2d on bf16 tensors."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rng = torch.Generator(device=dev).manual_seed(0)
+    cfg = ModelConfig()
+    shapes = []
+    for i, (c, o) in enumerate(cfg.gen_channels):
+        h, w = cfg.latent_height * 2**i, cfg.latent_width * 10 * 2**i
+        shapes += [("synth_k1", 3, (5, c, c, h, w)), ("synth_k3", 2, (5, c, o, h, w))]
+    shapes += [(f"ragged_k{1 if k == 3 else 3}", k, s) for s in BF16_RAGGED for k in (3, 2)]
+    rows = []
+    for role, k, (b, cin, cout, h, w) in shapes:
+        x = torch.randn(b, cin, h, w, generator=rng, device=dev).to(torch.bfloat16)
+        wt = torch.randn(cout, cin, 3, 3, generator=rng, device=dev) / (9 * cin) ** 0.5
+        bb = torch.randn(cout, generator=rng, device=dev) * 0.1
+        wp = conv_ops.kernel_weights_tc(wt, k == 2)
+        fn = conv_ops.fused_conv3x3 if k == 3 else conv_ops.fused_upconv3x3
+        xl = upsample_nearest_2x(x) if k == 2 else x
+        ref = (conv_ops.conv3x3_plain if k == 3 else conv_ops.upconv3x3_plain)(x, wt, bb, 0.2, True)
+        rule = conv_bf16.plan(k, b, cin, cout, h, w, True, sms)
+        want = fn(x, wt, bb, 0.2, True, w_packed=wp)
+        plans = {}
+        for route in conv_bf16.routes_for(k, b, cin, cout, h, w, True, sms):
+            for tc in (0, *BF16_TC):
+                try:
+                    p = conv_bf16.plan(k, b, cin, cout, h, w, True, sms, conv_bf16.ROUTE_CODES[route], tc)
+                except ValueError:
+                    continue
+                name = f"{route.split('_')[0]}:{p['nb']}x{p['th']}x{p['tc']}"
+                if name in plans:
+                    continue
+                run = lambda: fn(x, wt, bb, 0.2, True, w_packed=wp, route=route, tc=p["tc"])  # noqa: E731
+                got = run()
+                a, r = got.float(), ref.float()
+                if ((a - r).abs() > 2.0**-7 * torch.maximum(a.abs(), r.abs()) + 1e-5).any():
+                    raise AssertionError(f"{role} {(b, cin, cout, h, w)} plan {name}: past one bf16 ulp")
+                if not torch.equal(got, want):
+                    raise AssertionError(f"{role} {(b, cin, cout, h, w)} plan {name}: not the size rule's bits")
+                plans[name] = time_ms(run)
+        chosen = f"{rule['route'].split('_')[0]}:{rule['nb']}x{rule['th']}x{rule['tc']}"
+        best = min(plans, key=plans.get)
+        row = {"role": role, "shape": [b, cin, cout, h, w], "chosen": chosen,
+               "chosen_ms": time_ms(lambda: fn(x, wt, bb, 0.2, True, w_packed=wp)), "best": best,
+               "best_ms": plans[best], "library_ms": time_ms(lambda: F.conv2d(xl, wt.to(torch.bfloat16),
+                                                                         bb.to(torch.bfloat16), padding=1)),
+               "plans_ms": plans}
+        rows.append(row)
+        print(f"[sweep bf16] {role:10s} {str((b, cin, cout, h, w)):24s} chosen {chosen:14s} "
+              f"{row['chosen_ms'] * 1e3:7.1f} us  best {best:14s} {row['best_ms'] * 1e3:7.1f}  F.conv2d "
+              f"{row['library_ms'] * 1e3:7.1f} | " + " ".join(f"{n} {v * 1e3:.0f}" for n, v in plans.items()),
+              flush=True)
+        del x, xl, ref, want
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "conv_sweep_bf16.json").write_text(json.dumps({"card": card, "rows": rows}, indent=1))
+
+
 def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--part", choices=("fp32", "bf16", "all"), default="all")
+    part = ap.parse_args().part
     if not torch.cuda.is_available():
         sys.exit("torch_conv_sweep: no CUDA device")
     card = card_line()
@@ -79,6 +156,10 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     _build.build_all()
     dev = torch.device("cuda")
+    if part in ("bf16", "all"):
+        sweep_bf16(card, dev)
+    if part == "bf16":
+        return
     rng = torch.Generator(device=dev).manual_seed(0)
     rows = []
     for role, kind, (b, cin, cout, h, w), bias, slope, pn in cases(ModelConfig()):

@@ -37,7 +37,8 @@ from musicgan_tpu_torch.models import load_reference_generator  # noqa: E402
 from musicgan_tpu_torch.ops import _build  # noqa: E402
 
 REPS = 5
-OWN_KERNELS = ("conv_tc_kernel", "conv_flat_kernel", "istft_kernel", "block_tc_kernel", "block_split_weights")
+OWN_KERNELS = ("conv_tc_kernel", "conv_flat_kernel", "conv_bf16_kernel", "istft_kernel", "block_tc_kernel",
+               "block_split_weights")
 
 
 def busy_us(intervals) -> float:

@@ -646,30 +646,67 @@ def assert_k4_bf16_close(got, ref):
     assert ((a - b).norm() / b.norm()).item() <= 1e-2
 
 
-# Both routes: small images (block 0-2 of synthesis cut down, ragged,
-# PixelNorm past 128 channels) and the tensor cores (ragged columns and
-# rows, every channel count a block takes, a cluster of 3 past 128).
+# Small images (block 0-2 of synthesis cut down, ragged, PixelNorm past 128
+# channels) and large ones (ragged columns and rows, every channel count a
+# block takes, a cluster of 3 past 128); then the 16 shapes of a 5-clip,
+# nb_vec-10 synthesis call, (b, cin, cout, h, w) of K1 (cin -> cin) and of
+# K3 (cin -> cout) at each block.
 BF16_SHAPES = [
     (2, 32, 128, 2, 20), (1, 5, 7, 3, 37), (6, 131, 144, 4, 4), (2, 12, 20, 9, 33),
     (2, 5, 7, 130, 300), (3, 21, 20, 96, 130), (4, 16, 32, 70, 130), (3, 48, 64, 64, 70),
     (2, 64, 112, 64, 70), (1, 24, 272, 64, 70), (1, 128, 128, 32, 64),
 ]
+SYNTHESIS_BF16 = [(5, c, c, 2 * 2**i, 20 * 2**i) for i, c in enumerate((32, 128, 112, 96, 80, 64, 48, 32))] + [
+    (5, ci, co, 2 * 2**i, 20 * 2**i)
+    for i, (ci, co) in enumerate(((32, 128), (128, 112), (112, 96), (96, 80), (80, 64), (64, 48), (48, 32), (32, 16)))
+]
 
 
 @pytest.mark.parametrize("epilogue", ["pixel_norm", "leaky_relu"])
-@pytest.mark.parametrize("b,cin,cout,h,w", BF16_SHAPES)
+@pytest.mark.parametrize("b,cin,cout,h,w", BF16_SHAPES + SYNTHESIS_BF16)
 def test_bf16_k1_k3_match_plain(cuda, b, cin, cout, h, w, epilogue):
+    """K1 bf16 and K3 bf16 within one bf16 ulp (+ 1e-5) of their plain
+    versions, on the size rule's route and on each route forced that has a
+    tile at these sizes, the same bits twice, one launch counted a call."""
+    from musicgan_tpu_torch.ops import conv_bf16
+
     pn = epilogue == "pixel_norm"
     x, wt, bias = _conv_inputs(21, b, cin, cout, h, w, cuda)
     x = x.to(torch.bfloat16)
-    n0 = (conv_ops.fused_conv3x3.bf16_launches, conv_ops.fused_upconv3x3.bf16_launches)
-    got = conv_ops.fused_conv3x3(x, wt, bias, 0.2, pn)
-    assert_within_bf16_ulp(got, conv_ops.conv3x3_plain(x, wt, bias, 0.2, pn))
-    up = conv_ops.fused_upconv3x3(x, wt, bias, 0.2, pn, w_packed=conv_ops.kernel_upconv_weights(wt, torch.bfloat16))
-    assert_within_bf16_ulp(up, conv_ops.upconv3x3_plain(x, wt, bias, 0.2, pn))
-    assert (conv_ops.fused_conv3x3.bf16_launches, conv_ops.fused_upconv3x3.bf16_launches) == (n0[0] + 1, n0[1] + 1)
-    plan = conv_ops.conv_plan("conv3x3", b, cin, cout, h, w, pn, torch.bfloat16)
-    assert plan["route"] == conv_ops.conv_plan("conv3x3", b, cin, cout, h, w, pn)["route"]
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    w1, w3 = conv_ops.kernel_weights_tc(wt), conv_ops.kernel_weights_tc(wt, True)
+    ref1 = conv_ops.conv3x3_plain(x, wt, bias, 0.2, pn)
+    ref3 = conv_ops.upconv3x3_plain(x, wt, bias, 0.2, pn)
+    for k, fn, wp, ref in ((3, conv_ops.fused_conv3x3, w1, ref1), (2, conv_ops.fused_upconv3x3, w3, ref3)):
+        for route in [None] + conv_bf16.routes_for(k, b, cin, cout, h, w, pn, sms):
+            n0 = fn.bf16_launches
+            got = fn(x, wt, bias, 0.2, pn, w_packed=wp, route=route)
+            assert fn.bf16_launches == n0 + 1
+            assert_within_bf16_ulp(got, ref)
+            assert torch.equal(got, fn(x, wt, bias, 0.2, pn, w_packed=wp, route=route))
+    # The kernel layout (K4's) is taken too, moved into the pack on the card.
+    got = conv_ops.fused_conv3x3(x, wt, bias, 0.2, pn, w_packed=conv_ops.kernel_weights(wt, torch.bfloat16))
+    assert torch.equal(got, conv_ops.fused_conv3x3(x, wt, bias, 0.2, pn, w_packed=w1))
+
+
+@pytest.mark.parametrize("b,cin,cout,h,w", BF16_SHAPES + SYNTHESIS_BF16)
+def test_bf16_plan_equals_the_mirror(cuda, b, cin, cout, h, w):
+    """The launcher's plan (csrc/conv_bf16.cuh::plan_cb) is the Python
+    mirror's (ops/conv_bf16.py::plan) at the card's SM count, for the size
+    rule and for each route forced, K1 and K3, with PixelNorm and without."""
+    from musicgan_tpu_torch.ops import conv_bf16
+
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    keys = ("route", "tc", "th", "nb", "ntiles", "resident", "stages", "nwg", "blocks", "smem_bytes", "n",
+            "nsplit", "cluster", "mb", "ppb")
+    for k, kind in ((3, "conv3x3"), (2, "upconv3x3")):
+        for pn in (True, False):
+            for route in [None] + conv_bf16.routes_for(k, b, cin, cout, h, w, pn, sms):
+                code = 0 if route is None else conv_bf16.ROUTE_CODES[route]
+                got = conv_ops.conv_plan(kind, b, cin, cout, h, w, pn, torch.bfloat16, route=route)
+                want = conv_bf16.plan(k, b, cin, cout, h, w, pn, sms, code)
+                assert {key: got[key] for key in keys} == {key: want[key] for key in keys}
+                assert got["sms"] == sms
 
 
 @pytest.mark.parametrize("b,cin,cmid,cout,h,w", BLOCK_SHAPES + [(2, 16, 16, 16, 33, 70), (1, 48, 48, 32, 130, 300)])
