@@ -72,12 +72,16 @@ the CUDA toolkit (``nvcc``).  Phases, each of which raises on failure:
    roundings in a chain, 1e-2 in the relative 2-norm), K1 bf16 and K3 bf16
    (``csrc/conv_bf16.cuh``) each with its launch plan, its route
    (``small_bf16_tc`` or ``large_bf16_tc``) and tile, held equal to the
-   plan mirror ``ops/conv_bf16.py::plan``; K4 bf16 against K1
-   bf16 then K3 bf16 bit for bit, each timed beside its plain
+   plan mirror ``ops/conv_bf16.py::plan``; K4 bf16 (``csrc/block_bf16.cuh``)
+   at every block with its plan, held equal to the mirror
+   ``ops/conv_bf16.py::block_plan``, against K1 bf16 then K3 bf16 bit for
+   bit and beside the pair's time, the blocks its size rule takes and those
+   it leaves to the pair alike; each timed beside its plain
    version, ``F.conv2d`` on bf16 tensors and its bound (dense bf16 or
    bytes); ``generate`` once under each of ``pallas``, ``pallas_bf16``,
    ``pallas_up_bf16`` and ``pallas_block_bf16``, launches counted (the bf16
-   ones apart), the five WAVs checked, each image and waveform against the
+   ones apart; K4 bf16 exactly at the blocks the bf16 rule takes), the five
+   WAVs checked, each image and waveform against the
    bf16 plain path on the card, the float32 default path (the bf16 image
    held at 0.08 in the relative 2-norm against both, ``pallas`` at 2e-3
    max-abs) and the plain path in float64; warm synthesis
@@ -1261,9 +1265,11 @@ def check_block_kernel(gen, cfg: ModelConfig, dev) -> list[dict]:
     return rows
 
 
-def blocks_taking_k4(cfg: ModelConfig, dev, nb_vec: int, nb_music: int) -> int:
-    """How many blocks of a synthesis call K4's size rule gives K4."""
-    return sum(conv_ops.fused_block_fits(cin, cin, cout, size=block_sizes(cfg, i, nb_vec, nb_music), device=dev)
+def blocks_taking_k4(cfg: ModelConfig, dev, nb_vec: int, nb_music: int, dtype=torch.float32) -> int:
+    """How many blocks of a synthesis call K4's size rule (``dtype``'s)
+    gives K4."""
+    return sum(conv_ops.fused_block_fits(cin, cin, cout, size=block_sizes(cfg, i, nb_vec, nb_music), device=dev,
+                                         dtype=dtype)
                for i, (cin, cout) in enumerate(cfg.gen_channels))
 
 
@@ -1714,13 +1720,29 @@ def bf16_plan(kind: str, bsz: int, cin: int, cout: int, h: int, w: int, dev) -> 
     return plan
 
 
+def k4_bf16_plan(bsz: int, cin: int, cmid: int, cout: int, h: int, w: int, dev) -> dict:
+    """K4 bf16's launch plan at these sizes, held equal to the plan mirror
+    ``ops/conv_bf16.py::block_plan`` at the card's SM count."""
+    plan = conv_ops.block_plan(bsz, cin, cmid, cout, h, w, dtype=torch.bfloat16)
+    mirror = conv_bf16.block_plan(bsz, cin, cmid, cout, h, w, torch.cuda.get_device_properties(dev).multi_processor_count)
+    keys = (("tc", "tc"), ("run_rows", "run"), ("units", "units"), ("blocks", "blocks"), ("nwg", "nwg"),
+            ("res1", "res1"), ("res2", "res2"), ("stages", "stages"), ("smem_bytes", "smem_bytes"), ("cost", "cost"),
+            ("pair_cost", "pair_cost"), ("takes", "takes"))
+    if any(plan[k] != mirror[m] for k, m in keys):
+        raise AssertionError(f"K4 bf16 {(bsz, cin, cmid, cout, h, w)}: the launcher's plan "
+                             f"{ {k: plan[k] for k, _ in keys} } is not the mirror's { {m: mirror[m] for _, m in keys} }")
+    return plan
+
+
 def check_bf16_kernels(gen, cfg: ModelConfig, dev) -> list[dict]:
     """Phase 9: K1, K3 and K4 in bf16 at the main path's shapes (5 clips x
     nb_vec 10, the shipped generator's weights): each against its bf16
-    plain version, K4 against K1 bf16 then K3 bf16 bit for bit where both
-    take the tensor-core route, with their times and bounds.  The library
-    call: ``F.conv2d`` on bf16 tensors without the epilogue (for K3 on the
-    upsampled input; for K4 both convs)."""
+    plain version, with their times and bounds; K4 bf16 at every block
+    against K1 bf16 then K3 bf16 bit for bit and beside the pair's time, with
+    its plan (held to the mirror) and whether the bf16 rule takes it (the
+    blocks it leaves to the pair are timed too, and kept out of the kernels
+    record's sums).  The library call: ``F.conv2d`` on bf16 tensors without
+    the epilogue (for K3 on the upsampled input; for K4 both convs)."""
     rng = torch.Generator(device=dev).manual_seed(9)
     slope, eps, bf = cfg.leaky_slope, cfg.pixel_norm_eps, torch.bfloat16
     rows = []
@@ -1730,8 +1752,7 @@ def check_bf16_kernels(gen, cfg: ModelConfig, dev) -> list[dict]:
         x = torch.randn(bsz, cin, h, w, generator=rng, device=dev).to(bf)
         w1, b1 = blk.conv1.weight.detach(), blk.conv1.bias.detach()
         w2, b2 = blk.conv2.weight.detach(), blk.conv2.bias.detach()
-        w1p, w2p = conv_ops.kernel_weights(w1, bf), conv_ops.kernel_upconv_weights(w2, bf)  # K4's
-        w1t, w2t = conv_ops.kernel_weights_tc(w1), conv_ops.kernel_weights_tc(w2, True)  # K1 bf16's, K3 bf16's
+        w1t, w2t = conv_ops.kernel_weights_tc(w1), conv_ops.kernel_weights_tc(w2, True)  # K1 bf16's, K3 bf16's, K4 bf16's
         w1b, b1b, w2b, b2b = w1.to(bf), b1.to(bf), w2.to(bf), b2.to(bf)
         xu = upsample_nearest_2x(x)
         px = bsz * h * w
@@ -1751,11 +1772,14 @@ def check_bf16_kernels(gen, cfg: ModelConfig, dev) -> list[dict]:
             2.0 * 4 * px * cout * 4 * cin, 2.0 * (px * cin + 4 * px * cout + 16 * cin * cout) + 4.0 * cout,
             plan=bf16_plan("upconv3x3", bsz, cin, cout, h, w, dev),
         ))
-        if not conv_ops.fused_block_fits(cin, cin, cout, size=(bsz, h, w), device=dev):
-            continue
+        # K4 bf16 at every block, the blocks its size rule leaves to the pair
+        # alike: its plan, its bits against the pair's (bf16 up to 128
+        # channels sums in the pair's order), its time beside the pair's.
+        takes = conv_ops.fused_block_fits(cin, cin, cout, size=(bsz, h, w), device=dev, dtype=bf)
+        kplan = k4_bf16_plan(bsz, cin, cin, cout, h, w, dev)
 
         def kernel():
-            return conv_ops.fused_block(x, w1, b1, w2, b2, slope, eps, w1_packed=w1p, w2_packed=w2p)
+            return conv_ops.fused_block(x, w1, b1, w2, b2, slope, eps, w1_packed=w1t, w2_packed=w2t)
 
         def pair():
             mid = conv_ops.fused_conv3x3(x, w1, b1, slope, True, eps, w_packed=w1t)
@@ -1774,19 +1798,34 @@ def check_bf16_kernels(gen, cfg: ModelConfig, dev) -> list[dict]:
             2.0 * (px * cin + 4 * px * cout + 9 * cin * cin + 16 * cin * cout) + 4.0 * (cin + cout),
             l2_tol=TOL_K4_BF16_L2,
         )
-        if not pair_is_large(cin, cout, h, w):
-            raise AssertionError(f"block {i}: K4 bf16 taken where K1 then K3 are not both on the tensor cores")
-        row["equal_pair"] = bool(torch.equal(kernel(), pair()))
-        row["pair_ms"] = time_ms(pair)
-        print(f"[bf16]   fused_block_bf16 block {i}: against K1 bf16 then K3 bf16 bit for bit "
-              f"{row['equal_pair']}, pair {row['pair_ms']:.4f} ms")
+        if takes != kplan["takes"]:
+            raise AssertionError(f"block {i}: fused_block_fits in bf16 {takes}, the plan's takes {kplan['takes']}")
+        row.update(taken=takes, block=i, k4_plan=kplan, equal_pair=bool(torch.equal(kernel(), pair())),
+                   pair_ms=time_ms(pair))
+        if not takes:
+            row["role"] = "off_path"  # timed, not on the path: left out of the kernels record's sums
+        print(f"[bf16]   fused_block_bf16 block {i}: {'taken' if takes else 'left to K1 bf16 then K3 bf16'} by the "
+              f"bf16 rule (modelled cost {kplan['cost']} against the pair's {kplan['pair_cost']}); strip "
+              f"{kplan['tc']} columns, runs of {kplan['run_rows']} rows, {kplan['units']} units over "
+              f"{kplan['blocks']} blocks x {kplan['nwg']} warpgroups, weights resident {kplan['res1']}/"
+              f"{kplan['res2']}, {kplan['stages']} stages, {kplan['smem_bytes']} B shared; against K1 bf16 then "
+              f"K3 bf16 bit for bit {row['equal_pair']}; K4 {row['ms']:.4f} ms, pair {row['pair_ms']:.4f} ms "
+              f"({row['ms'] / row['pair_ms']:.2f}x)")
         if not row["equal_pair"]:
             raise AssertionError(f"fused_block_bf16 block {i} differs from K1 bf16 then K3 bf16")
         rows.append(row)
         del mid_up
         del xu
+    taken = [r for r in rows if r["name"] == "fused_block_bf16" and r["taken"]]
+    if not taken:
+        raise AssertionError("the bf16 rule gives K4 bf16 no block of the main path")
+    k4 = [r for r in rows if r["name"] == "fused_block_bf16"]
+    print(f"[sums]   fused_block_bf16 at the {len(taken)} blocks the bf16 rule takes ({[r['block'] for r in taken]}): "
+          f"K4 {sum(r['ms'] for r in taken):.4f} ms, pair {sum(r['pair_ms'] for r in taken):.4f}; at blocks 4-7: "
+          f"K4 {sum(r['ms'] for r in k4[4:]):.4f} ms, pair {sum(r['pair_ms'] for r in k4[4:]):.4f}, bound "
+          f"{sum(r['bound_ms'] for r in k4[4:]):.4f}")
     for name in BF16_SOURCES:
-        mine = [r for r in rows if r["name"] == name]
+        mine = [r for r in rows if r["name"] == name and r["role"] == "synthesis"]
         print(f"[sums]   {name:20s} {len(mine)} shapes: kernel {sum(r['ms'] for r in mine):.4f} ms, plain "
               f"{sum(r['plain_ms'] for r in mine):.4f}, library {sum(r['library_ms'] for r in mine):.4f}, "
               f"bound {sum(r['bound_ms'] for r in mine):.4f}")
@@ -1832,7 +1871,7 @@ def end_to_end_new_impls(cfg: ModelConfig, dev) -> dict:
             p.stop()
     del gen64
 
-    n_fit = blocks_taking_k4(cfg, dev, NB_VEC, NB_MUSIC)
+    n_fit = blocks_taking_k4(cfg, dev, NB_VEC, NB_MUSIC, torch.bfloat16)
     n = cfg.n_stages
     expect = {
         "pallas": ({"fused_conv3x3": 2 * n}, {}),
@@ -2013,7 +2052,7 @@ def main() -> None:
                 entry["max_abs_err_vs_pair"] = max(r["err_pair"] for r in mine if "err_pair" in r)
             kernels.append(entry)
     for name, (source, replaces) in BF16_SOURCES.items():
-        mine = [r for r in bf16_rows if r["name"] == name]
+        mine = [r for r in bf16_rows if r["name"] == name and r["role"] == "synthesis"]  # the path's shapes
         entry = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces, "dtype": "bfloat16",
             "launches": e2e_new["bf16_launches"][name], "max_abs_err": max(r["max_abs_err"] for r in mine),
@@ -2025,6 +2064,7 @@ def main() -> None:
             entry["conv_routes"] = sorted({r["route"] for r in mine})
         if name == "fused_block_bf16":
             entry["pair_ms"] = sum(r["pair_ms"] for r in mine)
+            entry["blocks"] = [r["block"] for r in mine]
         kernels.append(entry)
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)

@@ -66,7 +66,7 @@
 //   (whole images) and large_bf16_tc (row bands).
 //
 // Sum order, the same on every route and that of conv_tile.cuh's
-// tensor-core route (and so of K4 bf16, block3x3.cuh, which gives K1 bf16
+// tensor-core route (and so of K4 bf16, block_bf16.cuh, which gives K1 bf16
 // then K3 bf16's bits): chunks of 16 input channels in order; in a chunk,
 // the kernel rows dy in order, each row's column taps dx in order into a
 // fresh accumulator (one wgmma chain), then added to the tile's in float32

@@ -10,10 +10,10 @@ NHWC image out).  Each block is ``fused_conv3x3`` (conv1 + LeakyReLU +
 PixelNorm) then ``fused_upconv3x3`` (up2x + conv2 + LeakyReLU +
 PixelNorm): on the card they are the kernels K1 and K3, on the CPU their
 plain versions.  With ``ModelConfig.conv_impl == "pallas_block"`` a block
-that ``fused_block_fits`` at its sizes is one launch of ``fused_block``
-(K4) instead, as in JAX's ``block_nchw`` (on the CPU by an H100's rule:
-K4's plain version is the pair's own).  ``"pallas"`` runs K1, a plain
-nearest up2x, then K1 again.  The ``_bf16`` impls round the latent to bf16
+that ``fused_block_fits`` at its sizes and dtype is one launch of
+``fused_block`` (K4) instead, as in JAX's ``block_nchw`` (on the CPU by an
+H100's rule: K4's plain version is the pair's own).  ``"pallas"`` runs K1,
+a plain nearest up2x, then K1 again.  The ``_bf16`` impls round the latent to bf16
 and run the same blocks in bf16 (JAX's ``_generator_forward_nchw`` with
 ``compute_dtype=bfloat16``): the bf16 kernels, float32 inside, a bf16
 activation between them.  Each block packs its conv weights for the
@@ -38,6 +38,7 @@ from torch import nn
 
 from ..config import ModelConfig
 from ..ops import conv as conv_ops
+from ..ops import conv_bf16
 from ..ops import conv_vjp
 from .layers import upsample_nearest_2x
 
@@ -88,14 +89,16 @@ class GenBlock(nn.Module):
         (``ops.conv.fused_block_fits``) says so; ``use_upconv`` False: conv2
         as K1 on the input upsampled (impl ``"pallas"``)."""
         w1, w2, dt = self.conv1.weight, self.conv2.weight, x.dtype
+        tc = dt == torch.bfloat16 and x.device.type == "cuda"  # K1 bf16 and K3 bf16 read their own pack
         if use_block and conv_ops.fused_block_fits(
-            w1.shape[1], w1.shape[0], w2.shape[0], size=(x.shape[0], *x.shape[2:]), device=x.device
+            w1.shape[1], w1.shape[0], w2.shape[0], size=(x.shape[0], *x.shape[2:]), device=x.device, dtype=dt
         ):
+            # K4 bf16 up to 128 channels reads K1 bf16's and K3 bf16's packs.
+            tcb = tc and conv_bf16.block_route(w1.shape[0], w2.shape[0]) == "bf16_tc"
             return conv_ops.fused_block(
                 x, w1, self.conv1.bias, w2, self.conv2.bias, slope, eps,
-                w1_packed=self._packed("conv1", dt, False), w2_packed=self._packed("conv2", dt, True),
+                w1_packed=self._packed("conv1", dt, False, tcb), w2_packed=self._packed("conv2", dt, True, tcb),
             )
-        tc = dt == torch.bfloat16 and x.device.type == "cuda"  # K1 bf16 and K3 bf16 read their own pack
         x = conv_ops.fused_conv3x3(
             x, self.conv1.weight, self.conv1.bias, slope, True, eps,
             w_packed=self._packed("conv1", dt, False, tc),

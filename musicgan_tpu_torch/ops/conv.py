@@ -17,11 +17,15 @@ in a ring of rows in shared memory, zero outside the image.
 Dtypes: each of K1, K3 and K4 takes float32 in and out, or bf16 in and out
 (the JAX functions' ``out_dtype=jnp.bfloat16`` with bf16 activations): the
 bf16 kernels are their own sources (``csrc/conv3x3_bf16.cu``,
-``upconv3x3_bf16.cu``, ``block3x3_bf16.cu``).  K4 bf16 is its float32
-template at bf16, one bf16 ``wgmma`` a step where float32 takes three; K1
-bf16 and K3 bf16 are a kernel of their own, ``csrc/conv_bf16.cuh``, on the
-tensor cores at every size, with its plan mirrored and its weight pack made
-by ``ops/conv_bf16.py``.  The weights are rounded
+``upconv3x3_bf16.cu``, ``block3x3_bf16.cu``).  K1 bf16 and K3 bf16 are a
+kernel of their own, ``csrc/conv_bf16.cuh``, on the tensor cores at every
+size, with its plan mirrored and its weight pack made by
+``ops/conv_bf16.py``; K4 bf16 up to 128 channels is ``csrc/block_bf16.cuh``,
+built from its pieces (a strip walks down a run of rows, c1 held in a ring of
+rows in conv2's operand layout; plan ``ops/conv_bf16.py::block_plan``, the
+same packs), past 128 its float32 template at bf16 (a cluster,
+``csrc/block3x3_bf16_wide.cu``).  The
+weights are rounded
 to bf16 after packing (for K3 and K4's conv2, the summed sub-pixel phase
 kernels), the bias stays float32, products are exact and summed in
 float32, the epilogue runs in float32, and the output is rounded to bf16
@@ -129,6 +133,15 @@ def out_dtype_of(name: str, x: torch.Tensor, out_dtype=None) -> torch.dtype:
 def _lib(name: str, dtype: torch.dtype) -> str:
     """The source (library) of kernel ``name`` for ``dtype``."""
     return f"{name}_bf16" if dtype == torch.bfloat16 else name
+
+
+def _block_lib(dtype: torch.dtype, cmid: int, cout: int) -> str:
+    """K4's source for ``dtype`` and these widths: in bf16 up to 128
+    channels ``block3x3_bf16`` (``csrc/block_bf16.cuh``), past them
+    ``block3x3_bf16_wide`` (``block3x3.cuh`` at bf16)."""
+    if dtype == torch.bfloat16 and conv_bf16.block_route(cmid, cout) != "bf16_tc":
+        return "block3x3_bf16_wide"
+    return _lib("block3x3", dtype)
 
 
 def pack_weights(w: torch.Tensor) -> torch.Tensor:
@@ -478,6 +491,12 @@ def block_tile(cmid: int, cout: int) -> dict | None:
     warpgroup ``t1`` and whether a stage holds one kernel row (``dys``),
     the rows of a conv1 tile ``th1`` and of a conv2 tile ``th2``, the c1
     ring's rows, the stages and the shared memory."""
+    tile = _block_tile(cmid, cout)
+    return None if tile is None else dict(tile)
+
+
+@functools.lru_cache(maxsize=1024)
+def _block_tile(cmid: int, cout: int) -> dict | None:
     if not (1 <= cmid <= MAX_BLOCK_CHANNELS and 1 <= cout <= MAX_BLOCK_CHANNELS):
         return None
     n1, nsplit1 = _block_width(cmid)
@@ -494,34 +513,61 @@ def block_tile(cmid: int, cout: int) -> dict | None:
 _PLAN_BLOCK_KEYS = ("takes", "run_rows", "runs", "strips", "units", "blocks", "cluster", "c1_rows")
 
 
+_PLAN_BLOCK_BF16_KEYS = ("takes", "tc", "run_rows", "runs", "strips", "units", "blocks", "nwg", "res1", "res2",
+                         "stages", "smem_bytes", "cost", "pair_cost", "mb", "sms")
+
+
 @functools.lru_cache(maxsize=256)
-def _block_plan(bsz: int, cin: int, cmid: int, cout: int, h: int, w: int, device: int) -> dict:
-    # The float32 library's: K4's plan is the same at both dtypes.
-    lib = _build.load("block3x3")
-    fn = lib.mg_block3x3_plan
-    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_longlong)]
+def _block_plan(bsz: int, cin: int, cmid: int, cout: int, h: int, w: int, device: int, lib: str,
+                tc: int = 0, run: int = 0) -> dict:
+    fn = _build.load(lib).mg_block3x3_plan
+    bf16_route = lib == "block3x3_bf16"
+    keys = _PLAN_BLOCK_BF16_KEYS if bf16_route else _PLAN_BLOCK_KEYS
+    if bf16_route:
+        fn.argtypes = [ctypes.c_int] * 8 + [ctypes.POINTER(ctypes.c_longlong)]
+        args = (bsz, cin, cmid, cout, h, w, tc, run)
+    else:
+        fn.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_longlong)]
+        args = (bsz, cin, cmid, cout, h, w)
     fn.restype = ctypes.c_int
-    out = (ctypes.c_longlong * len(_PLAN_BLOCK_KEYS))()
+    out = (ctypes.c_longlong * len(keys))()
     with torch.cuda.device(device):
-        err = fn(bsz, cin, cmid, cout, h, w, out)
+        err = fn(*args, out)
     if err != 0:
         raise ValueError(f"block_plan: CUDA error {err} for sizes {(bsz, cin, cmid, cout, h, w)}")
-    plan = dict(zip(_PLAN_BLOCK_KEYS, out))
+    plan = dict(zip(keys, out))
     plan["takes"] = bool(plan["takes"])
-    # conv1's pixels computed over those the block needs (c1 at H x W).
-    plan["recompute"] = plan["c1_rows"] * _TC_W / (bsz * h * w)
+    if bf16_route:
+        plan["route"] = "bf16_tc"
+        plan["res1"], plan["res2"] = bool(plan["res1"]), bool(plan["res2"])
+        # conv1's pixels computed over those the block needs: the strip's
+        # two halo columns and the runs' two halo rows.
+        plan["recompute"] = plan["strips"] * (plan["tc"] + 2) * (h + 2 * plan["runs"]) / (h * w)
+    else:
+        plan["route"] = "template"
+        # conv1's pixels computed over those the block needs (c1 at H x W).
+        plan["recompute"] = plan["c1_rows"] * _TC_W / (bsz * h * w)
     return plan
 
 
-def block_plan(bsz: int, cin: int, cmid: int, cout: int, h: int, w: int, device=None) -> dict:
+def block_plan(bsz: int, cin: int, cmid: int, cout: int, h: int, w: int, device=None,
+               dtype: torch.dtype = torch.float32, tc: int = 0, run: int = 0) -> dict:
     """How K4 launches at these sizes on a CUDA device (the current one by
-    default), as its launcher plans it from the sizes and the SM count:
-    whether the generator ``takes`` it, the run of image rows a unit walks,
-    the runs and strips, units, blocks, cluster, and ``recompute``, conv1's
-    pixels computed over the c1 pixels needed.  Needs the card."""
+    default), as its launcher plans it from the sizes and the SM count.
+    float32 (and bf16 past 128 channels, ``route`` "template"): whether the
+    generator ``takes`` it, the run of image rows a unit walks, the runs and
+    strips, units, blocks, cluster, and ``recompute``, conv1's pixels
+    computed over the c1 pixels needed.  bf16 up to 128 channels (``route``
+    "bf16_tc", ``csrc/block_bf16.cuh``): the keys of
+    ``ops/conv_bf16.py::block_plan`` the launcher reports (``takes``, ``tc``,
+    ``run_rows``, ``runs``, ``units``, ``nwg``, residency, ``stages``,
+    ``cost`` and ``pair_cost``, ...), ``tc`` and ``run`` forced as
+    :func:`fused_block`'s.  Needs the card."""
     dev = torch.device("cuda") if device is None else torch.device(device)
     index = dev.index if dev.index is not None else torch.cuda.current_device()
-    return dict(_block_plan(bsz, cin, cmid, cout, h, w, index))
+    if dtype != torch.bfloat16 and (tc or run):
+        raise ValueError("block_plan: a forced strip width or run is for K4 bf16 only")
+    return dict(_block_plan(bsz, cin, cmid, cout, h, w, index, _block_lib(dtype, cmid, cout), tc, run))
 
 
 # SMs of an H100 SXM: the card the generator's rule is stated for where
@@ -551,44 +597,73 @@ def block_takes(bsz: int, cin: int, cmid: int, cout: int, h: int, w: int, sms: i
             and 2 * strips * -(-h // 8) > max(1, sms // tile["cluster"]))
 
 
-def fused_block_fits(cin: int, cmid: int, cout: int, size=None, device=None) -> bool:
+def fused_block_fits(cin: int, cmid: int, cout: int, size=None, device=None,
+                     dtype: torch.dtype = torch.float32) -> bool:
     """Whether a generator block takes K4 (else the K1 + K3 pair).  By the
     widths alone (``size`` None): K4 takes ``cmid`` and ``cout`` up to
     ``MAX_BLOCK_CHANNELS``, every width of ``ModelConfig()`` (``cin``
-    streams through in steps of 8 channels).  With ``size = (B, H, W)``,
-    also the kernel's own size rule, :func:`block_takes`, for the SMs of
-    ``device`` (a CUDA one; otherwise an H100's): blocks 4 to 7 of a
-    5-clip, nb_vec-10 call on an H100."""
-    if block_tile(cmid, cout) is None:
+    streams through in steps of 8 channels), in both dtypes.  With ``size =
+    (B, H, W)``, also the kernel's own size rule for the SMs of ``device``
+    (a CUDA one; otherwise an H100's): in float32 :func:`block_takes`
+    (blocks 4 to 7 of a 5-clip, nb_vec-10 call on an H100); in bf16 up to
+    128 channels K4 bf16's (``ops/conv_bf16.py::block_plan``'s ``takes``:
+    its modelled time below K1 bf16 then K3 bf16's), past 128 float32's,
+    whose template that route runs."""
+    if _block_tile(cmid, cout) is None:
         return False
     if size is None:
         return True
     dev = torch.device("cpu") if device is None else torch.device(device)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count if dev.type == "cuda" else H100_SMS
+    sms = _sms(dev.index if dev.index is not None else torch.cuda.current_device()) if dev.type == "cuda" \
+        else H100_SMS
+    return _block_fits(cin, cmid, cout, tuple(size), sms, dtype == torch.bfloat16)
+
+
+@functools.lru_cache(maxsize=64)
+def _sms(device: int) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+# The generator asks at every block of every forward: the rules are pure
+# functions of the sizes, kept (their Python is a sizeable share of a
+# synthesis call's host time).
+@functools.lru_cache(maxsize=4096)
+def _block_fits(cin: int, cmid: int, cout: int, size: tuple, sms: int, bf16: bool) -> bool:
+    if bf16 and conv_bf16.block_route(cmid, cout) == "bf16_tc":
+        return conv_bf16.block_plan(size[0], cin, cmid, cout, size[1], size[2], sms)["takes"]
     return block_takes(size[0], cin, cmid, cout, size[1], size[2], sms)
 
 
 _BLOCK_ARGS = [_build.PTR] * 7 + [_build.INT] * 6 + [_build.FLOAT] * 2
+# K4 bf16 also takes a forced strip width and run length (0: the size rule's).
+_BLOCK_BF16_ARGS = _BLOCK_ARGS + [_build.INT, _build.INT]
 
 
 @functools.lru_cache(maxsize=256)
 def _block_workspace(cin: int, cmid: int, cout: int, lib: str) -> int:
     """4-byte words of K4's workspace in library ``lib``: every chunk's
     weights as its stages hold them (float32: split into the two TF32
-    parts), laid out once a launch and copied by its stages."""
+    parts), laid out once a launch and copied by its stages; none for K4
+    bf16 up to 128 channels, which reads the packs made ahead."""
     fn = _build.load(lib).mg_block3x3_workspace
     fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_longlong
     return fn(cin, cmid, cout)
 
 
-def fused_block(x, w1, b1, w2, b2, slope=0.2, eps=1e-8, w1_packed=None, w2_packed=None, out_dtype=None):
+def fused_block(x, w1, b1, w2, b2, slope=0.2, eps=1e-8, w1_packed=None, w2_packed=None, out_dtype=None,
+                tc=0, run=0):
     """A whole generator block on NCHW ``(B, cin, H, W)`` with OIHW weights
     ``w1`` ``(cmid, cin, 3, 3)`` and ``w2`` ``(cout, cmid, 3, 3)`` ->
     ``(B, cout, 2H, 2W)``: ``pn(lrelu(conv3x3(x)))``, kept on the chip, then
     ``pn(lrelu(conv3x3(up2x(.))))``, in one launch.  Dtypes as
     :func:`fused_conv3x3`.  ``w1_packed``, ``w2_packed``:
     ``kernel_weights(w1, x.dtype)`` and ``kernel_upconv_weights(w2,
-    x.dtype)`` made ahead, the layouts K1 and K3 read too."""
+    x.dtype)`` made ahead, the layouts K1 and K3 read too; in bf16 up to
+    128 channels (``csrc/block_bf16.cuh``) also ``kernel_weights_tc(w1)``
+    and ``kernel_weights_tc(w2, True)``, the packs K1 bf16 and K3 bf16 read
+    and K4 bf16 reads (the kernel layout is moved into them on the card).
+    ``tc``, ``run``: K4 bf16's strip width and run length forced, for
+    measurements and tests."""
     out_dtype_of("fused_block", x, out_dtype)
     if x.device.type == "cpu":
         return fused_block_plain(x, w1, b1, w2, b2, slope, eps)
@@ -598,8 +673,6 @@ def fused_block(x, w1, b1, w2, b2, slope=0.2, eps=1e-8, w1_packed=None, w2_packe
     cmid, cout = w1.shape[0], w2.shape[0]
     if w1.shape[1] != cin or w2.shape[1] != cmid:
         raise ValueError(f"fused_block: weights {tuple(w1.shape)}, {tuple(w2.shape)} for {cin} input channels")
-    w1p = _kernel_layout("fused_block", w1, w1_packed, False, x.dtype)
-    w2p = _kernel_layout("fused_block", w2, w2_packed, True, x.dtype)
     if block_tile(cmid, cout) is None:
         raise ValueError(
             f"fused_block: PixelNorm over {cmid} or {cout} > {MAX_BLOCK_CHANNELS} "
@@ -607,15 +680,31 @@ def fused_block(x, w1, b1, w2, b2, slope=0.2, eps=1e-8, w1_packed=None, w2_packe
         )
     if b1 is None or b2 is None:
         raise ValueError("fused_block: both convs carry a bias")
+    bf16_tc = x.dtype == torch.bfloat16 and conv_bf16.block_route(cmid, cout) == "bf16_tc"
+    if (tc or run) and not bf16_tc:
+        raise ValueError("fused_block: a forced strip width or run is for K4 bf16 up to 128 channels only")
+    if bf16_tc:
+        w1p = _bf16_weights("fused_block", w1, w1_packed, False)
+        w2p = _bf16_weights("fused_block", w2, w2_packed, True)
+    else:
+        # Past 128 channels K4 bf16 is block3x3.cuh at bf16, which reads the
+        # kernel layout (a pack of K1 bf16 / K3 bf16 given is made anew).
+        if x.dtype == torch.bfloat16:
+            w1_packed = None if w1_packed is not None and w1_packed.dim() == 6 else w1_packed
+            w2_packed = None if w2_packed is not None and w2_packed.dim() == 6 else w2_packed
+        w1p = _kernel_layout("fused_block", w1, w1_packed, False, x.dtype)
+        w2p = _kernel_layout("fused_block", w2, w2_packed, True, x.dtype)
     x, w1p, b1, b1_ptr = _operands("block3x3", x, w1p, b1, True, cmid)
     _, w2p, b2, b2_ptr = _operands("block3x3", x, w2p, b2, True, cout)
     y = torch.empty(bsz, cout, 2 * h, 2 * wd, device=x.device, dtype=x.dtype)
-    lib = _lib("block3x3", x.dtype)
+    lib = _block_lib(x.dtype, cmid, cout)
     ws = torch.empty(_block_workspace(cin, cmid, cout, lib), device=x.device, dtype=torch.float32)
-    _build.kernel(lib, f"mg_{lib}", _BLOCK_ARGS)(
-        x.data_ptr(), w1p.data_ptr(), b1_ptr, w2p.data_ptr(), b2_ptr, ws.data_ptr(), y.data_ptr(),
-        bsz, cin, cmid, cout, h, wd, slope, eps, device=x.device,
-    )
+    args = [x.data_ptr(), w1p.data_ptr(), b1_ptr, w2p.data_ptr(), b2_ptr, ws.data_ptr(), y.data_ptr(),
+            bsz, cin, cmid, cout, h, wd, slope, eps]
+    if bf16_tc:
+        _build.kernel(lib, f"mg_{lib}", _BLOCK_BF16_ARGS)(*args, tc, run, device=x.device)
+    else:
+        _build.kernel(lib, f"mg_{lib}", _BLOCK_ARGS)(*args, device=x.device)
     _count(fused_block, x.dtype)
     return y
 

@@ -30,15 +30,26 @@ order, each row's column taps ``dx`` in order into a fresh accumulator that
 is then added to the tile's in float32 (the order of ``conv_tile.cuh``'s
 tensor-core route, which K4 bf16 also keeps, so K4 bf16 equals K1 bf16 then
 K3 bf16 bit for bit).
+
+K4 bf16 (``csrc/block_bf16.cuh``, up to 128 channels each conv) reads the
+same packs and keeps the same order; :func:`block_plan` mirrors its plan
+(strip width, run length, weights resident or streamed, warpgroups a
+block) and says whether the generator takes it (``takes``).
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
 __all__ = [
     "ROUTES",
     "SMEM_BUDGET",
+    "BLOCK_MAX_CHANNELS",
+    "block_geometry",
+    "block_plan",
+    "block_route",
     "channel_split",
     "geometry",
     "plan",
@@ -247,3 +258,198 @@ def tc_weights(wk: torch.Tensor, upconv: bool, cout: int) -> torch.Tensor:
     full[:, :, cout:] = 0
     # (chunk, octet, i, tap, split, n) -> (split, chunk, tap, octet, n, i)
     return full.reshape(nchunks, 2, 8, taps, nsplit, n).permute(4, 0, 3, 1, 5, 2).contiguous()
+
+
+# ---- K4 bf16 (csrc/block_bf16.cuh): a whole generator block in one launch,
+# c1 kept in shared memory in conv2's operand layout.  Its plan, mirrored
+# here from ``plan_kb`` integer for integer so that the generator's choice
+# (``ops/conv.py::fused_block_fits``) is known without the card.
+
+# Widest conv1 and conv2 the kernel takes (one block, no cluster); wider
+# blocks take csrc/block3x3.cuh at bf16.
+BLOCK_MAX_CHANNELS = 128
+BLOCK_MAX_TC = 224
+# Modelled fixed clocks of a c1 row (its epilogue, the ring's stores) and of
+# an output row's pass (epilogue, staging, stores).
+ROW1_FIXED_CLK, ROW2_FIXED_CLK = 1000, 2500
+# A unit's modelled time on an SM that nwg warpgroups share, in eighths of
+# its clocks (index nwg), fitted to K4 bf16 against K1 bf16 then K3 bf16 at
+# blocks 4-7 of synthesis on an H100 (PERF.md): alone, a warpgroup's chain
+# of waits goes unhidden; two hide part of it, three more.
+NWG_EIGHTHS = (0, 20, 12, 7)
+
+
+def block_route(cmid: int, cout: int) -> str:
+    """K4 bf16's route by the widths alone: ``"bf16_tc"`` (``block_bf16.cuh``)
+    where both convs have at most 128 channels, else ``"template"``
+    (``block3x3.cuh`` at bf16, a cluster past 128)."""
+    return "bf16_tc" if cmid <= BLOCK_MAX_CHANNELS and cout <= BLOCK_MAX_CHANNELS else "template"
+
+
+def _mb1_max(n1: int) -> int:
+    return min(160 // n1, 2)
+
+
+def _mb2_max(n2: int) -> int:
+    v = 320 // (3 * n2)
+    return 1 if v < 1 else min(v, 2)
+
+
+def block_geometry(cmid: int, cout: int) -> dict:
+    """The widths' part of K4 bf16's plan (``mg_block3x3_tile``'s first
+    route): channels a block ``n1``, ``n2`` (the pair's: K4 bf16 sums in
+    their order), ``mb`` m64 blocks of positions a row tile (registers:
+    conv1's sums and fresh sums ``mb * n1`` floats, conv2's ``3 * mb * n2 /
+    2``, at most 160 each but at ``n2 = 128``; at most two, so that
+    two warpgroups' rings and windows fit a block), conv2's phases a pass
+    ``pp2`` (all four where ``8 * mb * n2 / 2`` floats fit in 160, else the
+    two of one row parity), the products in flight between waits (``dy1``
+    conv1's kernel rows, 3 or 1; ``f2`` conv2's (kernel row, phase) fresh
+    sums, 4, 2 or 1; registers as above), the warpgroups a block at most
+    (``wgmax``: three, at 168 registers a thread, where the sums fit in 64
+    floats with ``dy1`` 1, ``pp2`` 2 and ``f2`` 2; else two), and the
+    widest strip ``max_tc`` (``64 * mb - 16``: its ``tc + 2`` c1 columns
+    fit conv1's ``mb`` blocks)."""
+    n1, n2 = 16 * -(-cmid // 16), 16 * -(-cout // 16)
+    mb = min(_mb1_max(n1), _mb2_max(n2))
+    wgmax = 3 if 2 * mb * n1 // 2 <= 64 and 4 * mb * n2 // 2 <= 64 else 2
+    pp2 = 4 if wgmax == 2 and 8 * mb * n2 // 2 <= 160 else 2
+    dy1 = 3 if wgmax == 2 and 4 * mb * n1 // 2 <= 160 else 1
+    if wgmax == 3:
+        f2 = 2
+    else:
+        f2 = 4 if pp2 == 4 or 6 * mb * n2 // 2 <= 160 else 2 if 4 * mb * n2 // 2 <= 160 else 1
+    return {"n1": n1, "n2": n2, "mb": mb, "dy1": dy1, "f2": f2, "pp2": pp2, "wgmax": wgmax,
+            "max_tc": min(BLOCK_MAX_TC, 64 * mb - 16)}
+
+
+def _kb_layout(n1, n2, mb, nch1, nch2, tc, nwg, res1, res2, stages, pp) -> dict:
+    """Bytes of a K4 bf16 block's shared memory (``block_bf16.cuh::kb_layout``):
+    per warpgroup the stages (an input row's chunk as it lands, or a
+    streamed chunk's weights), the staged outputs, the c1 ring (``ptr2``
+    positions an octet) and the transposed input rows (``pt1`` positions an
+    octet, ``pr1`` in all with the junk rows' reach and the spare one)."""
+    sw, rw = tc + 8, tc + 24
+    raw = 32 * rw
+    w1chunk, w2chunk = 9 * 32 * n1, 4 * pp * 32 * n2
+    stage = _round(max(raw, 0 if res1 else w1chunk, 0 if res2 else w2chunk), 128)
+    region = _round(pp * n2 * (8 * mb + 1) * 16, 128)
+    pt1 = 3 * sw
+    pr1 = 2 * nch1 * pt1 + 64 * mb + 8
+    inr = _round(16 * pr1, 128)
+    ptr2 = 3 * 64 * mb + 8
+    ring = 32 * nch2 * ptr2
+    w1res = nch1 * 9 * 32 * n1 if res1 else 0
+    w2res = nch2 * 16 * 32 * n2 if res2 else 0
+    wg = stages * stage + region + ring + inr
+    bias = 4 * (n1 + n2)
+    return {"raw": raw, "w1chunk": w1chunk, "w2chunk": w2chunk, "stage": stage, "region": region, "pt1": pt1,
+            "pr1": pr1, "inr": inr, "ptr2": ptr2, "ring": ring, "w1res": w1res, "w2res": w2res, "wg": wg,
+            "bias": bias, "total": w1res + w2res + nwg * wg + bias + 8 * (nwg * 4 + 1)}
+
+
+def _kb_in_cost4(nch1, rw) -> int:
+    """Modelled clocks (times 4) of an input row: each chunk's transposition
+    (3 clocks a staged position) or its copy, the longer."""
+    return nch1 * max(12 * rw, 4 * rw)
+
+
+def _kb_row1_cost4(n1, mb, nch1, res1) -> int:
+    """Modelled clocks (times 4) of one c1 row: each chunk's products or its
+    streamed weights' copy, the longer; the epilogue."""
+    work = mb * 9 * _wgmma_clk4(n1)
+    copies = 0 if res1 else 4 * 9 * n1
+    return nch1 * max(work, copies) + 4 * mb * n1 + 4 * ROW1_FIXED_CLK
+
+
+def _kb_row2_cost4(n2, mb, nch2, tc, res2, pp) -> int:
+    """Modelled clocks (times 4) of one output row, its passes of ``pp``
+    phases: each chunk's products (no copy of c1, no transposition) or its
+    weights' copy; the stores and the epilogue."""
+    work = mb * 4 * pp * _wgmma_clk4(n2)
+    copies = 0 if res2 else 4 * 4 * pp * n2
+    return 4 // pp * (nch2 * max(work, copies) + tc * pp * n2 // 8 + 4 * ROW2_FIXED_CLK)
+
+
+@functools.lru_cache(maxsize=1024)
+def _block_plan(bsz, cin, cmid, cout, h, w, sms, tc, run) -> dict:
+    return _block_plan_uncached(bsz, cin, cmid, cout, h, w, sms, tc, run)
+
+
+def block_plan(bsz: int, cin: int, cmid: int, cout: int, h: int, w: int, sms: int,
+               tc: int = 0, run: int = 0) -> dict:
+    """K4 bf16's launch plan at these sizes on a card of ``sms`` SMs
+    (``block_bf16.cuh::plan_kb`` in Python, cached; widths up to 128):
+    see :func:`_block_plan_uncached`."""
+    return dict(_block_plan(bsz, cin, cmid, cout, h, w, sms, tc, run))
+
+
+def _block_plan_uncached(bsz: int, cin: int, cmid: int, cout: int, h: int, w: int, sms: int,
+                         tc: int = 0, run: int = 0) -> dict:
+    """K4 bf16's launch plan at these sizes on a card of ``sms`` SMs
+    (``block_bf16.cuh::plan_kb`` in Python; widths up to 128).  ``tc``, ``run``:
+    0, or a forced strip width (a multiple of 16 up to ``max_tc``) and run
+    length (measurements and tests).  Raises ValueError where nothing fits.
+
+    The rule: over every strip width (multiples of 16 from ``max_tc``, or
+    the image's width rounded up, down; the m64 blocks stay ``mb``), the
+    residency of each conv's weights (both, conv1's, conv2's, none) and
+    every number of runs (each at its shortest run), the layout that fits
+    (as many warpgroups a block as the units fill, up to ``wgmax``; stages
+    as many as fit up to 4) of least modelled time, ``ceil(units / (blocks
+    * nwg)) * nwg * ((run + 4) * in + (run + 2) * row1 + run * row2) *
+    NWG_EIGHTHS[nwg] / 8`` (waves of a unit's input rows, c1 rows and output
+    rows over the warpgroups, and what sharing an SM does to them); ties to
+    the first found (wider, more
+    resident, longer runs).  ``takes``: that time below K1 bf16
+    then K3 bf16's (their plans' costs, with PixelNorm).  No timing."""
+    if (min(bsz, cin, cmid, cout, h, w) < 1 or cmid > BLOCK_MAX_CHANNELS or cout > BLOCK_MAX_CHANNELS
+            or tc < 0 or run < 0):
+        raise ValueError(f"block_plan: sizes {(bsz, cin, cmid, cout, h, w)}, tc {tc}, run {run}")
+    geo = block_geometry(cmid, cout)
+    n1, n2, mb = geo["n1"], geo["n2"], geo["mb"]
+    nch1, nch2 = -(-cin // CHUNK), -(-cmid // CHUNK)
+    if tc % 16 or tc > geo["max_tc"]:
+        raise ValueError(f"block_plan: strip width {tc} (a multiple of 16 up to {geo['max_tc']})")
+    best = None
+    for tcc in range(min(geo["max_tc"], _round(w, 16)), 0, -16):
+        if tc and tcc != tc:
+            continue
+        ntx = -(-w // tcc)
+        strips = bsz * ntx
+        if strips * h > 0x3FFFFFFF:
+            continue
+        for res in (3, 2, 1, 0):
+            r1, r2 = bool(res & 2), bool(res & 1)
+            inp = _kb_in_cost4(nch1, tcc + 24)
+            row1 = _kb_row1_cost4(n1, mb, nch1, r1)
+            row2 = _kb_row2_cost4(n2, mb, nch2, tcc, r2, geo["pp2"])
+            for nruns in range(1, h + 1):  # each number of runs once, at its shortest run
+                rr = run if run else -(-h // nruns)
+                if -(-h // rr) != nruns:
+                    continue
+                units = strips * nruns
+                blocks = min(units, sms)
+                for nwg in range(min(geo["wgmax"], -(-units // blocks)), 0, -1):
+                    stages, lay = 0, None
+                    for s in (4, 3, 2):
+                        lay = _kb_layout(n1, n2, mb, nch1, nch2, tcc, nwg, r1, r2, s, geo["pp2"])
+                        if lay["total"] <= SMEM_BUDGET:
+                            stages = s
+                            break
+                    if not stages:
+                        continue
+                    cost = (-(-units // (blocks * nwg)) * nwg * ((rr + 4) * inp + (rr + 2) * row1 + rr * row2)
+                            * NWG_EIGHTHS[nwg] // 8)
+                    if best is None or cost < best["cost"]:
+                        best = dict(tc=tcc, ntx=ntx, run=rr, nruns=nruns, units=units, nwg=nwg, res1=r1,
+                                    res2=r2, stages=stages, blocks=blocks, pt1=lay["pt1"], pr1=lay["pr1"],
+                                    ptr2=lay["ptr2"], smem_bytes=lay["total"], cost=cost)
+                    break
+    if best is None:
+        raise ValueError(f"block_plan: no layout fits sizes {(bsz, cin, cmid, cout, h, w)}")
+    pair_cost = (plan(3, bsz, cin, cmid, h, w, True, sms)["cost"]
+                 + plan(2, bsz, cmid, cout, h, w, True, sms)["cost"])
+    best.update(geo, sw=best["tc"] + 8, rw=best["tc"] + 24, strips=best["ntx"], nch1=nch1, nch2=nch2,
+                pair_cost=pair_cost, takes=best["cost"] < pair_cost, threads=128 * best["nwg"])
+    return best

@@ -25,8 +25,9 @@ any tree:
 * K1 bf16, K3 bf16 and K4 bf16 with PixelNorm at the 8 blocks of that
   synthesis call (bf16 inputs of their own stream, the shipped generator's
   weights packed ahead in the layout each tree's kernel reads): device time
-  beside ``F.conv2d`` on bf16 tensors, and a SHA-256 of each output, kept
-  apart from the float32 ones;
+  beside ``F.conv2d`` on bf16 tensors (K4 bf16 also beside K1 bf16 then K3
+  bf16, with whether the tree's size rule takes it), and a SHA-256 of each
+  output, kept apart from the float32 ones;
 * the weight gradient (``ops/conv_vjp.py::weight_grad3x3``) at the 34
   trainable convs of that iteration: device time from CUDA-graph replays
   beside one call of cuDNN's default algorithms (TF32 off), and a SHA-256
@@ -49,7 +50,8 @@ outputs differ.  ``python3 scripts/torch_ab.py --bf16-table A1 A2 B1 B2``
 prints the bf16 rows as a markdown table: each shape's mean time over the
 first runs (the parent's) and over the others, ``F.conv2d``'s mean over
 all, and the bound (bf16 operations at 989 TFLOP/s or bytes at 3.35 TB/s,
-the larger) with the share of it each reaches.
+the larger) with the share of it each reaches; then K4 bf16 against K1 bf16
+then K3 bf16 block by block in each tree.
 """
 
 from __future__ import annotations
@@ -110,6 +112,18 @@ def bf16_table(tags) -> None:
               f"{new / lib:.2f} | {bound:.4f} ({by}) | {bound / new:.2f} |")
     for role, (par, new, lib, bound) in sums.items():
         print(f"| {role} | sum | | {par:.4f} | {new:.4f} | {lib:.4f} | {new / lib:.2f} | {bound:.4f} | {bound / new:.2f} |")
+    # K4 bf16 beside K1 bf16 then K3 bf16 in each tree.
+    print("\n| K4 bf16 block | parent K4 ms | parent pair ms | change K4 ms | change pair ms | change K4 / pair "
+          "| taken (parent, change) |")
+    print("|---|---|---|---|---|---|---|")
+    for i, row in enumerate(runs[0]["bf16_rows"]):
+        if row["role"] != "synth_k4_bf16":
+            continue
+        rows = [r["bf16_rows"][i] for r in runs]
+        pk, pp = (sum(r[k] for r in rows[:2]) / 2 for k in ("ms", "pair_ms"))
+        nk, np_ = (sum(r[k] for r in rows[2:]) / 2 for k in ("ms", "pair_ms"))
+        print(f"| {row['block']} | {pk:.4f} | {pp:.4f} | {nk:.4f} | {np_:.4f} | {nk / np_:.2f} | "
+              f"{rows[0].get('takes')}, {rows[2].get('takes')} |")
     for t, r in zip(tags, runs):
         print(f"{t}: synthesis median ms " + ", ".join(
             f"{k} {v:.3f}" for k, v in r.get("synthesis_by_impl_median_ms", {}).items()))
@@ -262,6 +276,9 @@ def main() -> None:
     brng = torch.Generator(device=dev).manual_seed(9)
     bf, bf16_rows, bf16_bits = torch.bfloat16, [], {}
     tc_pack = getattr(conv_ops, "kernel_weights_tc", None)
+    # K4 bf16 reads K1 bf16's and K3 bf16's packs where it is block_bf16.cuh
+    # (the tree has ops/conv_bf16.py::block_plan), else the kernel layout.
+    k4_tc = hasattr(getattr(conv_ops, "conv_bf16", None), "block_plan")
     for i, (cin, cout) in enumerate(cfg.gen_channels):
         hh, ww = cfg.latent_height * 2**i, cfg.latent_width * 10 * 2**i
         x = torch.randn(5, cin, hh, ww, generator=brng, device=dev).to(bf)
@@ -280,13 +297,20 @@ def main() -> None:
             "synth_k3_bf16": (lambda: conv_ops.fused_upconv3x3(x, w2, b2, 0.2, True, w_packed=w2p),  # noqa: E731
                               lambda: F.conv2d(xu, w2b, b2b, padding=1), [5, cin, cout, hh, ww]),
             "synth_k4_bf16": (lambda: conv_ops.fused_block(x, w1, b1, w2, b2, 0.2, 1e-8,  # noqa: E731
-                                                           w1_packed=k1p, w2_packed=k3p),
+                                                           w1_packed=w1p if k4_tc else k1p,
+                                                           w2_packed=w2p if k4_tc else k3p),
                               lambda: (F.conv2d(x, w1b, b1b, padding=1), F.conv2d(mid_up, w2b, b2b, padding=1)),
                               [5, cin, cin, cout, hh, ww]),
         }
         for role, (kernel, library, shape) in cases.items():
             bf16_rows.append({"role": role, "block": i, "shape": shape, "ms": smoke.time_ms(kernel),
                               "library_ms": smoke.time_ms(library)})
+            if role == "synth_k4_bf16":  # beside K1 bf16 then K3 bf16, and whether the size rule takes it
+                bf16_rows[-1]["pair_ms"] = smoke.time_ms(lambda: conv_ops.fused_upconv3x3(
+                    conv_ops.fused_conv3x3(x, w1, b1, 0.2, True, w_packed=w1p), w2, b2, 0.2, True, w_packed=w2p))
+                bf16_rows[-1]["takes"] = conv_ops.fused_block_fits(
+                    cin, cin, cout, size=(5, hh, ww), device=dev,
+                    **({"dtype": bf} if k4_tc else {}))
             y = kernel()
             bf16_bits[f"{role} {shape}"] = hashlib.sha256(y.view(torch.int16).cpu().numpy().tobytes()).hexdigest()
             del y

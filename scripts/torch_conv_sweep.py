@@ -5,7 +5,7 @@ synthesis's eight blocks (5 clips x nb_vec 10), the device time of the
 wrapper under each plan, against the launcher's own choice and
 ``F.conv2d``.
 
-    python3 scripts/torch_conv_sweep.py [--part fp32|bf16|all]
+    python3 scripts/torch_conv_sweep.py [--part fp32|bf16|k4bf16|all]
 
 Plans: the large-image shape (the tensor-core route, "large_tc"), and the
 small-image shape at every (pixels a lane in 1, 2, 4) x (cluster split over
@@ -27,6 +27,15 @@ build), with ``F.conv2d`` on bf16 tensors beside; every forced plan is held
 within one bf16 ulp of the plain version and to the size rule's bits (every
 tile sums a pixel in one order).  Results go to
 ``chiprun_out/conv_sweep_bf16.json``.
+
+The k4bf16 part (K4 bf16, ``csrc/block_bf16.cuh``) times, at synthesis's
+8 blocks and a ragged one, the size rule's plan (``ops/conv_bf16.py::
+block_plan``) against every strip width and a set of run lengths forced
+(the wrapper's ``tc`` and ``run``; residency and warpgroups as the rule
+picks them for that strip and run), beside K1 bf16 then K3 bf16 and the
+rule's modelled costs of both: what the rule's constants (``NWG_EIGHTHS``
+and the fixed clocks) were fitted to.  Every plan is held to the pair's
+bits.  Results go to ``chiprun_out/conv_sweep_k4bf16.json``.
 """
 
 from __future__ import annotations
@@ -144,9 +153,65 @@ def sweep_bf16(card: str, dev) -> None:
     (out / "conv_sweep_bf16.json").write_text(json.dumps({"card": card, "rows": rows}, indent=1))
 
 
+def sweep_k4_bf16(card: str, dev) -> None:
+    """K4 bf16 under the size rule's plan and each strip width and run
+    length forced, beside K1 bf16 then K3 bf16."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rng = torch.Generator(device=dev).manual_seed(0)
+    cfg = ModelConfig()
+    shapes = [(5, c, c, o, cfg.latent_height * 2**i, cfg.latent_width * 10 * 2**i)
+              for i, (c, o) in enumerate(cfg.gen_channels)] + [(3, 21, 40, 24, 70, 330)]
+    rows = []
+    for b, cin, cmid, cout, h, w in shapes:
+        x = torch.randn(b, cin, h, w, generator=rng, device=dev).to(torch.bfloat16)
+        w1 = torch.randn(cmid, cin, 3, 3, generator=rng, device=dev) / (9 * cin) ** 0.5
+        w2 = torch.randn(cout, cmid, 3, 3, generator=rng, device=dev) / (9 * cmid) ** 0.5
+        b1, b2 = (torch.randn(c, generator=rng, device=dev) * 0.1 for c in (cmid, cout))
+        w1p, w2p = conv_ops.kernel_weights_tc(w1), conv_ops.kernel_weights_tc(w2, True)
+
+        def pair():
+            mid = conv_ops.fused_conv3x3(x, w1, b1, 0.2, True, w_packed=w1p)
+            return conv_ops.fused_upconv3x3(mid, w2, b2, 0.2, True, w_packed=w2p)
+
+        want = pair()
+        rule = conv_bf16.block_plan(b, cin, cmid, cout, h, w, sms)
+        geo = conv_bf16.block_geometry(cmid, cout)
+        plans = {}
+        for tc in range(min(geo["max_tc"], -(-w // 16) * 16), 0, -16):
+            for run in sorted({0, *(r for r in (h // 16, h // 8, h // 4, h // 2, h) if r >= 1)}):
+                try:
+                    p = conv_bf16.block_plan(b, cin, cmid, cout, h, w, sms, tc=tc, run=run)
+                except ValueError:
+                    continue
+                name = f"{p['tc']}x{p['run']}:{p['nwg']}wg"
+                if name in plans:
+                    continue
+                fn = lambda: conv_ops.fused_block(x, w1, b1, w2, b2, w1_packed=w1p, w2_packed=w2p,  # noqa: E731
+                                                  tc=p["tc"], run=p["run"])
+                if not torch.equal(fn(), want):
+                    raise AssertionError(f"K4 bf16 {(b, cin, cmid, cout, h, w)} plan {name}: not the pair's bits")
+                plans[name] = {"ms": time_ms(fn), "cost": p["cost"]}
+        chosen = f"{rule['tc']}x{rule['run']}:{rule['nwg']}wg"
+        best = min(plans, key=lambda k: plans[k]["ms"])
+        row = {"shape": [b, cin, cmid, cout, h, w], "chosen": chosen,
+               "chosen_ms": time_ms(lambda: conv_ops.fused_block(x, w1, b1, w2, b2, w1_packed=w1p, w2_packed=w2p)),
+               "best": best, "best_ms": plans[best]["ms"], "pair_ms": time_ms(pair), "cost": rule["cost"],
+               "pair_cost": rule["pair_cost"], "takes": rule["takes"], "plans": plans}
+        rows.append(row)
+        print(f"[sweep k4bf16] {str((b, cin, cmid, cout, h, w)):30s} chosen {chosen:12s} {row['chosen_ms']:.4f} ms  "
+              f"best {best:12s} {row['best_ms']:.4f}  pair {row['pair_ms']:.4f}  takes {rule['takes']} (cost "
+              f"{rule['cost']} / pair {rule['pair_cost']} = {rule['cost'] / rule['pair_cost']:.2f}; measured "
+              f"{row['chosen_ms'] / row['pair_ms']:.2f}) | "
+              + " ".join(f"{n} {v['ms']:.3f}" for n, v in plans.items()), flush=True)
+        del x, want
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "conv_sweep_k4bf16.json").write_text(json.dumps({"card": card, "rows": rows}, indent=1))
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--part", choices=("fp32", "bf16", "all"), default="all")
+    ap.add_argument("--part", choices=("fp32", "bf16", "k4bf16", "all"), default="all")
     part = ap.parse_args().part
     if not torch.cuda.is_available():
         sys.exit("torch_conv_sweep: no CUDA device")
@@ -158,7 +223,9 @@ def main() -> None:
     dev = torch.device("cuda")
     if part in ("bf16", "all"):
         sweep_bf16(card, dev)
-    if part == "bf16":
+    if part in ("k4bf16", "all"):
+        sweep_k4_bf16(card, dev)
+    if part in ("bf16", "k4bf16"):
         return
     rng = torch.Generator(device=dev).manual_seed(0)
     rows = []

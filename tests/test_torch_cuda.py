@@ -709,21 +709,74 @@ def test_bf16_plan_equals_the_mirror(cuda, b, cin, cout, h, w):
                 assert got["sms"] == sms
 
 
-@pytest.mark.parametrize("b,cin,cmid,cout,h,w", BLOCK_SHAPES + [(2, 16, 16, 16, 33, 70), (1, 48, 48, 32, 130, 300)])
+# K4 bf16 (csrc/block_bf16.cuh up to 128 channels): the 8 blocks of a
+# 5-clip, nb_vec-10 synthesis call, (b, cin, cmid, cout, h, w).
+SYNTHESIS_K4 = [(5, ci, ci, co, 2 * 2**i, 20 * 2**i)
+                for i, (ci, co) in enumerate(((32, 128), (128, 112), (112, 96), (96, 80), (80, 64), (64, 48), (48, 32),
+                                              (32, 16)))]
+K4_PLAN_KEYS = (("tc", "tc"), ("run_rows", "run"), ("runs", "nruns"), ("strips", "ntx"), ("units", "units"),
+                ("blocks", "blocks"), ("nwg", "nwg"), ("res1", "res1"), ("res2", "res2"), ("stages", "stages"),
+                ("smem_bytes", "smem_bytes"), ("cost", "cost"), ("pair_cost", "pair_cost"), ("mb", "mb"),
+                ("takes", "takes"))
+
+
+def _k4_bf16_pair(x, w1, b1, w2, b2):
+    mid = conv_ops.fused_conv3x3(x, w1, b1, 0.2, True)
+    return conv_ops.fused_upconv3x3(mid, w2, b2, 0.2, True)
+
+
+@pytest.mark.parametrize("b,cin,cmid,cout,h,w", BLOCK_SHAPES + [(2, 16, 16, 16, 33, 70), (1, 48, 48, 32, 130, 300)]
+                         + SYNTHESIS_K4)
 def test_bf16_k4_matches_plain_and_equals_the_bf16_pair(cuda, b, cin, cmid, cout, h, w):
-    """Where K1 and K3 both take the tensor-core route, K4 bf16 equals K1
-    bf16 then K3 bf16 bit for bit (the ring holds c1 rounded as K1 bf16
-    stores it); everywhere it is within ``assert_k4_bf16_close`` of its
-    plain version."""
+    """K4 bf16 equals K1 bf16 then K3 bf16 bit for bit up to 128 channels
+    (block_bf16.cuh sums in conv_bf16.cuh's order and rounds c1 once, as K1
+    bf16 stores it), and past them where K1 and K3 both take the tensor-core
+    route (block3x3.cuh at bf16); everywhere within ``assert_k4_bf16_close``
+    of its plain version, and the same bits twice."""
+    from musicgan_tpu_torch.ops import conv_bf16
+
     x, w1, b1, w2, b2 = _block_inputs(22, b, cin, cmid, cout, h, w, cuda)
     x = x.to(torch.bfloat16)
     n0 = conv_ops.fused_block.bf16_launches
     got = conv_ops.fused_block(x, w1, b1, w2, b2)
     assert conv_ops.fused_block.bf16_launches == n0 + 1
-    if _pair_is_large(b, cin, cmid, cout, h, w):
-        mid = conv_ops.fused_conv3x3(x, w1, b1, 0.2, True)
-        assert torch.equal(got, conv_ops.fused_upconv3x3(mid, w2, b2, 0.2, True))
+    if conv_bf16.block_route(cmid, cout) == "bf16_tc" or _pair_is_large(b, cin, cmid, cout, h, w):
+        assert torch.equal(got, _k4_bf16_pair(x, w1, b1, w2, b2))
     assert_k4_bf16_close(got, conv_ops.fused_block_plain(x, w1, b1, w2, b2))
+    assert torch.equal(got, conv_ops.fused_block(x, w1, b1, w2, b2))
+
+
+@pytest.mark.parametrize("b,cin,cmid,cout,h,w,tc,run", [
+    (2, 5, 7, 3, 13, 37, 16, 4), (1, 48, 48, 32, 130, 300, 96, 16), (1, 48, 48, 32, 130, 300, 112, 130),
+    (5, 32, 32, 16, 64, 640, 64, 8), (2, 80, 80, 64, 32, 100, 32, 3), (3, 9, 128, 128, 6, 70, 16, 2),
+])
+def test_bf16_k4_forced_strips_and_runs_give_the_pairs_bits(cuda, b, cin, cmid, cout, h, w, tc, run):
+    """Every strip width and run length sums a pixel in one order: K4 bf16
+    with a forced plan equals K1 bf16 then K3 bf16 bit for bit, and takes the
+    packs of K1 bf16 and K3 bf16 as they are."""
+    x, w1, b1, w2, b2 = _block_inputs(25, b, cin, cmid, cout, h, w, cuda)
+    x = x.to(torch.bfloat16)
+    plan = conv_ops.block_plan(b, cin, cmid, cout, h, w, dtype=torch.bfloat16, tc=tc, run=run)
+    assert (plan["tc"], plan["run_rows"]) == (tc, run)
+    got = conv_ops.fused_block(x, w1, b1, w2, b2, tc=tc, run=run, w1_packed=conv_ops.kernel_weights_tc(w1),
+                               w2_packed=conv_ops.kernel_weights_tc(w2, True))
+    assert torch.equal(got, _k4_bf16_pair(x, w1, b1, w2, b2))
+
+
+@pytest.mark.parametrize("b,cin,cmid,cout,h,w", BLOCK_SHAPES + SYNTHESIS_K4)
+def test_bf16_k4_plan_equals_the_mirror(cuda, b, cin, cmid, cout, h, w):
+    """The launcher's plan (block_bf16.cuh::plan_kb) is the Python mirror's
+    (ops/conv_bf16.py::block_plan) at the card's SM count, and
+    ``fused_block_fits`` in bf16 takes what it takes."""
+    from musicgan_tpu_torch.ops import conv_bf16
+
+    assert conv_bf16.block_route(cmid, cout) == "bf16_tc"
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    got = conv_ops.block_plan(b, cin, cmid, cout, h, w, dtype=torch.bfloat16)
+    want = conv_bf16.block_plan(b, cin, cmid, cout, h, w, sms)
+    assert {k: got[k] for k, _ in K4_PLAN_KEYS} == {k: want[m] for k, m in K4_PLAN_KEYS}
+    assert got["sms"] == sms and got["route"] == "bf16_tc"
+    assert conv_ops.fused_block_fits(cin, cmid, cout, size=(b, h, w), device=cuda, dtype=torch.bfloat16) == want["takes"]
 
 
 def test_bf16_k4_past_128_channels(cuda):
@@ -770,8 +823,12 @@ def test_generator_new_impls_on_the_card(cuda, impl):
         n1 = [(f.launches, f.bf16_launches) for f in wrappers]
         want = ref.forward_nchw(z, 7)
     d = [(a[0] - b[0], a[1] - b[1]) for a, b in zip(n1, n0)]
+    # pallas_block_bf16: K4 bf16 at the blocks its size rule takes.
+    n_k4 = sum(conv_ops.fused_block_fits(ci, ci, co, size=(2, 2 * 2**i, 20 * 2**i), device=cuda,
+                                         dtype=torch.bfloat16) for i, (ci, co) in enumerate(cfg.gen_channels))
     expect = {"pallas": [(16, 0), (0, 0), (0, 0)], "pallas_bf16": [(16, 16), (0, 0), (0, 0)],
-              "pallas_up_bf16": [(8, 8), (8, 8), (0, 0)], "pallas_block_bf16": [(5, 5), (5, 5), (3, 3)]}
+              "pallas_up_bf16": [(8, 8), (8, 8), (0, 0)],
+              "pallas_block_bf16": [(8 - n_k4, 8 - n_k4), (8 - n_k4, 8 - n_k4), (n_k4, n_k4)]}
     assert d == expect[impl]
     assert got.dtype == torch.float32 and torch.isfinite(got).all()
     if impl == "pallas":
