@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's synthesis path, its WGAN-GP train step and its
-``train`` entry point on one NVIDIA GPU.
+"""Drive the PyTorch port's synthesis path, its WGAN-GP train step, its
+``train`` entry point and its serving and evaluation entry points on one
+NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -86,7 +87,21 @@ the CUDA toolkit (``nvcc``).  Phases, each of which raises on failure:
    held at 0.08 in the relative 2-norm against both, ``pallas`` at 2e-3
    max-abs) and the plain path in float64; warm synthesis
    under ``pallas_up``, ``pallas_up_bf16``, ``pallas_block`` and
-   ``pallas_block_bf16`` in turns.
+   ``pallas_block_bf16`` in turns;
+10. serving and evaluation: ``wav_to_stft`` and ``stft_to_phase_magn`` (the
+   forward STFT half of ``view_audio``) on 3.5 s of seeded noise against
+   the same in float64 on the card (2e-3); the ``SynthesisService`` with
+   ``gen_final.pt`` at stage 7: a solo request at nb_vec 10 bit for bit
+   ``synthesize_fn`` on its latent and within 1e-3 of the plain versions, 4
+   concurrent requests in fewer dispatches each within 1e-3 of its solo
+   pass, two signatures in separate dispatches, one dispatch under
+   ``conv_impl="pallas_block"`` (K4 at the blocks its rule gives), every
+   dispatch's launches counted (K1 8, K3 8, K5 1); the HTTP handler in the
+   process (a POSTed WAV, whole and streamed, equal to the service's
+   waveform; ``/healthz``, ``/stats``); the ``serve`` CLI as a subprocess,
+   one request, SIGTERM; ``compare_artifacts`` of ``gen_final.pt`` twice
+   (equal rows) and ``audition_run`` over phase 8's run; a solo request's
+   latency and the throughput of 8 concurrent requests.
 
 The last lines are a ``{"kernels": [...]}`` record, the ``nvidia-smi``
 line, and ``{"ok": true, "device": {...}}``.  Per-shape numbers also go
@@ -107,19 +122,30 @@ import signal
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.request
+from http.server import ThreadingHTTPServer
 from pathlib import Path
 from unittest import mock
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from scipy.io import wavfile
 
 from musicgan_tpu_torch import generate as generate_mod
-from musicgan_tpu_torch.audio import load_wav
+from musicgan_tpu_torch.audio import (
+    load_wav,
+    save_wav,
+    signal_to_stft,
+    stft_to_phase_magn,
+    wav_to_stft,
+)
 from musicgan_tpu_torch.audio.ingest import ShardWriter
 from musicgan_tpu_torch.audio.stft import hann_window, istft_real_imag
 from musicgan_tpu_torch.config import AudioConfig, ModelConfig, TrainConfig
+from musicgan_tpu_torch.evaluate import audition_run, compare_artifacts
 from musicgan_tpu_torch.models import (
     Discriminator,
     critic_input_grad_nchw_train,
@@ -131,6 +157,7 @@ from musicgan_tpu_torch.ops import conv as conv_ops
 from musicgan_tpu_torch.ops import conv_bf16
 from musicgan_tpu_torch.ops import conv_vjp
 from musicgan_tpu_torch.ops import istft_fused as istft_ops
+from musicgan_tpu_torch.serve import SynthesisService, _make_handler
 from musicgan_tpu_torch.train import (
     CheckpointManager,
     Grower,
@@ -268,10 +295,7 @@ def card_line() -> str:
 
 def main_path_latent(cfg: ModelConfig, dev) -> torch.Tensor:
     """The latents ``generate`` draws at the CLI defaults from ``SEED``."""
-    return torch.randn(
-        (NB_MUSIC, cfg.latent_height, cfg.latent_width * NB_VEC, cfg.rand_channels),
-        generator=torch.Generator(device=dev).manual_seed(SEED), device=dev,
-    )
+    return generate_mod.latents(cfg, NB_VEC, NB_MUSIC, SEED, dev)
 
 
 def time_ms(fn, graph: bool = True) -> float:
@@ -1602,6 +1626,7 @@ def train_entry_point(cfg: ModelConfig, dev) -> dict:
         "steps_per_s_by_stage": {str(s): r for s, (_, r) in rates.items()},
         "resume": diff, "uninterrupted_twice": spread, "streaming_worst_abs_diff": worst, "save_s": save_s, "restore_s": restore_s,
         "state_bytes": size, "matplotlib": have_mpl, "preempt_iter": meta_c["iter_idx"],
+        "run_dir": out_a,
     }
 
 
@@ -1975,6 +2000,335 @@ def end_to_end_new_impls(cfg: ModelConfig, dev) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: serving and evaluation: the forward STFT half (view_audio's),
+# the micro-batching service, its HTTP front end and CLI, compare and eval.
+
+# The forward pipeline's images, float32 on the card against float64 on the
+# card: the repo's bar for this pipeline (tests/test_ingest.py), on
+# broadband noise (for near-silent bins the phase is rounding noise).
+TOL_VIEW = 2e-3
+VIEW_SECONDS = 3.5
+SERVE_NB_VEC = 10
+SERVE_TIMED = 10       # solo requests timed one by one; the median is quoted
+SERVE_CONCURRENT = 8   # requests sent at once for the throughput, 3 rounds
+
+
+def expected_serve_launches(cfg: ModelConfig, dispatches: int, k4_blocks: int = 0) -> dict:
+    """A synthesis dispatch's launches: K1 and K3 at each block the
+    whole-block kernel does not take, K4 at those it does, K5 once."""
+    pair = (cfg.n_stages - k4_blocks) * dispatches
+    return {"fused_conv3x3": pair, "fused_conv3x3_msq": 0, "fused_upconv3x3": pair,
+            "istft_fused": dispatches, "fused_block": k4_blocks * dispatches, IDFT: 0,
+            "weight_grad3x3": 0}
+
+
+def counted(total: dict, want: dict, what: str) -> dict:
+    """Read the counters against ``want``, add them to ``total``."""
+    got = read_launches()
+    if got != want:
+        raise AssertionError(f"{what} launched {got}, not {want}")
+    for k in total:
+        total[k] += got[k]
+    return got
+
+
+def http_post(port: int, query: str) -> tuple[bytes, dict]:
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/synthesize?{query}", method="POST")
+    with urllib.request.urlopen(req, timeout=600) as r:
+        return r.read(), dict(r.headers)
+
+
+def wav_of(body: bytes) -> tuple[int, np.ndarray]:
+    return wavfile.read(io.BytesIO(body))
+
+
+def serving_and_evaluation(cfg: ModelConfig, dev, run_dir: str, card: str) -> dict:
+    """Phase 10: ``wav_to_stft`` / ``stft_to_phase_magn`` on the card against
+    float64; the ``SynthesisService`` (solo, concurrent, two signatures,
+    ``pallas_block``), its HTTP handler in the process, the ``serve`` CLI as
+    a subprocess, ``compare_artifacts`` and ``audition_run``; timings."""
+    def say(line: str) -> None:  # every number of the phase beside the card
+        print(f"{line} ({card})")
+
+    acfg = AudioConfig()
+    stage = cfg.n_stages - 1
+    work = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    total = {k: 0 for k in (*WRAPPERS, IDFT)}
+    rec = {}
+
+    # (a) The forward STFT half on the card, against float64 on the card.
+    wav_path = os.path.join(work, "noise.wav")
+    sig = (np.random.default_rng(SEED).standard_normal(int(acfg.sample_rate * VIEW_SECONDS)) * 0.3)
+    save_wav(wav_path, sig.astype(np.float32), acfg.sample_rate)
+    magn, phase = stft_to_phase_magn(wav_to_stft(wav_path, device="cuda"))
+    sig32 = load_wav(wav_path)[0]
+    m64, p64 = stft_to_phase_magn(signal_to_stft(torch.from_numpy(sig32).to(dev, torch.float64)))
+    if magn.shape != (1, 512, 512) or magn.device.type != "cuda" or magn.dtype != torch.float32:
+        raise AssertionError(f"view: {tuple(magn.shape)} on {magn.device}, {magn.dtype}")
+    err_m = (magn.double() - m64).abs().max().item()
+    err_p = (phase.double() - p64).abs().max().item()
+    view_s = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        stft_to_phase_magn(wav_to_stft(wav_path, device="cuda"))
+        torch.cuda.synchronize()
+        view_s.append(time.perf_counter() - t0)
+    rec["view"] = {"err_magn": err_m, "err_phase": err_p, "median_s": float(np.median(view_s))}
+    say(f"[serve] view: wav_to_stft + stft_to_phase_magn of {VIEW_SECONDS} s of noise on the card, "
+        f"against float64 on the card: magnitude {err_m:.2e}, phase {err_p:.2e} (tol {TOL_VIEW:.0e}); "
+        f"{rec['view']['median_s'] * 1e3:.2f} ms (median of 10, WAV read included)")
+    if not (err_m <= TOL_VIEW and err_p <= TOL_VIEW):
+        raise AssertionError("the forward STFT half disagrees with float64")
+
+    # (b) The service: the generator resident on the card, default impl.
+    gen = generate_mod.load_generator_params(str(CKPT), cfg, dev)
+    svc = SynthesisService(gen, max_batch=8, default_stage=stage, device=dev)  # window 10 ms
+    svc_b = None
+    try:
+        t0 = time.perf_counter()
+        reset_launches()
+        svc.warmup(SERVE_NB_VEC)
+        torch.cuda.synchronize()
+        rec["warmup_s"] = time.perf_counter() - t0
+        counted(total, expected_serve_launches(cfg, 1), "warmup")
+
+        n_samples = (cfg.latent_width * SERVE_NB_VEC * 2 ** cfg.n_stages - 1) * acfg.stft_stride
+        reset_launches()
+        solo = svc.submit(seed=101, nb_vec=SERVE_NB_VEC).result(timeout=600)
+        torch.cuda.synchronize()
+        counted(total, expected_serve_launches(cfg, 1), "a solo request")
+        if solo.shape != (n_samples,) or solo.device.type != "cuda" or not torch.isfinite(solo).all():
+            raise AssertionError(f"solo request: {tuple(solo.shape)} on {solo.device}")
+        synth = generate_mod.synthesize_fn(cfg, stage)
+        z = generate_mod.latents(cfg, SERVE_NB_VEC, 1, 101, dev)
+        ref = synth(svc.gen, z)[0]
+        patches = plain_on_card()
+        for p in patches:
+            p.start()
+        reset_launches()
+        try:
+            plain = synth(svc.gen, z)[0]
+        finally:
+            for p in patches:
+                p.stop()
+        if any(read_launches().values()):
+            raise AssertionError(f"the plain pass launched kernels: {read_launches()}")
+        err_plain = (solo - plain).abs().max().item()
+        say(f"[serve] solo request, nb_vec {SERVE_NB_VEC}: equal to synthesize_fn on its latent bit "
+            f"for bit: {torch.equal(solo, ref)}; against the plain versions on the card {err_plain:.2e} "
+            f"(tol {TOL_WAVE:.0e}); warmup {rec['warmup_s']:.2f} s")
+        if not torch.equal(solo, ref):
+            raise AssertionError("the service's solo request differs from synthesize_fn")
+        if not err_plain <= TOL_WAVE:
+            raise AssertionError("the service's waveform disagrees with the plain versions")
+        rec["err_solo_vs_plain"] = err_plain
+
+        # Concurrent requests of one signature coalesce.
+        seeds = [201, 202, 203, 204]
+        before = svc.stats_snapshot()["batches"]
+        reset_launches()
+        futs = [svc.submit(seed=s, nb_vec=SERVE_NB_VEC) for s in seeds]
+        waves = [f.result(timeout=600) for f in futs]
+        torch.cuda.synchronize()
+        n_disp = svc.stats_snapshot()["batches"] - before
+        counted(total, expected_serve_launches(cfg, n_disp), f"{len(seeds)} concurrent requests")
+        if not n_disp < len(seeds):
+            raise AssertionError(f"{len(seeds)} concurrent requests took {n_disp} dispatches")
+        reset_launches()
+        solos = [svc.submit(seed=s, nb_vec=SERVE_NB_VEC).result(timeout=600) for s in seeds]
+        torch.cuda.synchronize()
+        counted(total, expected_serve_launches(cfg, len(seeds)), "the solo passes")
+        errs = [(w - s).abs().max().item() for w, s in zip(waves, solos)]
+        same = [torch.equal(w, s) for w, s in zip(waves, solos)]
+        say(f"[serve] {len(seeds)} concurrent requests in {n_disp} dispatch(es) "
+            f"({svc.stats_snapshot()['signatures']}); each against its solo pass: "
+            f"{', '.join(f'{e:.2e}' for e in errs)} (tol {TOL_WAVE:.0e}; bit for bit {same})")
+        if not max(errs) <= TOL_WAVE:
+            raise AssertionError("a micro-batched request disagrees with its solo pass")
+        rec.update(concurrent_dispatches=n_disp, err_batched_vs_solo=max(errs), batched_bitwise=same)
+
+        # Two signatures never share a dispatch.
+        stats0 = svc.stats_snapshot()
+        reset_launches()
+        mixed = [(s, nv, svc.submit(seed=s, nb_vec=nv)) for s, nv in
+                 ((301, SERVE_NB_VEC), (302, 2), (303, SERVE_NB_VEC), (304, 2))]
+        for s, nv, f in mixed:
+            w = f.result(timeout=600)
+            if w.shape != ((cfg.latent_width * nv * 2 ** cfg.n_stages - 1) * acfg.stft_stride,):
+                raise AssertionError(f"seed {s}, nb_vec {nv}: {tuple(w.shape)}")
+        torch.cuda.synchronize()
+        stats1 = svc.stats_snapshot()
+        n_mixed = stats1["batches"] - stats0["batches"]
+        counted(total, expected_serve_launches(cfg, n_mixed), "two signatures")
+        if n_mixed < 2:
+            raise AssertionError(f"two signatures took {n_mixed} dispatch")
+        say(f"[serve] two signatures (nb_vec {SERVE_NB_VEC} and 2), two requests each: {n_mixed} "
+            f"dispatches, signatures {stats1['signatures']}")
+
+        # One dispatch under conv_impl="pallas_block": K4 at the blocks its rule gives.
+        cfg_b = dataclasses.replace(cfg, conv_impl="pallas_block")
+        svc_b = SynthesisService(generate_mod.load_generator_params(str(CKPT), cfg_b, dev),
+                                 default_stage=stage, device=dev)
+        n_fit = blocks_taking_k4(cfg, dev, SERVE_NB_VEC, 1)
+        reset_launches()
+        wb = svc_b.submit(seed=101, nb_vec=SERVE_NB_VEC).result(timeout=600)
+        torch.cuda.synchronize()
+        counted(total, expected_serve_launches(cfg, 1, n_fit), "a pallas_block dispatch")
+        err_b = (wb - solo).abs().max().item()
+        say(f"[serve] conv_impl='pallas_block', one request: K4 at {n_fit} blocks, K1 and K3 at "
+            f"{cfg.n_stages - n_fit}; against the default impl's {err_b:.2e} (tol {TOL_WAVE:.0e})")
+        if n_fit < 1 or not err_b <= TOL_WAVE:
+            raise AssertionError(f"pallas_block service: {n_fit} K4 blocks, err {err_b:.2e}")
+        rec.update(k4_blocks=n_fit, err_block_vs_default=err_b)
+
+        # (c) HTTP in the process.
+        server = ThreadingHTTPServer(("127.0.0.1", 0), _make_handler(svc))
+        threading.Thread(target=server.serve_forever, daemon=True).start()
+        port = server.server_address[1]
+        try:
+            reset_launches()
+            n0 = svc.stats_snapshot()["requests"]
+            body, hdr = http_post(port, "seed=400&nb_vec=2")
+            body_s, hdr_s = http_post(port, "seed=400&nb_vec=2&stream=1")
+            want = svc.submit(seed=400, nb_vec=2).result(timeout=600).cpu().numpy()
+            counted(total, expected_serve_launches(cfg, 3), "three HTTP-side requests")
+            (sr, wav), (sr_s, wav_s) = wav_of(body), wav_of(body_s)
+            if hdr.get("Content-Type") != "audio/wav" or hdr_s.get("Transfer-Encoding") != "chunked":
+                raise AssertionError(f"headers {hdr} / {hdr_s}")
+            if sr != sr_s or sr != acfg.sample_rate or not (np.array_equal(wav, want)
+                                                             and np.array_equal(wav_s, want)):
+                raise AssertionError("the served WAV differs from the service's waveform")
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz", timeout=30) as r:
+                health = json.loads(r.read())
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}/stats", timeout=30) as r:
+                stats = json.loads(r.read())
+            name = torch.cuda.get_device_name(0)
+            if not (health["ok"] and any("cuda" in d and name in d for d in health["devices"])):
+                raise AssertionError(f"/healthz {health}")
+            if stats["requests"] - n0 != 3:
+                raise AssertionError(f"/stats counted {stats['requests'] - n0} of 3 requests")
+            say(f"[serve] HTTP: POST /synthesize (whole and stream=1) equal to the service's waveform "
+                f"bit for bit ({wav.shape[0]} samples); /healthz {health['devices']}; /stats "
+                f"{stats['requests']} requests, {stats['batches']} batches, "
+                f"{stats['padded_slots']} padded slots")
+        finally:
+            server.shutdown()
+            server.server_close()
+
+        # (d) The CLI as a subprocess.
+        proc = subprocess.Popen(
+            [sys.executable, "-u", "-m", "musicgan_tpu_torch", "serve", str(CKPT), "--port", "0",
+             "--no-warmup"],
+            cwd=str(ROOT), stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        lines = []
+        try:
+            port_cli = None
+            for line in proc.stdout:
+                lines.append(line)
+                m = re.search(r"listening on http://127\.0\.0\.1:(\d+)", line)
+                if m:
+                    port_cli = int(m.group(1))
+                    break
+            if port_cli is None:
+                raise AssertionError("the serve CLI printed no listening line:\n" + "".join(lines))
+            t0 = time.perf_counter()
+            body, _ = http_post(port_cli, "seed=7&nb_vec=2")
+            cli_s = time.perf_counter() - t0
+            sr, wav = wav_of(body)
+            if sr != acfg.sample_rate or wav.shape != ((2 * 2 * 2 ** cfg.n_stages - 1) * 256,) \
+                    or not np.isfinite(wav).all() or np.abs(wav).max() < 1e-3:
+                raise AssertionError(f"the CLI's WAV: {sr} Hz, {wav.shape}")
+            proc.send_signal(signal.SIGTERM)
+            proc.wait(timeout=60)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            proc.stdout.close()
+        print("".join(f"    | {line}" for line in lines), end="")
+        say(f"[serve] CLI subprocess: a valid WAV ({wav.shape[0]} samples) in {cli_s:.2f} s for its "
+            f"first request (kernels loaded, no warmup); SIGTERM -> exit code {proc.returncode}")
+        rec["cli_first_request_s"] = cli_s
+
+        # (e) compare and eval.
+        corpus = os.path.join(work, "corpus")
+        os.makedirs(corpus)
+        rng = np.random.default_rng(SEED + 1)
+        t = np.arange(3 * acfg.sample_rate) / acfg.sample_rate
+        for i in range(3):
+            gate = 0.5 + 0.5 * np.sign(np.sin(2 * np.pi * (1.5 + i) * t))
+            track = 0.3 * gate * np.sin(2 * np.pi * 220.0 * (i + 1) * t) + 0.05 * rng.standard_normal(t.size)
+            save_wav(os.path.join(corpus, f"t{i}.wav"), track.astype(np.float32), acfg.sample_rate)
+        reset_launches()
+        table = compare_artifacts([str(CKPT), str(CKPT)], corpus, seeds=2, nb_vec=2, verbose=False,
+                                  device="cuda")
+        counted(total, expected_serve_launches(cfg, 2), "compare")
+        if table[0] != table[1] or not math.isfinite(table[0]["nearest_track_dist"]):
+            raise AssertionError(f"compare of one artifact twice: {table[0]} vs {table[1]}")
+        ck = CheckpointManager(os.path.join(run_dir, "checkpoints"))
+        saves = ck.saved_indices()
+        stages = []
+        for k in saves:
+            with open(os.path.join(ck.root, f"save_{k}", "meta.json")) as f:
+                stages.append(min(int(json.load(f)["grower"]["curr_grow"]), stage))
+        reset_launches()
+        aud = audition_run(run_dir, out_dir=os.path.join(work, "audition"), seeds=2, nb_vec=2,
+                           verbose=False, device="cuda")
+        want = {**expected_serve_launches(cfg, len(saves)),
+                "fused_conv3x3": sum(s + 1 for s in stages), "fused_upconv3x3": sum(s + 1 for s in stages)}
+        counted(total, want, "audition")
+        wavs = sorted(f for f in os.listdir(aud) if f.endswith(".wav"))
+        if len(wavs) != 2 * len(saves):
+            raise AssertionError(f"audition wrote {len(wavs)} WAVs for {len(saves)} saves")
+        for f in wavs:
+            w, sr = load_wav(os.path.join(aud, f))
+            if sr != acfg.sample_rate or not np.isfinite(w).all():
+                raise AssertionError(f"audition {f}: {sr} Hz, finite {np.isfinite(w).all()}")
+        say(f"[serve] compare of gen_final.pt twice (seeds 2, nb_vec 2): equal rows, nearest-track "
+            f"dist {table[0]['nearest_track_dist']:.4f}; audition of phase 8's run: {len(saves)} saves "
+            f"at stages {stages}, {len(wavs)} finite WAVs")
+        rec.update(compare_row=table[0], audition_stages=stages)
+
+        # (f) Timings, for the record: a solo request's latency to its samples
+        # on the host, and rounds of concurrent requests.
+        clip_s = n_samples / acfg.sample_rate
+        reset_launches()
+        lat = []
+        for i in range(SERVE_TIMED):
+            t0 = time.perf_counter()
+            svc.submit(seed=500 + i, nb_vec=SERVE_NB_VEC).result(timeout=600).cpu()
+            lat.append(time.perf_counter() - t0)
+        rounds, n_disp = [], 0
+        for r in range(3):
+            b0 = svc.stats_snapshot()["batches"]
+            t0 = time.perf_counter()
+            futs = [svc.submit(seed=600 + 10 * r + i, nb_vec=SERVE_NB_VEC) for i in range(SERVE_CONCURRENT)]
+            for f in futs:
+                f.result(timeout=600).cpu()
+            rounds.append(time.perf_counter() - t0)
+            n_disp += svc.stats_snapshot()["batches"] - b0
+        counted(total, expected_serve_launches(cfg, SERVE_TIMED + n_disp), "the timed requests")
+        med = float(np.median(rounds))
+        rec.update(solo_latency_s=lat, solo_latency_median_s=float(np.median(lat)),
+                   concurrent_wall_s=rounds, concurrent_median_s=med,
+                   concurrent_audio_s_per_s=SERVE_CONCURRENT * clip_s / med, concurrent_dispatches_3_rounds=n_disp)
+        say(f"[serve] solo request at nb_vec {SERVE_NB_VEC} ({clip_s:.3f} s of audio), submit to samples "
+            f"on the host, median of {SERVE_TIMED}: {rec['solo_latency_median_s'] * 1e3:.3f} ms (min "
+            f"{min(lat) * 1e3:.3f}, max {max(lat) * 1e3:.3f})")
+        say(f"[serve] {SERVE_CONCURRENT} concurrent requests at nb_vec {SERVE_NB_VEC}, 3 rounds: wall "
+            f"{', '.join(f'{x * 1e3:.3f}' for x in rounds)} ms ({n_disp} dispatches), median "
+            f"{med * 1e3:.3f} ms = {rec['concurrent_audio_s_per_s']:.1f} audio-s/s")
+    finally:
+        svc.close()
+        if svc_b is not None:
+            svc_b.close()
+    rec["launches"] = total
+    say(f"[serve] launches in phase 10: {total}")
+    return rec
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
@@ -2017,8 +2371,10 @@ def main() -> None:
     torch.cuda.empty_cache()
     e2e_new = end_to_end_new_impls(cfg, dev)
     torch.cuda.empty_cache()
+    serving = serving_and_evaluation(cfg, dev, loop["run_dir"], card)
+    torch.cuda.empty_cache()
 
-    paths = (e2e, train_rec, e2e_block, loop, e2e_new)
+    paths = (e2e, train_rec, e2e_block, loop, e2e_new, serving)
     # The float32 kernels' launches: a wrapper's count less its bf16 ones.
     launched = {k: sum(p["launches"][k] for p in paths) for k in (*WRAPPERS, IDFT)}
     for name, fn in BF16_WRAPPERS.items():
@@ -2071,7 +2427,7 @@ def main() -> None:
     (out / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "shapes": rows, "end_to_end": e2e, "gradients": grads, "train": train_rec,
          "end_to_end_block": e2e_block, "train_entry_point": loop, "bf16_shapes": bf16_rows,
-         "end_to_end_new_impls": e2e_new, "kernels": kernels}, indent=1))
+         "end_to_end_new_impls": e2e_new, "serving": serving, "kernels": kernels}, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

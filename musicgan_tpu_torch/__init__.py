@@ -7,18 +7,27 @@ checkpoint, or a checkpoint of this package's ``train``, through the
 generator and the iSTFT vocoder to WAV files), the WGAN-GP train step
 (generator, critic, hand-unrolled gradient penalty, per-leaf Adam) and the
 train loop around it (growth schedule, dataset, checkpoints with bit-exact
-resume, previews, metrics, stall watchdog), on hand-written CUDA kernels
+resume, previews, metrics, stall watchdog), serving (``serve``: a micro-batching
+service over the resident generator and its HTTP front end), evaluation
+(``evaluate``: checkpoint audition and corpus-referenced scoring) and the
+forward STFT half with ``view_audio``, on hand-written CUDA kernels
 (``ops/``, sources in ``csrc/``): the five TPU kernels' counterparts, K1, K3
 and K4 also in bf16 (the ``*_bf16`` inference impls), and the conv's weight
 gradient.  Its entry points are
 ``generate.generate``, ``generate.synthesize_fn``, ``train.train``,
-``python -m musicgan_tpu_torch generate|train``, ``train.init_train_state``,
-``train.build_step`` and ``train.build_chunk_step``; they run on ``cuda``
-unless the caller passes ``device="cpu"``.
+``serve.SynthesisService``, ``serve.serve``, ``evaluate.audition_run``,
+``evaluate.compare_artifacts``, ``view_audio.view_audio``,
+``python -m musicgan_tpu_torch generate|train|serve|eval|compare|view_audio``,
+``train.init_train_state``, ``train.build_step`` and
+``train.build_chunk_step``; they run on ``cuda`` unless the caller passes
+``device="cpu"``.
 """
 
 __version__ = "0.1.0"
 
-from . import audio, config, generate, models, ops, train, utils
+from . import audio, config, evaluate, generate, models, ops, serve, train, utils, view_audio
 
-__all__ = ["audio", "config", "generate", "models", "ops", "train", "utils", "__version__"]
+__all__ = [
+    "audio", "config", "evaluate", "generate", "models", "ops", "serve", "train", "utils",
+    "view_audio", "__version__",
+]

@@ -1,8 +1,11 @@
-"""Magnitude / instantaneous-frequency images back to audio.
+"""GANSynth-style magnitude / instantaneous-frequency transforms.
 
-Counterparts of ``musicgan_tpu/audio/functions.py``'s inverse half
-(reference ``audio/functions.py:26-35,97-139``).  Each function takes one
-music's ``(N, 2, n_bins, W)`` chunks, as in JAX, or a batch of musics
+Counterparts of ``musicgan_tpu/audio/functions.py`` (reference
+``audio/functions.py:13-139``).  The forward half (``unwrap``,
+``signal_to_stft``, ``wav_to_stft``, ``stft_to_phase_magn``) turns a track
+into image chunks; it runs on the device of its input, ``wav_to_stft`` on
+``cuda`` unless the caller passes ``device="cpu"``.  The inverse half takes
+one music's ``(N, 2, n_bins, W)`` chunks, as in JAX, or a batch of musics
 ``(M, N, 2, n_bins, W)``, which stands in for JAX's ``vmap``: every
 reduction (the magnitude's min-max rescale) and the phase prefix sum stay
 per music.
@@ -17,16 +20,33 @@ import numpy as np
 import torch
 
 from ..config import AudioConfig
-from .stft import istft_real_imag
+from ..device import resolve_device
+from .stft import istft_real_imag, stft
 
 _DEFAULT = AudioConfig()
 
 __all__ = [
+    "unwrap",
     "bark_scale_vector",
     "bark_magn_scale",
+    "signal_to_stft",
+    "wav_to_stft",
+    "stft_to_phase_magn",
     "mp_to_real_imag",
     "magn_phase_to_signal",
 ]
+
+
+def unwrap(phi: torch.Tensor, dim: int = 1) -> torch.Tensor:
+    """Phase unwrap along ``dim`` (reference ``audio/functions.py:17-23``),
+    in the dtype of ``phi`` on its device, as JAX's ``unwrap``: wrap the
+    first difference into (-pi, pi], fix the -pi/+pi boundary, zero the
+    corrections below the pi threshold, prefix-sum them."""
+    dphi = torch.diff(phi, dim=dim, prepend=phi.narrow(dim, 0, 1))
+    dphi_m = torch.remainder(dphi + math.pi, 2 * math.pi) - math.pi
+    dphi_m = torch.where((dphi_m == -math.pi) & (dphi > 0), math.pi, dphi_m)
+    phi_adj = torch.where(torch.abs(dphi) < math.pi, 0.0, dphi_m - dphi)
+    return phi + torch.cumsum(phi_adj, dim=dim)
 
 
 @functools.lru_cache(maxsize=4)
@@ -55,6 +75,58 @@ def bark_magn_scale(magn: torch.Tensor, unscale: bool = False) -> torch.Tensor:
     re-binning (reference ``audio/functions.py:26-35``)."""
     scale = bark_scale_vector(magn.shape[-2], device=magn.device)[:, None]
     return magn / scale if unscale else magn * scale
+
+
+def signal_to_stft(signal: torch.Tensor, cfg: AudioConfig = _DEFAULT) -> torch.Tensor:
+    """Mono signal -> complex ``(n_bins, T)`` STFT on the signal's device,
+    Nyquist row dropped (reference ``audio/functions.py:38-62``)."""
+    return stft(signal, n_fft=cfg.n_fft, hop=cfg.stft_stride)[:-1, :]
+
+
+def wav_to_stft(
+    wav_path: str, cfg: AudioConfig = _DEFAULT, device: str | torch.device | None = None
+) -> torch.Tensor:
+    """Host WAV decode, then the STFT on ``device`` (``cuda`` unless the
+    caller passes ``"cpu"``; reference ``audio/functions.py:38-62``): 44.1
+    kHz asserted, mono by channel mean, normalized Hann spectrogram, Nyquist
+    row dropped -> complex ``(n_bins, T)``."""
+    from .io import load_wav
+
+    device = resolve_device(device)
+    signal, _ = load_wav(wav_path, expected_sample_rate=cfg.sample_rate)
+    return signal_to_stft(torch.from_numpy(signal).to(device), cfg)
+
+
+def stft_to_phase_magn(
+    complex_values: torch.Tensor, nb_vec: int = _DEFAULT.n_vec
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Complex STFT ``(n_bins, T)`` -> ``(N, n_bins, nb_vec)`` magn and
+    phase, on its device (reference ``audio/functions.py:65-94``):
+    bark-weighted magnitude, unwrapped-phase first difference
+    (instantaneous frequency), track-global min-max to [-1, 1], leading
+    frames trimmed to a multiple of ``nb_vec``, then chunks along time."""
+    magn = torch.abs(complex_values)
+    phase = torch.angle(complex_values)
+
+    magn = bark_magn_scale(magn, unscale=False)
+    phase = unwrap(phase)
+
+    phase = phase[:, 1:] - phase[:, :-1]
+    magn = magn[:, 1:]
+
+    magn = (magn - magn.min()) / (magn.max() - magn.min())
+    phase = (phase - phase.min()) / (phase.max() - phase.min())
+    magn, phase = magn * 2.0 - 1.0, phase * 2.0 - 1.0
+
+    t = magn.shape[1]
+    magn = magn[:, t % nb_vec :]
+    phase = phase[:, t % nb_vec :]
+    n = magn.shape[1] // nb_vec
+    n_bins = magn.shape[0]
+    # (n_bins, N * nb_vec) -> (N, n_bins, nb_vec)
+    magn = magn.reshape(n_bins, n, nb_vec).permute(1, 0, 2)
+    phase = phase.reshape(n_bins, n, nb_vec).permute(1, 0, 2)
+    return magn, phase
 
 
 def mp_to_real_imag(

@@ -81,7 +81,7 @@ class ModelConfig:
         if self.conv_impl in _JAX_CONV_IMPLS:
             raise NotImplementedError(
                 f"conv_impl {self.conv_impl!r} is not ported: musicgan_tpu_torch runs "
-                f"{CONV_IMPLS} (ROADMAP.md section B)"
+                f"{CONV_IMPLS} (ROADMAP.md A15)"
             )
         raise ValueError(f"unknown conv_impl {self.conv_impl!r}; one of {CONV_IMPLS}")
 

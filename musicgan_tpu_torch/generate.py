@@ -33,7 +33,23 @@ from .device import resolve_device
 from .models import Generator
 from .ops.istft_fused import istft_fused
 
-__all__ = ["resolve_device", "synthesize_fn", "load_generator_params", "generate"]
+__all__ = ["resolve_device", "latents", "synthesize_fn", "load_generator_params", "generate"]
+
+
+def latents(
+    model_cfg: ModelConfig, nb_vec: int, nb_music: int, seed: int, device
+) -> torch.Tensor:
+    """The seeded latent draw: ``(nb_music, latent_height, latent_width *
+    nb_vec, rand_channels)`` standard normals from
+    ``torch.Generator(device).manual_seed(seed)``.  ``generate`` draws
+    through it, a ``serve`` request (``nb_music=1``: the same draw as
+    ``generate(seed=s, nb_music=1)``) and ``eval`` / ``compare``; tests
+    replace it to hand in JAX's draws (JAX and PyTorch draw different numbers
+    from one seed)."""
+    shape = (nb_music, model_cfg.latent_height, model_cfg.latent_width * nb_vec,
+             model_cfg.rand_channels)
+    rng = torch.Generator(device=device).manual_seed(seed)
+    return torch.randn(shape, generator=rng, device=device)
 
 
 @torch.no_grad()
@@ -129,8 +145,7 @@ def generate(
         model_cfg.rand_channels,
     )
     if z is None:
-        rng = torch.Generator(device=device).manual_seed(seed)
-        z = torch.randn(expect, generator=rng, device=device)
+        z = latents(model_cfg, nb_vec, nb_music, seed, device)
     elif tuple(z.shape) != expect:
         raise ValueError(f"z shape {tuple(z.shape)} != expected {expect}")
     waves = synthesize_fn(model_cfg, stage)(gen, z).cpu().numpy()
