@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's synthesis path, its WGAN-GP train step, its
-``train`` entry point and its serving and evaluation entry points on one
-NVIDIA GPU.
+``train`` entry point, its serving and evaluation entry points and its
+ingest and run interchange on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -9,7 +9,8 @@ Run from the root of the repository, on a machine with one CUDA card and
 the CUDA toolkit (``nvcc``).  Phases, each of which raises on failure:
 
 1. print the card's name and power limit; build every kernel from
-   ``musicgan_tpu_torch/csrc`` (one ``nvcc`` per source, all at once);
+   ``musicgan_tpu_torch/csrc`` (one ``nvcc`` per source, all at once) and,
+   beside them, the native host tail of ``musicgan_tpu_torch/native``;
 2. at the main path's shapes (5 clips x nb_vec 10, the full-width
    generator of ``saved_models/quality_r4/gen_final.pt``): hold each kernel
    against its plain PyTorch version on the card (TF32 off), and time the
@@ -101,7 +102,36 @@ the CUDA toolkit (``nvcc``).  Phases, each of which raises on failure:
    waveform; ``/healthz``, ``/stats``); the ``serve`` CLI as a subprocess,
    one request, SIGTERM; ``compare_artifacts`` of ``gen_final.pt`` twice
    (equal rows) and ``audition_run`` over phase 8's run; a solo request's
-   latency and the throughput of 8 concurrent requests.
+   latency and the throughput of 8 concurrent requests;
+11. ingest and run interchange, at full width: 6 seeded 16-bit WAVs of 7-9
+   s; a probe process (the port's ingest initialises no CUDA context, the
+   native tail is built into ``_build/``, the native / numpy / torch tails
+   of ``process_signal`` within 2e-6 and timed); ``python -m
+   musicgan_tpu_torch create_dataset -w 2`` as a subprocess (``index.json``
+   complete, the sample count), and ``create_dataset`` from this process,
+   which has a CUDA context (a pool that does not fork, the same bytes);
+   ``train`` as subprocesses: through all
+   eight stages on phase 8's cut schedule with ``--profile`` (the trace
+   names the port's conv and weight-gradient kernels), and with
+   ``--debug-nans`` on the corpus (exit 0) and on a copy with one sample
+   made NaN (a non-zero exit other than 75, naming the first op); ``export
+   --full`` of the last save, loaded into reference-shaped modules and
+   ``torch.optim.Adam``s grown as the reference's ``train.py`` grows them
+   (``weights_only=True``; every weight, moment and step against the
+   port's); ``import`` into a new run directory (equal to the save in every
+   weight the format carries, every moment and count); ``generate`` from
+   that directory and from the exported ``gen_{i}.pt`` (the same WAVs bit
+   for bit, launches counted); ``train --resume`` for 4 iterations at stage
+   7 (launches against ``expected_train_launches``); ``run_supervised``
+   with the CLI's own ``supervised_command``, the first child sent SIGTERM (exit
+   75), relaunched with ``--resume`` to exit 0 and the expected last save.
+
+The script stops every process it starts.  It is the subreaper of its
+descendants, so a grandchild orphaned by its parent (the forkserver of the
+``create_dataset`` subprocess) comes back to it; when it ends, pass or
+fail, it stops the forkserver and the resource tracker of its own
+``create_dataset`` pool, which would otherwise outlive it by a moment, and
+then stops and reaps any child still there, naming each on stderr.
 
 The last lines are a ``{"kernels": [...]}`` record, the ``nvidia-smi``
 line, and ``{"ok": true, "device": {...}}``.  Per-shape numbers also go
@@ -112,10 +142,15 @@ from __future__ import annotations
 
 import contextlib
 import csv
+import ctypes
 import dataclasses
+import filecmp
+import functools
 import io
 import json
 import math
+import multiprocessing.forkserver
+import multiprocessing.resource_tracker
 import os
 import re
 import signal
@@ -126,6 +161,7 @@ import threading
 import time
 import urllib.request
 from http.server import ThreadingHTTPServer
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from unittest import mock
 
@@ -135,6 +171,7 @@ import torch.nn.functional as F
 from scipy.io import wavfile
 
 from musicgan_tpu_torch import generate as generate_mod
+from musicgan_tpu_torch import native
 from musicgan_tpu_torch.audio import (
     load_wav,
     save_wav,
@@ -142,6 +179,7 @@ from musicgan_tpu_torch.audio import (
     stft_to_phase_magn,
     wav_to_stft,
 )
+from musicgan_tpu_torch.audio import ingest
 from musicgan_tpu_torch.audio.ingest import ShardWriter
 from musicgan_tpu_torch.audio.stft import hann_window, istft_real_imag
 from musicgan_tpu_torch.config import AudioConfig, ModelConfig, TrainConfig
@@ -167,6 +205,7 @@ from musicgan_tpu_torch.train import (
     init_train_state,
     train,
 )
+from musicgan_tpu_torch.utils.watchdog import EXIT_STALLED
 
 ROOT = Path(__file__).resolve().parent
 CKPT = ROOT / "saved_models" / "quality_r4" / "gen_final.pt"
@@ -2329,7 +2368,545 @@ def serving_and_evaluation(cfg: ModelConfig, dev, run_dir: str, card: str) -> di
     return rec
 
 
+
+# ---------------------------------------------------------------------------
+# Phase 11: ingest and run interchange.  WAVs -> ``create_dataset`` ->
+# ``train`` (profiled; under --debug-nans on a clean corpus and on one with
+# a NaN sample; supervised through a SIGTERM) -> ``export --full`` ->
+# ``import`` -> ``generate`` from both -> ``train --resume`` at stage 7.
+
+INGEST_TRACKS, INGEST_SECONDS = 6, (7.0, 9.0)  # 16-bit 44.1 kHz, 2-3 chunks a track
+INGEST_WORKERS = 2
+# process_signal's three tails against each other: the bar of the JAX
+# package's own tests (tests/test_ingest.py:262-275).
+TOL_INGEST_BACKENDS = 2e-6
+# The profiled run: phase 8's cut schedule (12 samples a stage), 20
+# iterations (stage 7 from the 16th), a save every 10: the last save is at
+# stage 7.  The resumed run adds 4 iterations at stage 7.
+RUN_ITERS, RUN_SAVE_EVERY, RESUME_ITERS = 20, 10, 4
+CUT_SCHEDULE_FLAG = "--cli-with-cut-schedule"
+# A probe in a process of its own: importing the port's ingest and running
+# every backend initialises no CUDA context; per-track times of each tail.
+INGEST_PROBE = r"""
+import json, sys, time
+import numpy as np, torch
+from musicgan_tpu_torch import native
+from musicgan_tpu_torch.audio import ingest
+from musicgan_tpu_torch.audio.io import load_wav
+out = {"native": native.is_available(), "lib": native.lib_path(), "ms": {}, "err": {}}
+sig = load_wav(sys.argv[1])[0]
+res = {}
+for backend in ("native", "numpy", "torch"):
+    res[backend] = ingest.process_signal(sig, backend=backend)
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        ingest.process_signal(sig, backend=backend)
+        times.append(time.perf_counter() - t0)
+    out["ms"][backend] = 1e3 * float(np.median(times))
+for backend in ("numpy", "torch"):
+    out["err"][backend] = float(np.abs(res[backend] - res["native"]).max())
+out["shape"] = list(res["native"].shape)
+out["cuda_initialized"] = torch.cuda.is_initialized()
+print(json.dumps(out))
+"""
+
+
+def cli_with_cut_schedule(argv: list[str]) -> None:
+    """``python3 chip_smoke.py --cli-with-cut-schedule train ...``: the
+    port's CLI with phase 8's cut schedule in the TrainConfig it builds (the
+    CLI has no flag for the schedule; depth is what a smoke may cut)."""
+    from musicgan_tpu_torch import __main__ as cli
+    from musicgan_tpu_torch import config
+
+    real = config.train_config_from_overrides
+
+    def cut(**kw):
+        return dataclasses.replace(real(**kw), fadein_lengths=LOOP_CFG["fadein_lengths"],
+                                   train_lengths=LOOP_CFG["train_lengths"])
+
+    config.train_config_from_overrides = cut
+    cli.main(argv)
+
+
+def reference_training_objects(cfg: ModelConfig, stage: int, gen_lr: float, disc_lr: float, betas):
+    """The reference's training objects at growth ``stage``, built as its
+    ``train.py:64-69,262-272`` builds them: modules that register their
+    parameters in the reference's order under its ``state_dict`` names
+    (``generator.py:54-103``: all blocks, then the head; ``next_layer``
+    keeps the previous head behind ``__last_end_block``;
+    ``discriminator.py:52-104``: all blocks, the start head 7, the
+    classifier; growth walks the head down, the previous one behind an
+    AvgPool), and an Adam each over the first module's parameters with one
+    group added a growth.  The classes are named ``Generator`` and
+    ``Discriminator`` so that Python mangles their attributes as the
+    reference's.  Returns ``(gen, disc, optim_gen, optim_disc)``."""
+    nn = torch.nn
+
+    class Generator(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.__gen_blocks = nn.ModuleList(
+                nn.Sequential(nn.Conv2d(ci, ci, 3, padding=1), nn.LeakyReLU(0.2), nn.Identity(),
+                              nn.Upsample(scale_factor=2), nn.Conv2d(ci, co, 3, padding=1),
+                              nn.LeakyReLU(0.2), nn.Identity())
+                for ci, co in cfg.gen_channels)
+            self.curr = 0
+            self.__end_block = self.head(0)
+
+        def head(self, s):
+            return nn.Sequential(nn.Conv2d(cfg.gen_channels[s][1], 2, 1), nn.Tanh())
+
+        def next_layer(self):
+            self.curr += 1
+            self.__last_end_block = nn.Sequential(self.__end_block, nn.Upsample(scale_factor=2))
+            self.__end_block = self.head(self.curr)
+            return list(self.__end_block.parameters())
+
+    class Discriminator(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.__conv_blocks = nn.ModuleList(
+                nn.Sequential(nn.Conv2d(ci, co, 3, padding=1), nn.LeakyReLU(0.2), nn.AvgPool2d(2),
+                              nn.Conv2d(co, co, 3, padding=1), nn.LeakyReLU(0.2))
+                for ci, co in cfg.disc_channels)
+            self.curr = len(cfg.disc_channels) - 2
+            self.__start_block = self.head(self.curr)
+            self.__clf = nn.Sequential(nn.Linear(cfg.disc_channels[-1][1], 1))
+
+        def head(self, layer):
+            return nn.Sequential(nn.Conv2d(2, cfg.disc_channels[layer][0], 1), nn.LeakyReLU(0.2))
+
+        def next_layer(self):
+            self.curr -= 1
+            self.__last_start_block = nn.Sequential(nn.AvgPool2d(2), self.__start_block)
+            self.__start_block = self.head(self.curr)
+            return list(self.__start_block.parameters())
+
+    gen, disc = Generator(), Discriminator()
+    opt_g = torch.optim.Adam(gen.parameters(), lr=gen_lr, betas=betas)
+    opt_d = torch.optim.Adam(disc.parameters(), lr=disc_lr, betas=betas)
+    for _ in range(stage):
+        opt_g.add_param_group({"params": gen.next_layer(), "lr": gen_lr, "betas": betas})
+        opt_d.add_param_group({"params": disc.next_layer(), "lr": disc_lr, "betas": betas})
+    return gen, disc, opt_g, opt_d
+
+
+def reference_to_port_name(name: str, stage: int, cfg: ModelConfig) -> str:
+    """A reference ``state_dict`` name -> the port's parameter name."""
+    layer = len(cfg.disc_channels) - 2 - stage
+    rules = (
+        (r"_Generator__gen_blocks\.(\d+)\.0\.", r"blocks.\1.conv1."),
+        (r"_Generator__gen_blocks\.(\d+)\.4\.", r"blocks.\1.conv2."),
+        (r"_Generator__end_block\.0\.", f"heads.{stage}."),
+        (r"_Generator__last_end_block\.0\.0\.", f"heads.{stage - 1}."),
+        (r"_Discriminator__conv_blocks\.(\d+)\.0\.", r"blocks.\1.conv1."),
+        (r"_Discriminator__conv_blocks\.(\d+)\.3\.", r"blocks.\1.conv2."),
+        (r"_Discriminator__start_block\.0\.", f"heads.{layer}."),
+        (r"_Discriminator__last_start_block\.1\.0\.", f"heads.{layer + 1}."),
+        (r"_Discriminator__clf\.0\.", "clf."),
+    )
+    for pat, rep in rules:
+        if re.match(pat, name):
+            return re.sub(pat, rep, name)
+    raise KeyError(name)
+
+
+def check_reference_load(files: dict, state, stage: int, cfg: ModelConfig, tc: dict) -> dict:
+    """Load an ``export --full`` save into the reference's training objects
+    (``weights_only=True``, ``strict=True``) and hold every weight, moment
+    and step that reaches a reference parameter against the port's state."""
+    objs = reference_training_objects(cfg, stage, tc["gen_lr"], tc["disc_lr"], tuple(tc["betas"]))
+    gen, disc, opt_g, opt_d = objs
+    n = {"weights": 0, "moments": 0}
+    for which, module, opt, net, adam in (("gen", gen, opt_g, state.gen, state.opt_gen),
+                                          ("disc", disc, opt_d, state.disc, state.opt_disc)):
+        module.load_state_dict(torch.load(files[which], map_location="cpu", weights_only=True), strict=True)
+        opt.load_state_dict(torch.load(files[f"optim_{which}"], map_location="cpu", weights_only=True))
+        own = dict(net.named_parameters())
+        for name, p in module.named_parameters():
+            port = reference_to_port_name(name, stage, cfg)
+            if not torch.equal(p.detach(), own[port].detach().cpu()):
+                raise AssertionError(f"{which} weight {name} is not the port's {port}")
+            n["weights"] += 1
+            st = opt.state.get(p)
+            if int(adam.count[port]) == 0:
+                if st:
+                    raise AssertionError(f"{which} {name}: a state entry for a count of 0")
+                continue
+            if (float(st["step"]) != int(adam.count[port])
+                    or not torch.equal(st["exp_avg"], adam.mu[port].cpu())
+                    or not torch.equal(st["exp_avg_sq"], adam.nu[port].cpu())):
+                raise AssertionError(f"{which} Adam state of {name} is not the port's {port}")
+            n["moments"] += 1
+    return n
+
+
+def carried_names(stage: int, cfg: ModelConfig) -> dict:
+    """The parameters a reference save carries at ``stage``: every block,
+    the current and previous heads, the classifier."""
+    layer = len(cfg.disc_channels) - 2 - stage
+    gen = {f"heads.{stage}.{leaf}" for leaf in ("weight", "bias")}
+    if stage > 0:
+        gen |= {f"heads.{stage - 1}.{leaf}" for leaf in ("weight", "bias")}
+    disc = {f"heads.{h}.{leaf}" for h in (layer, layer + 1) for leaf in ("weight", "bias")}
+    return {"gen": gen, "disc": disc | {"clf.weight", "clf.bias"}}
+
+
+def run_cli(argv: list[str]) -> str:
+    """The port's CLI in this process (counters readable); its stdout."""
+    from musicgan_tpu_torch.__main__ import main as cli_main
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli_main(argv)
+    text = buf.getvalue()
+    print("".join(f"    | {line}\n" for line in text.splitlines()[-6:]), end="")
+    return text
+
+
+def ingest_and_interchange(cfg: ModelConfig, dev, card: str) -> dict:
+    """Phase 11 (see the module's docstring)."""
+    from musicgan_tpu_torch.__main__ import supervised_command
+    from musicgan_tpu_torch.utils.supervise import run_supervised
+
+    def say(line: str) -> None:  # every number of the phase beside the card
+        print(f"{line} ({card})")
+
+    t_phase = time.perf_counter()
+    acfg = AudioConfig()
+    work = tempfile.mkdtemp(prefix="chip_smoke_ingest_")
+    total = {k: 0 for k in (*WRAPPERS, IDFT)}
+    rec = {"cpu_count": os.cpu_count(), "cpus_usable": len(os.sched_getaffinity(0))}
+
+    # (a) The corpus: seeded 16-bit WAVs, two tones and noise each.
+    wav_dir, ds = os.path.join(work, "wavs"), os.path.join(work, "ds")
+    os.makedirs(wav_dir)
+    rng = np.random.default_rng(SEED)
+    sr, lengths, want_samples = acfg.sample_rate, [], 0
+    for i in range(INGEST_TRACKS):
+        n = int(sr * rng.uniform(*INGEST_SECONDS))
+        t = np.arange(n) / sr
+        sig = (0.3 * np.sin(2 * np.pi * rng.uniform(110, 880) * t)
+               + 0.15 * np.sin(2 * np.pi * rng.uniform(880, 4000) * t) + 0.05 * rng.standard_normal(n))
+        wavfile.write(os.path.join(wav_dir, f"track_{i}.wav"), sr, np.round(sig * 32767).astype(np.int16))
+        lengths.append(n)
+        want_samples += (n // acfg.stft_stride) // acfg.n_vec  # ((1 + n // hop) - 1) // n_vec
+    audio_s = sum(lengths) / sr
+    longest = os.path.join(wav_dir, f"track_{int(np.argmax(lengths))}.wav")
+
+    # (b) The host path alone, in a process of its own.
+    probe = subprocess.run([sys.executable, "-c", INGEST_PROBE, longest], cwd=str(ROOT),
+                           capture_output=True, text=True, timeout=300)
+    if probe.returncode != 0:
+        raise AssertionError(f"ingest probe failed:\n{probe.stderr}")
+    pr = json.loads(probe.stdout.strip().splitlines()[-1])
+    if not pr["native"] or not pr["lib"].startswith(str(ROOT / "musicgan_tpu_torch" / "_build")):
+        raise AssertionError(f"the native host tail did not build into _build/: {pr}")
+    if pr["cuda_initialized"]:
+        raise AssertionError("importing and running the port's ingest initialised CUDA")
+    if max(pr["err"].values()) > TOL_INGEST_BACKENDS:
+        raise AssertionError(f"process_signal's backends disagree: {pr['err']}")
+    rec["process_signal"] = pr
+    say(f"[ingest] process_signal on a {pr['shape'][0]}-chunk track, median of 5: native "
+        f"{pr['ms']['native']:.2f} ms, numpy {pr['ms']['numpy']:.2f}, torch {pr['ms']['torch']:.2f}; "
+        f"numpy / torch against native {pr['err']['numpy']:.1e} / {pr['err']['torch']:.1e} (bar "
+        f"{TOL_INGEST_BACKENDS:.0e}); no CUDA context; {rec['cpu_count']} CPUs, {rec['cpus_usable']} usable")
+
+    # (c) create_dataset, the CLI as a subprocess.
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "musicgan_tpu_torch", "create_dataset", wav_dir, "-o", ds,
+                           "-w", str(INGEST_WORKERS)], cwd=str(ROOT), capture_output=True, text=True, timeout=600)
+    ingest_s = time.perf_counter() - t0
+    with open(os.path.join(ds, "index.json")) as f:
+        index = json.load(f)
+    printed = proc.stdout.strip().splitlines()
+    if (proc.returncode != 0 or not index["complete"] or index["total_samples"] != want_samples
+            or not printed or not printed[0].startswith(f"wrote {want_samples} samples in")):
+        raise AssertionError(f"create_dataset exited {proc.returncode}, index {index}:\n{proc.stdout}\n{proc.stderr}")
+    rec.update(audio_s=audio_s, samples=want_samples, create_dataset_s=ingest_s,
+               ingest_audio_s_per_s=audio_s / ingest_s)
+    say(f"[ingest] create_dataset -w {INGEST_WORKERS} of {INGEST_TRACKS} WAVs ({audio_s:.2f} s of audio): "
+        f"{want_samples} samples in {len(index['shards'])} shards, {ingest_s:.2f} s wall as a subprocess "
+        f"(start-up included) = {rec['ingest_audio_s_per_s']:.1f} audio-s/s")
+
+    # (d) train: profiled through all eight stages (cut schedule); under
+    # --debug-nans on the clean corpus and on one with a NaN sample.  The
+    # three run at once, each in its own process.
+    ds_nan = os.path.join(work, "ds_nan")
+    os.makedirs(ds_nan)
+    for name in os.listdir(ds):
+        arr_or = os.path.join(ds, name)
+        if name.endswith(".npy"):
+            arr = np.load(arr_or)
+            if name == index["shards"][0]["file"]:
+                arr[0] = np.nan
+            np.save(os.path.join(ds_nan, name), arr)
+        else:
+            with open(arr_or) as f_in, open(os.path.join(ds_nan, name), "w") as f_out:
+                f_out.write(f_in.read())
+    run_a, trace_dir = os.path.join(work, "run_a"), os.path.join(work, "trace")
+    runs = {
+        "profile": [sys.executable, str(ROOT / "chip_smoke.py"), CUT_SCHEDULE_FLAG, "train", "p11", "-i", ds,
+                    "-o", run_a, "--max-iters", str(RUN_ITERS), "--save-every", str(RUN_SAVE_EVERY),
+                    "--log-every", "5", "--chunk-steps", "4", "--profile", trace_dir],
+        "nans_clean": [sys.executable, "-m", "musicgan_tpu_torch", "train", "p11_nans", "-i", ds, "-o",
+                       os.path.join(work, "run_n"), "--max-iters", "3", "--log-every", "1", "--chunk-steps", "1",
+                       "--debug-nans"],
+        "nans_bad": [sys.executable, "-m", "musicgan_tpu_torch", "train", "p11_nan", "-i", ds_nan, "-o",
+                     os.path.join(work, "run_x"), "--max-iters", "3", "--log-every", "1", "--chunk-steps", "1",
+                     "--debug-nans"],
+    }
+    logs = {k: os.path.join(work, f"{k}.log") for k in runs}
+    t0 = time.perf_counter()
+    procs = {}
+    walls, outs = {}, {}
+    try:
+        for k, c in runs.items():
+            with open(logs[k], "w") as log:
+                procs[k] = subprocess.Popen(c, cwd=str(ROOT), stdout=log, stderr=subprocess.STDOUT)
+        # Meanwhile, ingest from this process, which has a CUDA context and
+        # its threads: the pool must not fork, and gives the CLI's bytes.
+        method = ingest._start_method()
+        ds_here = os.path.join(work, "ds_here")
+        ingest.create_dataset(wav_dir, ds_here, num_workers=INGEST_WORKERS, progress=False)
+        same = sorted(os.listdir(ds)) == sorted(os.listdir(ds_here)) and all(
+            filecmp.cmp(os.path.join(ds, n), os.path.join(ds_here, n), shallow=False) for n in os.listdir(ds))
+        if (torch.cuda.is_initialized() and method == "fork") or not same:
+            raise AssertionError(f"create_dataset from a process with CUDA: start method {method}, "
+                                 f"files equal to the CLI's: {same}")
+        while len(walls) < len(procs):
+            if time.perf_counter() - t0 > 600:
+                raise AssertionError(f"phase 11's train runs still running after 600 s: {sorted(set(procs) - set(walls))}")
+            for k, p in procs.items():
+                if k not in walls and p.poll() is not None:
+                    walls[k] = time.perf_counter() - t0
+            time.sleep(0.05)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for k, path in logs.items():
+        with open(path) as f:
+            outs[k] = f.read()
+    for k in runs:
+        print(f"    [{k}] exit {procs[k].returncode}, {walls[k]:.2f} s wall")
+        print("".join(f"    | {line}\n" for line in outs[k].splitlines()[-4:]), end="")
+    if procs["profile"].returncode != 0 or procs["nans_clean"].returncode != 0:
+        raise AssertionError("the profiled or the clean --debug-nans run failed")
+    if f"stopped at iter {RUN_ITERS}; stage {cfg.n_stages - 1}" not in outs["profile"]:
+        raise AssertionError("the profiled run did not reach stage 7")
+    bad = re.search(r"FloatingPointError: (\w+): non-finite value", outs["nans_bad"])
+    if procs["nans_bad"].returncode in (0, EXIT_STALLED) or bad is None:
+        raise AssertionError(f"the NaN corpus under --debug-nans exited {procs['nans_bad'].returncode}")
+    trace_path = os.path.join(trace_dir, "trace.json")
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    # the port's kernels by their function names in csrc/ (the demangled
+    # name carries the return type and the template arguments)
+    names = sorted({m.group(1) for k in kernels
+                    for m in [re.search(r"\b((?:conv|wgrad|block|istft)_\w*kernel)\b", k)] if m})
+    if not any(n.startswith("conv_") for n in names) or not any(n.startswith("wgrad_") for n in names):
+        raise AssertionError(f"the trace's {len(kernels)} kernel events name no conv or weight-gradient "
+                             f"kernel: {sorted(set(kernels))[:20]}")
+    rec.update(profile_run_s=walls["profile"], trace_bytes=os.path.getsize(trace_path),
+               trace_kernel_events=len(kernels), trace_kernels=names, nan_first_op=bad.group(1))
+    say(f"[ingest] create_dataset -w {INGEST_WORKERS} from this process (a CUDA context, its threads): "
+        f"the '{method}' start method, files byte for byte the CLI's")
+    say(f"[train] profiled run, {RUN_ITERS} iterations through 8 stages: {walls['profile']:.2f} s wall "
+        f"(start-up and trace included); trace {rec['trace_bytes'] / 2**20:.1f} MiB, {len(kernels)} kernel "
+        f"events, the port's {names}; --debug-nans clean: exit 0; NaN sample: exit "
+        f"{procs['nans_bad'].returncode}, first op {bad.group(1)}")
+    del events, kernels
+
+    # (e) export --full of the last save, loaded into the reference's own
+    # training objects.
+    src_idx = CheckpointManager(os.path.join(run_a, "checkpoints")).latest()
+    src, meta_a = CheckpointManager(os.path.join(run_a, "checkpoints")).restore(
+        src_idx, init_train_state(SEED, cfg, device="cuda"), load_rng=False)
+    stage = int(meta_a["grower"]["curr_grow"])
+    if stage != cfg.n_stages - 1 or meta_a["iter_idx"] != RUN_ITERS:
+        raise AssertionError(f"the last save is at stage {stage}, iteration {meta_a['iter_idx']}")
+    ref = os.path.join(work, "ref")
+    t0 = time.perf_counter()
+    run_cli(["export", run_a, "-o", ref, "--full"])
+    export_s = time.perf_counter() - t0
+    files = {k: os.path.join(ref, f"{k}_{src_idx}.pt") for k in ("gen", "disc", "optim_gen", "optim_disc")}
+    loaded = check_reference_load(files, src, stage, cfg, meta_a["train_cfg"])
+
+    # (f) import into a new run directory: equal to the source save in
+    # every weight the format carries, every moment and count.
+    run_b = os.path.join(work, "run_b")
+    t0 = time.perf_counter()
+    run_cli(["import", ref, str(src_idx), "-o", run_b, "--iter", str(RUN_ITERS)])
+    import_s = time.perf_counter() - t0
+    imp, meta_b = CheckpointManager(os.path.join(run_b, "checkpoints")).restore(
+        0, init_train_state(SEED + 3, cfg, device="cuda"))
+    carried, n_equal = carried_names(stage, cfg), 0
+    for which in ("gen", "disc"):
+        a_net, b_net = dict(getattr(src, which).named_parameters()), dict(getattr(imp, which).named_parameters())
+        a_opt, b_opt = getattr(src, f"opt_{which}"), getattr(imp, f"opt_{which}")
+        for k in a_net:
+            if (k.startswith("blocks.") or k in carried[which]) and not torch.equal(a_net[k], b_net[k]):
+                raise AssertionError(f"imported {which} weight {k} differs")
+            for field in ("count", "mu", "nu"):
+                if not torch.equal(getattr(a_opt, field)[k], getattr(b_opt, field)[k]):
+                    raise AssertionError(f"imported {which} Adam {field} of {k} differs")
+                n_equal += 1
+    if int(imp.iter_idx) != RUN_ITERS or meta_b["grower"]["curr_grow"] != stage:
+        raise AssertionError(f"imported meta {meta_b}")
+    rec.update(export_s=export_s, import_s=import_s, reference_load=loaded, adam_leaves_equal=n_equal)
+    say(f"[interchange] export --full of save_{src_idx} (stage {stage}) {export_s * 1e3:.1f} ms, loaded "
+        f"into the reference's modules and Adams: {loaded['weights']} weights, {loaded['moments']} moment "
+        f"pairs equal; import {import_s * 1e3:.1f} ms: carried weights, {n_equal} Adam leaves equal bit for bit")
+    del src, imp
+
+    # (g) generate from the imported run directory and from gen_{i}.pt.
+    wavs = {}
+    for what, ckpt in (("imported run", run_b), ("exported gen", files["gen"])):
+        out = os.path.join(work, f"wav_{len(wavs)}")
+        reset_launches()
+        run_cli(["generate", ckpt, str(cfg.rand_channels), "-o", out, "-n", "2", "-m", "2"])
+        counted(total, expected_serve_launches(cfg, 1), f"generate from the {what}")
+        wavs[what] = [open(os.path.join(out, f"sound_{i}.wav"), "rb").read() for i in range(2)]
+    if wavs["imported run"] != wavs["exported gen"]:
+        raise AssertionError("generate from the imported run and from gen_{i}.pt differ")
+
+    # (h) train --resume of the imported run, 4 iterations at stage 7.
+    by_kind = [0, 0]
+    for it in range(RUN_ITERS, RUN_ITERS + RESUME_ITERS):
+        by_kind[it % TrainConfig().n_critic == 0] += 1
+    reset_launches()
+    t0 = time.perf_counter()
+    text = run_cli(["train", "p11_imp", "-i", ds, "-o", run_b, "--resume", "--log-every", "1",
+                    "--max-iters", str(RUN_ITERS + RESUME_ITERS)])
+    torch.cuda.synchronize()
+    resume_s = time.perf_counter() - t0
+    counted(total, expected_train_launches(cfg, stage, *by_kind), "train --resume at stage 7")
+    if (f"[resume] save_0: iter={RUN_ITERS} stage={stage}" not in text
+            or f"stopped at iter {RUN_ITERS + RESUME_ITERS}; stage {stage}" not in text):
+        raise AssertionError("train --resume did not continue the imported run at stage 7")
+    rec["resume_s"] = resume_s
+    say(f"[interchange] generate from the imported run and from gen_{src_idx}.pt: the same WAVs bit for bit; "
+        f"train --resume: {RESUME_ITERS} iterations at stage {stage} in {resume_s:.2f} s (restore included)")
+
+    # (i) --max-restarts: the CLI's supervised_command under run_supervised; the
+    # first child is sent SIGTERM once it logs an iteration.
+    run_s = os.path.join(work, "run_s")
+    argv = ["train", "p11_sup", "-i", ds, "-o", run_s, "--max-iters", "8", "--save-every", "4",
+            "--log-every", "1", "--chunk-steps", "1", "--max-restarts", "1"]
+    children = []
+
+    def run_child(cmd, env=None):
+        p = subprocess.Popen(cmd, cwd=str(ROOT), env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        lines = []
+        try:
+            for line in p.stdout:
+                lines.append(line)
+                if not children and line.startswith("e000 it"):
+                    p.send_signal(signal.SIGTERM)
+                    break
+            lines.append(p.communicate(timeout=300)[0])
+        finally:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        children.append((cmd, p.returncode, "".join(lines)))
+        return subprocess.CompletedProcess(cmd, p.returncode)
+
+    t0 = time.perf_counter()
+    rc = run_supervised(functools.partial(supervised_command, argv), 1, backoff_s=1, _run=run_child)
+    sup_s = time.perf_counter() - t0
+    last = CheckpointManager(os.path.join(run_s, "checkpoints"))
+    with open(os.path.join(last._dir(last.latest()), "meta.json")) as f:
+        meta_s = json.load(f)
+    cmds = [c for c, _, _ in children]
+    if (rc != 0 or [r for _, r, _ in children] != [EXIT_STALLED, 0]
+            or "--resume" in cmds[0] or "--resume" not in cmds[1] or "--max-restarts" in " ".join(cmds[0])
+            or cmds[0][-2:] != ["--stall-timeout", "900"] or meta_s["iter_idx"] != 8):
+        raise AssertionError(f"supervised run: rc {rc}, children {[(c[3:], r) for c, r, _ in children]}, "
+                             f"last save {meta_s}")
+    rec["supervised_s"] = sup_s
+    say(f"[supervise] child 1 sent SIGTERM -> exit 75, relaunched with --resume -> exit 0, last save at "
+        f"iteration 8; {sup_s:.2f} s wall with a 1 s backoff")
+
+    rec["launches"] = total
+    rec["phase_s"] = time.perf_counter() - t_phase
+    say(f"[interchange] launches in phase 11: {total}; the phase took {rec['phase_s']:.2f} s")
+    return rec
+
+
+PR_SET_CHILD_SUBREAPER = 36  # <linux/prctl.h>
+
+
+def become_subreaper() -> None:
+    """Adopt the orphans of this script's descendants, so that
+    :func:`stop_own_processes` sees every process the script started."""
+    libc = ctypes.CDLL(None, use_errno=True)
+    if libc.prctl(PR_SET_CHILD_SUBREAPER, 1, 0, 0, 0) != 0:
+        raise OSError(ctypes.get_errno(), "prctl(PR_SET_CHILD_SUBREAPER)")
+
+
+def own_children() -> list[int]:
+    """The pids whose parent is this process, zombies included."""
+    me, kids = os.getpid(), []
+    for name in os.listdir("/proc"):
+        if not name.isdigit():
+            continue
+        try:
+            with open(f"/proc/{name}/stat") as f:
+                state_ppid = f.read().rsplit(")", 1)[1].split()[:2]
+        except (OSError, IndexError):
+            continue
+        if int(state_ppid[1]) == me:
+            kids.append(int(name))
+    return kids
+
+
+def stop_own_processes(grace_s: float = 5.0) -> None:
+    """Stop every process this script started that is still there.
+
+    The in-process ``create_dataset`` pool leaves multiprocessing's
+    forkserver and resource tracker running; they would see this process's
+    end only after it, so they are stopped here, the forkserver first (it
+    holds the tracker's pipe).  Then each remaining child is sent SIGTERM,
+    then SIGKILL after ``grace_s``, and reaped."""
+    for helper in (multiprocessing.forkserver._forkserver, multiprocessing.resource_tracker._resource_tracker):
+        helper._stop()
+    pending = {}
+    for pid in own_children():
+        try:
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                pending[pid] = f.read().replace(b"\0", b" ").decode(errors="replace").strip()[:160] or "an orphan that had exited"
+            os.kill(pid, signal.SIGTERM)
+        except (OSError, ProcessLookupError):
+            pending.setdefault(pid, "?")
+    deadline = time.monotonic() + grace_s
+    alive = set(pending)
+    while alive:
+        for pid in list(alive):
+            try:
+                if os.waitpid(pid, os.WNOHANG)[0] == pid:
+                    alive.discard(pid)
+            except ChildProcessError:
+                alive.discard(pid)
+        if alive and time.monotonic() > deadline:
+            for pid in alive:
+                with contextlib.suppress(ProcessLookupError):
+                    os.kill(pid, signal.SIGKILL)
+            for pid in alive:
+                with contextlib.suppress(ChildProcessError):
+                    os.waitpid(pid, 0)
+            alive.clear()
+        time.sleep(0.02)
+    for pid, cmd in pending.items():
+        print(f"chip_smoke: stopped and reaped process {pid}: {cmd}", file=sys.stderr)
+
+
 def main() -> None:
+    become_subreaper()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
     card = card_line()
@@ -2338,7 +2915,14 @@ def main() -> None:
     # The plain versions and the library yardsticks run in float32, not TF32.
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    print(f"[build] kernels built in {_build.build_all():.2f} s")
+    # The native host tail (g++, about a second) builds beside the nvcc jobs.
+    with ThreadPoolExecutor(1) as pool:
+        host = pool.submit(lambda: (time.perf_counter(), native.build(), time.perf_counter()))
+        print(f"[build] kernels built in {_build.build_all():.2f} s")
+        t0, lib, t1 = host.result()
+    if not native.is_available() or native.lib_path() != lib:
+        raise AssertionError("the native host tail did not build")
+    print(f"[build] native host tail {os.path.relpath(lib, ROOT)} built in {t1 - t0:.2f} s")
 
     cfg = ModelConfig()
     gen = load_reference_generator(str(CKPT), cfg, device=dev)
@@ -2373,8 +2957,10 @@ def main() -> None:
     torch.cuda.empty_cache()
     serving = serving_and_evaluation(cfg, dev, loop["run_dir"], card)
     torch.cuda.empty_cache()
+    interchange = ingest_and_interchange(cfg, dev, card)
+    torch.cuda.empty_cache()
 
-    paths = (e2e, train_rec, e2e_block, loop, e2e_new, serving)
+    paths = (e2e, train_rec, e2e_block, loop, e2e_new, serving, interchange)
     # The float32 kernels' launches: a wrapper's count less its bf16 ones.
     launched = {k: sum(p["launches"][k] for p in paths) for k in (*WRAPPERS, IDFT)}
     for name, fn in BF16_WRAPPERS.items():
@@ -2427,7 +3013,8 @@ def main() -> None:
     (out / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "shapes": rows, "end_to_end": e2e, "gradients": grads, "train": train_rec,
          "end_to_end_block": e2e_block, "train_entry_point": loop, "bf16_shapes": bf16_rows,
-         "end_to_end_new_impls": e2e_new, "serving": serving, "kernels": kernels}, indent=1))
+         "end_to_end_new_impls": e2e_new, "serving": serving, "ingest_and_interchange": interchange,
+         "kernels": kernels}, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -2437,4 +3024,10 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == [CUT_SCHEDULE_FLAG]:
+        cli_with_cut_schedule(sys.argv[2:])
+    else:
+        try:
+            main()
+        finally:
+            stop_own_processes()

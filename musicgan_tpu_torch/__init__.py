@@ -9,25 +9,30 @@ generator and the iSTFT vocoder to WAV files), the WGAN-GP train step
 train loop around it (growth schedule, dataset, checkpoints with bit-exact
 resume, previews, metrics, stall watchdog), serving (``serve``: a micro-batching
 service over the resident generator and its HTTP front end), evaluation
-(``evaluate``: checkpoint audition and corpus-referenced scoring) and the
-forward STFT half with ``view_audio``, on hand-written CUDA kernels
+(``evaluate``: checkpoint audition and corpus-referenced scoring), the
+forward STFT half with ``view_audio``, dataset ingest
+(``audio.ingest.create_dataset`` with the C++ host tail of ``native``) and
+run interchange with the reference's four-file saves
+(``models.torch_ingest``), on hand-written CUDA kernels
 (``ops/``, sources in ``csrc/``): the five TPU kernels' counterparts, K1, K3
 and K4 also in bf16 (the ``*_bf16`` inference impls), and the conv's weight
 gradient.  Its entry points are
 ``generate.generate``, ``generate.synthesize_fn``, ``train.train``,
 ``serve.SynthesisService``, ``serve.serve``, ``evaluate.audition_run``,
 ``evaluate.compare_artifacts``, ``view_audio.view_audio``,
-``python -m musicgan_tpu_torch generate|train|serve|eval|compare|view_audio``,
+``audio.ingest.create_dataset``, ``models.torch_ingest.export_reference_save``,
+``models.torch_ingest.import_reference_run``, ``python -m musicgan_tpu_torch
+create_dataset|train|generate|serve|eval|compare|view_audio|export|import``,
 ``train.init_train_state``, ``train.build_step`` and
-``train.build_chunk_step``; they run on ``cuda`` unless the caller passes
-``device="cpu"``.
+``train.build_chunk_step``; those that build tensors run on ``cuda`` unless
+the caller passes ``device="cpu"`` (ingest runs on the host only).
 """
 
 __version__ = "0.1.0"
 
-from . import audio, config, evaluate, generate, models, ops, serve, train, utils, view_audio
+from . import audio, config, evaluate, generate, models, native, ops, serve, train, utils, view_audio
 
 __all__ = [
-    "audio", "config", "evaluate", "generate", "models", "ops", "serve", "train", "utils",
+    "audio", "config", "evaluate", "generate", "models", "native", "ops", "serve", "train", "utils",
     "view_audio", "__version__",
 ]

@@ -1,16 +1,22 @@
-"""CLI of the PyTorch port: the ``train``, ``generate``, ``view_audio``,
-``serve``, ``eval`` and ``compare`` subcommands of
-``musicgan_tpu/__main__.py``, each with ``--device``.
+"""CLI of the PyTorch port: the ``create_dataset``, ``train``,
+``generate``, ``view_audio``, ``serve``, ``eval``, ``compare``, ``export``
+and ``import`` subcommands of ``musicgan_tpu/__main__.py``; every one that
+builds tensors takes ``--device``.
 
+    python -m musicgan_tpu_torch create_dataset "/data/*.wav" -o /data/ds [-w N]
     python -m musicgan_tpu_torch train RUN -i DATASET_DIR -o OUT_DIR \\
-        [--resume] [--max-iters N] [--batch-size 6] ... [--device cuda|cpu]
+        [--resume] [--max-iters N] [--batch-size 6] ... [--max-restarts N] \\
+        [--profile TRACE_DIR] [--debug-nans] [--device cuda|cpu]
     python -m musicgan_tpu_torch generate CKPT 32 -o /out [-n 10] [-m 5] \\
         [--seed 0] [--conv-impl IMPL] [--device cuda|cpu]
     python -m musicgan_tpu_torch view_audio --input-audio a.wav --image-idx 0
     python -m musicgan_tpu_torch serve CKPT --port 8765
     python -m musicgan_tpu_torch eval RUN_DIR --corpus /data/wav
     python -m musicgan_tpu_torch compare A.pt RUN_DIR --corpus /data/wav
+    python -m musicgan_tpu_torch export RUN_DIR -o gen.pt | -o REF_DIR --full
+    python -m musicgan_tpu_torch import REF_DIR I -o RUN_DIR [--iter N]
 
+``create_dataset`` runs on the host only and takes no ``--device``.
 ``--conv-impl`` (``ModelConfig.conv_impl``): ``pallas_up`` (default),
 ``pallas_block``, ``pallas``, or any of them with ``_bf16`` (the same
 blocks in bf16 through the bf16 kernels).
@@ -18,16 +24,20 @@ blocks in bf16 through the bf16 kernels).
 ``CKPT`` is a reference ``gen_*.pt`` file or a run directory of ``train``
 (or its ``checkpoints`` or a ``save_N`` directory).  ``train`` exits 75
 (EX_TEMPFAIL) after a SIGTERM/SIGUSR1 preemption, with a checkpoint
-flushed: run it again with ``--resume``.  The JAX CLI's ``--max-restarts``,
-``--profile``, ``--debug-nans`` and multi-host flags are not ported yet
-(ROADMAP.md section A items 16 and 17) and are rejected.  Still to port:
-``create_dataset`` (A13), ``info`` (with A13 and A15), ``export`` and
-``import`` (A18a).
+flushed: run it again with ``--resume``, or let ``--max-restarts N`` do it.
+``export --full`` writes the reference Saver's four files (weights and Adam
+state); ``import`` turns such a save (the reference's, or one the JAX
+package exported) into a run directory that ``train --resume`` continues.
+Still to port: ``info`` (with the autotune cache, ROADMAP.md section A item
+15) and the multi-host flags ``--coordinator``, ``--num-processes``,
+``--process-id`` (A16), which are rejected.
 """
 
 from __future__ import annotations
 
 import argparse
+import sys
+from typing import Sequence
 
 from .config import CONV_IMPLS
 
@@ -56,10 +66,40 @@ def _add_holdout_args(p: argparse.ArgumentParser) -> None:
         help="seed for the --holdout-frac track split")
 
 
+def supervised_command(argv: Sequence[str], attempt: int) -> list[str]:
+    """The child command of ``train --max-restarts N`` at ``attempt`` (0 =
+    the first run): ``argv`` (the parent's arguments, subcommand first)
+    less ``--max-restarts N`` / ``--max-restarts=N``, plus ``--stall-timeout
+    900`` where unset, plus ``--resume`` from attempt 1 on."""
+    child, skip = [], False
+    for a in argv:
+        if skip:
+            skip = False
+        elif a == "--max-restarts":
+            skip = True
+        elif not a.startswith("--max-restarts="):
+            child.append(a)
+    if not any(a == "--stall-timeout" or a.startswith("--stall-timeout=") for a in child):
+        child += ["--stall-timeout", "900"]
+    if attempt > 0 and "--resume" not in child:
+        child.append("--resume")
+    return [sys.executable, "-m", "musicgan_tpu_torch", *child]
+
+
 def main(argv=None) -> None:
+    argv = sys.argv[1:] if argv is None else list(argv)
     parser = argparse.ArgumentParser("musicgan_tpu_torch")
     sub = parser.add_subparsers(dest="mode", required=True)
 
+    p = sub.add_parser("create_dataset", help="WAVs -> packed spectrogram shards")
+    p.add_argument("audio_path", type=str, help="can be /path/to/*.wav")
+    p.add_argument("-o", "--output-dir", type=str, required=True)
+    p.add_argument("-w", "--num-workers", type=int, default=None)
+    p.add_argument("--samples-per-shard", type=int, default=128)
+
+    # allow_abbrev=False: the supervisor re-invokes this command minus the
+    # exact '--max-restarts' token; an abbreviated spelling (--max-restart)
+    # would survive the strip and nest supervisors recursively.
     p = sub.add_parser("train", help="progressive WGAN-GP training", allow_abbrev=False)
     p.add_argument("run", type=str, metavar="RUN_NAME")
     p.add_argument("-o", "--out-path", dest="out_path", type=str, required=True)
@@ -95,10 +135,22 @@ def main(argv=None) -> None:
     p.add_argument("--mlflow-uri", type=str, default=None, metavar="URI",
                    help="also log params+metrics to an MLflow tracking "
                         "store (requires the mlflow package)")
+    p.add_argument("--profile", type=str, default=None, metavar="TRACE_DIR",
+                   help="capture a torch.profiler trace of the run "
+                        "(TRACE_DIR/trace.json)")
+    p.add_argument("--debug-nans", action="store_true",
+                   help="raise at the first kernel that outputs a "
+                        "non-finite value (one sync a launch)")
     p.add_argument("--stall-timeout", type=float, default=None,
                    metavar="SECONDS",
                    help="abort (exit 75) when no device progress is seen "
-                        "for this long (default: off)")
+                        "for this long; pairs with --max-restarts "
+                        "(default: 900 when --max-restarts is set, else off)")
+    p.add_argument("--max-restarts", type=int, default=0, metavar="N",
+                   help="supervise the run: relaunch up to N times with "
+                        "--resume when it exits 75 (stall watchdog, "
+                        "preemption) or dies on a signal; other failures "
+                        "are not retried")
     p.add_argument("--device", type=str, default="cuda", help=_DEVICE_HELP)
 
     p = sub.add_parser("generate", help="sample latents -> WAV files")
@@ -175,13 +227,81 @@ def main(argv=None) -> None:
     _add_holdout_args(p)
     p.add_argument("--device", type=str, default="cuda", help=_DEVICE_HELP)
 
+    p = sub.add_parser("export", help="export a trained generator as a reference-format .pt")
+    p.add_argument("ckpt", type=str, help="run / checkpoint directory of train (single-file "
+                                          "export: also a reference gen_*.pt)")
+    p.add_argument("-o", "--output", type=str, required=True)
+    p.add_argument("--stage", type=int, default=7,
+                   help="growth stage for a single-.pt export (ignored "
+                        "with --full, which uses the checkpoint's "
+                        "recorded stage)")
+    p.add_argument("--full", action="store_true",
+                   help="write the reference Saver's complete four-file "
+                        "save (gen/disc/optim_gen/optim_disc _{i}.pt, "
+                        "reference utils.py:118-145) into the OUTPUT "
+                        "directory: weights AND Adam state")
+    p.add_argument("--save-idx", type=int, default=None,
+                   help="index i in the exported file names (--full; "
+                        "default: the source checkpoint's save index)")
+    p.add_argument("--device", type=str, default="cuda", help=_DEVICE_HELP)
+
+    p = sub.add_parser(
+        "import",
+        help="convert a reference save directory (the four *_{i}.pt files) "
+             "into a run dir that `train -o DIR --resume` continues: "
+             "weights, Adam moments and per-param step counts included",
+    )
+    p.add_argument("ref_dir", type=str,
+                   help="directory holding gen_{i}.pt / disc_{i}.pt / "
+                        "optim_gen_{i}.pt / optim_disc_{i}.pt")
+    p.add_argument("save_idx", type=int, help="reference save index i")
+    p.add_argument("-o", "--output", type=str, required=True,
+                   help="run directory to create (gets checkpoints/save_0)")
+    p.add_argument("--iter", type=int, default=None,
+                   help="iteration counter to resume at (default: "
+                        "save_idx * 1000, the reference's save cadence)")
+    p.add_argument("--device", type=str, default="cuda",
+                   help=_DEVICE_HELP + "; resume on the same kind of device")
+
     args = parser.parse_args(argv)
-    if args.mode == "train":
+    if args.mode == "create_dataset":  # host only: ingest never touches a device
+        from .audio.ingest import create_dataset
+
+        index = create_dataset(
+            args.audio_path,
+            args.output_dir,
+            num_workers=args.num_workers,
+            samples_per_shard=args.samples_per_shard,
+        )
+        print(
+            f"wrote {index['total_samples']} samples in "
+            f"{len(index['shards'])} shards to {args.output_dir}"
+        )
+        for path, err in index["errors"]:
+            print(f"  ERROR {path}: {err}")
+
+    elif args.mode == "train":
+        if args.max_restarts > 0:
+            # Become the supervisor: re-invoke this same command as a
+            # child and retry stall-watchdog exits / signal deaths.
+            import functools
+
+            from .utils.supervise import run_supervised
+
+            raise SystemExit(run_supervised(
+                functools.partial(supervised_command, argv), args.max_restarts
+            ))
+
+        import contextlib
+
         from .config import train_config_from_overrides
         from .train import train
         from .train.loop import PREEMPTED
+        from .utils.profiling import enable_debug_mode, trace
         from .utils.watchdog import EXIT_STALLED
 
+        if args.debug_nans:
+            enable_debug_mode(nans=True)
         cfg = train_config_from_overrides(
             batch_size=args.batch_size,
             nb_epoch=args.nb_epoch,
@@ -198,15 +318,16 @@ def main(argv=None) -> None:
             tb_dir=args.tb_dir,
             mlflow_uri=args.mlflow_uri,
         )
-        train(
-            args.run,
-            args.input_dataset,
-            args.out_path,
-            train_cfg=cfg,
-            resume=args.resume,
-            max_iters=args.max_iters,
-            device=args.device,
-        )
+        with trace(args.profile) if args.profile else contextlib.nullcontext():
+            train(
+                args.run,
+                args.input_dataset,
+                args.out_path,
+                train_cfg=cfg,
+                resume=args.resume,
+                max_iters=args.max_iters,
+                device=args.device,
+            )
         if PREEMPTED.is_set():
             # SIGTERM/SIGUSR1 preemption: the loop flushed a checkpoint
             # and stopped early; exit EX_TEMPFAIL so schedulers treat this
@@ -294,6 +415,53 @@ def main(argv=None) -> None:
             holdout_dir=args.holdout_dir,
             holdout_seed=args.holdout_seed,
             device=args.device,
+        )
+
+    elif args.mode == "export":
+        from .config import ModelConfig, TrainConfig
+
+        model_cfg = ModelConfig()
+        if args.full:
+            from .models.torch_ingest import export_reference_save
+            from .train.checkpoint import CheckpointManager, resolve_checkpoint
+            from .train.step import init_train_state
+
+            root, save_idx = resolve_checkpoint(args.ckpt)
+            template = init_train_state(0, model_cfg, device=args.device)
+            state, meta = CheckpointManager(root).restore(save_idx, template, load_rng=False)
+            stage = min(int(meta["grower"]["curr_grow"]), model_cfg.n_stages - 1)
+            # Adam's hyperparameters ride the exported param groups: the
+            # RUN's recorded values, not the defaults (a 5e-4 run exported
+            # at lr=1e-3 would silently retrain at 2x lr in the reference).
+            tc, defaults = meta.get("train_cfg") or {}, TrainConfig()
+            out_idx = args.save_idx if args.save_idx is not None else save_idx
+            print(f"exporting save_{save_idx} at stage {stage} (from checkpoint meta; "
+                  "--stage applies to single-.pt exports only)")
+            paths = export_reference_save(
+                state, args.output, out_idx, stage=stage, cfg=model_cfg,
+                gen_lr=float(tc.get("gen_lr", defaults.gen_lr)),
+                disc_lr=float(tc.get("disc_lr", defaults.disc_lr)),
+                betas=tuple(tc.get("betas", defaults.betas)),
+            )
+            for p_ in paths:
+                print(p_)
+        else:
+            from .generate import load_generator_params
+            from .models.torch_ingest import export_reference_generator
+
+            gen = load_generator_params(args.ckpt, model_cfg, device=args.device)
+            export_reference_generator(gen, args.output, stage=args.stage, cfg=model_cfg)
+            print(args.output)
+
+    elif args.mode == "import":
+        from .models.torch_ingest import import_reference_run
+
+        _, stage = import_reference_run(
+            args.ref_dir, args.save_idx, args.output, iter_idx=args.iter, device=args.device
+        )
+        print(
+            f"{args.output}/checkpoints/save_0 (stage {stage}): continue with: "
+            f"python -m musicgan_tpu_torch train RUN -i DATASET -o {args.output} --resume"
         )
 
 

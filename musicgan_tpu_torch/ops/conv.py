@@ -81,6 +81,7 @@ import torch
 
 from . import _build
 from . import conv_bf16
+from .nan_check import checked
 from ..models.layers import (
     conv2d,
     leaky_relu,
@@ -346,7 +347,7 @@ def fused_conv3x3(x, w, b, slope=None, pixel_norm=False, eps=1e-8, w_packed=None
     ``"large_bf16_tc"``) and tile width, for measurements and tests."""
     out_dtype_of("fused_conv3x3", x, out_dtype)
     if x.device.type == "cpu":
-        return conv3x3_plain(x, w, b, slope, pixel_norm, eps)
+        return checked("fused_conv3x3", conv3x3_plain(x, w, b, slope, pixel_norm, eps))
     if x.device.type != "cuda":
         raise ValueError(f"fused_conv3x3: no kernel for device {x.device}")
     if x.dtype == torch.bfloat16:
@@ -355,7 +356,7 @@ def fused_conv3x3(x, w, b, slope=None, pixel_norm=False, eps=1e-8, w_packed=None
         wp = _kernel_layout("fused_conv3x3", w, w_packed, False, x.dtype)
     y = _launch("conv3x3", x, wp, b, w.shape[0], x.shape[2:], slope, pixel_norm, eps, route, tc)
     _count(fused_conv3x3, x.dtype)
-    return y
+    return checked("fused_conv3x3", y)
 
 
 def fused_conv3x3_msq(x, w, b, slope=None, eps=1e-8, w_packed=None):
@@ -364,7 +365,7 @@ def fused_conv3x3_msq(x, w, b, slope=None, eps=1e-8, w_packed=None):
     It is the one intermediate the backward pass cannot rebuild from ``y``
     in float32: ``mean_c(y^2) = m / (m + eps)`` rounds to 1 for ``m >> eps``."""
     if x.device.type == "cpu":
-        return conv3x3_msq_plain(x, w, b, slope, eps)
+        return checked("fused_conv3x3_msq", conv3x3_msq_plain(x, w, b, slope, eps))
     if x.device.type != "cuda":
         raise ValueError(f"fused_conv3x3_msq: no kernel for device {x.device}")
     if x.dtype != torch.float32:
@@ -381,7 +382,7 @@ def fused_conv3x3_msq(x, w, b, slope=None, eps=1e-8, w_packed=None):
         int(slope is not None), eps, device=x.device,
     )
     fused_conv3x3_msq.launches += 1
-    return y, m
+    return checked("fused_conv3x3_msq", (y, m))
 
 
 def fused_upconv3x3(x, w, b, slope=None, pixel_norm=False, eps=1e-8, w_packed=None, out_dtype=None,
@@ -394,7 +395,7 @@ def fused_upconv3x3(x, w, b, slope=None, pixel_norm=False, eps=1e-8, w_packed=No
     :func:`fused_conv3x3`'s, for K3 bf16."""
     out_dtype_of("fused_upconv3x3", x, out_dtype)
     if x.device.type == "cpu":
-        return upconv3x3_plain(x, w, b, slope, pixel_norm, eps)
+        return checked("fused_upconv3x3", upconv3x3_plain(x, w, b, slope, pixel_norm, eps))
     if x.device.type != "cuda":
         raise ValueError(f"fused_upconv3x3: no kernel for device {x.device}")
     if x.dtype == torch.bfloat16:
@@ -404,7 +405,7 @@ def fused_upconv3x3(x, w, b, slope=None, pixel_norm=False, eps=1e-8, w_packed=No
     h, w_ = x.shape[2:]
     y = _launch("upconv3x3", x, wp, b, w.shape[0], (2 * h, 2 * w_), slope, pixel_norm, eps, route, tc)
     _count(fused_upconv3x3, x.dtype)
-    return y
+    return checked("fused_upconv3x3", y)
 
 
 def fused_block_plain(x, w1, b1, w2, b2, slope=0.2, eps=1e-8, out_dtype=None):
@@ -666,7 +667,7 @@ def fused_block(x, w1, b1, w2, b2, slope=0.2, eps=1e-8, w1_packed=None, w2_packe
     measurements and tests."""
     out_dtype_of("fused_block", x, out_dtype)
     if x.device.type == "cpu":
-        return fused_block_plain(x, w1, b1, w2, b2, slope, eps)
+        return checked("fused_block", fused_block_plain(x, w1, b1, w2, b2, slope, eps))
     if x.device.type != "cuda":
         raise ValueError(f"fused_block: no kernel for device {x.device}")
     bsz, cin, h, wd = x.shape
@@ -706,7 +707,7 @@ def fused_block(x, w1, b1, w2, b2, slope=0.2, eps=1e-8, w1_packed=None, w2_packe
     else:
         _build.kernel(lib, f"mg_{lib}", _BLOCK_ARGS)(*args, device=x.device)
     _count(fused_block, x.dtype)
-    return y
+    return checked("fused_block", y)
 
 
 _PLAN_KEYS = ("shape", "cluster", "split_k", "nsplit", "pixels_a_lane", "threads", "blocks",

@@ -51,6 +51,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from . import _build
+from .nan_check import checked
 from .conv import H100_SMS, conv3x3_plain, fused_conv3x3, fused_conv3x3_msq
 
 __all__ = ["conv3x3_act", "conv3x3_act_plain", "conv3x3_act_backward", "weight_grad3x3",
@@ -344,7 +345,7 @@ def weight_grad3x3(x, dpre, w_shape, route: str | None = None):
     Counts its calls in ``.launches`` (one a call, also where the plan adds
     the runs' partial sums in a second launch)."""
     if x.device.type == "cpu":
-        return weight_grad3x3_plain(x, dpre, w_shape)
+        return checked("weight_grad3x3", weight_grad3x3_plain(x, dpre, w_shape))
     if x.device.type != "cuda":
         raise ValueError(f"weight_grad3x3: no kernel for device {x.device}")
     bsz, cin, h, w = x.shape
@@ -363,7 +364,7 @@ def weight_grad3x3(x, dpre, w_shape, route: str | None = None):
         _route_code(route), device=x.device,
     )
     weight_grad3x3.launches += 1
-    return dw
+    return checked("weight_grad3x3", dw)
 
 
 weight_grad3x3.launches = 0
@@ -418,7 +419,9 @@ def conv3x3_act(x, w, b, slope=0.2, pixel_norm=False, eps=1e-8):
     with OIHW weights, differentiable once in ``(x, w, b)``.  ``b`` may be
     None; ``slope`` None means no LeakyReLU."""
     if x.device.type == "cpu":
-        return conv3x3_act_plain(x, w, b, slope, pixel_norm, eps)
+        # checked under the name of the kernel the card runs here
+        name = "fused_conv3x3_msq" if pixel_norm else "fused_conv3x3"
+        return checked(name, conv3x3_act_plain(x, w, b, slope, pixel_norm, eps))
     if x.device.type != "cuda":
         raise ValueError(f"conv3x3_act: no kernel for device {x.device}")
     return _Conv3x3Act.apply(x, w, b, slope, pixel_norm, eps)

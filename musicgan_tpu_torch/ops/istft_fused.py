@@ -48,6 +48,7 @@ import numpy as np
 import torch
 
 from . import _build
+from .nan_check import checked
 from ..audio.stft import _idft_bases, hann_window, istft_real_imag
 
 __all__ = [
@@ -147,7 +148,7 @@ def istft_fused(real, imag, n_fft: int = 1024, hop: int = 256, normalized: bool 
     ``audio.stft.istft_real_imag``, its plain version."""
     assert n_fft % hop == 0
     if real.device.type == "cpu":
-        return istft_real_imag(real, imag, n_fft, hop, normalized)
+        return checked("istft_fused", istft_real_imag(real, imag, n_fft, hop, normalized))
     if real.device.type != "cuda":
         raise ValueError(f"istft_fused: no kernel for device {real.device}")
     unbatched = real.ndim == 2
@@ -176,7 +177,7 @@ def istft_fused(real, imag, n_fft: int = 1024, hop: int = 256, normalized: bool 
             )
             istft_fused.idft_launches += 1
         istft_fused.launches += 1
-    return y[0] if unbatched else y
+    return checked("istft_fused", y[0] if unbatched else y)
 
 
 istft_fused.launches = 0

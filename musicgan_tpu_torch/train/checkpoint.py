@@ -160,8 +160,10 @@ class CheckpointManager:
             if os.path.isdir(os.path.join(d, "state")):
                 raise NotImplementedError(
                     f"{d} is a musicgan_tpu (orbax) checkpoint; musicgan_tpu_torch "
-                    "reads its own saves and reference gen_*.pt files: convert "
-                    "with `python -m musicgan_tpu export CKPT -o gen.pt`"
+                    "reads its own saves and reference gen_*.pt files: on a host with "
+                    "JAX, `python -m musicgan_tpu export CKPT -o gen.pt` (the generator) "
+                    "or `... export CKPT -o REF --full`, then `python -m "
+                    "musicgan_tpu_torch import REF I -o RUN` to continue the run"
                 )
             raise FileNotFoundError(path)
         payload = torch.load(path, map_location="cpu", weights_only=True)

@@ -1,4 +1,5 @@
-"""Utilities: metrics logging and the stall watchdog."""
+"""Utilities: metrics logging, the stall watchdog, supervised restart
+(``supervise``) and tracing / debug mode (``profiling``)."""
 
 from .metrics import MetricLogger
 from .watchdog import EXIT_STALLED, StallWatchdog

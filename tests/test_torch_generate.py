@@ -2,6 +2,7 @@
 ``generate`` entry point, the CLI, the device rule and the package's
 isolation from JAX."""
 
+import ast
 import os
 import re
 import subprocess
@@ -115,7 +116,8 @@ for new in ("train.step", "train.optim", "ops.conv_vjp", "models.discriminator",
             "models.losses", "audio.transforms", "device", "train.loop", "train.grower",
             "train.saver", "train.checkpoint", "audio.dataset", "audio.ingest",
             "audio.host_pipeline", "utils.metrics", "utils.watchdog", "__main__",
-            "serve", "evaluate", "view_audio", "audio.rebin", "audio.stft", "audio.functions"):
+            "serve", "evaluate", "view_audio", "audio.rebin", "audio.stft", "audio.functions",
+            "native", "utils.supervise", "utils.profiling", "ops.nan_check", "models.torch_ingest"):
     assert "musicgan_tpu_torch." + new in sys.modules, new
 bad = sorted(
     m for m in sys.modules
@@ -127,6 +129,27 @@ print("isolated", len(sys.modules))
 """
 
 _IMPORT_RE = re.compile(r"^\s*(from|import)\s+(jax|jaxlib|orbax|musicgan_tpu)(\.|\s|$)", re.M)
+# A path into the JAX package's directory in a string the code uses (not a
+# docstring): "musicgan_tpu/..." or a "musicgan_tpu" path component.  A
+# TPU kernel's "file:line" citation (chip_smoke.py's "replaces") is printed,
+# never opened.
+_CITATION_RE = re.compile(r"^musicgan_tpu/[\w/]+\.py:\d+$")
+
+
+def _paths_into_the_jax_package(source: str) -> list:
+    tree = ast.parse(source)
+    docstrings = {
+        id(node.body[0].value) for node in ast.walk(tree)
+        if isinstance(node, (ast.Module, ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef))
+        and node.body and isinstance(node.body[0], ast.Expr) and isinstance(node.body[0].value, ast.Constant)
+    }
+    hits = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Constant) and isinstance(node.value, str) and id(node) not in docstrings:
+            s = node.value
+            if (s == "musicgan_tpu" or re.search(r"(^|[^\w])musicgan_tpu/", s)) and not _CITATION_RE.match(s):
+                hits.append(s)
+    return hits
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
@@ -143,5 +166,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert len(sources) > 10
     for path in sources:
         with open(path) as f:
-            hits = _IMPORT_RE.findall(f.read())
+            source = f.read()
+        hits = _IMPORT_RE.findall(source)
         assert not hits, (path, hits)
+        assert not _paths_into_the_jax_package(source), path
+    for new in ("native/__init__.py", "utils/supervise.py", "utils/profiling.py", "ops/nan_check.py"):
+        assert os.path.join(ROOT, "musicgan_tpu_torch", new) in sources, new
+    # the check sees such a path where the code would use one
+    assert _paths_into_the_jax_package('p = os.path.join(ROOT, "musicgan_tpu", "native")\n')
+    assert _paths_into_the_jax_package('f = open(f"{ROOT}/musicgan_tpu/native/host_ops.cpp")\n')
+    assert not _paths_into_the_jax_package('"""a counterpart of ``musicgan_tpu/native``"""\n')
