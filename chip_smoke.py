@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's synthesis path, its WGAN-GP train step, its
-``train`` entry point, its serving and evaluation entry points and its
-ingest and run interchange on one NVIDIA GPU.
+``train`` entry point, its serving and evaluation entry points, its
+ingest and run interchange and its conv_impl selection on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -78,7 +78,10 @@ the CUDA toolkit (``nvcc``).  Phases, each of which raises on failure:
    at every block with its plan, held equal to the mirror
    ``ops/conv_bf16.py::block_plan``, against K1 bf16 then K3 bf16 bit for
    bit and beside the pair's time, the blocks its size rule takes and those
-   it leaves to the pair alike; each timed beside its plain
+   it leaves to the pair alike; K4 bf16 past 128 channels
+   (``block3x3_bf16_wide.cu``, on no path of this model) at phase 7's
+   width against its plain version and the pair in the 2-norm; each timed
+   beside its plain
    version, ``F.conv2d`` on bf16 tensors and its bound (dense bf16 or
    bytes); ``generate`` once under each of ``pallas``, ``pallas_bf16``,
    ``pallas_up_bf16`` and ``pallas_block_bf16``, launches counted (the bf16
@@ -125,6 +128,23 @@ the CUDA toolkit (``nvcc``).  Phases, each of which raises on failure:
    7 (launches against ``expected_train_launches``); ``run_supervised``
    with the CLI's own ``supervised_command``, the first child sent SIGTERM (exit
    75), relaunched with ``--resume`` to exit 0 and the expected last save.
+12. conv_impl selection (``ops/autotune.py``), in a fresh
+   ``MUSICGAN_AUTOTUNE_DIR`` (phases 1-11 run their impls by name, and their
+   CLI subprocesses through a table seeded with those winners): the six
+   inference candidates at synth-5x10 timed and resolved, the winner
+   persisted; both vocoders timed, K5 against the plain iSTFT at 1e-4;
+   ``generate --conv-impl auto`` as a subprocess (no measurement) and in
+   this process beside ``--conv-impl <winner>`` (the same launches, the
+   same WAV bytes); ``generate`` under the library lowerings ``xla`` and
+   ``subpixel`` (no conv kernel launched; image and waveform against the
+   float32 plain path at phase 3's bars, as phase 3 holds the kernels, and
+   the waveform against float64 too; warm times); at train-s7-b6 the
+   four train impls timed, the first D+G iteration of each counted and held
+   against the float64 plain step at phase 6's bars; ``bfloat16`` and
+   ``bfloat16_f32gp`` training under ``xla`` finite, with steps/s beside
+   float32 ``pallas_gp``'s; ``train()`` under "auto" through the eight
+   stages (the impl each resolved to and what its measurement cost),
+   stopped half way and resumed bit for bit; ``info`` as a subprocess.
 
 The script stops every process it starts.  It is the subreaper of its
 descendants, so a grandchild orphaned by its parent (the forkserver of the
@@ -174,6 +194,7 @@ from musicgan_tpu_torch import generate as generate_mod
 from musicgan_tpu_torch import native
 from musicgan_tpu_torch.audio import (
     load_wav,
+    mp_to_real_imag,
     save_wav,
     signal_to_stft,
     stft_to_phase_magn,
@@ -191,6 +212,7 @@ from musicgan_tpu_torch.models import (
 )
 from musicgan_tpu_torch.models.layers import upsample_nearest_2x
 from musicgan_tpu_torch.ops import _build
+from musicgan_tpu_torch.ops import autotune
 from musicgan_tpu_torch.ops import conv as conv_ops
 from musicgan_tpu_torch.ops import conv_bf16
 from musicgan_tpu_torch.ops import conv_vjp
@@ -655,7 +677,7 @@ def end_to_end(cfg: ModelConfig, dev) -> dict:
         with torch.no_grad():
             z64 = z.double()
             img64 = gen64.forward_nchw(z64.permute(0, 3, 1, 2), cfg.n_stages - 1)
-            waves64 = generate_mod._synthesize(gen64, z64, cfg.n_stages - 1, cfg)
+            waves64 = generate_mod._synthesize(gen64, z64, cfg.n_stages - 1, cfg, "pallas")
     finally:
         for p in patches:
             p.stop()
@@ -1410,17 +1432,17 @@ def loop_trajectory(tcfg: TrainConfig, cfg: ModelConfig, n_iters: int, start: in
 
 
 def expected_loop_launches(tcfg: TrainConfig, cfg: ModelConfig, n_iters: int, start: int = 0) -> dict:
-    """Launches of a ``train`` run: the train step's formula summed over the
-    stage trajectory, plus one inference forward (K1 and K3 once a block)
-    for the previews of every save."""
+    """Launches of a ``train`` run under ``conv_impl="pallas_gp"``: the
+    train step's formula summed over the stage trajectory, plus one forward
+    for the previews of every save, through the run's conv_impl as JAX's
+    Saver runs it: the trainable kernels' forward, K2 twice a block."""
     by_stage, saves = loop_trajectory(tcfg, cfg, n_iters, start)
     total = {name: 0 for name in (*WRAPPERS, IDFT)}
     for stage, (n_d, n_dg) in by_stage.items():
         for k, v in expected_train_launches(cfg, stage, n_d, n_dg).items():
             total[k] += v
     for stage in saves:
-        total["fused_conv3x3"] += stage + 1
-        total["fused_upconv3x3"] += stage + 1
+        total["fused_conv3x3_msq"] += 2 * (stage + 1)
     return total
 
 
@@ -1611,7 +1633,9 @@ def train_entry_point(cfg: ModelConfig, dev) -> dict:
     del pre
 
     # The Saver's image-computing half, called directly, at stage 7.
-    saver = Saver(os.path.join(work, "previews"), tcfg, cfg)
+    # Under an inference impl the previews are K1 and K3 (a run's Saver
+    # previews through the run's conv_impl).
+    saver = Saver(os.path.join(work, "previews"), tcfg, dataclasses.replace(cfg, conv_impl="pallas_up"))
     reset_launches()
     images = saver.preview_images(state_a, cfg.n_stages - 1, 1.0)
     got = read_launches()
@@ -1880,10 +1904,55 @@ def check_bf16_kernels(gen, cfg: ModelConfig, dev) -> list[dict]:
         rows.append(row)
         del mid_up
         del xu
-    taken = [r for r in rows if r["name"] == "fused_block_bf16" and r["taken"]]
+    # K4 bf16 past 128 channels (``csrc/block3x3_bf16_wide.cu``, the float32
+    # template at bf16), the route its widths alone give
+    # (``conv_bf16.block_route``); no block of this generator is that wide,
+    # so it is on no path: at phase 7's WIDE_BLOCK against its bf16 plain
+    # version and against K1 bf16 then K3 bf16, in the 2-norm (two roundings
+    # in a chain, and another kernel family than the pair's).
+    bsz, cin, cmid, cout, h, w = WIDE_BLOCK
+    if conv_bf16.block_route(cmid, cout) == "bf16_tc":
+        raise AssertionError(f"{WIDE_BLOCK} takes K4 bf16's narrow route")
+    x = torch.randn(bsz, cin, h, w, generator=rng, device=dev).to(bf)
+    w1 = torch.randn(cmid, cin, 3, 3, generator=rng, device=dev) / (9 * cin) ** 0.5
+    b1 = torch.randn(cmid, generator=rng, device=dev) * 0.1
+    w2 = torch.randn(cout, cmid, 3, 3, generator=rng, device=dev) / (9 * cmid) ** 0.5
+    b2 = torch.randn(cout, generator=rng, device=dev) * 0.1
+    w1b, b1b, w2b, b2b = w1.to(bf), b1.to(bf), w2.to(bf), b2.to(bf)
+    mid_up = upsample_nearest_2x(conv_ops.conv3x3_plain(x, w1, b1, slope, True, eps))
+
+    def wide_pair():
+        mid = conv_ops.fused_conv3x3(x, w1, b1, slope, True, eps)
+        return conv_ops.fused_upconv3x3(mid, w2, b2, slope, True, eps)
+
+    def wide_library():
+        F.conv2d(x, w1b, b1b, padding=1)
+        return F.conv2d(mid_up, w2b, b2b, padding=1)
+
+    px = bsz * h * w
+    row = measure_bf16(
+        "fused_block_bf16", WIDE_BLOCK, lambda: conv_ops.fused_block(x, w1, b1, w2, b2, slope, eps),
+        lambda: conv_ops.fused_block_plain(x, w1, b1, w2, b2, slope, eps), wide_library,
+        2.0 * px * cin * 9 * cmid + 2.0 * 4 * px * cout * 4 * cmid,
+        2.0 * (px * cin + 4 * px * cout + 9 * cin * cmid + 16 * cmid * cout) + 4.0 * (cmid + cout),
+        l2_tol=TOL_K4_BF16_L2,
+    )
+    l2_pair = rel_l2(conv_ops.fused_block(x, w1, b1, w2, b2, slope, eps).float(), wide_pair().float())
+    row.update(role="wide", block=None, l2_vs_pair=l2_pair, pair_ms=time_ms(wide_pair),
+               tile=conv_ops.block_tile(cmid, cout))
+    print(f"[bf16]   fused_block_bf16 past 128 channels {WIDE_BLOCK} (block3x3_bf16_wide.cu, a cluster of "
+          f"{row['tile']['cluster']}): against K1 bf16 then K3 bf16, 2-norm {l2_pair:.2e} (tol "
+          f"{TOL_K4_BF16_L2:.0e}); K4 {row['ms']:.4f} ms, pair {row['pair_ms']:.4f} ms, two bf16 F.conv2d "
+          f"{row['library_ms']:.4f}, bound {row['bound_ms']:.4f} ({row['bound_by']})")
+    if not l2_pair <= TOL_K4_BF16_L2:
+        raise AssertionError("K4 bf16 past 128 channels disagrees with K1 bf16 then K3 bf16")
+    rows.append(row)
+    del x, mid_up
+
+    taken = [r for r in rows if r["name"] == "fused_block_bf16" and r.get("taken")]
     if not taken:
         raise AssertionError("the bf16 rule gives K4 bf16 no block of the main path")
-    k4 = [r for r in rows if r["name"] == "fused_block_bf16"]
+    k4 = [r for r in rows if r["name"] == "fused_block_bf16" and r["role"] != "wide"]
     print(f"[sums]   fused_block_bf16 at the {len(taken)} blocks the bf16 rule takes ({[r['block'] for r in taken]}): "
           f"K4 {sum(r['ms'] for r in taken):.4f} ms, pair {sum(r['pair_ms'] for r in taken):.4f}; at blocks 4-7: "
           f"K4 {sum(r['ms'] for r in k4[4:]):.4f} ms, pair {sum(r['pair_ms'] for r in k4[4:]):.4f}, bound "
@@ -1929,7 +1998,7 @@ def end_to_end_new_impls(cfg: ModelConfig, dev) -> dict:
     try:
         with torch.no_grad():
             img64 = gen64.forward_nchw(zc.double(), stage)
-            waves64 = generate_mod._synthesize(gen64, z.double(), stage, cfg)
+            waves64 = generate_mod._synthesize(gen64, z.double(), stage, cfg, "pallas")
     finally:
         for p in patches:
             p.stop()
@@ -2841,6 +2910,366 @@ def ingest_and_interchange(cfg: ModelConfig, dev, card: str) -> dict:
 PR_SET_CHILD_SUBREAPER = 36  # <linux/prctl.h>
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: conv_impl selection (``ops/autotune.py``).  Phases 1-11 run
+# fixed impls: in this process by name (``pallas_up`` for synthesis,
+# ``pallas_gp`` for training), and in their CLI subprocesses, which run
+# "auto", through a table pre-seeded with those winners
+# (``seed_autotune_table``, the JAX contract's own mechanism).  Phase 12
+# runs "auto" itself in a fresh table: the six inference candidates, the
+# two vocoders, the library lowerings, the four train impls, bf16 training
+# and ``train()`` with a measurement at each stage.
+
+PHASE12_BF16_ITERS = 10  # bf16 train iterations held finite, in the n_critic pattern
+
+
+def use_autotune_dir(path: str) -> None:
+    """Point the autotuner at ``path``'s table (this process and the
+    subprocesses it starts) and forget what it resolved in memory."""
+    os.environ["MUSICGAN_AUTOTUNE_DIR"] = path
+    autotune._CACHE.clear()
+
+
+def seed_autotune_table(path: str, dev) -> int:
+    """A table with the winners phases 1-11 were written for: ``pallas_up``
+    at every inference key they reach (stages 0-7, 1-10 clips, nb_vec
+    1-12), K5 (``"pallas"``) at every vocoder length up to the service's
+    cap (nb_vec 120), ``pallas_gp`` at every float32 train key (stages 0-7,
+    batch 1-8).  Returns the number of keys."""
+    backend = autotune._backend(dev)
+    table = {}
+    for stage in range(8):
+        for m in range(1, 11):
+            for nv in range(1, 13):
+                table[autotune._candidates_and_key(backend, (m, 2, 2 * nv, 32), stage, False, None)[1]] = "pallas_up"
+        for b in range(1, 9):
+            key = autotune._candidates_and_key(backend, (b, 2, 2, 32), stage, True, TrainConfig(batch_size=b))[1]
+            table[key] = "pallas_gp"
+    for nv in range(1, 121):
+        table[autotune._istft_key(backend, 513, 512 * nv)] = "pallas"
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "conv_autotune.json"), "w") as f:
+        json.dump(table, f)
+    return len(table)
+
+
+class Tally:
+    """The launches of phase 12's counted paths, and of them the bf16 ones."""
+
+    def __init__(self):
+        self.launches = {k: 0 for k in (*WRAPPERS, IDFT)}
+        self.bf16 = {k: 0 for k in BF16_WRAPPERS}
+
+    def read(self) -> tuple[dict, dict]:
+        got, bf = read_launches(), read_bf16_launches()
+        for k in self.launches:
+            self.launches[k] += got[k]
+        for k in self.bf16:
+            self.bf16[k] += bf[k]
+        return got, bf
+
+
+def inference_auto(cfg: ModelConfig, dev, say, work: str, tally: Tally) -> dict:
+    """Phase 12 (a): "auto" at synth-5x10.  The six candidates, then the
+    resolution (which measures them again) and its persisted winner; the
+    two vocoders and K5 against the plain iSTFT; ``generate --conv-impl
+    auto`` as a subprocess reads the table (no measurement), and in this
+    process beside ``--conv-impl <winner>``: the same launches, and all
+    three the same WAV bytes."""
+    acfg, stage = AudioConfig(), cfg.n_stages - 1
+    auto = dataclasses.replace(cfg, conv_impl="auto")
+    z = main_path_latent(cfg, dev)
+    t_frames = z.shape[2] * 2**cfg.n_stages
+    times = autotune.measure_conv_impls(auto, tuple(z.shape), stage)
+    say("[autotune] synth-5x10 generator forward, ms each: "
+        + ", ".join(f"{k} {v * 1e3:.3f}" for k, v in times.items()))
+    t0 = time.perf_counter()
+    winner = autotune.resolve_conv_impl(auto, tuple(z.shape), stage).conv_impl
+    resolve_s = time.perf_counter() - t0
+    key = autotune._candidates_and_key(autotune._backend(dev), tuple(z.shape), stage, False, None)[1]
+    if autotune._load_persisted().get(key) != winner:
+        raise AssertionError(f"the winner {winner!r} is not persisted under {key!r}")
+    voc = autotune.measure_istft_impls(acfg.n_bins + 1, t_frames)
+    voc_winner = autotune.resolve_istft_impl(t_frames)
+    gen_up = load_reference_generator(str(CKPT), cfg, device=dev)
+    with torch.no_grad():
+        real, imag = mp_to_real_imag(gen_up.forward_nchw(z.permute(0, 3, 1, 2), stage)[:, None], acfg)
+        err_voc = (istft_ops.istft_fused(real, imag) - istft_real_imag(real, imag)).abs().max().item()
+    del gen_up, real, imag
+    say(f"[autotune] resolved conv_impl {winner!r} in {resolve_s:.2f} s (persisted); vocoder, ms each: "
+        + ", ".join(f"{k} {v * 1e3:.4f}" for k, v in voc.items())
+        + f" -> {voc_winner!r}; K5 against istft_real_imag on the main path's spectra: {err_voc:.2e} (tol 1e-4)")
+    if not err_voc <= 1e-4:
+        raise AssertionError("K5 disagrees with the plain iSTFT")
+
+    argv = ["generate", str(CKPT), str(cfg.rand_channels), "-n", str(NB_VEC), "-m", str(NB_MUSIC)]
+    out_sub = os.path.join(work, "wav_sub")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "musicgan_tpu_torch", *argv, "-o", out_sub, "--conv-impl", "auto"],
+                          cwd=str(ROOT), capture_output=True, text=True, timeout=600)
+    sub_s = time.perf_counter() - t0
+    if proc.returncode != 0 or "[autotune]" in proc.stdout + proc.stderr:
+        raise AssertionError(f"generate --conv-impl auto: exit {proc.returncode}\n{proc.stdout}\n{proc.stderr}")
+    wavs, runs = {"subprocess auto": out_sub}, {}
+    for impl in (winner, "auto"):
+        out = os.path.join(work, f"wav_{impl}")
+        reset_launches()
+        run_cli([*argv, "-o", out, "--conv-impl", impl])
+        runs[impl] = tally.read()
+        wavs[f"--conv-impl {impl}"] = out
+    if runs["auto"] != runs[winner]:
+        raise AssertionError(f"generate under auto launched {runs['auto']}, under {winner!r} {runs[winner]}")
+    blobs = {k: [open(os.path.join(d, f"sound_{i}.wav"), "rb").read() for i in range(NB_MUSIC)]
+             for k, d in wavs.items()}
+    if not all(b == blobs["subprocess auto"] for b in blobs.values()):
+        raise AssertionError("the WAVs of generate under auto and under the winner differ")
+    say(f"[autotune] generate --conv-impl auto as a subprocess ({sub_s:.2f} s): no measurement, the WAVs of "
+        f"--conv-impl {winner} bit for bit; launches under auto {runs['auto'][0]}, of them in bf16 {runs['auto'][1]}, "
+        f"equal to {winner!r}'s")
+    return {"inference_ms": {k: v * 1e3 for k, v in times.items()}, "winner": winner, "resolve_s": resolve_s,
+            "vocoder_ms": {k: v * 1e3 for k, v in voc.items()}, "vocoder_winner": voc_winner,
+            "err_vocoder": err_voc, "generate_launches": {k: v[0] for k, v in runs.items()}}
+
+
+def float64_synthesis(cfg: ModelConfig, dev, z) -> tuple[torch.Tensor, torch.Tensor]:
+    """The image and waveforms of ``gen_final.pt`` on ``z`` through the
+    plain path in float64 (the library lowering's convs in float64, the
+    float64 iSTFT)."""
+    cfg_x = dataclasses.replace(cfg, conv_impl="xla")
+    gen64 = load_reference_generator(str(CKPT), cfg_x, device=dev).double()
+    with torch.no_grad(), mock.patch.object(generate_mod, "istft_fused", istft_float64):
+        z64 = z.double()
+        img64 = gen64.forward_nchw(z64.permute(0, 3, 1, 2), cfg.n_stages - 1)
+        waves64 = generate_mod._synthesize(gen64, z64, cfg.n_stages - 1, cfg_x, "pallas")
+    return img64, waves64
+
+
+def library_inference(cfg: ModelConfig, dev, say, work: str, tally: Tally, voc_winner: str) -> dict:
+    """Phase 12 (b): ``generate`` under the library lowerings ``xla`` and
+    ``subpixel``: no conv kernel launched; image and waveform held at phase
+    3's bars against what phase 3 holds the kernels against, the plain
+    path in float32 on the card, and the waveform against the plain path in
+    float64 too; the image's distance to float64 is read, as phase 3 reads
+    the plain path's (the library lowerings are cuDNN in float32, and cuDNN
+    in float32 lies about 2e-3 from float64 on this generator's
+    ill-conditioned pixels, the plain path included); warm synthesis."""
+    acfg, stage = AudioConfig(), cfg.n_stages - 1
+    z = main_path_latent(cfg, dev)
+    img64, waves64 = float64_synthesis(cfg, dev, z)
+    gen = load_reference_generator(str(CKPT), cfg, device=dev)
+    patches = plain_on_card()
+    for p in patches:
+        p.start()
+    try:
+        with torch.no_grad():
+            img_plain = gen.forward_nchw(z.permute(0, 3, 1, 2), stage)
+            waves_plain = generate_mod.synthesize_fn(cfg, stage)(gen, z)
+    finally:
+        for p in patches:
+            p.stop()
+    del gen
+    n_samples = (cfg.latent_width * NB_VEC * 2**cfg.n_stages - 1) * acfg.stft_stride
+    want = {"fused_conv3x3": 0, "fused_conv3x3_msq": 0, "fused_upconv3x3": 0, "fused_block": 0,
+            "weight_grad3x3": 0, IDFT: 0, "istft_fused": int(voc_winner == "pallas")}
+    rec = {}
+    for impl in ("xla", "subpixel"):
+        cfg_i = dataclasses.replace(cfg, conv_impl=impl)
+        reset_launches()
+        paths = generate_mod.generate(os.path.join(work, f"lib_{impl}"), cfg.rand_channels, str(CKPT),
+                                      nb_vec=NB_VEC, nb_music=NB_MUSIC, seed=SEED, model_cfg=cfg_i, device="cuda")
+        got, _ = tally.read()
+        if got != want:
+            raise AssertionError(f"generate under {impl!r} launched {got}, not {want}")
+        waves = []
+        for p in paths:
+            wave, sr = load_wav(p)
+            if sr != acfg.sample_rate or wave.shape != (n_samples,) or not np.isfinite(wave).all():
+                raise AssertionError(f"{p}: {sr} Hz, {wave.shape}")
+            waves.append(wave)
+        gen_i = load_reference_generator(str(CKPT), cfg_i, device=dev)
+        reset_launches()
+        with torch.no_grad():
+            img = gen_i.forward_nchw(z.permute(0, 3, 1, 2), stage)
+        if any(read_launches().values()):
+            raise AssertionError(f"the {impl!r} forward launched {read_launches()}")
+        wave_t = torch.from_numpy(np.stack(waves)).to(dev)
+        errs = {"image": (img - img_plain).abs().max().item(), "wave": (wave_t - waves_plain).abs().max().item(),
+                "image_float64": (img.double() - img64).abs().max().item(),
+                "wave_float64": (wave_t.double() - waves64).abs().max().item()}
+        warm = warm_synthesis_s(generate_mod.synthesize_fn(cfg_i, stage), gen_i, z, WARM_REPS)
+        med = float(np.median(warm))
+        say(f"[library] generate under {impl!r}: no conv kernel launched ({got}); against the plain path on the "
+            f"card: image {errs['image']:.3e} (tol {TOL_IMAGE:.0e}), waveform {errs['wave']:.3e} (tol "
+            f"{TOL_WAVE:.0e}); against float64: waveform {errs['wave_float64']:.3e} (tol {TOL_WAVE:.0e}), image "
+            f"{errs['image_float64']:.3e} (read); warm synthesis, median of {WARM_REPS}: {med * 1e3:.3f} ms "
+            f"(min {min(warm) * 1e3:.3f})")
+        if not (errs["image"] <= TOL_IMAGE and errs["wave"] <= TOL_WAVE and errs["wave_float64"] <= TOL_WAVE):
+            raise AssertionError(f"{impl!r} disagrees with the plain path")
+        rec[impl] = {**errs, "warm_ms": med * 1e3, "warm_s": warm, "launches": got}
+        del gen_i, img
+    return rec
+
+
+def train_impls(cfg: ModelConfig, dev, say, tally: Tally) -> dict:
+    """Phase 12 (c): at train-s7-b6 the four train impls timed on a chunk
+    of the step, then the first D+G iteration of each from one state and
+    one noise, counted, against the float64 plain step at phase 6's bars."""
+    tcfg = TrainConfig()
+    bsz = tcfg.batch_size
+    t0 = time.perf_counter()
+    train_times = autotune.measure_train_impls(dataclasses.replace(cfg, conv_impl="auto"), tcfg, TRAIN_STAGE)
+    measure_s = time.perf_counter() - t0
+    say("[autotune] train-s7-b6, ms per iteration (a chunk of 5, one with the generator): "
+        + ", ".join(f"{k} {v * 1e3:.2f}" for k, v in train_times.items()) + f"; measured in {measure_s:.2f} s")
+    rng = torch.Generator(device=dev).manual_seed(SEED + 12)
+    x = torch.randn(bsz, 2, 512, 512, generator=rng, device=dev)
+    base = init_train_state(SEED, cfg, tcfg, device="cuda")
+    ref = float64_state(base)
+    with plain_convs():
+        ref, _ = build_step(TRAIN_STAGE, True, dataclasses.replace(cfg, conv_impl="pallas_gp"), tcfg)(
+            ref, x.double(), TRAIN_ALPHA, noise=same_noise(ref, cfg, bsz))
+    mu64 = first_moments(ref)
+    del ref
+    c = 2 * (TRAIN_STAGE + 2)
+    kernels_all = expected_train_launches(cfg, TRAIN_STAGE, 0, 1)
+    expect = {
+        "pallas_gp": kernels_all,
+        # under pallas_train the penalty's kernels (3 c K1, c weight gradients) are the library critic's
+        "pallas_train": {**kernels_all, "fused_conv3x3": kernels_all["fused_conv3x3"] - 3 * c,
+                         "weight_grad3x3": kernels_all["weight_grad3x3"] - c},
+        "xla": {k: 0 for k in kernels_all}, "subpixel": {k: 0 for k in kernels_all},
+    }
+    flat = lambda mu, keys: torch.cat([mu[k].flatten().double() for k in keys])  # noqa: E731
+    rec = {"ms_per_iteration": {k: v * 1e3 for k, v in train_times.items()}, "measure_s": measure_s}
+    for impl in autotune.TRAINING_IMPLS:
+        state = base.clone()
+        reset_launches()
+        state, m = build_step(TRAIN_STAGE, True, dataclasses.replace(cfg, conv_impl=impl), tcfg)(state, x, TRAIN_ALPHA)
+        m = metrics_floats(m)
+        got, _ = tally.read()
+        if got != expect[impl]:
+            raise AssertionError(f"the {impl!r} iteration launched {got}, not {expect[impl]}")
+        mu = first_moments(state)
+        errs = {}
+        for net in ("gen.", "disc."):
+            keys = [k for k in mu if k.startswith(net)]
+            errs[net] = rel_l2(flat(mu, keys), flat(mu64, keys))
+        say(f"[train-impls] {impl:12s} first D+G iteration: launches {got}; gradients against the float64 plain "
+            f"step, rel L2: generator {errs['gen.']:.2e} (tol {TOL_BACKWARD_L2:.0e}), critic {errs['disc.']:.2e} "
+            f"(tol {TOL_CRITIC_ITERATION_L2:.0e}); grad_pen {m['grad_pen']:.4f}")
+        if not (errs["gen."] <= TOL_BACKWARD_L2 and errs["disc."] <= TOL_CRITIC_ITERATION_L2):
+            raise AssertionError(f"the {impl!r} iteration disagrees with the float64 plain step")
+        if torch.backends.cudnn.deterministic or torch.backends.cudnn.allow_tf32:
+            raise AssertionError("a train step left cuDNN's flags changed")
+        rec[impl] = {"launches": got, "grad_rel_l2_vs_float64": errs, "metrics": m}
+        del state, mu
+    return rec
+
+
+def bf16_training(cfg: ModelConfig, dev, say) -> dict:
+    """Phase 12 (d): ``bfloat16`` and ``bfloat16_f32gp`` training under
+    ``xla`` at train-s7-b6, 10 iterations in the n_critic pattern finite,
+    parameters float32; warm steps/s beside float32 ``pallas_gp``'s."""
+    tcfg = TrainConfig()
+    n_c = tcfg.n_critic
+    x = torch.randn(tcfg.batch_size, 2, 512, 512, generator=torch.Generator(device=dev).manual_seed(SEED + 13),
+                    device=dev)
+    gen_mask = [(i + 1) % n_c == 0 for i in range(PHASE12_BF16_ITERS)]
+    rec = {}
+    for label, impl, cdt in (("float32 pallas_gp", "pallas_gp", "float32"), ("bfloat16 xla", "xla", "bfloat16"),
+                             ("bfloat16_f32gp xla", "xla", "bfloat16_f32gp")):
+        tcfg_b = dataclasses.replace(tcfg, compute_dtype=cdt)
+        cfg_b = dataclasses.replace(cfg, conv_impl=impl)
+        state = init_train_state(SEED, cfg_b, tcfg_b, device="cuda")
+        hist = []
+        for do_g in gen_mask:
+            state, m = build_step(TRAIN_STAGE, do_g, cfg_b, tcfg_b)(state, x, TRAIN_ALPHA)
+            hist.append(metrics_floats(m))
+        params_f32 = all(p.dtype == torch.float32 for net in (state.gen, state.disc) for p in net.parameters())
+        if not params_f32 or not all(h["grad_pen"] >= 0 for h in hist):
+            raise AssertionError(f"{label}: parameters float32 {params_f32}, grad_pen {[h['grad_pen'] for h in hist]}")
+        d_s = timed_iterations(build_step(TRAIN_STAGE, False, cfg_b, tcfg_b), state, x, TIMED_ITERS)
+        dg_s = timed_iterations(build_step(TRAIN_STAGE, True, cfg_b, tcfg_b), state, x, TIMED_ITERS)
+        med_d, med_dg = float(np.median(d_s)), float(np.median(dg_s))
+        rate = n_c / ((n_c - 1) * med_d + med_dg)
+        say(f"[train-bf16] {label}: {PHASE12_BF16_ITERS} iterations finite, grad_pen >= 0, parameters float32; "
+            f"warm, median of {TIMED_ITERS}: critic only {med_d * 1e3:.2f} ms, critic + generator "
+            f"{med_dg * 1e3:.2f} ms = {rate:.3f} steps/s")
+        rec[label] = {"d_only_s": d_s, "d_and_g_s": dg_s, "steps_per_s": rate, "metrics": hist}
+        del state
+    return rec
+
+
+def train_under_auto(cfg: ModelConfig, say, work: str) -> dict:
+    """Phase 12 (e): ``train()`` under "auto" through the eight stages on
+    phase 8's cut schedule: each stage measured at its first step (the impl
+    it resolved to and the measurement's cost); stopped half way and
+    resumed equals the uninterrupted run bit for bit, whichever impl won."""
+    auto = dataclasses.replace(cfg, conv_impl="auto")
+    ds = os.path.join(work, "ds")
+    writer = ShardWriter(ds, samples_per_shard=8)
+    writer.add(torch.randn(LOOP_SAMPLES, 2, 512, 512, generator=torch.Generator().manual_seed(SEED)).numpy())
+    writer.close()
+    tcfg = TrainConfig(**LOOP_CFG)
+    half = LOOP_ITERS // 2
+    out_a, out_b = os.path.join(work, "auto_a"), os.path.join(work, "auto_b")
+    state_a, text_a, _, wall_a = run_train("auto", ds, out_a, tcfg, auto, max_iters=LOOP_ITERS)
+    found = re.findall(r"\[autotune\] train conv_impl \(stage (\d+)\) -> (\w+) .*measured in ([0-9.]+) s", text_a)
+    resolved = {int(s): i for s, i, _ in found}
+    costs = {int(s): float(t) for s, _, t in found}
+    if sorted(resolved) != list(range(cfg.n_stages)):
+        raise AssertionError(f"train() under auto measured stages {sorted(resolved)}")
+    run_train("auto", ds, out_b, tcfg, auto, show=False, max_iters=half)
+    state_b, text_b, _, _ = run_train("auto", ds, out_b, tcfg, auto, show=False, max_iters=LOOP_ITERS, resume=True)
+    if "[autotune]" in text_b or f"[resume] save_{half // tcfg.save_every - 1}: iter={half}" not in text_b:
+        raise AssertionError("the resumed run under auto measured again or did not resume half way")
+    diff = state_diff(state_a, state_b)
+    say(f"[train-auto] {LOOP_ITERS} iterations through 8 stages in {wall_a:.2f} s, measurement included; "
+        f"resolved {resolved}; measurement per stage, s: {costs} (sum {sum(costs.values()):.2f}); resumed at "
+        f"{half} against uninterrupted: exact {diff['exact']}, rel L2 {diff['rel_l2']}, largest absolute "
+        f"difference {diff['max_abs']:.3e} (held at 0)")
+    if not all(diff["exact"].values()) or max(diff["rel_l2"].values()) != 0.0 or diff["max_abs"] != 0.0:
+        raise AssertionError(f"resume under auto is not bit-exact: {diff}")
+    return {"resolved": resolved, "measure_s_by_stage": costs, "wall_s": wall_a, "resume": diff}
+
+
+def info_subprocess(say) -> dict:
+    """Phase 12 (f): ``info`` as a subprocess: the card, the native tail,
+    the autotune table."""
+    proc = subprocess.run([sys.executable, "-m", "musicgan_tpu_torch", "info"], cwd=str(ROOT),
+                          capture_output=True, text=True, timeout=300)
+    info = json.loads(proc.stdout) if proc.returncode == 0 else {}
+    table = autotune._load_persisted()
+    if (info.get("backend") != "cuda" or info.get("devices") != [torch.cuda.get_device_name(0)]
+            or info.get("native_ingest") is not True or info.get("autotune_cache") != table):
+        raise AssertionError(f"info: exit {proc.returncode}, {proc.stdout[:2000]}\n{proc.stderr}")
+    say(f"[info] backend {info['backend']}, devices {info['devices']}, torch {info['torch']}, native tail "
+        f"{os.path.relpath(info['native_lib'], ROOT)}, autotune table of {len(table)} keys")
+    return {k: info[k] for k in ("backend", "devices", "torch", "process_count", "native_ingest")}
+
+
+def conv_impl_selection(cfg: ModelConfig, dev, card: str) -> dict:
+    """Phase 12 (see the module's docstring), in a fresh autotune table."""
+    def say(line: str) -> None:
+        print(f"{line} ({card})")
+
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="chip_smoke_autotune_")
+    seeded = os.environ["MUSICGAN_AUTOTUNE_DIR"]
+    use_autotune_dir(os.path.join(work, "autotune"))
+    tally = Tally()
+    rec = {"inference": inference_auto(cfg, dev, say, work, tally)}
+    rec["library"] = library_inference(cfg, dev, say, work, tally, rec["inference"]["vocoder_winner"])
+    rec["train"] = train_impls(cfg, dev, say, tally)
+    rec["bf16_training"] = bf16_training(cfg, dev, say)
+    rec["train_auto"] = train_under_auto(cfg, say, work)
+    rec["info"] = info_subprocess(say)
+    use_autotune_dir(seeded)
+    rec.update(launches=tally.launches, bf16_launches=tally.bf16, phase_s=time.perf_counter() - t_phase)
+    say(f"[autotune] phase 12 in {rec['phase_s']:.1f} s")
+    return rec
+
+
 def become_subreaper() -> None:
     """Adopt the orphans of this script's descendants, so that
     :func:`stop_own_processes` sees every process the script started."""
@@ -2924,7 +3353,17 @@ def main() -> None:
         raise AssertionError("the native host tail did not build")
     print(f"[build] native host tail {os.path.relpath(lib, ROOT)} built in {t1 - t0:.2f} s")
 
-    cfg = ModelConfig()
+    # Phases 1-11 run the impls they were written for: pallas_up for
+    # synthesis and pallas_gp for training by name here, and through a table
+    # seeded with those winners where an entry point resolves "auto" (their
+    # CLI subprocesses, compare, audition).  Phase 12 measures in a table of
+    # its own.
+    seeded = tempfile.mkdtemp(prefix="chip_smoke_seeded_")
+    n_keys = seed_autotune_table(seeded, dev)
+    use_autotune_dir(seeded)
+    print(f"[autotune] phases 1-11: a table of {n_keys} keys seeded with pallas_up, K5 and pallas_gp")
+    cfg = ModelConfig(conv_impl="pallas_up")
+    cfg_gp = dataclasses.replace(cfg, conv_impl="pallas_gp")
     gen = load_reference_generator(str(CKPT), cfg, device=dev)
     rows = check_kernels(gen, cfg, dev)
     del gen
@@ -2935,9 +3374,9 @@ def main() -> None:
     rows += check_train_kernels(cfg, tcfg, dev)
     print_row_sums(rows)
     print_wgrad_sums(rows)
-    grads = check_function_and_gp(cfg, tcfg, dev)
+    grads = check_function_and_gp(cfg_gp, tcfg, dev)
     torch.cuda.empty_cache()
-    train_rec = train_path(cfg, tcfg, dev)
+    train_rec = train_path(cfg_gp, tcfg, dev)
     torch.cuda.empty_cache()
 
     gen = load_reference_generator(str(CKPT), cfg, device=dev)
@@ -2946,7 +3385,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     e2e_block = end_to_end_block(cfg, dev, waves)
     torch.cuda.empty_cache()
-    loop = train_entry_point(cfg, dev)
+    loop = train_entry_point(cfg_gp, dev)
     torch.cuda.empty_cache()
 
     gen = load_reference_generator(str(CKPT), cfg, device=dev)
@@ -2959,12 +3398,15 @@ def main() -> None:
     torch.cuda.empty_cache()
     interchange = ingest_and_interchange(cfg, dev, card)
     torch.cuda.empty_cache()
+    selection = conv_impl_selection(cfg, dev, card)
+    torch.cuda.empty_cache()
 
-    paths = (e2e, train_rec, e2e_block, loop, e2e_new, serving, interchange)
+    paths = (e2e, train_rec, e2e_block, loop, e2e_new, serving, interchange, selection)
     # The float32 kernels' launches: a wrapper's count less its bf16 ones.
     launched = {k: sum(p["launches"][k] for p in paths) for k in (*WRAPPERS, IDFT)}
+    bf16_launched = {k: e2e_new["bf16_launches"][k] + selection["bf16_launches"][k] for k in BF16_WRAPPERS}
     for name, fn in BF16_WRAPPERS.items():
-        launched[fn.__name__] -= e2e_new["bf16_launches"][name]
+        launched[fn.__name__] -= bf16_launched[name]
     kernels = []
     for name, (source, replaces) in SOURCES.items():
         # K5 has two routes, each its own entry; the iDFT route is on no path.
@@ -2997,7 +3439,7 @@ def main() -> None:
         mine = [r for r in bf16_rows if r["name"] == name and r["role"] == "synthesis"]  # the path's shapes
         entry = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces, "dtype": "bfloat16",
-            "launches": e2e_new["bf16_launches"][name], "max_abs_err": max(r["max_abs_err"] for r in mine),
+            "launches": bf16_launched[name], "max_abs_err": max(r["max_abs_err"] for r in mine),
             **{k: sum(r[k] for r in mine) for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
             "bound_by": "operations" if sum(r["ops_ms"] for r in mine) >= sum(r["bytes_ms"] for r in mine)
             else "bytes",
@@ -3008,13 +3450,21 @@ def main() -> None:
             entry["pair_ms"] = sum(r["pair_ms"] for r in mine)
             entry["blocks"] = [r["block"] for r in mine]
         kernels.append(entry)
+    # K4 bf16 past 128 channels: its own source, on no path of this model.
+    (wide,) = [r for r in bf16_rows if r["role"] == "wide"]
+    kernels.append({
+        "name": "fused_block_bf16", "kernel_route": "wide", "on_path": False, "route": "cuda",
+        "source": "musicgan_tpu_torch/csrc/block3x3_bf16_wide.cu", "replaces": BF16_SOURCES["fused_block_bf16"][1],
+        "dtype": "bfloat16", "launches": 0, "max_abs_err": wide["max_abs_err"],
+        **{k: wide[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms", "bound_by", "pair_ms", "l2_vs_pair")},
+    })
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "shapes": rows, "end_to_end": e2e, "gradients": grads, "train": train_rec,
          "end_to_end_block": e2e_block, "train_entry_point": loop, "bf16_shapes": bf16_rows,
          "end_to_end_new_impls": e2e_new, "serving": serving, "ingest_and_interchange": interchange,
-         "kernels": kernels}, indent=1))
+         "conv_impl_selection": selection, "kernels": kernels}, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,12 @@
 """CLI of the PyTorch port: the ``create_dataset``, ``train``,
-``generate``, ``view_audio``, ``serve``, ``eval``, ``compare``, ``export``
-and ``import`` subcommands of ``musicgan_tpu/__main__.py``; every one that
-builds tensors takes ``--device``.
+``generate``, ``view_audio``, ``serve``, ``eval``, ``compare``, ``export``,
+``import`` and ``info`` subcommands of ``musicgan_tpu/__main__.py``; every
+one that builds tensors takes ``--device``.
 
     python -m musicgan_tpu_torch create_dataset "/data/*.wav" -o /data/ds [-w N]
     python -m musicgan_tpu_torch train RUN -i DATASET_DIR -o OUT_DIR \\
         [--resume] [--max-iters N] [--batch-size 6] ... [--max-restarts N] \\
+        [--compute-dtype float32|bfloat16|bfloat16_f32gp] \\
         [--profile TRACE_DIR] [--debug-nans] [--device cuda|cpu]
     python -m musicgan_tpu_torch generate CKPT 32 -o /out [-n 10] [-m 5] \\
         [--seed 0] [--conv-impl IMPL] [--device cuda|cpu]
@@ -15,11 +16,22 @@ builds tensors takes ``--device``.
     python -m musicgan_tpu_torch compare A.pt RUN_DIR --corpus /data/wav
     python -m musicgan_tpu_torch export RUN_DIR -o gen.pt | -o REF_DIR --full
     python -m musicgan_tpu_torch import REF_DIR I -o RUN_DIR [--iter N]
+    python -m musicgan_tpu_torch info
 
 ``create_dataset`` runs on the host only and takes no ``--device``.
-``--conv-impl`` (``ModelConfig.conv_impl``): ``pallas_up`` (default),
-``pallas_block``, ``pallas``, or any of them with ``_bf16`` (the same
-blocks in bf16 through the bf16 kernels).
+``--conv-impl`` (``ModelConfig.conv_impl``, any of the JAX package's names):
+``auto`` (default: measured per shape on the card and persisted in
+``$MUSICGAN_AUTOTUNE_DIR/conv_autotune.json``, ``xla`` on the CPU),
+``pallas_up`` (conv + up-conv kernels), ``pallas_block`` (the whole-block
+kernel where it fits), ``pallas`` (conv, up2x, conv), any of them with
+``_bf16``, ``xla`` / ``subpixel`` (the library lowerings) or
+``pallas_train`` / ``pallas_gp`` (the trainable kernels).  ``train`` and
+``serve`` run ``auto``; the train step measures the four train impls at
+each stage's first step.  Every subcommand but ``create_dataset`` builds its
+kernels into ``musicgan_tpu_torch/_build/`` on a GPU host
+(``MUSICGAN_COMPILE_CACHE`` elsewhere, ``MUSICGAN_NO_COMPILE_CACHE=1`` a
+temporary directory of the process).  ``info`` prints the versions, the
+devices, the native host tail and the autotune table as JSON.
 
 ``CKPT`` is a reference ``gen_*.pt`` file or a run directory of ``train``
 (or its ``checkpoints`` or a ``save_N`` directory).  ``train`` exits 75
@@ -28,18 +40,18 @@ flushed: run it again with ``--resume``, or let ``--max-restarts N`` do it.
 ``export --full`` writes the reference Saver's four files (weights and Adam
 state); ``import`` turns such a save (the reference's, or one the JAX
 package exported) into a run directory that ``train --resume`` continues.
-Still to port: ``info`` (with the autotune cache, ROADMAP.md section A item
-15) and the multi-host flags ``--coordinator``, ``--num-processes``,
-``--process-id`` (A16), which are rejected.
+Still to port: the multi-host flags ``--coordinator``, ``--num-processes``,
+``--process-id`` (ROADMAP.md section A item 16), which are rejected.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import sys
 from typing import Sequence
 
-from .config import CONV_IMPLS
+from .config import COMPUTE_DTYPES, CONV_IMPLS
 
 _DEVICE_HELP = (
     "'cuda' (default; the hand-written kernels) or 'cpu' (their plain "
@@ -116,8 +128,10 @@ def main(argv=None) -> None:
     p.add_argument("--log-every", type=int, default=None)
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--compute-dtype", type=str, default=None,
-                   choices=["float32", "bfloat16", "bfloat16_f32gp"],
-                   help="only float32 is ported; the others raise")
+                   choices=list(COMPUTE_DTYPES),
+                   help="bfloat16: bf16 conv operands (parameters and Adam "
+                        "stay float32); bfloat16_f32gp: the same with the "
+                        "gradient penalty in float32")
     p.add_argument("--device-dataset", type=str, default=None,
                    choices=["auto", "on", "off"],
                    help="corpus resident in device memory, indices per step "
@@ -161,10 +175,13 @@ def main(argv=None) -> None:
     p.add_argument("-m", "--nb-music", type=int, default=5)
     p.add_argument("-o", "--output-dir", type=str, required=True)
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--conv-impl", type=str, default="pallas_up", choices=CONV_IMPLS,
-                   help="'pallas_up' (default: conv + up-conv kernels), 'pallas_block' "
-                        "(the whole-block kernel where it fits), 'pallas' (conv, up2x, "
-                        "conv); '_bf16' runs the same in bf16")
+    p.add_argument("--conv-impl", type=str, default="auto", choices=CONV_IMPLS,
+                   help="'auto' (default: measured per shape on the card and "
+                        "persisted; 'xla' on the CPU), 'pallas_up' (conv + up-conv "
+                        "kernels), 'pallas_block' (the whole-block kernel where it "
+                        "fits), 'pallas' (conv, up2x, conv), '_bf16' the same in bf16, "
+                        "'xla' / 'subpixel' (the library lowerings), 'pallas_train' / "
+                        "'pallas_gp' (the trainable kernels)")
     p.add_argument("--device", type=str, default="cuda", help=_DEVICE_HELP)
 
     p = sub.add_parser("view_audio", help="WAV -> magnitude/phase images")
@@ -263,7 +280,14 @@ def main(argv=None) -> None:
     p.add_argument("--device", type=str, default="cuda",
                    help=_DEVICE_HELP + "; resume on the same kind of device")
 
+    sub.add_parser("info", help="versions, devices, native host tail and autotune table as JSON")
+
     args = parser.parse_args(argv)
+    if args.mode != "create_dataset":  # ingest never builds a kernel
+        from .utils.cache import enable_compilation_cache
+
+        enable_compilation_cache()
+
     if args.mode == "create_dataset":  # host only: ingest never touches a device
         from .audio.ingest import create_dataset
 
@@ -463,6 +487,56 @@ def main(argv=None) -> None:
             f"{args.output}/checkpoints/save_0 (stage {stage}): continue with: "
             f"python -m musicgan_tpu_torch train RUN -i DATASET -o {args.output} --resume"
         )
+
+
+    elif args.mode == "info":
+        print(json.dumps(info(), indent=1))
+
+
+def info() -> dict:
+    """What ``info`` prints: versions, the devices, the native host tail and
+    the persisted autotune table.
+
+    Device enumeration can block for ever on a wedged card (the CUDA runtime
+    has no timeout there), and ``info`` is the tool a user reaches for when
+    the device misbehaves: so the probe runs in a daemon thread and a hang
+    is reported as such instead of becoming one.  A host without a GPU is
+    reported, not refused."""
+    import platform
+    import threading
+
+    import torch
+
+    from . import native
+    from .ops import autotune
+
+    dev: dict = {}
+
+    def probe():
+        found = torch.cuda.is_available()
+        dev["backend"] = "cuda" if found else "cpu"
+        dev["devices"] = (
+            [torch.cuda.get_device_name(i) for i in range(torch.cuda.device_count())] if found else ["cpu"]
+        )
+        dev["process_count"] = 1  # multi-process runs are ROADMAP A16
+
+    t = threading.Thread(target=probe, daemon=True)
+    t.start()
+    t.join(timeout=60.0)
+    if t.is_alive():
+        dev = {
+            "backend": "UNRESPONSIVE (device init exceeded 60s: a wedged card?)",
+            "devices": [],
+            "process_count": None,
+        }
+    return {
+        "python": platform.python_version(),
+        "torch": torch.__version__,
+        **dev,
+        "native_ingest": native.is_available(),
+        "native_lib": native.lib_path() if native.is_available() else None,
+        "autotune_cache": autotune._load_persisted(),
+    }
 
 
 if __name__ == "__main__":

@@ -2,9 +2,9 @@
 
 Copies of ``musicgan_tpu.config``'s ``AudioConfig``, ``ModelConfig``,
 ``TrainConfig`` and ``GenerateConfig`` (this package imports nothing of the
-JAX one).  Whether a conv runs its kernel or its plain version is chosen by
-the tensor's device; ``ModelConfig.conv_impl`` chooses between the two
-kernel paths of the inference forward.
+JAX one).  Whether a kernel runs or its plain version is chosen by the
+tensor's device; ``ModelConfig.conv_impl`` chooses the lowering of the
+generator's and the critic's convs, as in JAX.
 """
 
 from __future__ import annotations
@@ -13,15 +13,12 @@ import dataclasses
 import json
 from typing import Optional, Tuple
 
-# The names musicgan_tpu.config.ModelConfig.conv_impl takes; the Pallas
-# inference impls are ported, in float32 and bf16.
-_JAX_CONV_IMPLS = (
+# The names musicgan_tpu.config.ModelConfig.conv_impl takes, all ported.
+CONV_IMPLS = (
     "auto", "xla", "subpixel", "pallas", "pallas_up", "pallas_block",
     "pallas_bf16", "pallas_up_bf16", "pallas_block_bf16", "pallas_train", "pallas_gp",
 )
-CONV_IMPLS = (
-    "pallas_up", "pallas_block", "pallas", "pallas_bf16", "pallas_up_bf16", "pallas_block_bf16",
-)
+COMPUTE_DTYPES = ("float32", "bfloat16", "bfloat16_f32gp")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,26 +61,29 @@ class ModelConfig:
     )
     leaky_slope: float = 0.2
     pixel_norm_eps: float = 1e-8
-    # The generator's inference forward (``Generator.forward_nchw``: generate,
-    # ``synthesize_fn``, the Saver's previews): "pallas_up" runs each block
-    # as the conv kernel and the up-conv kernel (K1 + K3), "pallas_block"
-    # runs a block as the one whole-block kernel (K4) where
-    # ``ops.conv.fused_block_fits`` and as the pair elsewhere, "pallas" as
-    # the conv kernel, a plain up2x and the conv kernel again (K1 + K1).
-    # The "_bf16" names run the same in bf16 (the package's bf16 inference
-    # path).  The names are the JAX package's; the train step does not read
-    # this.
-    conv_impl: str = "pallas_up"
+    # The lowering of the convs (``Generator.forward_nchw``,
+    # ``Discriminator.forward_nchw``), the JAX package's names:
+    # * "xla": the library lowering, ``F.conv2d`` / ``torch.matmul`` in the
+    #   compute dtype (``models/layers.py``); "subpixel": the same with each
+    #   up2x + conv3x3 as four 2x2 phase convs.  Differentiable twice.
+    # * "pallas_up": each generator block as the conv kernel and the up-conv
+    #   kernel (K1 + K3); "pallas_block": the whole-block kernel (K4) where
+    #   ``ops.conv.fused_block_fits``, the pair elsewhere; "pallas": K1, a
+    #   plain up2x, K1 again.  The "_bf16" names run the same in bf16.
+    #   Inference only.
+    # * "pallas_train": the trainable kernels (``ops/conv_vjp.py``, K2 and K1
+    #   forward, K1 input gradients, the weight-gradient kernel), once
+    #   differentiable: the gradient penalty's critic takes "xla";
+    #   "pallas_gp": the same with the penalty's inner gradient unrolled by
+    #   hand on the kernels.
+    # * "auto": measured per shape by ``ops/autotune.py`` in the entry points
+    #   (generate, serve, eval, the train step); inside the modules it means
+    #   "xla", and on a CPU device it resolves to "xla" without measuring.
+    conv_impl: str = "auto"
 
     def __post_init__(self):
-        if self.conv_impl in CONV_IMPLS:
-            return
-        if self.conv_impl in _JAX_CONV_IMPLS:
-            raise NotImplementedError(
-                f"conv_impl {self.conv_impl!r} is not ported: musicgan_tpu_torch runs "
-                f"{CONV_IMPLS} (ROADMAP.md A15)"
-            )
-        raise ValueError(f"unknown conv_impl {self.conv_impl!r}; one of {CONV_IMPLS}")
+        if self.conv_impl not in CONV_IMPLS:
+            raise ValueError(f"unknown conv_impl {self.conv_impl!r}; one of {CONV_IMPLS}")
 
     @property
     def n_stages(self) -> int:
@@ -116,7 +116,10 @@ class TrainConfig:
     log_every: int = 200
     nb_preview: int = 6
     seed: int = 0
-    compute_dtype: str = "float32"   # the only one ported (ROADMAP A20)
+    # "bfloat16": bf16 conv / matmul operands (float32 parameters, Adam and
+    # loss); "bfloat16_f32gp": the same but the gradient penalty in float32
+    # (VALIDATION.md r2).  bf16 trains through the library lowerings only.
+    compute_dtype: str = "float32"
     data_axis: str = "data"          # mesh axis name; data parallelism is ROADMAP A16
     max_stage: Optional[int] = None  # cap growth (e.g. 3 for 32x32 runs)
     chunk_steps: int = 10            # iterations per ``build_chunk_step`` call;
@@ -136,11 +139,8 @@ class TrainConfig:
     mlflow_uri: Optional[str] = None  # optional MLflow sink (needs mlflow)
 
     def __post_init__(self):
-        if self.compute_dtype != "float32":
-            raise NotImplementedError(
-                f"compute_dtype {self.compute_dtype!r}: only float32 training is ported; "
-                "bf16 training (XLA's convs in the JAX package) is ROADMAP.md section A item A20"
-            )
+        if self.compute_dtype not in COMPUTE_DTYPES:
+            raise ValueError(f"unknown compute_dtype {self.compute_dtype!r}; one of {COMPUTE_DTYPES}")
 
 
 @dataclasses.dataclass(frozen=True)

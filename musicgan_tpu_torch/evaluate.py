@@ -4,7 +4,8 @@ Counterpart of ``musicgan_tpu/evaluate.py``, exposed as a library and as
 the ``eval`` and ``compare`` subcommands.  Two halves:
 
 * :func:`audition_run` and :func:`compare_artifacts` render WAVs through
-  ``generate.synthesize_fn`` (the kernels K1, K3 and K5 on the card): every
+  ``generate.synthesize_fn`` (``conv_impl`` "auto" by default: the measured
+  winner per shape on the card, the kernels or the library lowering): every
   checkpoint of a run of this package's ``train`` at the stage it was saved
   at, or the same latents through each of several artifacts (reference
   ``gen_*.pt`` files or run directories).  They run on ``cuda`` unless the
@@ -479,7 +480,9 @@ def audition_run(
     from .device import resolve_device
     from .train.checkpoint import CheckpointManager
     from .train.step import init_train_state
+    from .utils.cache import enable_compilation_cache
 
+    enable_compilation_cache()  # kernels built once serve repeated auditions
     device = resolve_device(device)
     mgr = CheckpointManager(os.path.join(run_dir, "checkpoints"))
     saves = saves if saves is not None else mgr.saved_indices()

@@ -1,14 +1,19 @@
 """Generation workflow: latent -> spectrogram image -> waveform.
 
-Counterpart of ``musicgan_tpu/generate.py``.  The generator runs its
-blocks through the fused conv kernels (K1 and K3, or the whole-block kernel
-K4 where ``ModelConfig.conv_impl == "pallas_block"`` and
-``ops.conv.fused_block_fits`` at the block's sizes, or K1 twice around a
-plain up2x under ``"pallas"``; in bf16 under the ``_bf16`` names, the image
-float32 either way), the magnitude/phase image
-is turned into spectra in plain PyTorch (bark unscale, phase prefix sum,
-cos/sin, per music as JAX's ``vmap`` does), and the fused iSTFT kernel
-(K5) vocodes the whole batch in one launch.
+Counterpart of ``musicgan_tpu/generate.py``.  ``synthesize_fn`` resolves
+``ModelConfig.conv_impl`` ("auto" by default) and the vocoder per latent
+shape (``ops/autotune.py``: measured once on the card and persisted; "xla"
+on the CPU), then the generator runs its blocks through the lowering that
+won: the fused conv kernels (K1 and K3 under ``"pallas_up"``, the
+whole-block kernel K4 where ``ops.conv.fused_block_fits`` under
+``"pallas_block"``, K1 twice around a plain up2x under ``"pallas"``; in bf16
+under the ``_bf16`` names) or the library lowering (``"xla"``,
+``"subpixel"``: ``F.conv2d``), the image float32 either way.  The
+magnitude/phase image is turned into spectra in plain PyTorch (bark
+unscale, phase prefix sum, cos/sin, per music as JAX's ``vmap`` does), and
+the vocoder inverts the whole batch: the fused iSTFT kernel (K5) in one
+launch under ``"pallas"``, the plain matmul iSTFT on the device under
+``"xla"``.
 
 Width-extended latents give long clips: ``z`` of width ``2 * nb_vec``
 produces ``512 * nb_vec`` STFT frames, about ``2.97 * nb_vec`` seconds.
@@ -28,9 +33,11 @@ import torch
 import torch.nn.functional as F
 
 from .audio import mp_to_real_imag, save_wav
+from .audio.stft import istft_real_imag
 from .config import AudioConfig, GenerateConfig, ModelConfig
 from .device import resolve_device
 from .models import Generator
+from .models.layers import library_numerics
 from .ops.istft_fused import istft_fused
 
 __all__ = ["resolve_device", "latents", "synthesize_fn", "load_generator_params", "generate"]
@@ -54,30 +61,49 @@ def latents(
 
 @torch.no_grad()
 def _synthesize(
-    gen: Generator, z: torch.Tensor, stage: int, model_cfg: ModelConfig
+    gen: Generator, z: torch.Tensor, stage: int, model_cfg: ModelConfig, istft_impl: str = "xla"
 ) -> torch.Tensor:
-    """``(M, h, 2*nb_vec, C)`` latent -> ``(M, T)`` waveforms.
+    """``(M, h, 2*nb_vec, C)`` latent -> ``(M, T)`` waveforms through
+    ``model_cfg.conv_impl`` (a resolved name: "auto" here is "xla", as in
+    the generator) and the vocoder ``istft_impl``: ``"pallas"`` is the
+    kernel K5, ``"xla"`` the plain matmul iSTFT on the device.
 
     For a partially grown ``stage`` the image is nearest-upsampled to the
     full 512-bin resolution before vocoding, so audio can be auditioned
     from any growth checkpoint."""
-    img = gen.forward_nchw(z.permute(0, 3, 1, 2), stage, 1.0)  # (M, 2, H, W)
+    img = gen.forward_nchw(z.permute(0, 3, 1, 2), stage, 1.0, model_cfg.conv_impl)  # (M, 2, H, W)
     n_stages = model_cfg.n_stages
     if stage < n_stages - 1:
         img = F.interpolate(img, scale_factor=2 ** (n_stages - 1 - stage), mode="nearest")
     acfg = AudioConfig()
     real, imag = mp_to_real_imag(img[:, None], acfg)  # (M, n_bins + 1, T)
-    return istft_fused(real, imag, n_fft=acfg.n_fft, hop=acfg.stft_stride)
+    if istft_impl == "pallas":
+        return istft_fused(real, imag, n_fft=acfg.n_fft, hop=acfg.stft_stride)
+    with library_numerics():  # its products in float32, not TF32
+        return istft_real_imag(real, imag, n_fft=acfg.n_fft, hop=acfg.stft_stride)
 
 
 def synthesize_fn(model_cfg: ModelConfig = ModelConfig(), stage: int = 7):
     """Returns ``f(gen, z) -> waveforms``: the synthesis path.  ``z`` is
-    ``(M, h, w, C)`` (numpy or tensor) and moves to ``gen``'s device."""
+    ``(M, h, w, C)`` (numpy or tensor) and moves to ``gen``'s device.
+
+    ``conv_impl="auto"`` resolves to the measured winner at the first call
+    of each latent shape, and the vocoder likewise (cached per process and
+    persisted; ``ops/autotune.py``), here, where ``z``'s shape is known.
+    Inside a CUDA-graph capture the resolution reads the tables only (the
+    persisted winner, else "xla") and never runs the timing harness."""
+    from .ops.autotune import resolve_conv_impl, resolve_istft_impl
 
     def f(gen: Generator, z) -> torch.Tensor:
         device = next(gen.parameters()).device
         z = torch.as_tensor(z, dtype=torch.float32, device=device)
-        return _synthesize(gen, z, stage, model_cfg)
+        cfg = resolve_conv_impl(model_cfg, tuple(z.shape), stage, device=device)
+        # Spectrum frames the vocoder inverts: the stack upsamples x2 per
+        # block and partial stages are nearest-upsampled to full resolution,
+        # so every latent column becomes 2^n_stages frames at any stage.
+        t_frames = z.shape[2] * 2**model_cfg.n_stages
+        istft_impl = resolve_istft_impl(t_frames, device=device)
+        return _synthesize(gen, z, stage, cfg, istft_impl)
 
     return f
 

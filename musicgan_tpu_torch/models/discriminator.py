@@ -1,6 +1,7 @@
 """Progressive-growing critic (WGAN discriminator) as an ``nn.Module``
-(counterpart of ``musicgan_tpu/models/discriminator.py``, the trainable
-kernel path ``_discriminator_forward_nchw_train``).
+(counterpart of ``musicgan_tpu/models/discriminator.py``: the trainable
+kernel path ``_discriminator_forward_nchw_train`` and the library lowering
+of ``discriminator_forward``).
 
 All 9 down-blocks, all 9 input heads and the final linear exist from
 construction, so the parameter set never changes shape.  ``stage`` counts
@@ -9,11 +10,14 @@ fade-in for ``stage < n - 2``:
 ``alpha * block_s(head_s(x)) + (1 - alpha) * head_{s+1}(avgpool(x))``.
 
 Internally NCHW; the public :meth:`Discriminator.forward` keeps the JAX
-layout (NHWC image in).  Every 3x3 conv goes through
-``ops/conv_vjp.py::conv3x3_act`` (LeakyReLU, no PixelNorm): the kernel K1 on
-the card, forward and input gradient, and the plain version on the CPU.
-Heads (1x1 convs) and the final linear are plain PyTorch, as they are XLA
-in JAX.
+layout (NHWC image in).  ``conv_impl`` selects the lowering as in JAX's
+``discriminator_forward``: under ``"pallas_train"`` and ``"pallas_gp"`` every
+3x3 conv goes through ``ops/conv_vjp.py::conv3x3_act`` (LeakyReLU, no
+PixelNorm): the kernel K1 on the card, forward and input gradient, and the
+plain version on the CPU; heads (1x1 convs) and the final linear are
+batched products in float32, as they are XLA in JAX.  Under every other
+name (the library lowering) every conv and the final linear are
+``models/layers.py``'s in the ``compute_dtype``, differentiable twice.
 
 :func:`critic_input_grad_nchw_train` is the WGAN-GP's inner input gradient,
 unrolled by hand so that the train step differentiates every conv once.
@@ -26,6 +30,8 @@ from torch import nn
 
 from ..config import ModelConfig
 from ..ops import conv_vjp
+from . import layers
+from .generator import TRAIN_KERNEL_IMPLS
 from .layers import avg_pool_2x, leaky_relu, linear, upsample_nearest_2x
 
 _DEFAULT = ModelConfig()
@@ -52,6 +58,11 @@ class DiscBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, slope: float) -> torch.Tensor:
         return self.forward_acts(x, slope)[1]
+
+    def forward_library(self, x: torch.Tensor, slope: float, dtype: torch.dtype) -> torch.Tensor:
+        """The block in the library lowering (JAX's ``_block_apply``)."""
+        x = leaky_relu(layers.conv2d(x, self.conv1.weight, self.conv1.bias, dtype), slope)
+        return leaky_relu(layers.conv2d(avg_pool_2x(x), self.conv2.weight, self.conv2.bias, dtype), slope)
 
 
 class Discriminator(nn.Module):
@@ -86,20 +97,46 @@ class Discriminator(nn.Module):
         y = torch.bmm(w, x.reshape(b, c, hh * ww)).reshape(b, -1, hh, ww)
         return leaky_relu(y + h.bias[None, :, None, None], self.cfg.leaky_slope)
 
-    def forward_nchw(self, x: torch.Tensor, stage: int, alpha) -> torch.Tensor:
+    def forward_nchw(
+        self, x: torch.Tensor, stage: int, alpha, impl: str | None = None,
+        compute_dtype: torch.dtype = torch.float32,
+    ) -> torch.Tensor:
         """``(B, 2, H, W)`` at the stage's resolution -> ``(B, 1)`` critic
-        score.  ``stage``: 7 = 4x4 input, 0 = 512x512 input."""
-        n, slope = len(self.blocks), self.cfg.leaky_slope
-        out = self.blocks[stage](self._head(stage, x), slope)
-        if stage < n - 2:  # mirrored fade-in against the coarser input head
-            out = alpha * out + (1.0 - alpha) * self._head(stage + 1, avg_pool_2x(x))
-        for i in range(stage + 1, n):
-            out = self.blocks[i](out, slope)
-        return linear(out.reshape(out.shape[0], -1), self.clf.weight, self.clf.bias)
+        score.  ``stage``: 7 = 4x4 input, 0 = 512x512 input.  ``impl``
+        (default ``self.cfg.conv_impl``): the kernels under
+        ``"pallas_train"`` / ``"pallas_gp"``, else the library lowering in
+        ``compute_dtype``."""
+        impl = self.cfg.conv_impl if impl is None else impl
+        if impl in TRAIN_KERNEL_IMPLS:
+            return self._forward(x, stage, alpha, True, torch.float32)
+        with layers.library_numerics():
+            return self._forward(x, stage, alpha, False, compute_dtype)
 
-    def forward(self, x: torch.Tensor, stage: int, alpha) -> torch.Tensor:
+    def _forward(self, x: torch.Tensor, stage: int, alpha, kernels: bool, dtype: torch.dtype) -> torch.Tensor:
+        n, slope = len(self.blocks), self.cfg.leaky_slope
+
+        def head(i, t):
+            if kernels:
+                return self._head(i, t)
+            h = self.heads[i]  # JAX's NHWC lax path: a 1x1 conv in the compute dtype
+            return leaky_relu(layers.conv2d(t, h.weight, h.bias, dtype), slope)
+
+        def block(i, t):
+            return self.blocks[i](t, slope) if kernels else self.blocks[i].forward_library(t, slope, dtype)
+
+        out = block(stage, head(stage, x))
+        if stage < n - 2:  # mirrored fade-in against the coarser input head
+            out = alpha * out + (1.0 - alpha) * head(stage + 1, avg_pool_2x(x))
+        for i in range(stage + 1, n):
+            out = block(i, out)
+        return linear(out.reshape(out.shape[0], -1), self.clf.weight, self.clf.bias, dtype)
+
+    def forward(
+        self, x: torch.Tensor, stage: int, alpha, impl: str | None = None,
+        compute_dtype: torch.dtype = torch.float32,
+    ) -> torch.Tensor:
         """``x``: ``(B, H, W, 2)`` NHWC, as in JAX's ``discriminator_forward``."""
-        return self.forward_nchw(x.permute(0, 3, 1, 2), stage, alpha)
+        return self.forward_nchw(x.permute(0, 3, 1, 2), stage, alpha, impl, compute_dtype)
 
 
 def critic_input_grad_nchw(disc: Discriminator, xn: torch.Tensor, stage: int, alpha) -> torch.Tensor:

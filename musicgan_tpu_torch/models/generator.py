@@ -1,31 +1,38 @@
 """Progressive-growing generator as an ``nn.Module`` (counterpart of
-``musicgan_tpu/models/generator.py``, impls ``"pallas"``, ``"pallas_up"``
-and ``"pallas_block"``, each in float32 and, with the suffix ``_bf16``, in
-bf16).
+``musicgan_tpu/models/generator.py``, every ``conv_impl`` of its
+``generator_forward``).
 
 All 8 blocks and all 8 ToMagnPhase heads exist from construction, as in
 JAX, so the parameter set never changes shape.  Internally NCHW; the
 public :meth:`Generator.forward` keeps the JAX layout (NHWC latent in,
-NHWC image out).  Each block is ``fused_conv3x3`` (conv1 + LeakyReLU +
-PixelNorm) then ``fused_upconv3x3`` (up2x + conv2 + LeakyReLU +
-PixelNorm): on the card they are the kernels K1 and K3, on the CPU their
-plain versions.  With ``ModelConfig.conv_impl == "pallas_block"`` a block
-that ``fused_block_fits`` at its sizes and dtype is one launch of
-``fused_block`` (K4) instead, as in JAX's ``block_nchw`` (on the CPU by an
-H100's rule: K4's plain version is the pair's own).  ``"pallas"`` runs K1,
-a plain nearest up2x, then K1 again.  The ``_bf16`` impls round the latent to bf16
-and run the same blocks in bf16 (JAX's ``_generator_forward_nchw`` with
-``compute_dtype=bfloat16``): the bf16 kernels, float32 inside, a bf16
-activation between them.  Each block packs its conv weights for the
-kernels once per dtype and layout, not per call.  Heads and the fade-in are
-plain PyTorch in float32 (the heads upcast their input), as they are XLA in
-JAX, so the image is float32 either way.
+NHWC image out).  :meth:`Generator.forward_nchw` dispatches on
+``conv_impl`` as JAX's ``generator_forward`` does:
 
-Training runs :meth:`Generator.forward_nchw_train` instead (counterpart of
-``_generator_forward_nchw_train``, impl ``"pallas_train"``): each block is
-``conv3x3_act`` with PixelNorm (forward kernel K2), a plain 2x upsample and
-``conv3x3_act`` again, all under the once-differentiable gradient of
-``ops/conv_vjp.py``, and the fade head is computed at every ``alpha``.
+* ``"pallas_up"``, ``"pallas_block"``, ``"pallas"`` and their ``_bf16``
+  names: the inference kernels.  Each block is ``fused_conv3x3`` (conv1 +
+  LeakyReLU + PixelNorm) then ``fused_upconv3x3`` (up2x + conv2 + LeakyReLU
+  + PixelNorm): on the card the kernels K1 and K3, on the CPU their plain
+  versions.  Under ``"pallas_block"`` a block that ``fused_block_fits`` at
+  its sizes and dtype is one launch of ``fused_block`` (K4) instead, as in
+  JAX's ``block_nchw`` (on the CPU by an H100's rule: K4's plain version is
+  the pair's own); ``"pallas"`` runs K1, a plain nearest up2x, then K1
+  again.  The ``_bf16`` impls round the latent to bf16 and run the same
+  blocks in bf16 (JAX's ``_generator_forward_nchw`` with
+  ``compute_dtype=bfloat16``): the bf16 kernels, float32 inside, a bf16
+  activation between them.  Each block packs its conv weights for the
+  kernels once per dtype and layout, not per call.  Heads and the fade-in
+  are plain PyTorch in float32 (the heads upcast their input), as they are
+  XLA in JAX, so the image is float32 either way.
+* ``"pallas_train"`` and ``"pallas_gp"``: :meth:`Generator.forward_nchw_train`
+  (counterpart of ``_generator_forward_nchw_train``): each block is
+  ``conv3x3_act`` with PixelNorm (forward kernel K2), a plain 2x upsample
+  and ``conv3x3_act`` again, all under the once-differentiable gradient of
+  ``ops/conv_vjp.py``, and the fade head is computed at every ``alpha``.
+* ``"xla"`` (and ``"auto"``, which the entry points resolve before they get
+  here) and ``"subpixel"``: the library lowering, ``F.conv2d`` in the
+  ``compute_dtype`` (``models/layers.py``), the heads 1x1 convs, under
+  ``layers.library_numerics``; ``"subpixel"`` runs each conv2 on the
+  nearest-2x grid as four 2x2 phase convs.  Differentiable twice.
 
 Fade-in (reference ``generator.py:106-126``): at stage s > 0 the output is
 ``alpha * head_s(block_s(x)) + (1 - alpha) * up2x(head_{s-1}(x))``.
@@ -40,9 +47,15 @@ from ..config import ModelConfig
 from ..ops import conv as conv_ops
 from ..ops import conv_bf16
 from ..ops import conv_vjp
+from . import layers
 from .layers import upsample_nearest_2x
 
 _DEFAULT = ModelConfig()
+# The names that run the inference kernels and the trainable ones.
+INFERENCE_KERNEL_IMPLS = (
+    "pallas", "pallas_up", "pallas_block", "pallas_bf16", "pallas_up_bf16", "pallas_block_bf16",
+)
+TRAIN_KERNEL_IMPLS = ("pallas_train", "pallas_gp")
 
 __all__ = ["Generator", "generator_param_count"]
 
@@ -118,6 +131,19 @@ class GenBlock(nn.Module):
         x = upsample_nearest_2x(x)  # its transpose is a 2x2 sum-pool, left to autograd
         return conv_vjp.conv3x3_act(x, self.conv2.weight, self.conv2.bias, slope, True, eps)
 
+    def forward_library(
+        self, x: torch.Tensor, slope: float, eps: float, dtype: torch.dtype, subpixel: bool
+    ) -> torch.Tensor:
+        """The block in the library lowering (JAX's ``_block_apply``): convs
+        in ``dtype``, activations and PixelNorm in float32."""
+        x = layers.pixel_norm(layers.leaky_relu(
+            layers.conv2d(x, self.conv1.weight, self.conv1.bias, dtype), slope), eps)
+        if subpixel:
+            x = layers.conv3x3_on_nearest_up2x(x, self.conv2.weight, self.conv2.bias, dtype)
+        else:
+            x = layers.conv2d(upsample_nearest_2x(x), self.conv2.weight, self.conv2.bias, dtype)
+        return layers.pixel_norm(layers.leaky_relu(x, slope), eps)
+
 
 class Generator(nn.Module):
     """8 up-blocks + 8 heads (all stages).  Parameters start from
@@ -153,27 +179,61 @@ class Generator(nn.Module):
         y = torch.bmm(w, x.reshape(b, c, hh * ww))
         return torch.tanh(y.reshape(b, -1, hh, ww) + h.bias[None, :, None, None])
 
-    def forward_nchw(self, z: torch.Tensor, stage: int, alpha: float = 1.0) -> torch.Tensor:
+    def forward_nchw(
+        self, z: torch.Tensor, stage: int, alpha=1.0, impl: str | None = None,
+        compute_dtype: torch.dtype = torch.float32,
+    ) -> torch.Tensor:
         """``(B, C, h, w)`` latent -> ``(B, 2, h * 2^(stage+1), w *
-        2^(stage+1))`` magn/phase image in [-1, 1], float32.  ``conv_impl``
-        gives three things, as in JAX's ``generator_forward``: the blocks'
-        dtype (bf16 for the ``_bf16`` names: ``z`` is rounded to it), the
-        up-conv (``pallas_up*``) or K1 on the upsampled input (``pallas``,
-        ``pallas_bf16``), and the whole-block kernel (``pallas_block*``)."""
+        2^(stage+1))`` magn/phase image in [-1, 1], float32.  ``impl``
+        (default ``self.cfg.conv_impl``) selects the lowering, as in JAX's
+        ``generator_forward`` (module docstring); ``"auto"`` here is
+        ``"xla"``.  ``compute_dtype`` is the library lowering's (JAX's
+        ``compute_dtype`` argument); the kernel impls carry their own."""
+        impl = self.cfg.conv_impl if impl is None else impl
+        if impl in TRAIN_KERNEL_IMPLS:
+            return self.forward_nchw_train(z, stage, alpha)
+        if impl in INFERENCE_KERNEL_IMPLS:
+            return self._forward_kernels(z, stage, alpha, impl)
+        if impl not in ("auto", "xla", "subpixel"):
+            raise ValueError(f"unknown conv_impl {impl!r}")
+        slope, eps, subpixel = self.cfg.leaky_slope, self.cfg.pixel_norm_eps, impl == "subpixel"
+
+        def head(i, x):  # JAX's ``_head_apply``: a 1x1 conv in the compute dtype
+            h = self.heads[i]
+            return torch.tanh(layers.conv2d(x, h.weight, h.bias, compute_dtype))
+
+        with layers.library_numerics():
+            out = z
+            for i in range(stage):
+                out = self.blocks[i].forward_library(out, slope, eps, compute_dtype, subpixel)
+            out_mp = head(stage, self.blocks[stage].forward_library(out, slope, eps, compute_dtype, subpixel))
+            return self._fade(out_mp, out, stage, alpha, head)
+
+    @staticmethod
+    def _fade(out_mp, out, stage: int, alpha, head) -> torch.Tensor:
+        """``alpha * out_mp + (1 - alpha) * up2x(head_{s-1}(out))`` at a
+        stage past 0.  At a float ``alpha == 1`` the fade term is exactly
+        zero (tanh is finite), so it is not computed: synthesis always runs
+        there.  A tensor ``alpha`` is never read back."""
+        if stage == 0 or (not isinstance(alpha, torch.Tensor) and alpha == 1.0):
+            return out_mp
+        old = upsample_nearest_2x(head(stage - 1, out))
+        return alpha * out_mp + (1.0 - alpha) * old
+
+    def _forward_kernels(self, z: torch.Tensor, stage: int, alpha, impl: str) -> torch.Tensor:
+        """The inference kernels.  ``impl`` gives three things, as in JAX's
+        ``_generator_forward_nchw``: the blocks' dtype (bf16 for the
+        ``_bf16`` names: ``z`` is rounded to it), the up-conv (``pallas_up*``)
+        or K1 on the upsampled input (``pallas``, ``pallas_bf16``), and the
+        whole-block kernel (``pallas_block*``)."""
         slope, eps = self.cfg.leaky_slope, self.cfg.pixel_norm_eps
-        impl = self.cfg.conv_impl
         use_block = impl.startswith("pallas_block")
         use_upconv = impl.startswith("pallas_up")
         out = z.to(torch.bfloat16) if impl.endswith("_bf16") else z
         for i in range(stage):
             out = self.blocks[i](out, slope, eps, use_block, use_upconv)
         out_mp = self._head(stage, self.blocks[stage](out, slope, eps, use_block, use_upconv))
-        # At alpha == 1 the fade term (1 - alpha) * old is exactly zero (tanh
-        # is finite), so it is not computed: synthesis always runs there.
-        if stage > 0 and alpha != 1.0:
-            old = upsample_nearest_2x(self._head(stage - 1, out))
-            out_mp = alpha * out_mp + (1.0 - alpha) * old
-        return out_mp
+        return self._fade(out_mp, out, stage, alpha, self._head)
 
     def forward_nchw_train(self, z: torch.Tensor, stage: int, alpha) -> torch.Tensor:
         """The differentiable forward of the train step, same shapes as
@@ -190,13 +250,17 @@ class Generator(nn.Module):
         return out_mp
 
     def forward(
-        self, z: torch.Tensor, stage: int, alpha: float = 1.0, train: bool = False
+        self, z: torch.Tensor, stage: int, alpha=1.0, train: bool = False, impl: str | None = None,
+        compute_dtype: torch.dtype = torch.float32,
     ) -> torch.Tensor:
         """``z``: ``(B, h, w, rand_channels)`` NHWC, as in JAX's
         ``generator_forward`` -> ``(B, H, W, 2)``.  ``train`` selects the
-        differentiable forward."""
-        fwd = self.forward_nchw_train if train else self.forward_nchw
-        return fwd(z.permute(0, 3, 1, 2), stage, alpha).permute(0, 2, 3, 1)
+        differentiable kernel forward; else ``impl`` and ``compute_dtype``
+        as in :meth:`forward_nchw`."""
+        zn = z.permute(0, 3, 1, 2)
+        out = (self.forward_nchw_train(zn, stage, alpha) if train
+               else self.forward_nchw(zn, stage, alpha, impl, compute_dtype))
+        return out.permute(0, 2, 3, 1)
 
 
 def generator_param_count(cfg: ModelConfig = _DEFAULT, stage: int | None = None) -> int:

@@ -29,7 +29,8 @@ __all__ = ["build_all", "load", "kernel", "PTR", "INT", "FLOAT"]
 
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
-BUILD_DIR = _PKG / "_build"
+DEFAULT_BUILD_DIR = _PKG / "_build"
+BUILD_DIR = DEFAULT_BUILD_DIR  # utils/cache.py may point it elsewhere
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

@@ -83,7 +83,7 @@ from . import _build
 from . import conv_bf16
 from .nan_check import checked
 from ..models.layers import (
-    conv2d,
+    conv2d_same,
     leaky_relu,
     pixel_norm,
     subpixel_conv,
@@ -223,14 +223,14 @@ def conv3x3_plain(x, w, b, slope=None, pixel_norm=False, eps=1e-8, out_dtype=Non
     out = out_dtype_of("conv3x3_plain", x, out_dtype)
     if x.dtype == torch.bfloat16:
         x, w = x.float(), w.to(torch.bfloat16).float()
-    return _epilogue(conv2d(x, w, b), slope, pixel_norm, eps).to(out)
+    return _epilogue(conv2d_same(x, w, b), slope, pixel_norm, eps).to(out)
 
 
 def conv3x3_msq_plain(x, w, b, slope=None, eps=1e-8):
     """Plain version of K2: ``(y, m)`` with ``y`` as :func:`conv3x3_plain`
     with PixelNorm and ``m`` the ``(B, 1, H, W)`` mean over channels of the
     squared post-LeakyReLU activation (before ``+ eps`` and the scale)."""
-    u = _epilogue(conv2d(x, w, b), slope, False, eps)
+    u = _epilogue(conv2d_same(x, w, b), slope, False, eps)
     m = torch.mean(torch.square(u), dim=1, keepdim=True)
     return u * torch.rsqrt(m + eps), m
 

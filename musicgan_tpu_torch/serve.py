@@ -6,9 +6,13 @@ Counterpart of ``musicgan_tpu/serve.py``:
   server; each request only ships a seed and fetches a waveform.
 * **Micro-batching**: a collector thread gathers concurrent requests of
   one ``(stage, nb_vec)`` signature that arrive within ``window_ms`` and
-  runs them as ONE batched synthesis (the kernels K1, K3 and K5, or K4 under
-  ``conv_impl="pallas_block"``, on the card), padded up to the next
-  power-of-two bucket, so traffic meets a handful of batch shapes.
+  runs them as ONE batched synthesis through ``generate.synthesize_fn``,
+  padded up to the next power-of-two bucket, so traffic meets a handful of
+  batch shapes.  ``conv_impl`` "auto" (the default) resolves once per batch
+  shape, at its first dispatch (the warm-up's for the default signature,
+  before any request is timed): the measured winner on the card, the
+  kernels (K1 and K3, or K4 under ``"pallas_block"``) or the library
+  lowering, and the vocoder likewise (K5 or the plain iSTFT).
 * stdlib-only HTTP (``ThreadingHTTPServer``).
 
 Endpoints:

@@ -261,16 +261,19 @@ def train(
     )
     pre_scaled = train_cfg.host_pipeline and not use_dev_data
 
+    # A step's first build resolves conv_impl "auto" (ops/autotune.py): on
+    # the card it times the four train impls on this stage's step, beating
+    # the watchdog as it goes, unless the persisted table has the winner.
     def get_step(stage: int, with_gen: bool):
         return build_step(
             stage, with_gen, model_cfg, train_cfg,
-            pre_scaled=pre_scaled, device_data=use_dev_data,
+            pre_scaled=pre_scaled, device_data=use_dev_data, device=device,
         )
 
     def get_chunk_step(stage: int):
         return build_chunk_step(
             stage, train_cfg.chunk_steps, model_cfg, train_cfg,
-            pre_scaled=pre_scaled, device_data=use_dev_data,
+            pre_scaled=pre_scaled, device_data=use_dev_data, device=device,
         )
 
     def steps_until_boundary() -> int:

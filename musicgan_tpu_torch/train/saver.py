@@ -65,7 +65,9 @@ class Saver:
             (self.cfg.nb_preview, cfg.rand_channels, cfg.latent_height, cfg.latent_width),
             generator=self._preview_rng, device=device,
         )
-        x = gen.forward_nchw(z, stage, float(alpha))  # (N, 2, H, W)
+        # The Saver's conv_impl, as JAX's Saver runs generator_forward with
+        # its model_cfg ("auto" there is the library lowering).
+        x = gen.forward_nchw(z, stage, float(alpha), cfg.conv_impl)  # (N, 2, H, W)
         return x.permute(0, 2, 3, 1).cpu().numpy()
 
     def draw_previews(self, images: np.ndarray, stage: int) -> list[str]:

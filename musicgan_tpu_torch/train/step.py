@@ -10,13 +10,32 @@
 
 An iteration: per-stage input pipeline (min-max -> [-1, 1] -> resize) ->
 G forward without gradient -> D on real and fake -> Wasserstein loss
-(+ optional drift) + gradient penalty, whose inner input gradient is
-``critic_input_grad_nchw_train`` (unrolled by hand from first-order convs)
--> critic gradients with respect to critic parameters only -> Adam -> on G
-iterations the generator trains against the *updated* critic, then the EMA.
-On the card every 3x3 conv of it is a hand-written kernel: K2 forward in the
-generator, K1 forward in the critic and K1 again for every input gradient
-(``ops/conv_vjp.py``).
+(+ optional drift) + gradient penalty -> critic gradients with respect to
+critic parameters only -> Adam -> on G iterations the generator trains
+against the *updated* critic, then the EMA.
+
+``ModelConfig.conv_impl`` is resolved when the step is built
+(``ops/autotune.py``: "auto" is measured on a real chunk of this step, once
+per stage and shape) and selects the lowering, as in JAX:
+
+* ``"pallas_gp"``: every 3x3 conv is a hand-written kernel: K2 forward in
+  the generator, K1 forward in the critic and K1 again for every input
+  gradient (``ops/conv_vjp.py``), and the penalty's inner input gradient is
+  ``critic_input_grad_nchw`` (unrolled by hand from first-order convs);
+* ``"pallas_train"``: the same kernels in the first-order contexts, and the
+  penalty through ``torch.autograd.grad(create_graph=True)`` of the library
+  critic (the kernels' gradient is differentiable once);
+* ``"xla"`` / ``"subpixel"``: the library lowerings everywhere, the penalty
+  by double backward through them.
+
+``TrainConfig.compute_dtype`` ``"bfloat16"`` runs the library lowerings'
+convs and the critic's linear in bf16 (``models/layers.py``);
+``"bfloat16_f32gp"`` keeps the penalty's critic in float32.  Parameters,
+Adam's moments, the losses and the metrics stay float32 in every dtype.
+Every step that runs a library conv does so with TF32 off and under
+cuDNN's deterministic algorithms (``layers.library_numerics``), set for the
+iteration and restored afterwards, so that a resumed run equals the
+uninterrupted one bit for bit whichever impl won.
 
 Unlike JAX's pure step, this one updates the state's modules and optimizer
 moments in place and returns the same ``TrainState`` (JAX donates its
@@ -39,6 +58,7 @@ from ..config import ModelConfig, TrainConfig
 from ..device import resolve_device
 from ..models.discriminator import Discriminator, critic_input_grad_nchw
 from ..models.generator import Generator
+from ..models.layers import library_numerics
 from ..models.losses import wasserstein_discriminator_loss, wasserstein_generator_loss
 from .optim import AdamState, adam_per_leaf
 
@@ -140,14 +160,47 @@ def _grads(loss: torch.Tensor, params: dict) -> dict:
     return dict(zip(params, got))
 
 
-def _make_iteration(stage: int, model_cfg: ModelConfig, train_cfg: TrainConfig, pre_scaled: bool):
+def _make_iteration(stage: int, model_cfg: ModelConfig, train_cfg: TrainConfig, pre_scaled: bool, device):
     """The per-iteration core ``iteration(state, x_raw, alpha, do_g, noise)``."""
+    from ..ops.autotune import SECOND_ORDER_IMPLS, resolve_conv_impl
+
+    # Training differentiates through the generator: resolve conv_impl to a
+    # differentiable lowering (the inference-only kernel impls raise).  With
+    # train_cfg given, "auto" is measured on a real chunk of this step.
+    z_shape = (train_cfg.batch_size, model_cfg.latent_height, model_cfg.latent_width, model_cfg.rand_channels)
+    impl = resolve_conv_impl(
+        model_cfg, z_shape, stage, for_training=True, train_cfg=train_cfg, device=device
+    ).conv_impl
+    # The penalty differentiates the critic TWICE; the kernels' gradient is
+    # differentiable once, so under "pallas_train" the penalty's critic is
+    # the library lowering.
+    gp_impl = impl if impl in SECOND_ORDER_IMPLS else "xla"
+    # "bfloat16_f32gp": bf16 operands in every forward EXCEPT the penalty's:
+    # plain bf16 destabilizes exactly the penalty, which regularizes an
+    # INPUT gradient, the quantity operand rounding perturbs most
+    # (VALIDATION.md r2).
+    dtype = torch.bfloat16 if train_cfg.compute_dtype in ("bfloat16", "bfloat16_f32gp") else torch.float32
+    gp_dtype = torch.float32 if train_cfg.compute_dtype == "bfloat16_f32gp" else dtype
+    numerics = contextlib.nullcontext if impl == "pallas_gp" else functools.partial(library_numerics, True)
     size = 4 * 2**stage
     disc_stage = len(model_cfg.disc_channels) - 2 - stage  # 7 -> 0
     gp_w, drift, ema_d = train_cfg.grad_penalty_weight, train_cfg.drift_eps, train_cfg.ema_decay
     opt_g, opt_d = make_optimizers(train_cfg)
 
+    def input_grad(disc, x_hat, alpha):
+        """The critic's input gradient at the interpolate, itself
+        differentiable once more with respect to the critic's parameters."""
+        if impl == "pallas_gp":
+            return critic_input_grad_nchw(disc, x_hat, disc_stage, alpha)
+        x_hat = x_hat.detach().requires_grad_(True)
+        score = disc.forward_nchw(x_hat, disc_stage, alpha, gp_impl, gp_dtype)
+        return torch.autograd.grad(score.sum(), x_hat, create_graph=True)[0]
+
     def iteration(state: TrainState, x_raw, alpha, do_g: bool, noise=None):
+        with numerics():
+            return _iteration(state, x_raw, alpha, do_g, noise)
+
+    def _iteration(state: TrainState, x_raw, alpha, do_g: bool, noise):
         gen, disc = state.gen, state.disc
         if not isinstance(alpha, torch.Tensor):
             alpha = float(alpha)
@@ -166,17 +219,17 @@ def _make_iteration(stage: int, model_cfg: ModelConfig, train_cfg: TrainConfig, 
 
         x_real = x_raw.to(torch.float32) if pre_scaled else grower_transform(x_raw, size)
         with torch.no_grad():
-            x_fake = gen.forward_nchw_train(z, stage, alpha)
+            x_fake = gen.forward_nchw(z, stage, alpha, impl, dtype)
 
         # ---- critic ------------------------------------------------------
-        out_real = disc.forward_nchw(x_real, disc_stage, alpha)
-        out_fake = disc.forward_nchw(x_fake, disc_stage, alpha)
+        out_real = disc.forward_nchw(x_real, disc_stage, alpha, impl, dtype)
+        out_fake = disc.forward_nchw(x_fake, disc_stage, alpha, impl, dtype)
         w_loss = wasserstein_discriminator_loss(out_real, out_fake)
         if drift:  # ProGAN eps-drift: anchors the critic's output scale
             w_loss = w_loss + drift * torch.mean(torch.square(out_real))
         # WGAN-GP: the critic's gradient at a random interpolate has unit norm.
         x_hat = eps * x_real + (1.0 - eps) * x_fake
-        g = critic_input_grad_nchw(disc, x_hat, disc_stage, alpha)
+        g = input_grad(disc, x_hat, alpha)
         g_norm = torch.sqrt(torch.sum(torch.square(g.reshape(batch, -1)), dim=1) + 1e-12)
         gp = gp_w * torch.mean(torch.square(g_norm - 1.0))
         disc_params = _params(disc)
@@ -190,7 +243,8 @@ def _make_iteration(stage: int, model_cfg: ModelConfig, train_cfg: TrainConfig, 
         # ---- generator, against the *updated* critic ---------------------
         if do_g:
             with _frozen(disc):
-                out_gen = disc.forward_nchw(gen.forward_nchw_train(zg, stage, alpha), disc_stage, alpha)
+                x_gen = gen.forward_nchw(zg, stage, alpha, impl, dtype)
+                out_gen = disc.forward_nchw(x_gen, disc_stage, alpha, impl, dtype)
                 loss = wasserstein_generator_loss(out_gen)
                 gen_params = _params(gen)
                 g_grads = _grads(loss, gen_params)
@@ -239,6 +293,7 @@ def build_step(
     data_axis: str | None = None,
     pre_scaled: bool = False,
     device_data: bool = False,
+    device=None,
 ):
     """One iteration at ``stage``.  Returns ``step(state, x_raw, alpha,
     noise=None) -> (state, metrics)``; ``x_raw`` is ``(B, 2, H, W)`` float32
@@ -249,9 +304,13 @@ def build_step(
 
     ``noise``: optional ``(z, eps, zg)`` (NHWC latents, ``eps`` of shape
     ``(B, 1, 1, 1)``) in place of the draws from ``state.rng``, so that
-    tests can give both packages the same numbers."""
+    tests can give both packages the same numbers.
+
+    ``device``: where the state lives, for ``conv_impl="auto"``'s
+    resolution (the card by default, as JAX's default backend; on a CPU
+    device "auto" is "xla")."""
     _no_mesh(mesh, data_axis)
-    iteration = _make_iteration(stage, model_cfg, train_cfg, pre_scaled)
+    iteration = _make_iteration(stage, model_cfg, train_cfg, pre_scaled, device)
 
     if device_data:
         _no_pre_scaled(pre_scaled)
@@ -277,6 +336,7 @@ def build_chunk_step(
     data_axis: str | None = None,
     pre_scaled: bool = False,
     device_data: bool = False,
+    device=None,
 ):
     """K iterations per call: ``chunk_step(state, x_stack, alphas, gen_mask,
     noise=None) -> (state, metrics_stack)``.
@@ -287,9 +347,10 @@ def build_chunk_step(
     ``chunk_step(state, data, idx_stack, alphas, gen_mask, noise=None)``
     with ``idx_stack`` of shape ``(K, B)``.  Metrics come back stacked
     ``(K,)`` per key.  ``noise``: optional sequence of K ``(z, eps, zg)``.
-    Bit-identical to ``chunk`` single steps."""
+    Bit-identical to ``chunk`` single steps.  ``device`` as in
+    :func:`build_step`."""
     _no_mesh(mesh, data_axis)
-    iteration = _make_iteration(stage, model_cfg, train_cfg, pre_scaled)
+    iteration = _make_iteration(stage, model_cfg, train_cfg, pre_scaled, device)
     if device_data:
         _no_pre_scaled(pre_scaled)
 

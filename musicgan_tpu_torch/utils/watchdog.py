@@ -33,12 +33,29 @@ import time
 __all__ = [
     "EXIT_STALLED",
     "StallWatchdog",
+    "beat_active",
     "is_distributed_failure",
     "is_runtime_error",
 ]
 
 # BSD sysexits EX_TEMPFAIL: "temporary failure, retry is reasonable".
 EXIT_STALLED = 75
+
+# The process's enabled watchdog, so that long device phases outside the
+# train loop's fetches can witness their own progress: the autotuner's
+# measurement at a stage's first step times several train graphs (and may
+# build kernels), honest work during which the loop fetches nothing.
+# Without beats a healthy measurement would be killed as a stall, and since
+# the winner persists only after every candidate finished, a supervised
+# restart would enter the same boundary again until --max-restarts ran out.
+_ACTIVE: "StallWatchdog | None" = None
+
+
+def beat_active() -> None:
+    """Beat the process's enabled watchdog, if any (no-op otherwise)."""
+    wd = _ACTIVE
+    if wd is not None:
+        wd.beat()
 
 # When the coordinator (or a peer) dies, surviving processes don't stall
 # silently — their next collective/dispatch errors with a gRPC-flavored
@@ -138,6 +155,8 @@ class StallWatchdog:
         self._stop = threading.Event()
         self._thread: threading.Thread | None = None
         if self.timeout_s > 0:
+            global _ACTIVE
+            _ACTIVE = self  # the latest enabled instance wins (one per run)
             self._thread = threading.Thread(
                 target=self._watch, name="musicgan-stall-watchdog", daemon=True
             )
@@ -159,6 +178,9 @@ class StallWatchdog:
 
     def close(self) -> None:
         """Shut the detector down (end of training)."""
+        global _ACTIVE
+        if _ACTIVE is self:
+            _ACTIVE = None
         self._stop.set()
         if self._thread is not None:
             self._thread.join(timeout=2 * self._poll_s)

@@ -200,7 +200,8 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     _build.build_all()
     dev = torch.device("cuda")
-    cfg, tcfg = ModelConfig(), TrainConfig()
+    cfg, tcfg = ModelConfig(conv_impl="pallas_up"), TrainConfig()
+    cfg_gp = dataclasses.replace(cfg, conv_impl="pallas_gp")  # the train step on the kernels
 
     gen, disc = smoke.train_conv_shapes(cfg, tcfg.batch_size, 7)
     cases = ([("gen_fwd", s, True, 0.2) for s in gen]
@@ -362,17 +363,17 @@ def main() -> None:
         for impl in ("pallas_block", "pallas_up_bf16", "pallas_block_bf16")}}
     z = torch.randn((5, cfg.latent_height, cfg.latent_width * 10, cfg.rand_channels),
                     generator=torch.Generator(device=dev).manual_seed(0), device=dev)
-    synth = generate_mod.synthesize_fn(cfg, cfg.n_stages - 1)
-    for gg in gens.values():
+    synths = {k: generate_mod.synthesize_fn(dataclasses.replace(cfg, conv_impl=k), cfg.n_stages - 1) for k in gens}
+    for k, gg in gens.items():
         for _ in range(3):
-            synth(gg, z)
+            synths[k](gg, z)
     torch.cuda.synchronize()
     synth_by = {k: [] for k in gens}
     for k in ("pallas_up", "pallas_block", "pallas_up_bf16", "pallas_block_bf16",
               "pallas_block_bf16", "pallas_up_bf16", "pallas_block", "pallas_up"):
         for _ in range(10):
             t0 = time.perf_counter()
-            synth(gens[k], z)
+            synths[k](gens[k], z)
             torch.cuda.synchronize()
             synth_by[k].append(time.perf_counter() - t0)
     synth_s = synth_by["pallas_up"]
@@ -380,7 +381,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # The train step.
-    state = init_train_state(0, cfg, tcfg, device="cuda")
+    state = init_train_state(0, cfg_gp, tcfg, device="cuda")
     xg = torch.Generator(device=dev).manual_seed(0)
     x = torch.randn(tcfg.batch_size, 2, 512, 512, generator=xg, device=dev)
     x_stack = torch.randn(10, tcfg.batch_size, 2, 512, 512, generator=xg, device=dev)
@@ -395,13 +396,13 @@ def main() -> None:
             out.append(time.perf_counter() - t0)
         return out
 
-    step_d, step_dg = build_step(7, False, cfg, tcfg), build_step(7, True, cfg, tcfg)
+    step_d, step_dg = build_step(7, False, cfg_gp, tcfg), build_step(7, True, cfg_gp, tcfg)
     timed(lambda: step_d(state, x, 0.5), 2)
     timed(lambda: step_dg(state, x, 0.5), 2)
     d_s = timed(lambda: step_d(state, x, 0.5), 10)
     dg_s = timed(lambda: step_dg(state, x, 0.5), 10)
     mask = [(i + 1) % tcfg.n_critic == 0 for i in range(10)]
-    chunk = build_chunk_step(0, 10, cfg, tcfg)
+    chunk = build_chunk_step(0, 10, cfg_gp, tcfg)
     timed(lambda: chunk(state, x_stack, [1.0] * 10, mask), 2)
     chunk_s = timed(lambda: chunk(state, x_stack, [1.0] * 10, mask), 10)
     med = lambda v: float(np.median(v))  # noqa: E731

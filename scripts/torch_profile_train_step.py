@@ -214,7 +214,7 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     _build.build_all()
 
-    cfg, tcfg, dev = ModelConfig(), TrainConfig(), torch.device("cuda")
+    cfg, tcfg, dev = ModelConfig(conv_impl="pallas_gp"), TrainConfig(), torch.device("cuda")
     state = init_train_state(SEED, cfg, tcfg, device="cuda")
     rng = torch.Generator(device=dev).manual_seed(SEED)
     x = torch.randn(tcfg.batch_size, 2, 512, 512, generator=rng, device=dev)

@@ -50,7 +50,7 @@ def main() -> None:
         capture_output=True, text=True, check=True).stdout.strip())
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg, tcfg = ModelConfig(), TrainConfig(**chip_smoke.LOOP_CFG)
+    cfg, tcfg = ModelConfig(conv_impl="pallas_gp"), TrainConfig(**chip_smoke.LOOP_CFG)
     work = tempfile.mkdtemp(prefix="resume_determinism_")
     ds = os.path.join(work, "ds")
     writer = ShardWriter(ds, samples_per_shard=8)

@@ -176,17 +176,17 @@ def test_generator_takes_the_block_kernel_only_where_it_fits(monkeypatch):
 
 
 @pytest.mark.parametrize("name,error", [
-    ("xla", NotImplementedError), ("auto", NotImplementedError), ("pallas", None),
+    ("xla", None), ("auto", None), ("pallas", None),
     ("pallas_block_bf16", None), ("pallas_up_bf16", None), ("pallas_bf16", None),
-    ("pallas_train", NotImplementedError), ("no_such_impl", ValueError),
+    ("pallas_train", None), ("no_such_impl", ValueError),
 ])
 def test_conv_impl_names(name, error):
-    """The JAX package's Pallas inference impls are ported, in float32 and
-    bf16; the others raise (those of the JAX package pointing at ROADMAP)."""
+    """Every name of the JAX package's ``conv_impl`` is ported, "auto" the
+    default as there; any other name raises."""
     if error is None:
         assert ModelConfig(conv_impl=name).conv_impl == name
     else:
-        with pytest.raises(error, match="ROADMAP.md" if error is NotImplementedError else "unknown"):
+        with pytest.raises(error, match="unknown"):
             ModelConfig(conv_impl=name)
-    assert ModelConfig().conv_impl == "pallas_up"
+    assert ModelConfig().conv_impl == "auto"
     assert ModelConfig(conv_impl="pallas_block").conv_impl == "pallas_block"

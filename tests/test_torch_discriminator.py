@@ -35,10 +35,11 @@ from tests.tiny_cfg import TINY_MODEL
 CFG_X = dataclasses.replace(TINY_MODEL, conv_impl="xla")
 CFG_T = dataclasses.replace(TINY_MODEL, conv_impl="pallas_train")
 CFG_G = dataclasses.replace(TINY_MODEL, conv_impl="pallas_gp")
-CFG = ModelConfig(
+CFG = ModelConfig(  # the trainable kernels' path
     rand_channels=TINY_MODEL.rand_channels,
     gen_channels=TINY_MODEL.gen_channels,
     disc_channels=TINY_MODEL.disc_channels,
+    conv_impl="pallas_gp",
 )
 N = len(TINY_MODEL.disc_channels)
 # (critic stage, input size): a fade stage and the no-fade stage.

@@ -117,7 +117,8 @@ for new in ("train.step", "train.optim", "ops.conv_vjp", "models.discriminator",
             "train.saver", "train.checkpoint", "audio.dataset", "audio.ingest",
             "audio.host_pipeline", "utils.metrics", "utils.watchdog", "__main__",
             "serve", "evaluate", "view_audio", "audio.rebin", "audio.stft", "audio.functions",
-            "native", "utils.supervise", "utils.profiling", "ops.nan_check", "models.torch_ingest"):
+            "native", "utils.supervise", "utils.profiling", "ops.nan_check", "models.torch_ingest",
+            "ops.autotune", "utils.timing", "utils.cache"):
     assert "musicgan_tpu_torch." + new in sys.modules, new
 bad = sorted(
     m for m in sys.modules
@@ -170,7 +171,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         hits = _IMPORT_RE.findall(source)
         assert not hits, (path, hits)
         assert not _paths_into_the_jax_package(source), path
-    for new in ("native/__init__.py", "utils/supervise.py", "utils/profiling.py", "ops/nan_check.py"):
+    for new in ("native/__init__.py", "utils/supervise.py", "utils/profiling.py", "ops/nan_check.py",
+                "ops/autotune.py", "utils/timing.py", "utils/cache.py"):
         assert os.path.join(ROOT, "musicgan_tpu_torch", new) in sources, new
     # the check sees such a path where the code would use one
     assert _paths_into_the_jax_package('p = os.path.join(ROOT, "musicgan_tpu", "native")\n')

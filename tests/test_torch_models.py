@@ -27,11 +27,13 @@ GEN_PT = os.path.join(
 
 
 def _torch_cfg(jax_cfg):
-    """The port's ModelConfig with the same widths as a JAX one."""
+    """The port's ModelConfig with the same widths as a JAX one, on the
+    inference kernels' path (their plain versions on the CPU)."""
     return ModelConfig(
         rand_channels=jax_cfg.rand_channels,
         gen_channels=jax_cfg.gen_channels,
         disc_channels=jax_cfg.disc_channels,
+        conv_impl="pallas_up",
     )
 
 

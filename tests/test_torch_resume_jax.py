@@ -110,8 +110,9 @@ def test_one_iteration_from_save_80_matches_jax(restored):
     new_j, m_j = jax_build_step(stage, True, cfg_j, jcfg, pre_scaled=True)(state_j, jnp.asarray(x), jnp.float32(alpha))
     new_j = jax.tree_util.tree_map(np.asarray, new_j)
     tcfg = TrainConfig(**{**tc, "batch_size": batch, "chunk_steps": 1})
-    state_t = torch_ingest.train_state_from_jax(state_np, ModelConfig(), tcfg)
-    new_t, m_t = build_step(stage, True, ModelConfig(), tcfg, pre_scaled=True)(
+    cfg_t = ModelConfig(conv_impl="pallas_gp")
+    state_t = torch_ingest.train_state_from_jax(state_np, cfg_t, tcfg)
+    new_t, m_t = build_step(stage, True, cfg_t, tcfg, pre_scaled=True)(
         state_t, torch.from_numpy(x), alpha, noise=noise)
 
     assert set(m_t) == set(m_j)

@@ -22,8 +22,10 @@ from musicgan_tpu_torch.utils import profiling, supervise
 from musicgan_tpu_torch.utils.watchdog import EXIT_STALLED
 from tests.tiny_cfg import TINY_MODEL
 
+# The kernels' path (on the CPU their plain versions, which the check names
+# after the kernel the card runs).
 CFG = ModelConfig(rand_channels=TINY_MODEL.rand_channels, gen_channels=TINY_MODEL.gen_channels,
-                  disc_channels=TINY_MODEL.disc_channels)
+                  disc_channels=TINY_MODEL.disc_channels, conv_impl="pallas_gp")
 
 
 @pytest.fixture
@@ -178,13 +180,15 @@ def _corpus(path, nan=False):
 
 def test_cli_profile_and_debug_nans(tmp_path, debug_mode_restored):
     """``train --profile`` writes the trace of a CPU run; ``train
-    --debug-nans`` on a corpus with NaNs raises at the first op."""
+    --debug-nans`` on a corpus with NaNs raises at the first op: the CLI
+    trains under "auto", which is the library lowering on the CPU, whose
+    first op is the critic's input head, a ``layers.conv2d``."""
     args = ["--max-iters", "1", "--batch-size", "2", "--device", "cpu"]
     trace_dir = str(tmp_path / "trace")
     cli.main(["train", "p", "-i", _corpus(str(tmp_path / "ds")), "-o", str(tmp_path / "run"),
               "--profile", trace_dir, *args])
     assert os.path.getsize(os.path.join(trace_dir, profiling.TRACE_NAME)) > 0
     assert not nan_check.ENABLED
-    with pytest.raises(FloatingPointError, match=r"^fused_conv3x3: non-finite value"):
+    with pytest.raises(FloatingPointError, match=r"^conv2d: non-finite value"):
         cli.main(["train", "n", "-i", _corpus(str(tmp_path / "ds_nan"), nan=True), "-o",
                   str(tmp_path / "run_n"), "--debug-nans", *args])

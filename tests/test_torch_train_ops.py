@@ -240,6 +240,9 @@ def test_linear_and_avg_pool_match_jax():
 
 
 def test_train_config_refuses_other_compute_dtypes():
+    """JAX's three compute dtypes are ported; any other raises."""
     assert TrainConfig().betas == (0.0, 0.9) and TrainConfig().n_critic == 5
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TrainConfig(compute_dtype="bfloat16")
+    for dtype in ("float32", "bfloat16", "bfloat16_f32gp"):
+        assert TrainConfig(compute_dtype=dtype).compute_dtype == dtype
+    with pytest.raises(ValueError, match="unknown compute_dtype"):
+        TrainConfig(compute_dtype="float16")

@@ -25,10 +25,11 @@ from musicgan_tpu_torch.train import build_chunk_step, build_step, init_train_st
 from tests.tiny_cfg import TINY_MODEL
 
 CFG_G = dataclasses.replace(TINY_MODEL, conv_impl="pallas_gp")
-CFG = ModelConfig(
+CFG = ModelConfig(  # the kernels' path, as JAX's CFG_G
     rand_channels=TINY_MODEL.rand_channels,
     gen_channels=TINY_MODEL.gen_channels,
     disc_channels=TINY_MODEL.disc_channels,
+    conv_impl="pallas_gp",
 )
 TCFG = TrainConfig(batch_size=2, chunk_steps=5)
 
