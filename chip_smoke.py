@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's synthesis path, its WGAN-GP train step, its
 ``train`` entry point, its serving and evaluation entry points, its
-ingest and run interchange and its conv_impl selection on one NVIDIA GPU.
+ingest and run interchange, its conv_impl selection and its parallelism
+on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -145,6 +146,29 @@ the CUDA toolkit (``nvcc``).  Phases, each of which raises on failure:
    float32 ``pallas_gp``'s; ``train()`` under "auto" through the eight
    stages (the impl each resolved to and what its measurement cost),
    stopped half way and resumed bit for bit; ``info`` as a subprocess.
+13. parallelism (``musicgan_tpu_torch/parallel``), the only way one card
+   allows: a request of nb_vec 16 (32 latent columns, 47.5 s of audio) from
+   ``gen_final.pt`` through ``sharded_synthesize_fn`` on 2 and 4 shards,
+   all on cuda:0 (launches K1 8, K3 8 and K5 1 a shard), against unsharded
+   ``synthesize_fn`` at phase 3's waveform bar and beside float64, warm
+   times of both (no claim: the shards run in turn, each widened by a
+   3-column halo), and once more under "auto" in a fresh table (each
+   shard's widened latent and vocoder length measured); the
+   ``SynthesisService`` over 4 shards: a solo nb_vec 16 request takes the
+   long-clip route bit for bit, three concurrent nb_vec 4 requests one
+   batch; two ranks of the data-parallel step (``python3 chip_smoke.py
+   --dp-rank``), both on cuda:0 so gloo by the backend rule, global batch 6
+   at stage 7 under ``pallas_gp``: a D-only and a D+G iteration held
+   against the one-process step from the same state, batch and noise
+   (phase 6's bars on the updates, the metrics), the two ranks' states bit
+   for bit equal, launches against ``expected_train_launches``, warm
+   per-rank times and the all_reduces' ms and bytes; one D+G iteration in
+   a one-rank NCCL group bit for bit the step without a group; ``train
+   --coordinator / --num-processes 2 / --process-id`` as two subprocesses
+   through the eight stages (rank 0 measures stage 7's train impls, rank 1
+   takes its winner; only rank 0 writes), then SIGTERM to rank 1 (both
+   exit 75) and ``--resume`` bit for bit the uninterrupted run.  NCCL
+   across cards and shards on several cards are not run.
 
 The script stops every process it starts.  It is the subreaper of its
 descendants, so a grandchild orphaned by its parent (the forkserver of the
@@ -3270,6 +3294,488 @@ def conv_impl_selection(cfg: ModelConfig, dev, card: str) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: parallelism (``musicgan_tpu_torch/parallel``).  The card machine
+# has one H100, so the paths run the only way one card allows: the long
+# clip's shards all on cuda:0, one after another; two data-parallel ranks
+# sharing the card over gloo (the backend rule), and a one-rank NCCL group
+# for the NCCL code path.  NCCL across cards and shards on several cards
+# are not verified here.
+
+LONG_NB_VEC = 16        # one request of 32 latent columns, 47.5 s of audio
+LONG_SHARDS = (2, 4)
+LONG_TIMED = 5          # warm calls timed one by one; the median is quoted
+DP_BATCH = 6            # the global batch of the data-parallel step: 3 a rank
+DP_TIMED = 3            # warm D-only iterations a rank times
+DP_RANK_FLAG = "--dp-rank"
+DP_TIMEOUT_S = 300      # a rank's and a CLI run's limit, and the group's
+# The sharded waveform against the unsharded one on the card: phase 3's
+# waveform bar.  The two differ by the phase prefix sum's rounding (per
+# shard plus a carry, against one scan over 8,192 frames: a few float32
+# ulps of up to pi x 8,192 radians) and by the convs' sums over other
+# widths; both end as a phase error of order 1e-3 radians on magnitudes
+# that peak near 0.05.
+TOL_LONGCLIP = TOL_WAVE
+
+
+def expected_longclip_launches(stage: int, shards: int) -> dict:
+    """A clip sharded ``shards`` ways under ``pallas_up`` with K5 as the
+    vocoder: each shard runs the stage's blocks (K1 and K3 each) and one
+    K5."""
+    per = {"fused_conv3x3": stage + 1, "fused_upconv3x3": stage + 1, "istft_fused": 1}
+    return {k: shards * per.get(k, 0) for k in (*WRAPPERS, IDFT)}
+
+
+def warm_ms(fn, n: int) -> float:
+    """The median of ``n`` warm calls, each timed to the end of its device
+    work (the pieces stay on the card)."""
+    out = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(out))
+
+
+def seed_longclip_vocoder(shards_set) -> None:
+    """K5 at the vocoder lengths the shards give (each shard's own frames
+    plus its neighbours'), in the table phases 1-13 run their impls from."""
+    from musicgan_tpu_torch.parallel.longclip import VOCODER_HALO
+
+    table = autotune._load_persisted()
+    backend = autotune._backend(torch.device("cuda", 0))
+    frames = 2 * LONG_NB_VEC * 2 ** 8
+    for n in shards_set:
+        own = frames // n
+        for t in {own + VOCODER_HALO[1], own + sum(VOCODER_HALO), own + VOCODER_HALO[0]}:
+            table[autotune._istft_key(backend, 513, t)] = "pallas"
+    autotune._persist(table)
+    autotune._CACHE.clear()
+
+
+def longclip(cfg: ModelConfig, dev, say) -> dict:
+    """Phase 13 (a): one request of nb_vec 16 from ``gen_final.pt`` at stage
+    7 through ``sharded_synthesize_fn`` on 2 and 4 shards of the card,
+    counted, against unsharded ``synthesize_fn`` and the float64 plain
+    path; warm times; then under "auto" in a fresh table."""
+    from musicgan_tpu_torch.parallel import Mesh
+    from musicgan_tpu_torch.parallel.longclip import VOCODER_HALO, join_pieces, latent_halo, sharded_synthesize_fn
+
+    stage = cfg.n_stages - 1
+    seed_longclip_vocoder(LONG_SHARDS)
+    gen = load_reference_generator(str(CKPT), cfg, device=dev)
+    z = generate_mod.latents(cfg, LONG_NB_VEC, 1, SEED, dev)
+    unsharded_fn = generate_mod.synthesize_fn(cfg, stage)
+    ref = unsharded_fn(gen, z)[0]
+    _, waves64 = float64_synthesis(cfg, dev, z)
+    ref64 = waves64[0].cpu()
+    err_ref64 = (ref.cpu().double() - ref64).abs().max().item()
+    rec = {"launches": {k: 0 for k in (*WRAPPERS, IDFT)}, "shards": {}, "halo_columns": latent_halo(stage),
+           "unsharded_ms": warm_ms(lambda: unsharded_fn(gen, z), LONG_TIMED), "unsharded_err_float64": err_ref64}
+    for n in LONG_SHARDS:
+        fn = sharded_synthesize_fn(Mesh((dev,) * n), cfg, stage)
+        reset_launches()
+        pieces = fn(gen, z)
+        got = read_launches()
+        want = expected_longclip_launches(stage, n)
+        if got != want:
+            raise AssertionError(f"the long clip on {n} shards launched {got}, the formula gives {want}")
+        for k in rec["launches"]:
+            rec["launches"][k] += got[k]
+        if len(pieces) != n or any(p.device != dev for p in pieces):
+            raise AssertionError(f"{len(pieces)} pieces on {[str(p.device) for p in pieces]}")
+        joined = join_pieces(pieces)
+        if joined.shape != ref.shape or not torch.isfinite(joined).all():
+            raise AssertionError(f"the sharded waveform is {tuple(joined.shape)}, unsharded {tuple(ref.shape)}")
+        err = (joined - ref.cpu()).abs().max().item()
+        err64 = (joined.double() - ref64).abs().max().item()
+        ms = warm_ms(lambda: fn(gen, z), LONG_TIMED)
+        rec["shards"][n] = {"err_unsharded": err, "err_float64": err64, "ms": ms, "launches": got}
+        say(f"[longclip] {n} shards of cuda:0, nb_vec {LONG_NB_VEC} ({joined.numel() / 44100:.1f} s of audio), "
+            f"halo {latent_halo(stage)} latent columns, {VOCODER_HALO[0]} / {VOCODER_HALO[1]} spectrum frames: "
+            f"against unsharded "
+            f"{err:.3e} (tol {TOL_LONGCLIP:.0e}), against float64 {err64:.3e} (unsharded's {err_ref64:.3e}); "
+            f"warm {ms:.3f} ms (unsharded {rec['unsharded_ms']:.3f}); launches {got}")
+        if not err <= TOL_LONGCLIP:
+            raise AssertionError(f"the long clip on {n} shards is {err:.3e} from unsharded")
+
+    # "auto" with shards: each shard's widened latent a key of its own.
+    seeded = os.environ["MUSICGAN_AUTOTUNE_DIR"]
+    use_autotune_dir(tempfile.mkdtemp(prefix="chip_smoke_longclip_auto_"))
+    n = LONG_SHARDS[-1]
+    auto = dataclasses.replace(cfg, conv_impl="auto")
+    t0 = time.perf_counter()
+    joined = join_pieces(sharded_synthesize_fn(Mesh((dev,) * n), auto, stage)(gen, z))
+    auto_s = time.perf_counter() - t0
+    table = autotune._load_persisted()
+    use_autotune_dir(seeded)
+    if joined.shape != ref.shape or not torch.isfinite(joined).all():
+        raise AssertionError("the long clip under auto is not a finite waveform of the clip's length")
+    rec["auto"] = {"table": table, "s": auto_s, "rel_l2_float32": rel_l2(joined, ref.cpu())}
+    say(f"[longclip] under auto on {n} shards: measured and resolved in {auto_s:.2f} s, "
+        + ", ".join(f"{k.split('|')[2]}|{k.split('|')[3]} -> {v}" for k, v in sorted(table.items()))
+        + f"; the waveform {rec['auto']['rel_l2_float32']:.3e} from the float32 unsharded one (2-norm, relative)")
+    del gen
+    return rec
+
+
+def longclip_serving(cfg: ModelConfig, dev, say) -> dict:
+    """Phase 13 (b): the service over a mesh of 4 shards of the card: a solo
+    nb_vec 16 request takes the long-clip route (its signature, its samples
+    bit for bit ``sharded_synthesize_fn``'s, K1 32, K3 32, K5 4); three
+    concurrent nb_vec 4 requests are one batch and do not."""
+    from musicgan_tpu_torch.parallel import Mesh
+    from musicgan_tpu_torch.parallel.longclip import join_pieces, sharded_synthesize_fn
+
+    stage, n = cfg.n_stages - 1, 4
+    gen = load_reference_generator(str(CKPT), cfg, device=dev)
+    svc = SynthesisService(gen, window_ms=200.0, mesh=Mesh((dev,) * n), device=dev)
+    launches = {k: 0 for k in (*WRAPPERS, IDFT)}
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        wave = svc.submit(seed=SEED + 1, nb_vec=LONG_NB_VEC).result(timeout=300)
+        solo_ms = 1e3 * (time.perf_counter() - t0)
+        solo = read_launches()
+        want = expected_longclip_launches(stage, n)
+        sig = f"stage{stage}/nb_vec{LONG_NB_VEC}/longclip{n}"
+        if solo != want or sig not in svc.stats_snapshot()["signatures"]:
+            raise AssertionError(f"the solo request launched {solo} ({want} wanted), "
+                                 f"signatures {svc.stats_snapshot()['signatures']}")
+        z = generate_mod.latents(cfg, LONG_NB_VEC, 1, SEED + 1, dev)
+        again = join_pieces(sharded_synthesize_fn(Mesh((dev,) * n), cfg, stage)(gen, z))
+        if not torch.equal(wave, again):
+            raise AssertionError("the long-clip route's samples are not sharded_synthesize_fn's")
+        before = list(svc.stats_snapshot()["signatures"])
+        reset_launches()
+        futs = [svc.submit(seed=s, nb_vec=4) for s in range(3)]
+        waves = [f.result(timeout=300) for f in futs]
+        batched = read_launches()
+        new = [s for s in svc.stats_snapshot()["signatures"] if s not in before]
+        want_b = {k: 0 for k in (*WRAPPERS, IDFT)}
+        want_b.update(fused_conv3x3=stage + 1, fused_upconv3x3=stage + 1, istft_fused=1)
+        if new != [f"stage{stage}/nb_vec4/b4"] or batched != want_b or not all(torch.isfinite(w).all() for w in waves):
+            raise AssertionError(f"three nb_vec 4 requests: signatures {new}, launches {batched}")
+        for got in (solo, batched):
+            for k in launches:
+                launches[k] += got[k]
+    finally:
+        svc.close()
+    say(f"[longclip] the service over {n} shards: a solo nb_vec {LONG_NB_VEC} request took the route ({sig}, "
+        f"{solo_ms:.1f} ms submit to samples on the host, the 200 ms window included), bit for bit "
+        f"sharded_synthesize_fn, launches {solo}; three concurrent nb_vec 4 requests one batch ({new[0]}), "
+        f"launches {batched}")
+    del gen
+    return {"solo_ms": solo_ms, "solo_launches": solo, "batch_launches": batched, "launches": launches}
+
+
+def dp_batch(dev) -> torch.Tensor:
+    """The data-parallel step's global batch, seeded on the card."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    return torch.randn((DP_BATCH, 2, 512, 512), generator=g, device=dev)
+
+
+def state_sha(state) -> str:
+    """A hash of every tensor of a train state, the random generator's state
+    included."""
+    import hashlib
+
+    h = hashlib.sha256()
+    trees = [state.gen.state_dict(), state.disc.state_dict(), *state.opt_gen, *state.opt_disc]
+    for tree in trees:
+        for k in sorted(tree):
+            h.update(k.encode())
+            h.update(tree[k].detach().cpu().contiguous().numpy().tobytes())
+    h.update(state.rng.get_state().numpy().tobytes())
+    h.update(state.iter_idx.cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def dp_rank(argv: list[str]) -> None:
+    """``python3 chip_smoke.py --dp-rank COORD RANK WORK``: one rank of the
+    two-process data-parallel step on the card (both ranks on cuda:0, so
+    gloo by the backend rule): from ``init_train_state(SEED)``, one D-only
+    and one D+G iteration at stage 7 on this rank's 3 rows of the global
+    batch, each counted and hashed; then warm D-only iterations timed, and
+    one with its all_reduces timed.  Results in WORK/rank_{r}.json; rank 0
+    also saves the state after the two compared iterations."""
+    from musicgan_tpu_torch.parallel import mesh as pmesh
+    from musicgan_tpu_torch.train import step as step_mod
+
+    coord, rank, work = argv[0], int(argv[1]), argv[2]
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    pmesh.initialize_distributed(coord, 2, rank, timeout_s=DP_TIMEOUT_S)
+    dev, group = pmesh.process_device(), pmesh.process_group()
+    cfg = ModelConfig(conv_impl="pallas_gp")
+    tcfg = TrainConfig(batch_size=DP_BATCH)
+    state = init_train_state(SEED, cfg, tcfg, device=dev)
+    b = DP_BATCH // group.world
+    x = dp_batch(dev)[rank * b : (rank + 1) * b].contiguous()
+    rec = {"backend": pmesh.backend(), "device": str(dev), "hash": [], "launches": [], "metrics": []}
+    for with_gen in (False, True):
+        step = build_step(TRAIN_STAGE, with_gen, cfg, tcfg, mesh=group, device=dev)
+        reset_launches()
+        state, metrics = step(state, x, TRAIN_ALPHA)
+        torch.cuda.synchronize()
+        rec["launches"].append(read_launches())
+        rec["metrics"].append(metrics_floats(metrics))
+        rec["hash"].append(state_sha(state))
+    if rank == 0:
+        CheckpointManager(os.path.join(work, "dp")).save(0, state, {})
+    step = build_step(TRAIN_STAGE, False, cfg, tcfg, mesh=group, device=dev)
+    rec["iteration_ms"] = [1e3 * t for t in timed_iterations(step, state, x, DP_TIMED)]
+    real, calls = step_mod.all_reduce_sum, []
+
+    def timed(t):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(t)
+        torch.cuda.synchronize()
+        calls.append((1e3 * (time.perf_counter() - t0), t.numel() * t.element_size()))
+        return out
+
+    step_mod.all_reduce_sum = timed
+    step(state, x, TRAIN_ALPHA)
+    step_mod.all_reduce_sum = real
+    rec["all_reduce"] = [{"ms": ms, "bytes": nbytes} for ms, nbytes in calls]
+    with open(os.path.join(work, f"rank_{rank}.json"), "w") as f:
+        json.dump(rec, f)
+    pmesh.host_barrier()
+    pmesh.shutdown_distributed()
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def wait_all(procs, timeout: float) -> list[str]:
+    """Each process's output once it has exited (killed past ``timeout``)."""
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    return outs
+
+
+def data_parallel_step(dev, say, work: str) -> dict:
+    """Phase 13 (c): two ranks of the data-parallel step on the card over
+    gloo against the one-process step from the same state, batch and noise;
+    then one iteration in a one-rank NCCL group against the step without a
+    group."""
+    from musicgan_tpu_torch.parallel import Group
+    from musicgan_tpu_torch.parallel import mesh as pmesh
+
+    cfg = ModelConfig(conv_impl="pallas_gp")
+    tcfg = TrainConfig(batch_size=DP_BATCH)
+    coord = f"127.0.0.1:{free_port()}"
+    procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), DP_RANK_FLAG, coord, str(r), work],
+                              cwd=str(ROOT), stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    outs = wait_all(procs, DP_TIMEOUT_S)
+    for p, o in zip(procs, outs):
+        if p.returncode != 0:
+            raise AssertionError(f"a data-parallel rank exited {p.returncode}:\n{o[-4000:]}")
+    ranks = [json.load(open(os.path.join(work, f"rank_{r}.json"))) for r in range(2)]
+    if "[dist] backend gloo (2 processes, 1 cards)" not in outs[0] or {r["backend"] for r in ranks} != {"gloo"}:
+        raise AssertionError(f"the two ranks on one card did not take gloo:\n{outs[0][-2000:]}")
+    if ranks[0]["hash"] != ranks[1]["hash"]:
+        raise AssertionError("the two ranks' states differ after a step")
+
+    # The one-process step from the same state, batch and noise.
+    x = dp_batch(dev)
+    start = init_train_state(SEED, cfg, tcfg, device=dev)
+    one = start.clone()
+    one_metrics = []
+    for with_gen in (False, True):
+        one, m = build_step(TRAIN_STAGE, with_gen, cfg, tcfg, device=dev)(one, x, TRAIN_ALPHA)
+        one_metrics.append(metrics_floats(m))
+    dp = CheckpointManager(os.path.join(work, "dp")).restore(0, init_train_state(0, cfg, tcfg, device=dev))[0]
+    deltas = {}
+    for net, bar in (("gen", TOL_BACKWARD_L2), ("disc", TOL_CRITIC_ITERATION_L2)):
+        p0, p1, pd = (dict(getattr(s, net).named_parameters()) for s in (start, one, dp))
+        d1 = torch.cat([(p1[k] - p0[k]).detach().flatten() for k in p0])
+        dd = torch.cat([(pd[k] - p0[k]).detach().flatten() for k in p0])
+        deltas[net] = rel_l2(dd, d1)
+        if not deltas[net] <= bar:
+            raise AssertionError(f"the data-parallel {net} update is {deltas[net]:.3e} from one process's")
+    for got, ref in zip(ranks[0]["metrics"], one_metrics):
+        for k, v in ref.items():
+            if not abs(got[k] - v) <= TOL_METRIC_ABS + TOL_METRIC_REL * abs(v):
+                raise AssertionError(f"metric {k}: two ranks {got[k]}, one process {v}")
+    want = [expected_train_launches(cfg, TRAIN_STAGE, 1, 0), expected_train_launches(cfg, TRAIN_STAGE, 0, 1)]
+    for r in ranks:
+        if r["launches"] != want:
+            raise AssertionError(f"a rank launched {r['launches']}, the formula gives {want}")
+    reduce = ranks[0]["all_reduce"]
+    say(f"[dp] two ranks on cuda:0 over gloo, global batch {DP_BATCH} (3 a rank), stage 7, pallas_gp: states "
+        f"bit for bit equal after each step ({ranks[0]['hash'][-1][:12]}); updates against one process "
+        f"(relative 2-norm) generator {deltas['gen']:.3e} (tol {TOL_BACKWARD_L2:.0e}), critic {deltas['disc']:.3e} "
+        f"(tol {TOL_CRITIC_ITERATION_L2:.0e}); metrics within rel {TOL_METRIC_REL:.0e} / abs {TOL_METRIC_ABS:.0e}; "
+        f"launches a rank {ranks[0]['launches']}")
+    say(f"[dp] a D-only iteration, warm, ms: rank 0 {ranks[0]['iteration_ms']}, rank 1 {ranks[1]['iteration_ms']}; "
+        f"its all_reduces: " + ", ".join(f"{c['bytes']} B in {c['ms']:.3f} ms" for c in reduce))
+    rec = {"deltas_rel_l2": deltas, "ranks": ranks, "launches": {k: 0 for k in (*WRAPPERS, IDFT)}}
+    for r in ranks:
+        for got in r["launches"]:
+            for k in rec["launches"]:
+                rec["launches"][k] += got[k]
+
+    # A one-rank group on the card: NCCL by the rule, its collectives run.
+    pmesh.initialize_distributed(f"127.0.0.1:{free_port()}", 1, 0, timeout_s=DP_TIMEOUT_S)
+    try:
+        if pmesh.backend() != "nccl":
+            raise AssertionError(f"one rank on one card took {pmesh.backend()}, not nccl")
+        a, b = start.clone(), start.clone()
+        reset_launches()
+        a, ma = build_step(TRAIN_STAGE, True, cfg, tcfg, mesh=Group(1, 0), device=dev)(a, x, TRAIN_ALPHA)
+        torch.cuda.synchronize()
+        nccl = read_launches()
+        b, mb = build_step(TRAIN_STAGE, True, cfg, tcfg, device=dev)(b, x, TRAIN_ALPHA)
+        if state_sha(a) != state_sha(b) or metrics_floats(ma) != metrics_floats(mb):
+            raise AssertionError("the one-rank NCCL iteration differs from the step without a group")
+        if nccl != expected_train_launches(cfg, TRAIN_STAGE, 0, 1):
+            raise AssertionError(f"the one-rank NCCL iteration launched {nccl}")
+    finally:
+        pmesh.shutdown_distributed()
+    for k in rec["launches"]:
+        rec["launches"][k] += nccl[k]
+    say(f"[dp] one D+G iteration in a one-rank NCCL group: bit for bit the step without a group; launches {nccl}")
+    return rec
+
+
+def seed_train_table(path: str, dev, stages) -> None:
+    """A fresh table with ``pallas_gp`` at the float32 train keys of batch
+    ``DP_BATCH`` at ``stages``: the other stages are measured."""
+    backend = autotune._backend(dev)
+    table = {autotune._candidates_and_key(backend, (DP_BATCH, 2, 2, 32), s, True,
+                                          TrainConfig(batch_size=DP_BATCH))[1]: "pallas_gp" for s in stages}
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "conv_autotune.json"), "w") as f:
+        json.dump(table, f)
+
+
+def cli_two_ranks(dev, say, work: str) -> dict:
+    """Phase 13 (d): ``python -m musicgan_tpu_torch train --coordinator
+    127.0.0.1:P --num-processes 2 --process-id {0,1}`` (through this script's
+    cut-schedule wrapper), both ranks on the card: through the eight stages;
+    the lead measures stage 7's train impls and rank 1 takes its winner;
+    only the lead writes.  Then a run stopped by SIGTERM to rank 1 (both exit
+    75 with a flushed save) and resumed equals the uninterrupted one bit for
+    bit."""
+    ds = os.path.join(work, "ds")
+    writer = ShardWriter(ds, samples_per_shard=8)
+    writer.add(torch.randn(LOOP_SAMPLES, 2, 512, 512, generator=torch.Generator().manual_seed(SEED)).numpy())
+    writer.close()
+    table = os.path.join(work, "table")
+    seed_train_table(table, dev, range(TRAIN_STAGE))
+    env = {**os.environ, "MUSICGAN_AUTOTUNE_DIR": table}
+
+    def start(out: str, *extra: str):
+        coord = f"127.0.0.1:{free_port()}"
+        return [subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), CUT_SCHEDULE_FLAG, "train", "dp", "-i", ds, "-o", out,
+             "--batch-size", str(DP_BATCH), "--save-every", str(LOOP_CFG["save_every"]),
+             "--log-every", str(LOOP_CFG["log_every"]), "--chunk-steps", str(LOOP_CFG["chunk_steps"]),
+             "--coordinator", coord, "--num-processes", "2", "--process-id", str(r), *extra],
+            cwd=str(ROOT), env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(2)]
+
+    def final_save(out: str) -> dict:
+        ck = CheckpointManager(os.path.join(out, "checkpoints"))
+        for i in reversed(ck.saved_indices()):
+            with open(os.path.join(out, "checkpoints", f"save_{i}", "meta.json")) as f:
+                if json.load(f)["iter_idx"] == LOOP_ITERS:
+                    return torch.load(os.path.join(out, "checkpoints", f"save_{i}", "state.pt"), weights_only=True)
+        raise AssertionError(f"{out} has no save at iteration {LOOP_ITERS}")
+
+    out_a = os.path.join(work, "uninterrupted")
+    t0 = time.perf_counter()
+    procs = start(out_a, "--max-iters", str(LOOP_ITERS))
+    outs = wait_all(procs, DP_TIMEOUT_S)
+    wall_a = time.perf_counter() - t0
+    for p, o in zip(procs, outs):
+        if p.returncode != 0:
+            raise AssertionError(f"a train rank exited {p.returncode}:\n{o[-4000:]}")
+    lead = re.findall(r"\[autotune\] train conv_impl \(stage 7\) -> (\w+) .*measured in ([0-9.]+) s", outs[0])
+    other = re.findall(r"\[autotune\] train conv_impl \(stage 7\) -> (\w+)  \(process 0's; measured in 0.00 s\)",
+                       outs[1])
+    if len(lead) != 1 or other != [lead[0][0]]:
+        raise AssertionError(f"stage 7's winner: lead {lead}, rank 1 {other}")
+    if "[train:dp]" not in outs[0] or any(s in outs[1] for s in ("[train:dp]", "[saver]", "[grow]", "e000 it")):
+        raise AssertionError(f"rank 1 wrote what only the lead writes:\n{outs[1][-2000:]}")
+    saves = CheckpointManager(os.path.join(out_a, "checkpoints")).saved_indices()
+    if saves != list(range(LOOP_ITERS // LOOP_CFG["save_every"])):
+        raise AssertionError(f"the uninterrupted run saved {saves}")
+
+    out_b = os.path.join(work, "stopped")
+    procs = start(out_b, "--max-iters", str(LOOP_ITERS))
+    deadline = time.time() + DP_TIMEOUT_S
+    csv_path = os.path.join(out_b, "metrics.csv")
+    while time.time() < deadline:  # a row at iterations 0, 4 and 8: past two stages
+        if os.path.exists(csv_path) and len(open(csv_path).read().splitlines()) >= 4:
+            break
+        if any(p.poll() is not None for p in procs):
+            break
+        time.sleep(0.1)
+    procs[1].send_signal(signal.SIGTERM)
+    outs_b = wait_all(procs, DP_TIMEOUT_S)
+    if [p.returncode for p in procs] != [EXIT_STALLED] * 2:
+        raise AssertionError(f"SIGTERM to rank 1: exits {[p.returncode for p in procs]}\n{outs_b[0][-3000:]}")
+    ck = CheckpointManager(os.path.join(out_b, "checkpoints"))
+    last = ck.saved_indices()[-1]
+    with open(os.path.join(out_b, "checkpoints", f"save_{last}", "meta.json")) as f:
+        stopped_at = json.load(f)["iter_idx"]
+    procs = start(out_b, "--max-iters", str(LOOP_ITERS), "--resume")
+    outs_c = wait_all(procs, DP_TIMEOUT_S)
+    for p, o in zip(procs, outs_c):
+        if p.returncode != 0:
+            raise AssertionError(f"a resumed rank exited {p.returncode}:\n{o[-4000:]}")
+    a, b = final_save(out_a), final_save(out_b)
+    exact = all(torch.equal(a[k][j], b[k][j]) for k in ("gen", "disc") for j in a[k]) and all(
+        torch.equal(a[o][f][j], b[o][f][j]) for o in ("opt_gen", "opt_disc") for f in a[o] for j in a[o][f]
+    ) and torch.equal(a["rng_state"], b["rng_state"])
+    if not exact:
+        raise AssertionError("the stopped and resumed two-process run differs from the uninterrupted one")
+    say(f"[dp-cli] train --coordinator / --num-processes 2 / --process-id: {LOOP_ITERS} iterations through 8 stages "
+        f"in {wall_a:.1f} s (two processes on cuda:0), stage 7 measured by rank 0 in {lead[0][1]} s -> "
+        f"{lead[0][0]}, rank 1 took it (0 s); only rank 0 wrote (saves {saves}); SIGTERM to rank 1: both exit 75, "
+        f"save_{last} flushed at iteration {stopped_at}; --resume to {LOOP_ITERS}: bit for bit the uninterrupted run")
+    return {"wall_s": wall_a, "winner": lead[0][0], "measure_s": float(lead[0][1]), "stopped_at": stopped_at}
+
+
+def parallel_phase(cfg: ModelConfig, dev, card: str) -> dict:
+    """Phase 13 (see the module's docstring)."""
+    def say(line: str) -> None:
+        print(f"{line} ({card})")
+
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="chip_smoke_parallel_")
+    dev0 = torch.device("cuda", torch.cuda.current_device())
+    rec = {"longclip": longclip(cfg, dev0, say)}
+    torch.cuda.empty_cache()
+    rec["serving"] = longclip_serving(cfg, dev0, say)
+    torch.cuda.empty_cache()
+    rec["dp"] = data_parallel_step(dev0, say, work)
+    torch.cuda.empty_cache()
+    rec["cli"] = cli_two_ranks(dev0, say, work)
+    rec["launches"] = {k: sum(rec[p]["launches"][k] for p in ("longclip", "serving", "dp")) for k in (*WRAPPERS, IDFT)}
+    rec["phase_s"] = time.perf_counter() - t_phase
+    say(f"[parallel] launches in phase 13 (in this process and the two step ranks): {rec['launches']}; "
+        f"the phase took {rec['phase_s']:.1f} s")
+    return rec
+
+
 def become_subreaper() -> None:
     """Adopt the orphans of this script's descendants, so that
     :func:`stop_own_processes` sees every process the script started."""
@@ -3400,8 +3906,10 @@ def main() -> None:
     torch.cuda.empty_cache()
     selection = conv_impl_selection(cfg, dev, card)
     torch.cuda.empty_cache()
+    parallel = parallel_phase(cfg, dev, card)
+    torch.cuda.empty_cache()
 
-    paths = (e2e, train_rec, e2e_block, loop, e2e_new, serving, interchange, selection)
+    paths = (e2e, train_rec, e2e_block, loop, e2e_new, serving, interchange, selection, parallel)
     # The float32 kernels' launches: a wrapper's count less its bf16 ones.
     launched = {k: sum(p["launches"][k] for p in paths) for k in (*WRAPPERS, IDFT)}
     bf16_launched = {k: e2e_new["bf16_launches"][k] + selection["bf16_launches"][k] for k in BF16_WRAPPERS}
@@ -3464,7 +3972,7 @@ def main() -> None:
         {"card": card, "shapes": rows, "end_to_end": e2e, "gradients": grads, "train": train_rec,
          "end_to_end_block": e2e_block, "train_entry_point": loop, "bf16_shapes": bf16_rows,
          "end_to_end_new_impls": e2e_new, "serving": serving, "ingest_and_interchange": interchange,
-         "conv_impl_selection": selection, "kernels": kernels}, indent=1))
+         "conv_impl_selection": selection, "parallel": parallel, "kernels": kernels}, indent=1, default=str))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -3476,6 +3984,8 @@ def main() -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] == [CUT_SCHEDULE_FLAG]:
         cli_with_cut_schedule(sys.argv[2:])
+    elif sys.argv[1:2] == [DP_RANK_FLAG]:
+        dp_rank(sys.argv[2:])
     else:
         try:
             main()

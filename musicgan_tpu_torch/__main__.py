@@ -7,7 +7,8 @@ one that builds tensors takes ``--device``.
     python -m musicgan_tpu_torch train RUN -i DATASET_DIR -o OUT_DIR \\
         [--resume] [--max-iters N] [--batch-size 6] ... [--max-restarts N] \\
         [--compute-dtype float32|bfloat16|bfloat16_f32gp] \\
-        [--profile TRACE_DIR] [--debug-nans] [--device cuda|cpu]
+        [--profile TRACE_DIR] [--debug-nans] [--device cuda|cpu] \\
+        [--coordinator HOST:PORT --num-processes N --process-id I]
     python -m musicgan_tpu_torch generate CKPT 32 -o /out [-n 10] [-m 5] \\
         [--seed 0] [--conv-impl IMPL] [--device cuda|cpu]
     python -m musicgan_tpu_torch view_audio --input-audio a.wav --image-idx 0
@@ -40,8 +41,10 @@ flushed: run it again with ``--resume``, or let ``--max-restarts N`` do it.
 ``export --full`` writes the reference Saver's four files (weights and Adam
 state); ``import`` turns such a save (the reference's, or one the JAX
 package exported) into a run directory that ``train --resume`` continues.
-Still to port: the multi-host flags ``--coordinator``, ``--num-processes``,
-``--process-id`` (ROADMAP.md section A item 16), which are rejected.
+``train --coordinator HOST:PORT --num-processes N --process-id I`` is one
+rank of a data-parallel run: start one such process a card (rank ``I``
+takes card ``I % device_count``), each with the same other arguments;
+``--max-restarts`` supervises each rank and passes the flags on.
 """
 
 from __future__ import annotations
@@ -155,6 +158,11 @@ def main(argv=None) -> None:
     p.add_argument("--debug-nans", action="store_true",
                    help="raise at the first kernel that outputs a "
                         "non-finite value (one sync a launch)")
+    # multi-process bring-up (torch.distributed, one process a card)
+    p.add_argument("--coordinator", type=str, default=None,
+                   help="coordinator address host:port for multi-host runs")
+    p.add_argument("--num-processes", type=int, default=None)
+    p.add_argument("--process-id", type=int, default=None)
     p.add_argument("--stall-timeout", type=float, default=None,
                    metavar="SECONDS",
                    help="abort (exit 75) when no device progress is seen "
@@ -319,11 +327,19 @@ def main(argv=None) -> None:
         import contextlib
 
         from .config import train_config_from_overrides
+        from .parallel import mesh as pmesh
         from .train import train
         from .train.loop import PREEMPTED
         from .utils.profiling import enable_debug_mode, trace
         from .utils.watchdog import EXIT_STALLED
 
+        # Before anything touches the card: the rank takes its own.
+        pmesh.initialize_distributed(
+            coordinator_address=args.coordinator,
+            num_processes=args.num_processes,
+            process_id=args.process_id,
+            device=args.device,
+        )
         if args.debug_nans:
             enable_debug_mode(nans=True)
         cfg = train_config_from_overrides(
@@ -352,6 +368,10 @@ def main(argv=None) -> None:
                 max_iters=args.max_iters,
                 device=args.device,
             )
+        # The ranks leave together (a preempted run stopped at one agreed
+        # boundary on all of them).
+        pmesh.host_barrier()
+        pmesh.shutdown_distributed()
         if PREEMPTED.is_set():
             # SIGTERM/SIGUSR1 preemption: the loop flushed a checkpoint
             # and stopped early; exit EX_TEMPFAIL so schedulers treat this
@@ -509,6 +529,7 @@ def info() -> dict:
 
     from . import native
     from .ops import autotune
+    from .parallel import mesh as pmesh
 
     dev: dict = {}
 
@@ -518,7 +539,7 @@ def info() -> dict:
         dev["devices"] = (
             [torch.cuda.get_device_name(i) for i in range(torch.cuda.device_count())] if found else ["cpu"]
         )
-        dev["process_count"] = 1  # multi-process runs are ROADMAP A16
+        dev["process_count"] = pmesh.process_count()
 
     t = threading.Thread(target=probe, daemon=True)
     t.start()

@@ -146,23 +146,44 @@ def mp_to_real_imag(
     mp = magn_phase.permute(0, 2, 3, 1, 4).reshape(m, 2, n_bins, -1)
     magn, phase = mp[:, 0], mp[:, 1]
 
-    magn = (magn + 1.0) / 2.0
-    magn = bark_magn_scale(magn, unscale=True)
+    magn = unit_magnitude(magn)
     span = magn.amax(dim=(1, 2), keepdim=True) - magn.amin(dim=(1, 2), keepdim=True)
     magn = magn / span
 
-    phase = (phase + 1.0) / 2.0 * 2.0 * math.pi - math.pi
     # Instantaneous frequency -> absolute phase: prefix sum over time.
-    phase = torch.cumsum(phase, dim=-1)
-    phase = torch.remainder(phase, 2 * math.pi)
+    phase = torch.cumsum(instantaneous_frequency(phase), dim=-1)
+    real, imag = spectrum_parts(magn, phase)
+    return (real, imag) if batched else (real[0], imag[0])
 
+
+# The three pieces of mp_to_real_imag around its two reductions over time
+# (the magnitude's span and the phase's prefix sum), shared with the
+# time-sharded synthesis (parallel/longclip.py), which makes those two
+# reductions across its shards.
+
+
+def unit_magnitude(magn: torch.Tensor) -> torch.Tensor:
+    """The magnitude channel in [-1, 1] -> the bark-unscaled magnitude
+    (``(..., n_bins, T)``), before its division by the clip's span."""
+    return bark_magn_scale((magn + 1.0) / 2.0, unscale=True)
+
+
+def instantaneous_frequency(phase: torch.Tensor) -> torch.Tensor:
+    """The phase channel in [-1, 1] -> radians per frame in [-pi, pi]."""
+    return (phase + 1.0) / 2.0 * 2.0 * math.pi - math.pi
+
+
+def spectrum_parts(magn: torch.Tensor, phase: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The normalised magnitude and the prefix-summed phase ``(...,
+    n_bins, T)`` -> real and imaginary parts ``(..., n_bins + 1, T)``: the
+    phase taken mod 2 pi, and the zero Nyquist row dropped when the images
+    were made appended again."""
+    phase = torch.remainder(phase, 2 * math.pi)
     real = magn * torch.cos(phase)
     imag = magn * torch.sin(phase)
-
-    # Re-append the zero Nyquist row dropped when the images were made.
     real = torch.nn.functional.pad(real, (0, 0, 0, 1))
     imag = torch.nn.functional.pad(imag, (0, 0, 0, 1))
-    return (real, imag) if batched else (real[0], imag[0])
+    return real, imag
 
 
 def magn_phase_to_signal(

@@ -120,7 +120,7 @@ class TrainConfig:
     # loss); "bfloat16_f32gp": the same but the gradient penalty in float32
     # (VALIDATION.md r2).  bf16 trains through the library lowerings only.
     compute_dtype: str = "float32"
-    data_axis: str = "data"          # mesh axis name; data parallelism is ROADMAP A16
+    data_axis: str = "data"          # axis name of the data-parallel process group
     max_stage: Optional[int] = None  # cap growth (e.g. 3 for 32x32 runs)
     chunk_steps: int = 10            # iterations per ``build_chunk_step`` call;
     # identical to single stepping (tested); set 1 to disable

@@ -25,8 +25,14 @@ One deliberate deviation from JAX: JAX scores a candidate that raises as
 resolution raise, naming the impl: a kernel that fails to build or launch
 must never be hidden behind a library winner.
 
-One process only: the broadcast of the lead's winner to the other
-processes of a multi-process run comes with data parallelism (ROADMAP A16).
+In a multi-process run (``parallel.initialize_distributed``) the lead
+process alone reads its table or measures, and the others receive its
+winner's index by a broadcast over the host group and measure nothing:
+timing noise must never let two ranks run different impls (their train
+steps would then differ, and the replicated states drift apart).  The
+lead's measurement builds its steps without the process group, so that no
+collective runs while the others wait in the broadcast.  A training key
+carries the global batch size.
 """
 
 from __future__ import annotations
@@ -167,6 +173,26 @@ def _persist(table: dict) -> None:
         pass
 
 
+def _lead_decides(label: str, candidates: tuple, decide) -> str:
+    """The winner on every process: ``decide()`` (the persisted table, else
+    a measurement) in one process, or on the lead of a process group, whose
+    choice the others receive by a broadcast of its index (JAX's
+    ``broadcast_one_to_all``).  A lead's winner that is no candidate (a
+    stale table) becomes the first candidate everywhere, as in JAX."""
+    from ..parallel import mesh as pmesh
+
+    if pmesh.process_count() == 1:
+        return decide()
+    idx = None
+    if pmesh.process_index() == 0:
+        winner = decide()
+        idx = candidates.index(winner) if winner in candidates else 0
+    idx = pmesh.host_broadcast(idx)
+    if pmesh.process_index() != 0:
+        print(f"[autotune] {label} -> {candidates[idx]}  (process 0's; measured in 0.00 s)", flush=True)
+    return candidates[idx]
+
+
 def _report(label: str, winner: str, times: dict, seconds: float) -> None:
     print(
         f"[autotune] {label} -> {winner}  ("
@@ -296,17 +322,20 @@ def resolve_istft_impl(
     if not allow_measure and key not in _CACHE:
         return _load_persisted().get(key) or "xla"
     if key not in _CACHE:
-        persisted = _load_persisted()
-        if key in persisted:
-            winner = persisted[key]
-        else:
+
+        def decide() -> str:
+            persisted = _load_persisted()
+            if key in persisted:
+                return persisted[key]
             t0 = time.perf_counter()
             times = measure_istft_impls(n_bins, t, device=device)
             winner = min(times, key=times.get)
             _report("istft_impl", winner, times, time.perf_counter() - t0)
             persisted[key] = winner
             _persist(persisted)
-        _CACHE[key] = winner
+            return winner
+
+        _CACHE[key] = _lead_decides("istft_impl", VOCODER_IMPLS, decide)
     return _CACHE[key]
 
 
@@ -395,20 +424,23 @@ def resolve_conv_impl(
         winner = _load_persisted().get(key)
         return dataclasses.replace(cfg, conv_impl=winner or "xla")
     if key not in _CACHE:
-        persisted = _load_persisted()
-        if key in persisted:
-            winner = persisted[key]
-        else:
+        training = for_training and train_cfg is not None
+        label = f"train conv_impl (stage {stage})" if training else f"conv_impl (stage {stage}, z {tuple(z_shape)})"
+
+        def decide() -> str:
+            persisted = _load_persisted()
+            if key in persisted:
+                return persisted[key]
             t0 = time.perf_counter()
-            if for_training and train_cfg is not None:
+            if training:  # steps built without the process group
                 times = measure_train_impls(cfg, train_cfg, stage, candidates, device=device)
-                label = f"train conv_impl (stage {stage})"
             else:
                 times = measure_conv_impls(cfg, z_shape, stage, candidates, device=device)
-                label = f"conv_impl (stage {stage}, z {tuple(z_shape)})"
             winner = min(times, key=times.get)
             _report(label, winner, times, time.perf_counter() - t0)
             persisted[key] = winner
             _persist(persisted)
-        _CACHE[key] = winner
+            return winner
+
+        _CACHE[key] = _lead_decides(label, candidates, decide)
     return dataclasses.replace(cfg, conv_impl=_CACHE[key])

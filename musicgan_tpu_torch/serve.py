@@ -31,10 +31,12 @@ as a JSON 400.  Futures resolve to rows of the batch's waveforms on the
 device; the HTTP threads copy them to the host (the default stream orders
 the copy after the synthesis).
 
-The time-sharded long-clip route of the JAX service (solo wide requests
-spread over a device mesh, ``musicgan_tpu/parallel/longclip.py``) is not
-ported (ROADMAP.md A16): ``mesh`` is ``None`` or ``"auto"`` with one
-device, and anything else raises.
+**Long clips**: with a device mesh (``mesh``: ``"auto"`` builds one over
+every visible card, ``None`` with one card), a solo request of at least
+``longclip_min_nb_vec`` vectors whose latent width divides over the mesh
+runs TIME-SHARDED across its devices (``parallel/longclip.py``), so that
+long clips scale with the cards instead of serializing on one.  Batches
+never take that route.  Its future resolves to the waveform on the host.
 """
 
 from __future__ import annotations
@@ -81,26 +83,6 @@ def _next_bucket(n: int, max_batch: int) -> int:
     return min(b, max_batch)
 
 
-def _single_device(mesh, device: torch.device) -> None:
-    """``mesh=None`` runs on one device; ``"auto"`` does where one device is
-    there to run on.  Anything that asks for a mesh raises: nothing serves
-    on one card what the caller asked to shard."""
-    if mesh is None:
-        return
-    if isinstance(mesh, str) and mesh == "auto":
-        if device.type != "cuda" or torch.cuda.device_count() == 1:
-            return
-        raise NotImplementedError(
-            f"mesh='auto' with {torch.cuda.device_count()} CUDA devices would shard long "
-            "clips over them: the time-sharded route is not ported (ROADMAP.md A16); "
-            "pass mesh=None to serve on one device"
-        )
-    raise NotImplementedError(
-        f"mesh={mesh!r}: the time-sharded long-clip route is not ported (ROADMAP.md A16); "
-        "pass mesh=None or 'auto' with one device"
-    )
-
-
 class SynthesisService:
     """Device-resident generator + micro-batching request collector.
 
@@ -117,11 +99,24 @@ class SynthesisService:
         window_ms: float = 10.0,
         default_stage: int = 7,
         mesh="auto",
+        longclip_min_nb_vec: int = 4,
         max_nb_vec: int = 120,
         device: str | torch.device | None = None,
     ):
+        """``mesh``: ``"auto"`` builds a :class:`parallel.Mesh` over every
+        visible card where there is more than one (on the CPU, none);
+        ``None`` serves on one device; or pass a ``parallel.Mesh``.  A solo
+        request whose latent width divides over the mesh runs time-sharded
+        across its devices."""
         self.device = resolve_device(device)
-        _single_device(mesh, self.device)
+        from .parallel import Mesh, make_mesh
+
+        if isinstance(mesh, str) and mesh == "auto":
+            mesh = make_mesh() if self.device.type == "cuda" else None
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be None, 'auto' or a parallel.Mesh, got {mesh!r}")
+        self.mesh = mesh
+        self.longclip_min_nb_vec = longclip_min_nb_vec
         self.gen = gen.to(self.device).eval()  # resident for the server's life
         self.model_cfg = gen.cfg
         self.audio_cfg = audio_cfg
@@ -133,6 +128,7 @@ class SynthesisService:
         # clients should chunk.
         self.max_nb_vec = max_nb_vec
         self._fns: dict = {}  # stage -> synthesize fn
+        self._longclip_fns: dict = {}  # stage -> time-sharded fn
         self._q: queue.Queue = queue.Queue()
         self._pending: deque = deque()  # deferred other-signature requests
         self._stop = threading.Event()
@@ -252,8 +248,38 @@ class SynthesisService:
                     if not r.future.done():
                         r.future.set_exception(e)
 
+    def _use_longclip(self, batch: list[_Request]) -> bool:
+        if self.mesh is None or len(batch) != 1:
+            return False
+        nb_vec = batch[0].nb_vec
+        return (
+            nb_vec >= self.longclip_min_nb_vec
+            and (self.model_cfg.latent_width * nb_vec) % self.mesh.size == 0
+        )
+
+    def _execute_longclip(self, req: _Request) -> None:
+        """Solo long request: the synthesis sharded along time over the
+        mesh (``parallel/longclip.py``), on the request's seeded latent."""
+        from .parallel.longclip import join_pieces, sharded_synthesize_fn
+
+        stage = req.stage
+        if stage not in self._longclip_fns:
+            self._longclip_fns[stage] = sharded_synthesize_fn(self.mesh, self.model_cfg, stage)
+        z = generate_mod.latents(self.model_cfg, req.nb_vec, 1, req.seed, self.device)
+        wave = join_pieces(self._longclip_fns[stage](self.gen, z))
+        sig = f"stage{stage}/nb_vec{req.nb_vec}/longclip{self.mesh.size}"
+        with self._stats_lock:
+            self.stats["requests"] += 1
+            self.stats["batches"] += 1
+            if sig not in self.stats["signatures"]:
+                self.stats["signatures"].append(sig)
+        req.future.set_result(wave)
+
     @torch.no_grad()  # no_grad is per thread: this is the batcher's
     def _execute(self, batch: list[_Request]) -> None:
+        if self._use_longclip(batch):
+            self._execute_longclip(batch[0])
+            return
         stage, nb_vec = batch[0].signature
         cfg = self.model_cfg
         bucket = _next_bucket(len(batch), self.max_batch)

@@ -1,5 +1,6 @@
-"""The training workflow: progressive-growing WGAN-GP on one device
-(counterpart of ``musicgan_tpu/train/loop.py``; reference ``train.py:18-278``).
+"""The training workflow: progressive-growing WGAN-GP on one device, or
+data parallel over a process group with one process a card (counterpart of
+``musicgan_tpu/train/loop.py``; reference ``train.py:18-278``).
 
 * one train step per (stage, with-G) pair, selected on the host by the
   static n_critic schedule (``train/step.py``);
@@ -9,11 +10,17 @@
   switch, save or ``max_iters`` falls inside them; the cadence metrics are
   read back only after the next chunk has been launched;
 * full-state checkpoints every ``save_every`` iterations and on
-  SIGTERM/SIGUSR1, WITH bit-exact resume (the reference cannot resume).
+  SIGTERM/SIGUSR1, WITH bit-exact resume (the reference cannot resume);
+* data parallelism (``parallel.initialize_distributed``, then ``mesh=
+  "auto"``): each rank streams its rows of every global batch (or holds its
+  row range of the resident corpus), the train step averages the gradients
+  over the ranks, and the replicated state stays equal on every rank.  The
+  lead (rank 0) alone writes checkpoints, previews, the CSV and the log;
+  every rank fetches the cadence metrics, beats its own watchdog and agrees
+  on preemption and on the dataset's size at each epoch.
 
-Data parallelism over several devices or processes is not ported yet
-(ROADMAP.md section A item 16): ``mesh`` other than ``None`` (or ``"auto"``
-where one device is visible) raises.
+Where JAX trains over a mesh of devices in one process, the port runs one
+process a card: an explicit ``parallel.Mesh`` for training raises.
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ from ..audio.dataset import SpectrogramDataset, batch_indices, batch_iterator
 from ..audio.host_pipeline import prepare_batch
 from ..config import ModelConfig, TrainConfig
 from ..device import resolve_device
+from ..parallel import mesh as pmesh
 from ..utils.metrics import MetricLogger
 from ..utils.watchdog import (
     EXIT_STALLED,
@@ -40,7 +48,7 @@ from ..utils.watchdog import (
 )
 from .grower import Grower
 from .saver import Saver
-from .step import TrainState, build_chunk_step, build_step, init_train_state
+from .step import TrainState, build_chunk_step, build_step, data_group, init_train_state
 
 __all__ = ["train", "PREEMPTED"]
 
@@ -83,22 +91,22 @@ def _restore_preemption_handlers(prev) -> None:
             signal.signal(s, h)
 
 
-def _single_device(mesh, device: torch.device) -> None:
-    """Raise for anything but one process on one device."""
-    dist = torch.distributed
-    if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
-        raise NotImplementedError(
-            "multi-process training is not ported yet (ROADMAP.md section A item 16)"
-        )
+def _train_group(mesh, axis: str):
+    """The process group the run is data parallel over, or None: ``"auto"``
+    takes the group ``parallel.initialize_distributed`` joined where it has
+    more than one process; ``None`` is one process (and refuses to run as
+    one of several); a ``parallel.Group`` is taken as given, and a
+    ``parallel.Mesh`` raises (``train/step.py::data_group``)."""
+    if isinstance(mesh, str) and mesh == "auto":
+        return pmesh.process_group(axis)
     if mesh is None:
-        return
-    n_dev = torch.cuda.device_count() if device.type == "cuda" else 1
-    if not (isinstance(mesh, str) and mesh == "auto" and n_dev <= 1):
-        raise NotImplementedError(
-            f"mesh={mesh!r} with {n_dev} visible device(s): data-parallel "
-            "training is not ported yet (ROADMAP.md section A item 16); pass "
-            "mesh=None to train on one device"
-        )
+        if pmesh.process_count() > 1:
+            raise ValueError(
+                f"mesh=None trains in one process, but this one is rank {pmesh.process_index()} "
+                f"of {pmesh.process_count()}: pass mesh='auto'"
+            )
+        return None
+    return data_group(mesh)
 
 
 def _fetch_later(values: torch.Tensor):
@@ -134,16 +142,27 @@ def train(
     """Run (or resume) progressive WGAN-GP training; returns final state.
 
     ``device``: ``cuda`` by default (raises without a GPU); ``"cpu"`` runs
-    the kernels' plain versions.  ``mesh``: ``"auto"`` or ``None`` on one
-    device; anything else raises until data parallelism is ported.
+    the kernels' plain versions.  ``mesh``: ``"auto"`` (default) is data
+    parallel over the process group where ``parallel.initialize_distributed``
+    joined one of more than one process, else one device; ``None`` forces
+    one process; an explicit ``parallel.Mesh`` of devices raises, since the
+    port trains one process a card.  In a group every rank calls ``train``
+    with the same arguments; ``device`` "cuda" is then the card the group
+    gave the rank.
     """
     device = resolve_device(device)
-    _single_device(mesh, device)
+    group = _train_group(mesh, train_cfg.data_axis)
+    world, rank = (1, 0) if group is None else (group.world, group.rank)
+    if group is not None and device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())  # the rank's card
+    lead = rank == 0
     dataset = SpectrogramDataset(input_dataset_path)
     if len(dataset) < train_cfg.batch_size:
         raise ValueError(
             f"dataset has {len(dataset)} samples < batch {train_cfg.batch_size}"
         )
+    if train_cfg.batch_size % world:  # one device a process: devices = hosts
+        raise ValueError(f"batch {train_cfg.batch_size} not divisible by {world} devices / hosts")
 
     # Device-resident dataset mode: corpus in device memory once, indices
     # per step (see TrainConfig.device_dataset).
@@ -155,17 +174,24 @@ def train(
     dev_bf16 = train_cfg.device_dataset_dtype == "bfloat16"
 
     def resident_bytes() -> int:
-        # bf16 residency halves the bytes; budget-check the RESIDENT size
-        return dataset.nbytes() // (2 if dev_bf16 else 1)
+        # bf16 residency halves the bytes; budget-check the RESIDENT size,
+        # per device: in a group each rank holds 1/world of the corpus
+        return dataset.nbytes() // (2 if dev_bf16 else 1) // world
 
+    # In a group "auto" stays off, as JAX's stays off under a mesh, and "on"
+    # shards the corpus over the ranks of one host.
     use_dev_data = train_cfg.device_dataset == "on" or (
         train_cfg.device_dataset == "auto"
+        and group is None
         and resident_bytes() <= train_cfg.device_dataset_budget_bytes
     )
+    if use_dev_data and group is not None and len({h for h, _ in pmesh.hosts()}) > 1:
+        raise ValueError("device_dataset='on' requires a single-host run")
 
     data_dev = None
-    resident_n = 0  # sample count of the resident corpus (it may lag
-    # len(dataset) when a grown corpus stopped fitting the budget)
+    resident_n = 0  # LOGICAL sample count of the resident corpus (it may
+    # lag len(dataset) when a grown corpus stopped fitting the budget; in a
+    # group the shipped array carries up to world - 1 pad rows, never drawn)
 
     def ship_corpus():
         """(Re-)ship the corpus to the device; frees any prior resident
@@ -174,9 +200,12 @@ def train(
         to bfloat16 happens on the HOST, so exactly the resident bytes are
         copied."""
         nonlocal data_dev, resident_n
-        staged = torch.from_numpy(
-            dataset.as_array("bfloat16" if dev_bf16 else np.float32)
+        staged = dataset.as_array(
+            "bfloat16" if dev_bf16 else np.float32, pad_rows=pmesh.pad_rows(len(dataset), world)
         )
+        if group is not None:  # this rank's row range only
+            staged = np.ascontiguousarray(staged[pmesh.data_sharding(group, len(dataset))[rank]])
+        staged = torch.from_numpy(staged)
         if dev_bf16:
             staged = staged.view(torch.bfloat16)
         data_dev = None
@@ -192,20 +221,31 @@ def train(
         train_lengths=train_cfg.train_lengths,
         max_stage=train_cfg.max_stage,
     )
-    saver = Saver(output_dir, train_cfg, model_cfg)
-    logger = MetricLogger(
-        output_dir,
-        train_cfg.metric_window,
-        tb_dir=train_cfg.tb_dir,
-        mlflow_uri=train_cfg.mlflow_uri,
-        run_name=run_name,
-        params=dataclasses.asdict(train_cfg),
+    # The state is replicated: the lead writes each save, and every rank
+    # waits for it (the saver's counters advance on every rank).
+    saver = Saver(output_dir, train_cfg, model_cfg, lead=lead,
+                  sync=pmesh.host_barrier if group is not None else None)
+    # Observability is per run, not per process: only the lead writes the
+    # CSV and the previews and prints.
+    logger = (
+        MetricLogger(
+            output_dir,
+            train_cfg.metric_window,
+            tb_dir=train_cfg.tb_dir,
+            mlflow_uri=train_cfg.mlflow_uri,
+            run_name=run_name,
+            params=dataclasses.asdict(train_cfg),
+        )
+        if lead
+        else None
     )
 
     # Failure detection (SURVEY §5): a wedged device never returns from a
     # synchronisation, so progress is witnessed through real device->host
     # fetches (metric reads and checkpoint writes) and their absence past
     # the timeout exits 75 for a supervised restart (utils/watchdog.py).
+    # Every rank runs one and fetches the cadence metrics: a lead's death
+    # that leaves the others blocked in a collective then ends them too.
     watchdog = StallWatchdog(train_cfg.stall_timeout_s)
     preempted = PREEMPTED
     _prev_sig = _install_preemption_handlers()
@@ -219,7 +259,8 @@ def train(
     # still growing via streaming ingest naturally re-shuffles.
     resume_skip_batches = 0
     if resume:
-        latest = saver.ckpt.latest()
+        # Every rank restores the lead's latest save, its rng state included.
+        latest = pmesh.host_broadcast(saver.ckpt.latest())
         if latest is not None:
             state, meta = saver.ckpt.restore(latest, state)
             if train_cfg.ema_decay == 0 and state.gen_ema is not None:
@@ -227,11 +268,12 @@ def train(
                 # kept-but-never-updated EMA would silently freeze every
                 # later preview/generate at the resume point (they prefer
                 # gen_ema when present): drop it instead.
-                print(
-                    "[resume] checkpoint carries generator EMA but "
-                    "ema_decay=0; discarding it (pass --ema-decay to "
-                    "keep updating it)"
-                )
+                if lead:
+                    print(
+                        "[resume] checkpoint carries generator EMA but "
+                        "ema_decay=0; discarding it (pass --ema-decay to "
+                        "keep updating it)"
+                    )
                 state.gen_ema = None
             grower.load_state_dict(meta["grower"])
             # A save is written before its iteration's samples are counted
@@ -244,15 +286,16 @@ def train(
             saver.curr_save = latest + 1
             start_epoch = int(meta.get("epoch", 0))
             resume_skip_batches = int(meta.get("epoch_batch_pos", 0))
-            print(
-                f"[resume] save_{latest}: iter={int(state.iter_idx)} "
-                f"stage={grower.curr_grow} epoch={start_epoch}"
-                + (
-                    f" (+{resume_skip_batches} batches into the epoch)"
-                    if resume_skip_batches
-                    else ""
+            if lead:
+                print(
+                    f"[resume] save_{latest}: iter={int(state.iter_idx)} "
+                    f"stage={grower.curr_grow} epoch={start_epoch}"
+                    + (
+                        f" (+{resume_skip_batches} batches into the epoch)"
+                        if resume_skip_batches
+                        else ""
+                    )
                 )
-            )
 
     max_stage = (
         train_cfg.max_stage
@@ -264,15 +307,16 @@ def train(
     # A step's first build resolves conv_impl "auto" (ops/autotune.py): on
     # the card it times the four train impls on this stage's step, beating
     # the watchdog as it goes, unless the persisted table has the winner.
+    # In a group the lead measures and the others take its winner.
     def get_step(stage: int, with_gen: bool):
         return build_step(
-            stage, with_gen, model_cfg, train_cfg,
+            stage, with_gen, model_cfg, train_cfg, mesh=group, data_axis=train_cfg.data_axis,
             pre_scaled=pre_scaled, device_data=use_dev_data, device=device,
         )
 
     def get_chunk_step(stage: int):
         return build_chunk_step(
-            stage, train_cfg.chunk_steps, model_cfg, train_cfg,
+            stage, train_cfg.chunk_steps, model_cfg, train_cfg, mesh=group, data_axis=train_cfg.data_axis,
             pre_scaled=pre_scaled, device_data=use_dev_data, device=device,
         )
 
@@ -307,17 +351,22 @@ def train(
         stage_mark[:] = [iter_idx, now]
         return f"{n} iterations in {dt:.3f} s = {n / max(dt, 1e-9):.3f} steps/s"
 
-    print(
-        f"[train:{run_name}] {len(dataset)} samples, batch "
-        f"{train_cfg.batch_size}, 1 device(s) ({device}), "
-        f"1 host(s), start stage {grower.curr_grow}"
-    )
+    if lead:
+        print(
+            f"[train:{run_name}] {len(dataset)} samples, batch "
+            f"{train_cfg.batch_size}, {world} device(s) ({device}"
+            f"{'' if group is None else ', one a process'}), "
+            f"{world} host(s), start stage {grower.curr_grow}"
+        )
 
     def log_metrics(epoch, m_iter, m_stage, keys, get, m_gen, alpha):
         # ``get`` finishes a device->host fetch: the watchdog's evidence
-        # of progress.  One batched transfer, not a read per metric.
+        # of progress.  One batched transfer, not a read per metric.  Every
+        # rank fetches; only the lead logs.
         host_m = dict(zip(keys, get()))
         watchdog.beat()
+        if logger is None:
+            return
         if not m_gen:
             host_m.pop("gen_loss", None)
             host_m.pop("e_gen", None)
@@ -344,6 +393,19 @@ def train(
             "train_cfg": dataclasses.asdict(train_cfg),
         }
 
+    def preempt_agreed() -> bool:
+        """The collective preemption decision.  Signals land on the ranks at
+        different times, while the flush and the early exit must happen on
+        all of them at one iteration boundary, or their collectives no
+        longer match: every rank calls this at the same boundaries, and any
+        rank's signal preempts the whole run."""
+        if group is None:
+            return preempted.is_set()
+        if any(pmesh.host_allgather(preempted.is_set())):
+            preempted.set()  # the same exit 75 on every rank
+            return True
+        return False
+
     def post_iteration(epoch, stage, alpha, at_boundary=True):
         """Bookkeeping after each iteration: save cadence, counters, growth
         (reference train.py:248-272 order).
@@ -355,7 +417,7 @@ def train(
         chunk's final bookkeeping call."""
         nonlocal iter_idx, done, epoch_batch_pos
         epoch_batch_pos += 1  # this iteration's batch is now consumed
-        stopping = at_boundary and preempted.is_set()
+        stopping = at_boundary and preempt_agreed()
         if saver.request_save(state, stage, alpha, meta=meta_dict(epoch)):
             watchdog.beat()  # the checkpoint write read the device state
         elif stopping:
@@ -370,8 +432,8 @@ def train(
         if max_iters is not None and iter_idx >= max_iters:
             done = True
             return
-        # ProGAN growth: counters advance by the batch.
-        if grower.grow(train_cfg.batch_size) and grower.curr_grow <= max_stage:
+        # ProGAN growth: counters advance by the global batch.
+        if grower.grow(train_cfg.batch_size) and grower.curr_grow <= max_stage and lead:
             print(
                 f"[grow] stage -> {grower.curr_grow} "
                 f"(size {grower.image_size}x{grower.image_size}), "
@@ -482,10 +544,23 @@ def train(
         resume_skip_batches = 0
         epoch_batch_pos = skip
         # Streaming ingest: pick up shards a concurrent writer has
-        # appended since the last epoch.
-        grew = dataset.refresh()
+        # appended since the last epoch.  In a group the batches derive
+        # from len(dataset), so the ranks must not see different snapshots
+        # of a still-growing index: each offers what its index holds, all
+        # refresh to the least, and a rank whose index was unreadable
+        # mid-rewrite (it kept a smaller view) shrinks the others to its
+        # count in a second agreement.
+        if group is None:
+            grew = dataset.refresh()
+        else:
+            grew = dataset.refresh(limit=min(pmesh.host_allgather(dataset.peek_total())))
+            realized = min(pmesh.host_allgather(len(dataset)))
+            if realized != len(dataset):
+                dataset.refresh(limit=realized)
+                grew = False
         if grew:
-            print(f"[dataset] grew to {len(dataset)} samples", flush=True)
+            if lead:
+                print(f"[dataset] grew to {len(dataset)} samples", flush=True)
             if use_dev_data:
                 # The budget was checked at startup; a still-growing corpus
                 # can outgrow it mid-run.  Stop re-shipping rather than
@@ -502,7 +577,7 @@ def train(
                     if device.type == "cuda":
                         torch.cuda.synchronize(device)
                     watchdog.beat()
-                else:
+                elif lead:
                     print(
                         "[dataset] grown corpus exceeds "
                         "device_dataset_budget_bytes; keeping the resident "
@@ -522,8 +597,10 @@ def train(
             if use_dev_data
             else batch_iterator(
                 dataset,
-                train_cfg.batch_size,
+                train_cfg.batch_size // world,
                 seed=train_cfg.seed + epoch,
+                host_id=rank,
+                num_hosts=world,
                 skip=skip,
             )
         )
@@ -549,30 +626,57 @@ def train(
         run_epochs()
         flush_logs()  # cadence rows deferred past the final dispatch
     except Exception as e:
-        # A dying runtime under us is exactly as retryable as a stall.
-        # The exception must BE a device-runtime error, not just match the
-        # markers by message: a BrokenPipeError from a closed preview
-        # stream, or any library error mentioning "unavailable", must keep
-        # propagating as a real crash rather than burn a restart budget.
-        if is_distributed_failure(e) and is_runtime_error(e):
+        # A dying runtime under us is exactly as retryable as a stall.  In
+        # one process the exception must BE a device-runtime error, not
+        # just match the markers by message: a BrokenPipeError from a
+        # closed preview stream, or any library error mentioning
+        # "unavailable", must keep propagating as a real crash rather than
+        # burn a restart budget.  In a group the broader match: a dead peer
+        # surfaces on the others as a gloo or NCCL error of the next
+        # collective, which must exit 75 so that every rank's supervisor
+        # relaunches (an rc-1 survivor would leave the relaunched peers
+        # waiting for it at the rendezvous).
+        retryable = is_distributed_failure(e) and (group is not None or is_runtime_error(e))
+        if retryable:
             print(
                 f"[train] retryable runtime failure "
                 f"({type(e).__name__}: {e}); exiting {EXIT_STALLED} "
                 "for supervised restart from the latest checkpoint",
                 flush=True,
             )
+            if group is not None:
+                # Not SystemExit in a group: unwinding through interpreter
+                # teardown runs the process group's own shutdown, which
+                # waits on the dead peer.  Tear down what the finally would,
+                # then exit with the contract code at once, as the stall
+                # watchdog does.
+                import os
+                import sys
+
+                try:
+                    watchdog.close()
+                    _restore_preemption_handlers(_prev_sig)
+                    if logger is not None:
+                        logger.close()
+                    sys.stdout.flush()
+                    sys.stderr.flush()
+                finally:
+                    os._exit(EXIT_STALLED)
             raise SystemExit(EXIT_STALLED) from e
         raise
     finally:
         watchdog.close()
         _restore_preemption_handlers(_prev_sig)
-        logger.close()
-    print(
-        f"[train:{run_name}] stopped at iter {iter_idx}; "
-        f"stage {min(grower.curr_grow, max_stage)}: {stage_rate()}",
-        flush=True,
-    )
-    if preempted.is_set():
+        if logger is not None:
+            logger.close()
+    rate = stage_rate()
+    if lead:
+        print(
+            f"[train:{run_name}] stopped at iter {iter_idx}; "
+            f"stage {min(grower.curr_grow, max_stage)}: {rate}",
+            flush=True,
+        )
+    if preempted.is_set() and lead:
         print(
             f"[preempt] stopped at iter {iter_idx} with a flushed "
             "checkpoint; exit retryable and resume with --resume",

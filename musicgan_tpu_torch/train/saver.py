@@ -8,11 +8,17 @@ through the current-stage generator.  A preview has two halves:
 :meth:`Saver.preview_images` computes the images on the state's device
 (through the inference forward, so through the conv kernels on the card),
 :meth:`Saver.draw_previews` draws them with matplotlib on the host.
+
+In a data-parallel run the state is replicated: only the lead (``lead``)
+writes the checkpoint and the previews, and every rank then waits in
+``sync`` (a barrier), so that no rank reads a save before it exists.  The
+cadence counters advance on every rank.
 """
 
 from __future__ import annotations
 
 import os
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -31,8 +37,12 @@ class Saver:
         output_dir: str,
         train_cfg: TrainConfig = TrainConfig(),
         model_cfg: ModelConfig = ModelConfig(),
+        lead: bool = True,
+        sync: Optional[Callable[[], None]] = None,
     ):
         os.makedirs(output_dir, exist_ok=True)
+        self.lead = lead
+        self.sync = sync
         self.output_dir = output_dir
         self.cfg = train_cfg
         self.model_cfg = model_cfg
@@ -111,12 +121,15 @@ class Saver:
         self.draw_previews(images, stage)
 
     def _save(self, state: TrainState, stage: int, alpha: float, meta: dict) -> None:
-        self.ckpt.save(
-            self.curr_save,
-            state,
-            {**meta, "saver_counter": self.counter, "save_idx": self.curr_save},
-        )
-        self._save_previews(state, stage, alpha)
+        if self.lead:
+            self.ckpt.save(
+                self.curr_save,
+                state,
+                {**meta, "saver_counter": self.counter, "save_idx": self.curr_save},
+            )
+            self._save_previews(state, stage, alpha)
+        if self.sync is not None:
+            self.sync()
         self.curr_save += 1
 
     def request_save(

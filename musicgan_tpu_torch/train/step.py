@@ -41,6 +41,22 @@ Unlike JAX's pure step, this one updates the state's modules and optimizer
 moments in place and returns the same ``TrainState`` (JAX donates its
 buffers to the same end).  Metrics come back as device scalars: nothing in
 a step reads the device, so the host can run ahead of it.
+
+Data parallelism (``mesh``: a ``parallel.Group``, one process per card):
+every rank holds the whole state and takes its rows ``[r*b, (r+1)*b)`` of
+the global batch of ``B = b * world``.  It draws the global batch's noise
+from ``state.rng`` and keeps its rows, so the random streams stay in step
+and the run is the one-process run's.  The gradients of its local mean are
+summed over the ranks in ONE ``all_reduce`` of a flat buffer, then divided
+by the world size, before Adam: once for the critic's loss and penalty,
+once for the generator's.  (Explicit calls, not ``DistributedDataParallel``,
+whose hooks do not compose with the penalty's double backward.)  The
+metrics are averaged by one more ``all_reduce``.  Every rank gets the same
+bits from each, so the replicated states stay equal bit for bit.  With a
+device-resident corpus each rank holds its row range of it
+(``parallel.data_sharding``) and a step gathers the rows it owns of the
+global index batch into a zero buffer that one batch-sized ``all_reduce``
+completes (JAX's lowering of the gather from a sharded corpus).
 """
 
 from __future__ import annotations
@@ -51,6 +67,7 @@ import dataclasses
 import functools
 from typing import Any, Optional
 
+import numpy as np
 import torch
 
 from ..audio.transforms import grower_transform
@@ -60,10 +77,12 @@ from ..models.discriminator import Discriminator, critic_input_grad_nchw
 from ..models.generator import Generator
 from ..models.layers import library_numerics
 from ..models.losses import wasserstein_discriminator_loss, wasserstein_generator_loss
+from ..parallel.mesh import Group, Mesh, all_reduce_sum
 from .optim import AdamState, adam_per_leaf
 
 __all__ = [
     "TrainState",
+    "data_group",
     "init_train_state",
     "make_optimizers",
     "build_step",
@@ -160,8 +179,26 @@ def _grads(loss: torch.Tensor, params: dict) -> dict:
     return dict(zip(params, got))
 
 
-def _make_iteration(stage: int, model_cfg: ModelConfig, train_cfg: TrainConfig, pre_scaled: bool, device):
-    """The per-iteration core ``iteration(state, x_raw, alpha, do_g, noise)``."""
+def _mean_over_ranks(grads: dict, group: Group) -> dict:
+    """The gradients of the global mean from each rank's gradients of its
+    local mean: one ``all_reduce`` of them all in a flat buffer, then a
+    division by the world size.  A leaf the loss does not reach (None) is
+    None on every rank."""
+    names = [k for k, g in grads.items() if g is not None]
+    flat = all_reduce_sum(torch.cat([grads[k].reshape(-1) for k in names]))
+    flat.div_(group.world)
+    out, offset = dict(grads), 0
+    for k in names:
+        n = grads[k].numel()
+        out[k] = flat[offset : offset + n].view_as(grads[k])
+        offset += n
+    return out
+
+
+def _make_iteration(stage: int, model_cfg: ModelConfig, train_cfg: TrainConfig, pre_scaled: bool, device,
+                    group: Optional[Group] = None):
+    """The per-iteration core ``iteration(state, x_raw, alpha, do_g, noise)``;
+    with ``group``, ``x_raw`` is this rank's rows of the global batch."""
     from ..ops.autotune import SECOND_ORDER_IMPLS, resolve_conv_impl
 
     # Training differentiates through the generator: resolve conv_impl to a
@@ -206,16 +243,21 @@ def _make_iteration(stage: int, model_cfg: ModelConfig, train_cfg: TrainConfig, 
             alpha = float(alpha)
         batch = x_raw.shape[0]
         device = x_raw.device
-        z_shape = (batch, model_cfg.rand_channels, model_cfg.latent_height, model_cfg.latent_width)
+        # The noise is drawn for the global batch: a rank keeps its rows.
+        world, rank = (1, 0) if group is None else (group.world, group.rank)
+        z_shape = (batch * world, model_cfg.rand_channels, model_cfg.latent_height, model_cfg.latent_width)
         if noise is None:
             # All three draws are made whether or not the generator trains,
             # so that the stream does not depend on the n_critic pattern.
             z = torch.randn(z_shape, generator=state.rng, device=device)
-            eps = torch.rand((batch, 1, 1, 1), generator=state.rng, device=device)
+            eps = torch.rand((batch * world, 1, 1, 1), generator=state.rng, device=device)
             zg = torch.randn(z_shape, generator=state.rng, device=device)
         else:  # NHWC latents as the JAX step draws them, for parity tests
             z, eps, zg = noise
             z, zg = z.permute(0, 3, 1, 2), zg.permute(0, 3, 1, 2)
+        if group is not None:
+            rows = slice(rank * batch, (rank + 1) * batch)
+            z, eps, zg = (t[rows].to(device) for t in (z, eps, zg))
 
         x_real = x_raw.to(torch.float32) if pre_scaled else grower_transform(x_raw, size)
         with torch.no_grad():
@@ -234,6 +276,8 @@ def _make_iteration(stage: int, model_cfg: ModelConfig, train_cfg: TrainConfig, 
         gp = gp_w * torch.mean(torch.square(g_norm - 1.0))
         disc_params = _params(disc)
         d_grads = _grads(w_loss + gp, disc_params)
+        if group is not None:
+            d_grads = _mean_over_ranks(d_grads, group)
         opt_d.update(d_grads, state.opt_disc, disc_params)
         metrics = {
             "disc_loss": w_loss.detach(), "grad_pen": gp.detach(),
@@ -248,6 +292,8 @@ def _make_iteration(stage: int, model_cfg: ModelConfig, train_cfg: TrainConfig, 
                 loss = wasserstein_generator_loss(out_gen)
                 gen_params = _params(gen)
                 g_grads = _grads(loss, gen_params)
+            if group is not None:
+                g_grads = _mean_over_ranks(g_grads, group)
             opt_g.update(g_grads, state.opt_gen, gen_params)
             if ema_d > 0:  # EMA over generator UPDATES
                 with torch.no_grad():
@@ -257,18 +303,30 @@ def _make_iteration(stage: int, model_cfg: ModelConfig, train_cfg: TrainConfig, 
         else:
             zero = torch.zeros((), device=device)
             metrics.update(gen_loss=zero, e_gen=zero)
+        if group is not None:  # the global batch's means
+            keys = list(metrics)
+            mean = all_reduce_sum(torch.stack([metrics[k] for k in keys])).div_(group.world)
+            metrics = dict(zip(keys, mean.unbind()))
         state.iter_idx += 1
         return state, metrics
 
     return iteration
 
 
-def _no_mesh(mesh, data_axis) -> None:
-    if mesh is not None or data_axis is not None:
+def data_group(mesh) -> Optional[Group]:
+    """The process group a train step's collectives run over: ``mesh`` is
+    None (one process) or a ``parallel.Group``.  Training is data parallel
+    over processes, one a card, so a ``parallel.Mesh`` of devices in this
+    process is refused."""
+    if mesh is None or isinstance(mesh, Group):
+        return mesh
+    if isinstance(mesh, Mesh):
         raise NotImplementedError(
-            "mesh / data_axis: data-parallel training is not ported yet "
-            "(ROADMAP.md section A item 16)"
+            f"a Mesh of {mesh.size} devices in one process: training runs one process per card; "
+            "launch one process a card with train --coordinator HOST:PORT --num-processes N "
+            "--process-id I (parallel.initialize_distributed), and train(mesh='auto') takes their group"
         )
+    raise TypeError(f"mesh must be None or a parallel.Group, got {mesh!r}")
 
 
 def _no_pre_scaled(pre_scaled: bool) -> None:
@@ -281,6 +339,25 @@ def _gather(data: torch.Tensor, idx) -> torch.Tensor:
     corpus may be stored in bfloat16; compute always runs in float32)."""
     idx = torch.as_tensor(idx, device=data.device)
     return data.index_select(0, idx).to(torch.float32)
+
+
+def _gather_sharded(data: torch.Tensor, idx, group: Group) -> torch.Tensor:
+    """This rank's rows of the global batch ``idx`` (``(B,)`` row indices
+    into the whole corpus) when each rank holds one row range of it:
+    ``data`` is this rank's range, rows ``[rank * n, (rank + 1) * n)``.
+    Each rank writes the rows it owns into a zero ``(B, ...)`` buffer, one
+    ``all_reduce`` sums the buffers (every row comes from exactly one rank,
+    so the sum is exact), and the rank keeps rows ``[rank * b, (rank + 1) *
+    b)``."""
+    idx = np.asarray(torch.as_tensor(idx).cpu())
+    per, b = data.shape[0], len(idx) // group.world
+    lo = group.rank * per
+    buf = torch.zeros((len(idx), *data.shape[1:]), dtype=torch.float32, device=data.device)
+    mine = np.nonzero((idx >= lo) & (idx < lo + per))[0]
+    if len(mine):
+        rows = torch.as_tensor(idx[mine] - lo, device=data.device)
+        buf[torch.as_tensor(mine, device=data.device)] = data.index_select(0, rows).to(torch.float32)
+    return all_reduce_sum(buf)[group.rank * b : (group.rank + 1) * b]
 
 
 @functools.lru_cache(maxsize=None)
@@ -308,15 +385,24 @@ def build_step(
 
     ``device``: where the state lives, for ``conv_impl="auto"``'s
     resolution (the card by default, as JAX's default backend; on a CPU
-    device "auto" is "xla")."""
-    _no_mesh(mesh, data_axis)
-    iteration = _make_iteration(stage, model_cfg, train_cfg, pre_scaled, device)
+    device "auto" is "xla").
+
+    ``mesh``: a ``parallel.Group`` makes the step data parallel over the
+    process group (module docstring; ``data_axis`` names its axis, as in
+    JAX): ``x_raw`` is then this rank's ``B / world`` rows of the global
+    batch, ``noise`` the global batch's, and with ``device_data`` ``data``
+    is this rank's row range of the corpus (``parallel.data_sharding``) and
+    ``idx`` the global ``(B,)`` index batch.  The metrics are the global
+    batch's on every rank."""
+    group = data_group(mesh)
+    iteration = _make_iteration(stage, model_cfg, train_cfg, pre_scaled, device, group)
+    gather = _gather if group is None else functools.partial(_gather_sharded, group=group)
 
     if device_data:
         _no_pre_scaled(pre_scaled)
 
         def step_dev(state, data, idx, alpha, noise=None):
-            return iteration(state, _gather(data, idx), alpha, bool(with_gen), noise)
+            return iteration(state, gather(data, idx), alpha, bool(with_gen), noise)
 
         return step_dev
 
@@ -347,10 +433,11 @@ def build_chunk_step(
     ``chunk_step(state, data, idx_stack, alphas, gen_mask, noise=None)``
     with ``idx_stack`` of shape ``(K, B)``.  Metrics come back stacked
     ``(K,)`` per key.  ``noise``: optional sequence of K ``(z, eps, zg)``.
-    Bit-identical to ``chunk`` single steps.  ``device`` as in
-    :func:`build_step`."""
-    _no_mesh(mesh, data_axis)
-    iteration = _make_iteration(stage, model_cfg, train_cfg, pre_scaled, device)
+    Bit-identical to ``chunk`` single steps.  ``device`` and ``mesh`` as in
+    :func:`build_step` (``idx_stack`` then holds global index batches)."""
+    group = data_group(mesh)
+    iteration = _make_iteration(stage, model_cfg, train_cfg, pre_scaled, device, group)
+    gather = _gather if group is None else functools.partial(_gather_sharded, group=group)
     if device_data:
         _no_pre_scaled(pre_scaled)
 
@@ -369,7 +456,7 @@ def build_chunk_step(
     if device_data:
 
         def chunk_step_dev(state, data, idx_stack, alphas, gen_mask, noise=None):
-            return run(state, lambda k: _gather(data, idx_stack[k]), len(idx_stack), alphas, gen_mask, noise)
+            return run(state, lambda k: gather(data, idx_stack[k]), len(idx_stack), alphas, gen_mask, noise)
 
         return chunk_step_dev
 

@@ -65,8 +65,8 @@ def beat_active() -> None:
 # EXIT_STALLED.  The markers are the JAX package's (substrings of
 # distributed-runtime messages: heartbeats, barrier timeouts, channel
 # teardown), kept whole so that both packages call the same failures
-# retryable; NCCL's and the CUDA runtime's own ("unavailable", "connection
-# reset", "shutting down") are among them.
+# retryable, then torch.distributed's own; NCCL's and the CUDA runtime's
+# ("unavailable", "connection reset", "shutting down") are among them.
 _DIST_FAILURE_MARKERS = (
     "coordination service",
     "coordinationservice",
@@ -88,6 +88,18 @@ _DIST_FAILURE_MARKERS = (
     # "connect timeout" marker would also swallow unrelated client
     # timeouts (HTTP/MLflow).
     "gloo context initialization failed",
+    # torch.distributed: its error classes by name (a collective that
+    # failed in the backend or the network, a store that lost its peer),
+    # gloo's messages when a peer's socket goes ("Connection closed by
+    # peer"; "Connection reset by peer" is matched above), the NCCL
+    # watchdog's timeout of a collective, and the TCPStore's timeout when
+    # a peer never comes back to the rendezvous.
+    "distbackenderror",
+    "distnetworkerror",
+    "diststoreerror",
+    "connection closed by peer",
+    "collective operation timeout",
+    "waiting for clients",
 )
 
 

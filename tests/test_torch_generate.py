@@ -118,7 +118,8 @@ for new in ("train.step", "train.optim", "ops.conv_vjp", "models.discriminator",
             "audio.host_pipeline", "utils.metrics", "utils.watchdog", "__main__",
             "serve", "evaluate", "view_audio", "audio.rebin", "audio.stft", "audio.functions",
             "native", "utils.supervise", "utils.profiling", "ops.nan_check", "models.torch_ingest",
-            "ops.autotune", "utils.timing", "utils.cache"):
+            "ops.autotune", "utils.timing", "utils.cache", "parallel", "parallel.mesh",
+            "parallel.longclip"):
     assert "musicgan_tpu_torch." + new in sys.modules, new
 bad = sorted(
     m for m in sys.modules
@@ -172,7 +173,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         assert not hits, (path, hits)
         assert not _paths_into_the_jax_package(source), path
     for new in ("native/__init__.py", "utils/supervise.py", "utils/profiling.py", "ops/nan_check.py",
-                "ops/autotune.py", "utils/timing.py", "utils/cache.py"):
+                "ops/autotune.py", "utils/timing.py", "utils/cache.py", "parallel/__init__.py",
+                "parallel/mesh.py", "parallel/longclip.py"):
         assert os.path.join(ROOT, "musicgan_tpu_torch", new) in sources, new
     # the check sees such a path where the code would use one
     assert _paths_into_the_jax_package('p = os.path.join(ROOT, "musicgan_tpu", "native")\n')

@@ -1,8 +1,9 @@
 """The port's serving layer (``musicgan_tpu_torch/serve.py``) on the CPU:
-every case of ``tests/test_serve.py`` but the two long-clip ones (the
-time-sharded route is not ported: ROADMAP.md A16), parity with the JAX
-package's ``synthesize_fn`` on the same latents and weights, the device and
-mesh rules, failures reaching the futures, and the ``serve`` CLI.
+every case of ``tests/test_serve.py`` (the two long-clip ones on a mesh of
+eight CPU devices, as JAX's on conftest's eight virtual devices), parity
+with the JAX package's ``synthesize_fn`` on the same latents and weights,
+the device and mesh rules, failures reaching the futures, and the ``serve``
+CLI.
 
 TINY_MODEL's widths, stage 2, nb_vec 1: the vocoder upsamples every stage
 to full 512-bin resolution, so even tiny stages produce real audio."""
@@ -30,6 +31,8 @@ from musicgan_tpu.models import init_generator
 from musicgan_tpu_torch import generate as generate_mod
 from musicgan_tpu_torch.config import ModelConfig
 from musicgan_tpu_torch.models import Generator, params_from_jax
+from musicgan_tpu_torch.parallel import Mesh, make_mesh
+from musicgan_tpu_torch.parallel.longclip import join_pieces, sharded_synthesize_fn
 from musicgan_tpu_torch.serve import SynthesisService, _make_handler, _next_bucket, serve
 from tests.tiny_cfg import TINY_MODEL
 
@@ -183,28 +186,39 @@ def test_stats_queue_depth_gauge(service):
 
 
 def test_mesh_other_than_one_device_raises():
-    """The time-sharded long-clip route is ROADMAP.md A16: a mesh is
-    refused, never served on one device."""
+    """``mesh`` is ``None``, ``"auto"`` or a ``parallel.Mesh``: anything
+    else raises; ``None`` and ``"auto"`` (on the CPU: no mesh) serve on one
+    device, a Mesh is kept."""
     gen = _tiny_generator()
     for mesh in ("data", object(), ("data", 8)):
-        with pytest.raises(NotImplementedError, match="A16"):
+        with pytest.raises(TypeError, match="parallel.Mesh"):
             SynthesisService(gen, mesh=mesh, device="cpu")
     for mesh in (None, "auto"):  # one device: served
         svc = SynthesisService(gen, mesh=mesh, default_stage=0, device="cpu")
         try:
+            assert svc.mesh is None
             assert _wave(svc.submit(seed=1, nb_vec=1)).shape == ((2 * 2 ** 8 - 1) * 256,)
         finally:
             svc.close()
+    svc = SynthesisService(gen, mesh=Mesh(("cpu",) * 2), device="cpu")
+    try:
+        assert svc.mesh.size == 2 and svc.longclip_min_nb_vec == 4
+    finally:
+        svc.close()
 
 
 def test_auto_mesh_over_several_cards_raises(monkeypatch):
+    """"auto" over four visible cards is a mesh of the four (as JAX's over
+    all devices), one card or none no mesh; a clip whose latent width does
+    not divide over the mesh raises in the sharded synthesis (the service
+    never routes one there)."""
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
-    from musicgan_tpu_torch.serve import _single_device
-
-    with pytest.raises(NotImplementedError, match="A16"):
-        _single_device("auto", torch.device("cuda"))
-    _single_device("auto", torch.device("cpu"))
-    _single_device(None, torch.device("cuda"))
+    mesh = make_mesh()
+    assert mesh.devices == tuple(torch.device("cuda", i) for i in range(4)) and mesh.axis == "data"
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    assert make_mesh() is None and make_mesh([torch.device("cpu")]) is None
+    with pytest.raises(ValueError, match="does not divide over 4 shards"):
+        sharded_synthesize_fn(Mesh(("cpu",) * 4), CFG, STAGE)(_tiny_generator(), torch.zeros(1, 2, 6, 8))
 
 
 def test_service_raises_without_a_gpu():
@@ -429,3 +443,48 @@ def test_cli_serve_on_cpu_answers_a_request(tmp_path):
     sr, wav = wavfile.read(io.BytesIO(body))
     assert sr == 44100 and wav.shape == ((2 * 2 ** 8 - 1) * 256,) and np.isfinite(wav).all()
     assert float(np.abs(wav).max()) > 1e-3
+
+
+@pytest.fixture(scope="module")
+def mesh_service():
+    """The service over a mesh of eight CPU devices (conftest gives JAX's
+    service eight virtual ones)."""
+    svc = SynthesisService(
+        _tiny_generator(), max_batch=4, window_ms=500.0, default_stage=STAGE,
+        mesh=Mesh(("cpu",) * 8), device="cpu",
+    )
+    yield svc
+    svc.close()
+
+
+def test_longclip_route_matches_unsharded(monkeypatch, mesh_service):
+    """A solo wide request routes through the time-sharded path: its
+    signature says so, its samples are ``sharded_synthesize_fn``'s bit for
+    bit, and they match JAX's unsharded ``synthesize_fn`` on the same latent
+    and weights within JAX's own sharded-vs-unsharded bar
+    (``tests/test_serve.py``: 5e-4)."""
+    monkeypatch.setattr(generate_mod, "latents", jax_latents)
+    nb_vec = 4  # latent width 2*4 = 8 divides the 8-device mesh
+    before = dict(mesh_service.stats_snapshot())
+    w = mesh_service.submit(seed=21, nb_vec=nb_vec, stage=STAGE).result(timeout=600)
+    snap = mesh_service.stats_snapshot()
+    assert f"stage{STAGE}/nb_vec{nb_vec}/longclip8" in snap["signatures"]
+    assert snap["requests"] - before["requests"] == 1 and snap["batches"] - before["batches"] == 1
+
+    z = jax_latents(CFG, nb_vec, 1, 21, "cpu")
+    sharded = join_pieces(sharded_synthesize_fn(Mesh(("cpu",) * 8), CFG, STAGE)(mesh_service.gen, z))
+    assert torch.equal(w, sharded)
+    ref = np.asarray(jax_synthesize_fn(TINY_MODEL, STAGE)(_jax_params(), z.numpy()))[0]
+    assert w.shape == ref.shape
+    np.testing.assert_allclose(w.numpy(), ref, atol=5e-4)
+
+
+def test_longclip_not_used_for_batches(mesh_service):
+    """Concurrent wide requests still micro-batch on the batched path (the
+    time-sharded one is for solo requests only)."""
+    before = list(mesh_service.stats_snapshot()["signatures"])
+    futs = [mesh_service.submit(seed=s, nb_vec=4, stage=STAGE) for s in range(3)]
+    waves = [_wave(f) for f in futs]
+    assert all(np.isfinite(w).all() for w in waves)
+    new = [s for s in mesh_service.stats_snapshot()["signatures"] if s not in before]
+    assert any("b2" in s or "b4" in s for s in new) or not new

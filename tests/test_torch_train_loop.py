@@ -21,6 +21,7 @@ from musicgan_tpu_torch.audio.ingest import ShardWriter
 from musicgan_tpu_torch.audio.io import load_wav
 from musicgan_tpu_torch.config import ModelConfig, TrainConfig
 from musicgan_tpu_torch.generate import generate, load_generator_params
+from musicgan_tpu_torch.parallel import Mesh
 from musicgan_tpu_torch.train import CheckpointManager, train
 from musicgan_tpu_torch.train import loop as loop_mod
 from tests.test_torch_checkpoint import assert_states_equal
@@ -305,7 +306,12 @@ def test_generate_reads_the_run_directory(corpus, tmp_path):
 
 
 def test_train_refuses_what_is_not_ported(corpus, tmp_path):
-    with pytest.raises(NotImplementedError, match="item 16"):
+    """Training is data parallel over processes, one a card: a mesh of
+    devices in one process is refused (the one deliberate departure from
+    JAX's ``train(mesh=...)``), and so is what is no mesh at all."""
+    with pytest.raises(NotImplementedError, match="one process per card"):
+        train("t", corpus, str(tmp_path / "o"), TCFG, CFG, mesh=Mesh(("cpu", "cpu")), device="cpu")
+    with pytest.raises(TypeError, match="parallel.Group"):
         train("t", corpus, str(tmp_path / "o"), TCFG, CFG, mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="samples < batch"):
         _run(corpus, tmp_path / "o", dataclasses.replace(TCFG, batch_size=32), max_iters=1)

@@ -21,6 +21,7 @@ from musicgan_tpu_torch.models import (
     params_to_jax_layout,
     train_state_from_jax,
 )
+from musicgan_tpu_torch.parallel import Mesh
 from musicgan_tpu_torch.train import build_chunk_step, build_step, init_train_state
 from tests.tiny_cfg import TINY_MODEL
 
@@ -192,15 +193,16 @@ def test_device_resident_form_gathers_rows_and_upcasts():
 
 def test_train_entry_points_follow_the_device_rule():
     """No GPU and no ``device="cpu"``: ``init_train_state`` raises rather
-    than carry on on the CPU; the mesh arguments wait for their port."""
+    than carry on on the CPU; the steps take a process group as ``mesh``
+    and refuse a mesh of devices in one process (one process a card)."""
     if torch.cuda.is_available():
         pytest.skip("a GPU is present, so the default device is usable")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         init_train_state(0, CFG, TCFG)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_step(0, True, CFG, TCFG, mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_chunk_step(0, 2, CFG, TCFG, data_axis="data")
+    with pytest.raises(NotImplementedError, match="one process per card"):
+        build_step(0, True, CFG, TCFG, mesh=Mesh(("cpu", "cpu")))
+    with pytest.raises(TypeError, match="parallel.Group"):
+        build_chunk_step(0, 2, CFG, TCFG, mesh=object(), data_axis="data")
     assert build_step(0, True, CFG, TCFG) is build_step(0, True, CFG, TCFG)  # memoized
 
 

@@ -87,7 +87,14 @@ def test_watchdog_disabled_starts_no_thread():
 
 
 def test_failure_markers_are_the_jax_packages():
-    assert watchdog._DIST_FAILURE_MARKERS == jax_watchdog._DIST_FAILURE_MARKERS
+    """The JAX package's markers, whole and first; then torch.distributed's
+    own (tests/test_torch_parallel.py holds each)."""
+    n = len(jax_watchdog._DIST_FAILURE_MARKERS)
+    assert watchdog._DIST_FAILURE_MARKERS[:n] == jax_watchdog._DIST_FAILURE_MARKERS
+    assert watchdog._DIST_FAILURE_MARKERS[n:] == (
+        "distbackenderror", "distnetworkerror", "diststoreerror", "connection closed by peer",
+        "collective operation timeout", "waiting for clients",
+    )
     for msg in ("UNAVAILABLE: device lost", "Connection reset by peer", "all good"):
         e = RuntimeError(msg)
         assert watchdog.is_distributed_failure(e) == jax_watchdog.is_distributed_failure(e)
