@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's synthesis path, its WGAN-GP train step, its
 ``train`` entry point, its serving and evaluation entry points, its
-ingest and run interchange, its conv_impl selection and its parallelism
-on one NVIDIA GPU.
+ingest and run interchange, its conv_impl selection, its parallelism and
+the mixed-dtype calls of its conv kernels on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -10,8 +10,9 @@ Run from the root of the repository, on a machine with one CUDA card and
 the CUDA toolkit (``nvcc``).  Phases, each of which raises on failure:
 
 1. print the card's name and power limit; build every kernel from
-   ``musicgan_tpu_torch/csrc`` (one ``nvcc`` per source, all at once) and,
-   beside them, the native host tail of ``musicgan_tpu_torch/native``;
+   ``musicgan_tpu_torch/csrc`` (one ``nvcc`` per source, all at once, each
+   source's seconds printed) and, beside them, the native host tail of
+   ``musicgan_tpu_torch/native``;
 2. at the main path's shapes (5 clips x nb_vec 10, the full-width
    generator of ``saved_models/quality_r4/gen_final.pt``): hold each kernel
    against its plain PyTorch version on the card (TF32 off), and time the
@@ -169,6 +170,20 @@ the CUDA toolkit (``nvcc``).  Phases, each of which raises on failure:
    takes its winner; only rank 0 writes), then SIGTERM to rank 1 (both
    exit 75) and ``--resume`` bit for bit the uninterrupted run.  NCCL
    across cards and shards on several cards are not run.
+14. the mixed-dtype calls of K1-K4 (the JAX functions' bf16 ``x`` with
+   ``out_dtype=float32`` and float32 ``x`` with ``out_dtype=bfloat16``;
+   K2 with bf16 ``x``), each a kernel of its own that stores the output's
+   type: K1 and K3 both ways at the 8 blocks of synth-5x10 (the shipped
+   generator's weights), K4 both ways at blocks 4-7 and at phase 7's
+   width past 128 channels, K2 at the 16 generator convs of train-s7-b6;
+   each driven once a shape with its launches counted, then held against
+   its plain version (float32 in: the float32 bar plus one bf16 ulp; bf16
+   in: the float32 bar, K4 the 2-norm) and its same-dtype kernel (float32
+   in: that kernel's output rounded, bit for bit; bf16 in: rounded to bf16
+   that kernel's bits, with values bf16 cannot hold; K4 bf16 -> float32:
+   K1 bf16 then K3 bf16 -> float32 bit for bit up to 128 channels), and
+   timed beside both, its library call and its bound.  No path makes a
+   mixed call: phases 2-13 each show 0 mixed launches.
 
 The script stops every process it starts.  It is the subreaper of its
 descendants, so a grandchild orphaned by its parent (the forkserver of the
@@ -581,8 +596,10 @@ def plain_on_card():
     too, for the end-to-end comparison; the caller checks by the launch
     counters that no kernel ran."""
     return [
-        mock.patch.object(conv_ops, "fused_conv3x3", lambda *a, w_packed=None: conv_ops.conv3x3_plain(*a)),
-        mock.patch.object(conv_ops, "fused_upconv3x3", lambda *a, w_packed=None: conv_ops.upconv3x3_plain(*a)),
+        mock.patch.object(conv_ops, "fused_conv3x3",
+                          lambda *a, w_packed=None, out_dtype=None: conv_ops.conv3x3_plain(*a, out_dtype=out_dtype)),
+        mock.patch.object(conv_ops, "fused_upconv3x3",
+                          lambda *a, w_packed=None, out_dtype=None: conv_ops.upconv3x3_plain(*a, out_dtype=out_dtype)),
         mock.patch.object(generate_mod, "istft_fused", istft_real_imag),
     ]
 
@@ -1425,12 +1442,13 @@ def end_to_end_block(cfg: ModelConfig, dev, waves_default: np.ndarray) -> dict:
         "pallas_up": load_reference_generator(str(CKPT), cfg, device=dev),
         "pallas_block": load_reference_generator(str(CKPT), cfg_b, device=dev),
     }
-    synth = generate_mod.synthesize_fn(cfg, cfg.n_stages - 1)
+    # synthesize_fn's model config, not the generator's, picks the impl.
+    synths = {k: generate_mod.synthesize_fn(c, cfg.n_stages - 1) for k, c in (("pallas_up", cfg), ("pallas_block", cfg_b))}
     times = {k: [] for k in gens}
     for k in gens:
-        warm_synthesis_s(synth, gens[k], z, 2)
+        warm_synthesis_s(synths[k], gens[k], z, 2)
     for k in ("pallas_up", "pallas_block", "pallas_block", "pallas_up"):
-        times[k] += warm_synthesis_s(synth, gens[k], z, WARM_REPS // 2)
+        times[k] += warm_synthesis_s(synths[k], gens[k], z, WARM_REPS // 2)
     med = {k: float(np.median(v)) for k, v in times.items()}
     print(f"[e2e-block] warm synthesis, median of {WARM_REPS} each: conv_impl='pallas_up' "
           f"{med['pallas_up'] * 1e3:.3f} ms (min {min(times['pallas_up']) * 1e3:.3f}), "
@@ -1870,7 +1888,7 @@ def check_bf16_kernels(gen, cfg: ModelConfig, dev) -> list[dict]:
         px = bsz * h * w
         rows.append(measure_bf16(
             "fused_conv3x3_bf16", (bsz, cin, cin, h, w),
-            lambda: conv_ops.fused_conv3x3(x, w1, b1, slope, True, eps, w_packed=w1t),
+            lambda: conv_ops.fused_conv3x3(x, w1, b1, slope, True, eps, w_packed=w1t, out_dtype=bf),
             lambda: conv_ops.conv3x3_plain(x, w1, b1, slope, True, eps),
             lambda: F.conv2d(x, w1b, b1b, padding=1),
             2.0 * px * cin * 9 * cin, 2.0 * (2 * px * cin + 9 * cin * cin) + 4.0 * cin,
@@ -1878,7 +1896,7 @@ def check_bf16_kernels(gen, cfg: ModelConfig, dev) -> list[dict]:
         ))
         rows.append(measure_bf16(
             "fused_upconv3x3_bf16", (bsz, cin, cout, h, w),
-            lambda: conv_ops.fused_upconv3x3(x, w2, b2, slope, True, eps, w_packed=w2t),
+            lambda: conv_ops.fused_upconv3x3(x, w2, b2, slope, True, eps, w_packed=w2t, out_dtype=bf),
             lambda: conv_ops.upconv3x3_plain(x, w2, b2, slope, True, eps),
             lambda: F.conv2d(xu, w2b, b2b, padding=1),
             2.0 * 4 * px * cout * 4 * cin, 2.0 * (px * cin + 4 * px * cout + 16 * cin * cout) + 4.0 * cout,
@@ -1891,11 +1909,11 @@ def check_bf16_kernels(gen, cfg: ModelConfig, dev) -> list[dict]:
         kplan = k4_bf16_plan(bsz, cin, cin, cout, h, w, dev)
 
         def kernel():
-            return conv_ops.fused_block(x, w1, b1, w2, b2, slope, eps, w1_packed=w1t, w2_packed=w2t)
+            return conv_ops.fused_block(x, w1, b1, w2, b2, slope, eps, w1_packed=w1t, w2_packed=w2t, out_dtype=bf)
 
         def pair():
-            mid = conv_ops.fused_conv3x3(x, w1, b1, slope, True, eps, w_packed=w1t)
-            return conv_ops.fused_upconv3x3(mid, w2, b2, slope, True, eps, w_packed=w2t)
+            mid = conv_ops.fused_conv3x3(x, w1, b1, slope, True, eps, w_packed=w1t, out_dtype=bf)
+            return conv_ops.fused_upconv3x3(mid, w2, b2, slope, True, eps, w_packed=w2t, out_dtype=bf)
 
         mid_up = upsample_nearest_2x(conv_ops.conv3x3_plain(x, w1, b1, slope, True, eps))
 
@@ -1946,8 +1964,8 @@ def check_bf16_kernels(gen, cfg: ModelConfig, dev) -> list[dict]:
     mid_up = upsample_nearest_2x(conv_ops.conv3x3_plain(x, w1, b1, slope, True, eps))
 
     def wide_pair():
-        mid = conv_ops.fused_conv3x3(x, w1, b1, slope, True, eps)
-        return conv_ops.fused_upconv3x3(mid, w2, b2, slope, True, eps)
+        mid = conv_ops.fused_conv3x3(x, w1, b1, slope, True, eps, out_dtype=bf)
+        return conv_ops.fused_upconv3x3(mid, w2, b2, slope, True, eps, out_dtype=bf)
 
     def wide_library():
         F.conv2d(x, w1b, b1b, padding=1)
@@ -1955,13 +1973,13 @@ def check_bf16_kernels(gen, cfg: ModelConfig, dev) -> list[dict]:
 
     px = bsz * h * w
     row = measure_bf16(
-        "fused_block_bf16", WIDE_BLOCK, lambda: conv_ops.fused_block(x, w1, b1, w2, b2, slope, eps),
+        "fused_block_bf16", WIDE_BLOCK, lambda: conv_ops.fused_block(x, w1, b1, w2, b2, slope, eps, out_dtype=bf),
         lambda: conv_ops.fused_block_plain(x, w1, b1, w2, b2, slope, eps), wide_library,
         2.0 * px * cin * 9 * cmid + 2.0 * 4 * px * cout * 4 * cmid,
         2.0 * (px * cin + 4 * px * cout + 9 * cin * cmid + 16 * cmid * cout) + 4.0 * (cmid + cout),
         l2_tol=TOL_K4_BF16_L2,
     )
-    l2_pair = rel_l2(conv_ops.fused_block(x, w1, b1, w2, b2, slope, eps).float(), wide_pair().float())
+    l2_pair = rel_l2(conv_ops.fused_block(x, w1, b1, w2, b2, slope, eps, out_dtype=bf).float(), wide_pair().float())
     row.update(role="wide", block=None, l2_vs_pair=l2_pair, pair_ms=time_ms(wide_pair),
                tile=conv_ops.block_tile(cmid, cout))
     print(f"[bf16]   fused_block_bf16 past 128 channels {WIDE_BLOCK} (block3x3_bf16_wide.cu, a cluster of "
@@ -1994,7 +2012,8 @@ def plain_on_card_all():
     plain versions in any impl and dtype."""
     return plain_on_card() + [mock.patch.object(
         conv_ops, "fused_block",
-        lambda *a, w1_packed=None, w2_packed=None: conv_ops.fused_block_plain(*a))]
+        lambda *a, w1_packed=None, w2_packed=None, out_dtype=None: conv_ops.fused_block_plain(
+            *a, out_dtype=out_dtype))]
 
 
 def end_to_end_new_impls(cfg: ModelConfig, dev) -> dict:
@@ -2117,11 +2136,13 @@ def end_to_end_new_impls(cfg: ModelConfig, dev) -> dict:
     # WARM_REPS forwards, then backwards.
     order = ("pallas_up", "pallas_up_bf16", "pallas_block", "pallas_block_bf16")
     gens = {k: load_reference_generator(str(CKPT), dataclasses.replace(cfg, conv_impl=k), device=dev) for k in order}
+    # synthesize_fn's model config, not the generator's, picks the impl.
+    synths = {k: generate_mod.synthesize_fn(dataclasses.replace(cfg, conv_impl=k), stage) for k in order}
     times = {k: [] for k in order}
     for k in order:
-        warm_synthesis_s(synth, gens[k], z, 2)
+        warm_synthesis_s(synths[k], gens[k], z, 2)
     for k in order + order[::-1]:
-        times[k] += warm_synthesis_s(synth, gens[k], z, WARM_REPS // 2)
+        times[k] += warm_synthesis_s(synths[k], gens[k], z, WARM_REPS // 2)
     med = {k: float(np.median(v)) for k, v in times.items()}
     audio_s = NB_MUSIC * n_samples / acfg.sample_rate
     print("[e2e-new] warm synthesis, median of " + str(WARM_REPS) + " each: " + ", ".join(
@@ -3776,6 +3797,294 @@ def parallel_phase(cfg: ModelConfig, dev, card: str) -> dict:
     return rec
 
 
+# ---- Phase 14: the mixed-dtype calls of K1-K4 (the JAX functions' bf16 x
+# with out_dtype=float32, float32 x with out_dtype=bfloat16).  No path of
+# the model makes one (the generator passes its compute dtype, as the JAX
+# generator does), so phases 1-13 each show 0 mixed launches, and this
+# phase drives every mixed kernel once at the shapes the main path gives
+# its same-dtype kernel, counted, then holds each against its plain version
+# and its same-dtype kernel and times it.
+
+MIXED_SOURCES = {
+    "fused_conv3x3_bf16_f32": ("musicgan_tpu_torch/csrc/conv3x3_bf16_f32.cu", "musicgan_tpu/ops/conv.py:90"),
+    "fused_conv3x3_f32_bf16": ("musicgan_tpu_torch/csrc/conv3x3_f32_bf16.cu", "musicgan_tpu/ops/conv.py:90"),
+    "fused_upconv3x3_bf16_f32": ("musicgan_tpu_torch/csrc/upconv3x3_bf16_f32.cu", "musicgan_tpu/ops/conv.py:139"),
+    "fused_upconv3x3_f32_bf16": ("musicgan_tpu_torch/csrc/upconv3x3_f32_bf16.cu", "musicgan_tpu/ops/conv.py:139"),
+    "fused_block_bf16_f32": ("musicgan_tpu_torch/csrc/block3x3_bf16_f32.cu", "musicgan_tpu/ops/conv.py:234"),
+    "fused_block_bf16_f32_wide": ("musicgan_tpu_torch/csrc/block3x3_bf16_wide_f32.cu", "musicgan_tpu/ops/conv.py:234"),
+    "fused_block_f32_bf16": ("musicgan_tpu_torch/csrc/block3x3_f32_bf16.cu", "musicgan_tpu/ops/conv.py:234"),
+    "fused_conv3x3_msq_bf16": ("musicgan_tpu_torch/csrc/conv3x3_bf16_f32.cu", "musicgan_tpu/ops/conv.py:625"),
+}
+MIXED_WRAPPERS = (conv_ops.fused_conv3x3, conv_ops.fused_conv3x3_msq, conv_ops.fused_upconv3x3, conv_ops.fused_block)
+# A float32-in, bf16-out kernel against its plain version (float32 rounded
+# once): the float32 kernel's own bar (TOL) plus one bf16 ulp, the most two
+# float32 values that far apart can differ by once rounded.
+
+
+def mixed_launches() -> int:
+    return sum(fn.mixed_launches for fn in MIXED_WRAPPERS)
+
+
+def assert_no_mixed(phase: str) -> None:
+    """No call of phases 1-13 (synthesis, training, serving, ...) was a
+    mixed-dtype one: the counts are never reset before phase 14."""
+    n = mixed_launches()
+    if n:
+        raise AssertionError(f"{phase}: {n} mixed-dtype launches; every call of a path keeps x's dtype")
+    print(f"[mixed]  {phase}: 0 mixed-dtype launches")
+
+
+def mixed_cases(cfg: ModelConfig, gen, dev):
+    """Every row of phase 14, in the order driven: ``(key, shape, make)``,
+    ``make()`` the row's tensors and callables (made anew from one seed on
+    each pass).  K1 and K3 in both directions at the 8 synthesis blocks (5
+    clips x nb_vec 10, the shipped generator's weights); K4 in both at
+    blocks 4-7 and at ``WIDE_BLOCK``; K2 with bf16 x at the 16 generator
+    convs of a stage-7 train step at batch 6."""
+    slope, eps, bf, f32 = cfg.leaky_slope, cfg.pixel_norm_eps, torch.bfloat16, torch.float32
+    rng = torch.Generator(device=dev).manual_seed(14)
+
+    def block_weights(i):
+        blk = gen.blocks[i]
+        return (blk.conv1.weight.detach(), blk.conv1.bias.detach(), blk.conv2.weight.detach(),
+                blk.conv2.bias.detach())
+
+    for i, (cin, cout) in enumerate(cfg.gen_channels):
+        bsz, h, w = block_sizes(cfg, i)
+        px = bsz * h * w
+        for kind, co, flops in (("conv3x3", cin, 2.0 * px * cin * 9 * cin), ("upconv3x3", cout, 32.0 * px * cout * cin)):
+            up = kind == "upconv3x3"
+            taps = 16 if up else 9
+            out_px = 4 * px if up else px
+            for pair in ("bf16_f32", "f32_bf16"):
+                def make(i=i, cin=cin, co=co, up=up, pair=pair, flops=flops, taps=taps, px=px, out_px=out_px, h=h,
+                         w=w, bsz=bsz, kind=kind):
+                    xin = bf if pair == "bf16_f32" else f32
+                    out, same = (f32, bf) if pair == "bf16_f32" else (bf, f32)
+                    w1, b1, w2, b2 = block_weights(i)
+                    wt, bb = (w2, b2) if up else (w1, b1)
+                    x = torch.randn(bsz, cin, h, w, generator=rng, device=dev).to(xin)
+                    wp = (conv_ops.kernel_weights_tc(wt, up) if xin == bf
+                          else (conv_ops.kernel_upconv_weights(wt) if up else conv_ops.kernel_weights(wt)))
+                    fn = conv_ops.fused_upconv3x3 if up else conv_ops.fused_conv3x3
+                    plain = conv_ops.upconv3x3_plain if up else conv_ops.conv3x3_plain
+                    xl = upsample_nearest_2x(x) if up else x
+                    wl, bl = (wt.to(bf), bb.to(bf)) if xin == bf else (wt, bb)
+                    isz, osz = (2, 4) if xin == bf else (4, 2)
+                    return dict(
+                        kernel=lambda: fn(x, wt, bb, slope, True, eps, w_packed=wp, out_dtype=out),
+                        same=lambda: fn(x, wt, bb, slope, True, eps, w_packed=wp, out_dtype=same),
+                        plain=lambda: plain(x, wt, bb, slope, True, eps, out_dtype=out),
+                        library=lambda: F.conv2d(xl, wl, bl, padding=1),
+                        flops=flops, nbytes=isz * (px * cin + taps * cin * co) + osz * out_px * co + 4.0 * co,
+                        route=None if xin == bf else conv_ops.conv_plan(kind, bsz, cin, co, h, w, True)["route"],
+                        in_dtype=xin, out_dtype=out, tol="fused_upconv3x3" if up else "fused_conv3x3",
+                    )
+                yield f"fused_{kind}_{pair}", (bsz, cin, co, h, w), make
+
+    # (block, B, H, W, cin, cmid, cout): blocks 4-7, then WIDE_BLOCK (block None).
+    blocks = [(i, *block_sizes(cfg, i), cfg.gen_channels[i][0], *cfg.gen_channels[i]) for i in (4, 5, 6, 7)]
+    bsz, cin, cmid, cout, h, w = WIDE_BLOCK
+    blocks.append((None, bsz, h, w, cin, cmid, cout))
+    for pair in ("bf16_f32", "f32_bf16"):
+        for i, bsz, h, w, cin, cmid, cout in blocks:
+            wide = i is None
+            key = f"fused_block_{pair}" + ("_wide" if wide and pair == "bf16_f32" else "")
+
+            def make(i=i, bsz=bsz, h=h, w=w, cin=cin, cmid=cmid, cout=cout, pair=pair, wide=wide):
+                xin = bf if pair == "bf16_f32" else f32
+                out, same = (f32, bf) if pair == "bf16_f32" else (bf, f32)
+                if wide:
+                    w1 = torch.randn(cmid, cin, 3, 3, generator=rng, device=dev) / (9 * cin) ** 0.5
+                    b1 = torch.randn(cmid, generator=rng, device=dev) * 0.1
+                    w2 = torch.randn(cout, cmid, 3, 3, generator=rng, device=dev) / (9 * cmid) ** 0.5
+                    b2 = torch.randn(cout, generator=rng, device=dev) * 0.1
+                else:
+                    w1, b1, w2, b2 = block_weights(i)
+                x = torch.randn(bsz, cin, h, w, generator=rng, device=dev).to(xin)
+                if wide:
+                    w1p = w2p = None
+                elif xin == bf:
+                    w1p, w2p = conv_ops.kernel_weights_tc(w1), conv_ops.kernel_weights_tc(w2, True)
+                else:
+                    w1p, w2p = conv_ops.kernel_weights(w1), conv_ops.kernel_upconv_weights(w2)
+                wl = [t.to(bf) for t in (w1, b1, w2, b2)] if xin == bf else [w1, b1, w2, b2]
+                mid_up = upsample_nearest_2x(conv_ops.conv3x3_plain(x, w1, b1, slope, True, eps))
+                px = bsz * h * w
+                isz, osz = (2, 4) if xin == bf else (4, 2)
+
+                def library():  # the two convolutions alone
+                    F.conv2d(x, wl[0], wl[1], padding=1)
+                    return F.conv2d(mid_up, wl[2], wl[3], padding=1)
+
+                def pair_fn():  # K1 in x's dtype, then K3 with the call's output dtype
+                    mid = conv_ops.fused_conv3x3(x, w1, b1, slope, True, eps, out_dtype=xin)
+                    return conv_ops.fused_upconv3x3(mid, w2, b2, slope, True, eps, out_dtype=out)
+
+                return dict(
+                    kernel=lambda: conv_ops.fused_block(x, w1, b1, w2, b2, slope, eps, w1_packed=w1p, w2_packed=w2p,
+                                                        out_dtype=out),
+                    same=lambda: conv_ops.fused_block(x, w1, b1, w2, b2, slope, eps, w1_packed=w1p, w2_packed=w2p,
+                                                      out_dtype=same),
+                    plain=lambda: conv_ops.fused_block_plain(x, w1, b1, w2, b2, slope, eps, out_dtype=out),
+                    library=library, pair=pair_fn,
+                    flops=2.0 * px * cmid * 9 * cin + 32.0 * px * cout * cmid,
+                    nbytes=isz * (px * cin + 9 * cin * cmid + 16 * cmid * cout) + osz * 4 * px * cout
+                    + 4.0 * (cmid + cout),
+                    route=None if xin == bf else "large_tc", in_dtype=xin, out_dtype=out, tol="fused_block",
+                    wide=wide, block=i,
+                )
+            yield key, (bsz, cin, cmid, cout, h, w), make
+
+    gen_shapes, _ = train_conv_shapes(cfg, TrainConfig().batch_size, TRAIN_STAGE)
+    for bsz, cin, cout, h, w in gen_shapes:
+        def make(bsz=bsz, cin=cin, cout=cout, h=h, w=w):
+            x = torch.randn(bsz, cin, h, w, generator=rng, device=dev).to(bf)
+            wt = torch.randn(cout, cin, 3, 3, generator=rng, device=dev) / (9 * cin) ** 0.5
+            bb = torch.randn(cout, generator=rng, device=dev) * 0.1
+            wp = conv_ops.kernel_weights_tc(wt)
+            wl, bl = wt.to(bf), bb.to(bf)
+            px = bsz * h * w
+            return dict(
+                kernel=lambda: conv_ops.fused_conv3x3_msq(x, wt, bb, slope, 1e-8, w_packed=wp),
+                same=lambda: conv_ops.fused_conv3x3(x, wt, bb, slope, True, 1e-8, w_packed=wp, out_dtype=bf),
+                plain=lambda: conv_ops.conv3x3_msq_plain(x, wt, bb, slope, 1e-8),
+                library=lambda: F.conv2d(x, wl, bl, padding=1),
+                flops=2.0 * px * cout * 9 * cin, nbytes=2.0 * (px * cin + 9 * cin * cout) + 4.0 * (px * cout + px + cout),
+                route=None, in_dtype=bf, out_dtype=torch.float32, tol="fused_conv3x3_msq",
+            )
+        yield "fused_conv3x3_msq_bf16", (bsz, cin, cout, h, w), make
+
+
+def mixed_row(key: str, shape, c: dict) -> dict:
+    """One mixed kernel at one shape: held against its plain version and
+    its same-dtype kernel (the invariants below), then timed."""
+    got = c["kernel"]()
+    y, m = got if isinstance(got, tuple) else (got, None)
+    ref = c["plain"]()
+    y_ref, m_ref = ref if isinstance(ref, tuple) else (ref, None)
+    if y.dtype != c["out_dtype"] or y.shape != y_ref.shape or not torch.isfinite(y.float()).all():
+        raise AssertionError(f"{key} {shape}: {y.dtype} {tuple(y.shape)}, finite {bool(torch.isfinite(y.float()).all())}")
+    a, b = y.float(), y_ref.float()
+    err = (a - b).abs().max().item()
+    pair = "->".join(str(d).removeprefix("torch.") for d in (c["in_dtype"], c["out_dtype"]))
+    row = {"name": key, "shape": shape, "pair": pair, "max_abs_err": err,
+           "l2_err": rel_l2(a, b)}
+    same = c["same"]()
+    if c["out_dtype"] == torch.bfloat16:
+        # float32 in, bf16 out: the float32 kernel's bits rounded once (the
+        # same plan, the same sums), and within the float32 bar plus one
+        # bf16 ulp of the plain version.
+        row["equal_same_rounded"] = bool(torch.equal(y, same.to(torch.bfloat16)))
+        past = int(((a - b).abs() > BF16_ULP * torch.maximum(a.abs(), b.abs()) + TOL[c["tol"]]).sum())
+        row["past_bar"] = past
+        if past or not row["equal_same_rounded"]:
+            raise AssertionError(f"{key} {shape}: {past} past the bar of the plain version, bits of the float32 "
+                                 f"kernel rounded: {row['equal_same_rounded']}")
+    else:
+        # bf16 in, float32 out: stored unrounded (values bf16 cannot hold),
+        # its rounding the bf16 kernel's bits.
+        row["equal_same_rounded"] = bool(torch.equal(y.to(torch.bfloat16), same))
+        row["not_bf16"] = int((a != y.to(torch.bfloat16).float()).sum())
+        if not row["equal_same_rounded"] or row["not_bf16"] == 0:
+            raise AssertionError(f"{key} {shape}: rounded to bf16 equal to the bf16 kernel's "
+                                 f"{row['equal_same_rounded']}, values bf16 cannot hold {row['not_bf16']}")
+        if key.startswith("fused_block"):
+            # c1 is bf16: a reordered sum can flip one of its roundings, so
+            # the 2-norm (phase 9's bar for K4 bf16).
+            if not row["l2_err"] <= TOL_K4_BF16_L2:
+                raise AssertionError(f"{key} {shape}: relative 2-norm {row['l2_err']:.3e} against the plain version")
+            k1_k3 = c["pair"]()
+            if c["wide"]:
+                row["l2_vs_pair"] = rel_l2(a, k1_k3)
+                if not row["l2_vs_pair"] <= TOL_K4_BF16_L2:
+                    raise AssertionError(f"{key} {shape}: relative 2-norm {row['l2_vs_pair']:.3e} against the pair")
+            else:
+                row["equal_pair"] = bool(torch.equal(y, k1_k3))
+                if not row["equal_pair"]:
+                    raise AssertionError(f"{key} {shape}: not K1 bf16 then K3 bf16 -> float32 bit for bit")
+        elif not err <= TOL[c["tol"]]:
+            raise AssertionError(f"{key} {shape}: max abs err {err:.3e} > {TOL[c['tol']]:.0e}")
+    if m is not None:
+        row["msq_rel_err"] = ((m - m_ref).abs().max() / m_ref.abs().max()).item()
+        if not row["msq_rel_err"] <= TOL_MSQ_REL:
+            raise AssertionError(f"{key} {shape}: mean-square map rel err {row['msq_rel_err']:.3e}")
+    del got, ref, y, m, a, b, same
+    if c["in_dtype"] == torch.bfloat16:
+        t_ops = 1e3 * c["flops"] / PEAK_BF16_FLOPS
+        t_bytes = 1e3 * c["nbytes"] / PEAK_BYTES_S
+    else:
+        t_ops, t_bytes = bound_terms(c["flops"], c["nbytes"], c["route"])
+    row.update(ms=time_ms(c["kernel"]), same_ms=time_ms(c["same"]), plain_ms=time_ms(c["plain"]),
+               library_ms=time_ms(c["library"]),
+               bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes",
+               ops_ms=t_ops, bytes_ms=t_bytes, flops=c["flops"], bytes=c["nbytes"], route=c["route"],
+               block=c.get("block"))
+    print(f"[mixed]  {key:26s} {str(shape):30s} err {err:.2e} (2-norm {row['l2_err']:.1e})  kernel {row['ms']:.4f} ms"
+          f"  same-dtype kernel {row['same_ms']:.4f}  plain {row['plain_ms']:.4f}  library {row['library_ms']:.4f}"
+          f"  bound {row['bound_ms']:.4f} "
+          f"({row['bound_by']})  share {row['bound_ms'] / row['ms']:.2f}"
+          + (f"  m rel {row['msq_rel_err']:.1e}" if "msq_rel_err" in row else ""))
+    return row
+
+
+def mixed_dtype(cfg: ModelConfig, dev, card: str) -> dict:
+    """Phase 14: each mixed kernel driven once at each of its shapes with
+    its count set to 0 just before and read just after (its launches), then
+    every row checked and timed."""
+    def say(line: str) -> None:
+        print(f"{line}  [{card}]")
+
+    t_phase = time.perf_counter()
+    gen = load_reference_generator(str(CKPT), cfg, device=dev)
+    cases = list(mixed_cases(cfg, gen, dev))
+    launches, shapes = {}, {}
+    for key, shape, _ in cases:
+        shapes.setdefault(key, []).append(shape)
+    # The drive: one call a shape, a kernel and pair at a time, counted.
+    for key in shapes:
+        for fn in MIXED_WRAPPERS:
+            fn.mixed_launches = 0
+        for k, shape, make in cases:
+            if k != key:
+                continue
+            got = make()["kernel"]()
+            y = got[0] if isinstance(got, tuple) else got
+            if not torch.isfinite(y.float()).all():
+                raise AssertionError(f"{key} {shape}: not finite")
+            del got, y
+        torch.cuda.synchronize()
+        launches[key] = mixed_launches()
+        if launches[key] != len(shapes[key]):
+            raise AssertionError(f"{key}: {launches[key]} mixed launches for {len(shapes[key])} shapes")
+    say(f"[mixed]  launches of the drive: {launches}")
+    rows = [mixed_row(key, shape, make()) for key, shape, make in cases]
+    del gen
+    for key in shapes:
+        mine = [r for r in rows if r["name"] == key]
+        say(f"[sums]   {key:26s} {len(mine):2d} shapes: kernel {sum(r['ms'] for r in mine):.4f} ms, same-dtype "
+            f"kernel {sum(r['same_ms'] for r in mine):.4f}, plain {sum(r['plain_ms'] for r in mine):.4f}, library {sum(r['library_ms'] for r in mine):.4f}, bound "
+            f"{sum(r['bound_ms'] for r in mine):.4f}, share {sum(r['bound_ms'] for r in mine) / sum(r['ms'] for r in mine):.2f}")
+    phase_s = time.perf_counter() - t_phase
+    say(f"[mixed]  phase 14 in {phase_s:.1f} s")
+    return {"rows": rows, "launches": launches, "phase_s": phase_s}
+
+
+def mixed_entries(rec: dict) -> list[dict]:
+    """The kernels record's entries of phase 14: one a kernel and pair."""
+    out = []
+    for key, (source, replaces) in MIXED_SOURCES.items():
+        mine = [r for r in rec["rows"] if r["name"] == key]
+        out.append({
+            "name": key, "route": "cuda", "source": source, "replaces": replaces, "dtype": mine[0]["pair"],
+            "on_path": False, "launches": rec["launches"][key], "max_abs_err": max(r["max_abs_err"] for r in mine),
+            **{k: sum(r[k] for r in mine) for k in ("ms", "plain_ms", "bound_ms", "library_ms", "same_ms")},
+            "bound_by": "operations" if sum(r["ops_ms"] for r in mine) >= sum(r["bytes_ms"] for r in mine)
+            else "bytes",
+        })
+    return out
+
+
 def become_subreaper() -> None:
     """Adopt the orphans of this script's descendants, so that
     :func:`stop_own_processes` sees every process the script started."""
@@ -3853,7 +4162,9 @@ def main() -> None:
     # The native host tail (g++, about a second) builds beside the nvcc jobs.
     with ThreadPoolExecutor(1) as pool:
         host = pool.submit(lambda: (time.perf_counter(), native.build(), time.perf_counter()))
-        print(f"[build] kernels built in {_build.build_all():.2f} s")
+        build = {"total_s": _build.build_all(), "sources_s": dict(_build.LAST_BUILD_S)}
+        print(f"[build] kernels built in {build['total_s']:.2f} s; each source's nvcc (s from the start): "
+              + ", ".join(f"{k} {v:.1f}" for k, v in sorted(build["sources_s"].items(), key=lambda kv: -kv[1])))
         t0, lib, t1 = host.result()
     if not native.is_available() or native.lib_path() != lib:
         raise AssertionError("the native host tail did not build")
@@ -3873,17 +4184,22 @@ def main() -> None:
     gen = load_reference_generator(str(CKPT), cfg, device=dev)
     rows = check_kernels(gen, cfg, dev)
     del gen
+    assert_no_mixed("phase 2")
     e2e, waves = end_to_end(cfg, dev)
     torch.cuda.empty_cache()
+    assert_no_mixed("phase 3")
 
     tcfg = TrainConfig()
     rows += check_train_kernels(cfg, tcfg, dev)
     print_row_sums(rows)
     print_wgrad_sums(rows)
+    assert_no_mixed("phase 4")
     grads = check_function_and_gp(cfg_gp, tcfg, dev)
     torch.cuda.empty_cache()
+    assert_no_mixed("phase 5")
     train_rec = train_path(cfg_gp, tcfg, dev)
     torch.cuda.empty_cache()
+    assert_no_mixed("phase 6")
 
     gen = load_reference_generator(str(CKPT), cfg, device=dev)
     rows += check_block_kernel(gen, cfg, dev)
@@ -3891,8 +4207,10 @@ def main() -> None:
     torch.cuda.empty_cache()
     e2e_block = end_to_end_block(cfg, dev, waves)
     torch.cuda.empty_cache()
+    assert_no_mixed("phase 7")
     loop = train_entry_point(cfg_gp, dev)
     torch.cuda.empty_cache()
+    assert_no_mixed("phase 8")
 
     gen = load_reference_generator(str(CKPT), cfg, device=dev)
     bf16_rows = check_bf16_kernels(gen, cfg, dev)
@@ -3900,13 +4218,20 @@ def main() -> None:
     torch.cuda.empty_cache()
     e2e_new = end_to_end_new_impls(cfg, dev)
     torch.cuda.empty_cache()
+    assert_no_mixed("phase 9")
     serving = serving_and_evaluation(cfg, dev, loop["run_dir"], card)
     torch.cuda.empty_cache()
+    assert_no_mixed("phase 10")
     interchange = ingest_and_interchange(cfg, dev, card)
     torch.cuda.empty_cache()
+    assert_no_mixed("phase 11")
     selection = conv_impl_selection(cfg, dev, card)
     torch.cuda.empty_cache()
+    assert_no_mixed("phase 12")
     parallel = parallel_phase(cfg, dev, card)
+    torch.cuda.empty_cache()
+    assert_no_mixed("phase 13")
+    mixed = mixed_dtype(cfg, dev, card)
     torch.cuda.empty_cache()
 
     paths = (e2e, train_rec, e2e_block, loop, e2e_new, serving, interchange, selection, parallel)
@@ -3966,13 +4291,15 @@ def main() -> None:
         "dtype": "bfloat16", "launches": 0, "max_abs_err": wide["max_abs_err"],
         **{k: wide[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms", "bound_by", "pair_ms", "l2_vs_pair")},
     })
+    kernels += mixed_entries(mixed)
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(
-        {"card": card, "shapes": rows, "end_to_end": e2e, "gradients": grads, "train": train_rec,
+        {"card": card, "build": build, "shapes": rows, "end_to_end": e2e, "gradients": grads, "train": train_rec,
          "end_to_end_block": e2e_block, "train_entry_point": loop, "bf16_shapes": bf16_rows,
          "end_to_end_new_impls": e2e_new, "serving": serving, "ingest_and_interchange": interchange,
-         "conv_impl_selection": selection, "parallel": parallel, "kernels": kernels}, indent=1, default=str))
+         "conv_impl_selection": selection, "parallel": parallel, "mixed_dtype": mixed, "kernels": kernels},
+        indent=1, default=str))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
 // K4 in float32: one whole generator block in one launch (block3x3.cuh at
 // E = float; 3xTF32 on the tensor cores).  Replaces
 // musicgan_tpu/ops/conv.py::fused_block (Pallas kernel _block_kernel).
+// With a bf16 output: block3x3_f32_bf16.cu.
 #include "block3x3.cuh"
 
 // The geometry at these widths (block3x3.cuh::block_tile_out).
@@ -23,5 +24,5 @@ extern "C" long long mg_block3x3_workspace(int cin, int cmid, int cout) {
 extern "C" int mg_block3x3(const float* x, const float* w1, const float* b1, const float* w2,
                            const float* b2, float* ws, float* y, int B, int cin, int cmid,
                            int cout, int H, int W, float slope, float eps, cudaStream_t stream) {
-  return mg::block_launch<float>(x, w1, b1, w2, b2, ws, y, B, cin, cmid, cout, H, W, slope, eps, stream);
+  return mg::block_launch<float, float>(x, w1, b1, w2, b2, ws, y, B, cin, cmid, cout, H, W, slope, eps, stream);
 }

@@ -19,7 +19,10 @@
 // the ring's shared memory halves.  The shape (conv1's tile rows, a stage
 // of one kernel row or of all three) is float32's at both types, so that
 // one size rule (ops/conv.py::block_tile) serves both; bf16's smaller
-// stages only fit more of them.
+// stages only fit more of them.  The output's type O is E's or the other
+// (the JAX kernel's out_dtype, cast only at its store): the same plan and
+// sums, y rounded once where O is bf16, c1 in E whatever O is
+// (block3x3_f32_bf16.cu, block3x3_bf16_wide_f32.cu).
 //
 // Shape: a strip of 62 columns of the input's resolution walks down a run of
 // image rows.  conv1 makes m64 tiles of c1, 64 columns (c0 - 1 .. c0 + 62),
@@ -253,13 +256,14 @@ __device__ __forceinline__ void regs_inc() {
 
 // x: (B, cin, H, W); w1: (cin, 9, cmidp), ops/conv.py::kernel_weights; b1:
 // (cmid,); w2: (4, cmid, 4, coutp), kernel_upconv_weights; b2: (cout,); y:
-// (B, cout, 2H, 2W).  Block x = cluster * C + rank walks the units cluster,
-// cluster + clusters, ... of the nunits = B x nruns x ntx units (strips
-// fastest): image b, rows ra .. ra + run - 1, columns c0 .. c0 + 61.
-template <typename E, int N1, int N2>
+// (B, cout, 2H, 2W) of O (float32 or bf16; c1 stays E).  Block x =
+// cluster * C + rank walks the units cluster, cluster + clusters, ... of the
+// nunits = B x nruns x ntx units (strips fastest): image b, rows ra .. ra +
+// run - 1, columns c0 .. c0 + 61.
+template <typename E, typename O, int N1, int N2>
 __global__ void __launch_bounds__(TC_THREADS, 1)
 block_tc_kernel(const E* __restrict__ x, const float* __restrict__ ws,
-                const float* __restrict__ b1, const float* __restrict__ b2, E* __restrict__ y,
+                const float* __restrict__ b1, const float* __restrict__ b2, O* __restrict__ y,
                 int cin, int cmid, int cout, int H, int W, int ntx, int run, int nruns, int nunits,
                 int C, float slope, float eps) {
   constexpr BlkGeom G = blk_geom_of<E>(N1, N2);
@@ -511,7 +515,7 @@ block_tc_kernel(const E* __restrict__ x, const float* __restrict__ ws,
       for (int u = 0; u < T2; ++u)
 #pragma unroll
         for (int i = 0; i < 2; ++i) pn_scale<T2, N2>(acc, u, i, sum[u][i] / (float)cout, eps);
-      store_tiles<E, 2, T2, N2, PPB2>(acc, y, b, cout, co2, H, W, 2, r2 + wg * RW2, c0, ph0, ra + rows,
+      store_tiles<O, 2, T2, N2, PPB2>(acc, y, b, cout, co2, H, W, 2, r2 + wg * RW2, c0, ph0, ra + rows,
                                       BLK_STRIP, wq, g, t);
     }
   }
@@ -620,10 +624,10 @@ inline long block_workspace(int cin, int cmid, int cout) {
 // The launches at widths (N1, N2): the weights laid out, then the block
 // kernel.  Widths whose geometry does not fit two stages are never
 // planned, and not built.
-template <typename E, int N1, int N2>
+template <typename E, typename O, int N1, int N2>
 int launch_block(const BlockPlan& p, int dev, const DeviceInfo& info, cudaStream_t stream,
                  const E* x, const E* w1, const float* b1, const E* w2,
-                 const float* b2, float* ws, E* y, int cin, int cmid, int cout, int H, int W,
+                 const float* b2, float* ws, O* y, int cin, int cmid, int cout, int H, int W,
                  float slope, float eps) {
   if constexpr (blk_geom(N1, N2).stages >= 2) {
     constexpr BlkGeom G = blk_geom_of<E>(N1, N2);
@@ -633,7 +637,7 @@ int launch_block(const BlockPlan& p, int dev, const DeviceInfo& info, cudaStream
     block_split_weights<E, N1, N2><<<dim3(nq, p.cluster), 128, 0, stream>>>(w1, w2, ws, cin, cmid, cmidp, coutp);
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
-    return launch<block_tc_kernel<E, N1, N2>>(p.launch, dev, info, stream, x, (const float*)ws, b1, b2, y,
+    return launch<block_tc_kernel<E, O, N1, N2>>(p.launch, dev, info, stream, x, (const float*)ws, b1, b2, y,
                                               cin, cmid, cout, H, W, p.ntx, p.run, p.nruns, p.units,
                                               p.cluster, slope, eps);
   } else {
@@ -676,9 +680,10 @@ int block_plan_out(int B, int cin, int cmid, int cout, int H, int W, long long* 
 }
 
 // x: (B, cin, H, W); w1: (cin, 9, cmidp); b1: (cmid,); w2: (4, cmid, 4,
-// coutp); b2: (cout,); ws: block_workspace<E> words; y: (B, cout, 2H, 2W).
-template <typename E>
-int block_launch(const E* x, const E* w1, const float* b1, const E* w2, const float* b2, float* ws, E* y,
+// coutp); b2: (cout,); ws: block_workspace<E> words; y: (B, cout, 2H, 2W)
+// of O (the mixed pairs: the same plan and sums, only the store's type).
+template <typename E, typename O>
+int block_launch(const E* x, const E* w1, const float* b1, const E* w2, const float* b2, float* ws, O* y,
                  int B, int cin, int cmid, int cout, int H, int W, float slope, float eps,
                  cudaStream_t stream) {
   if (b1 == nullptr || b2 == nullptr || ws == nullptr) return (int)cudaErrorInvalidValue;
@@ -690,7 +695,7 @@ int block_launch(const E* x, const E* w1, const float* b1, const E* w2, const fl
   err = plan_block<E>(B, cin, cmid, cout, H, W, *info, &p);
   if (err != 0) return err;
 #define MG_BLK(A, Bw) \
-  if (p.n1 == A && p.n2 == Bw) return launch_block<E, A, Bw>(p, dev, *info, stream, x, w1, b1, w2, b2, ws, y, cin, cmid, cout, H, W, slope, eps);
+  if (p.n1 == A && p.n2 == Bw) return launch_block<E, O, A, Bw>(p, dev, *info, stream, x, w1, b1, w2, b2, ws, y, cin, cmid, cout, H, W, slope, eps);
 #define MG_BLK_ROW(A) MG_BLK(A, 16) MG_BLK(A, 32) MG_BLK(A, 48) MG_BLK(A, 64) MG_BLK(A, 96) MG_BLK(A, 128)
   MG_BLK_ROW(16) MG_BLK_ROW(32) MG_BLK_ROW(48) MG_BLK_ROW(64) MG_BLK_ROW(96) MG_BLK_ROW(128)
 #undef MG_BLK_ROW

@@ -3,7 +3,8 @@
 // accumulation and epilogues).  Replaces musicgan_tpu/ops/conv.py::
 // fused_block (Pallas kernel _block_kernel, its c1 scratch of x.dtype and its
 // packed-pair interleave) called with bf16 x and out_dtype=bfloat16.  It
-// gives K1 bf16 then K3 bf16's bits.
+// gives K1 bf16 then K3 bf16's bits.  With out_dtype=float32 the same
+// kernels store float32: block3x3_bf16_f32.cu, block3x3_bf16_wide_f32.cu.
 //
 // cmid and cout up to 128 (ops/conv_bf16.py::block_route): block_bf16.cuh,
 // the kernel designed for Hopper in bf16 (bf16 wgmma from shared memory,

@@ -7,7 +7,8 @@
 // them here by the widths alone (up to 128 channels: block3x3_bf16.cu).  It
 // gives K1 bf16 then K3 bf16's bits where K1 and K3 take the float32
 // tensor-core route's shape.  Its own source, so that it builds beside
-// block3x3_bf16.cu, not after it.
+// block3x3_bf16.cu, not after it.  With out_dtype=float32:
+// block3x3_bf16_wide_f32.cu.
 #include "block3x3.cuh"
 
 // The geometry at these widths (block3x3.cuh::block_tile_out).
@@ -33,5 +34,5 @@ extern "C" int mg_block3x3_bf16_wide(const mg::bf16* x, const mg::bf16* w1, cons
                                      const mg::bf16* w2, const float* b2, float* ws, mg::bf16* y, int B,
                                      int cin, int cmid, int cout, int H, int W, float slope, float eps,
                                      cudaStream_t stream) {
-  return mg::block_launch<mg::bf16>(x, w1, b1, w2, b2, ws, y, B, cin, cmid, cout, H, W, slope, eps, stream);
+  return mg::block_launch<mg::bf16, mg::bf16>(x, w1, b1, w2, b2, ws, y, B, cin, cmid, cout, H, W, slope, eps, stream);
 }

@@ -7,7 +7,9 @@
 // _block_kernel, its c1 scratch of x.dtype and its packed-pair interleave)
 // called with bf16 x and out_dtype=bfloat16, for cmid and cout up to 128
 // (wider blocks take block3x3.cuh at bf16, block3x3_bf16_wide.cu).
-// Instantiated only in block3x3_bf16.cu.
+// Instantiated in block3x3_bf16.cu; with a float32 output (the JAX
+// function's bf16 x and out_dtype=float32: c1 still bf16, the last
+// epilogue stored unrounded) in block3x3_bf16_f32.cu.
 //
 // What bounds it on an H100.  On paper its bytes: they are K3 bf16's alone
 // (x in, y out, the weights; c1 never leaves the SM), and the products are
@@ -143,7 +145,7 @@ struct KbArgs {
   const float* b1;
   const bf16* w2;
   const float* b2;
-  bf16* y;
+  void* y;  // of the kernel's output type O
   int B, cin, cmid, cout, H, W;
   int nch1, nch2, tc, sw, rw, ntx, run, nruns, nunits, nwg;
   int res1, res2, stages, tma, vec, pt1, pr1, ptr2, np;
@@ -352,9 +354,31 @@ __device__ __forceinline__ void bias_lrelu_s(float (&acc)[T][N / 2], const float
     }
 }
 
+// conv2's float32 outputs of one pass, the half of its channels from co0 on
+// (cb::stage_out_f32's layout in region), to y: group grp of channel co0 +
+// co, both column phases interleaved into 16 columns (cb::store_phases_f32).
+template <int N2, int MB, int PP>
+__device__ __forceinline__ void store_pass_f32(const unsigned char* region, const KbArgs& a, int b, int c0, int R,
+                                               int oy, int co0, int lt) {
+  constexpr int G = 8 * MB, G1 = G + 1, NH = N2 / 2;
+  const float* rf = reinterpret_cast<const float*>(region);
+  for (int e = lt; e < PP / 2 * NH * G; e += 128) {
+    const int grp = e % G, rest = e / G, co = rest % NH, oyl = rest / NH, cc = c0 + 8 * grp, gco = co0 + co;
+    if (8 * grp >= a.tc || cc >= a.W || gco >= a.cout) continue;
+    const int pa = 2 * oyl, orow = 2 * R + (PP == 4 ? oyl : oy);
+    const float* s0 = rf + ((pa * NH + co) * G1 + grp) * 8;
+    const float* s1 = rf + (((pa + 1) * NH + co) * G1 + grp) * 8;
+    cb::store_phases_f32(static_cast<float*>(a.y) + (((size_t)b * a.cout + gco) * 2 * a.H + orow) * 2 * a.W + 2 * cc,
+                         s0, s1, min(8, a.W - cc), a.vec);
+  }
+}
+
 // Block x walks, in warpgroup wg, the units x + (k * nwg + wg) * blocks, k =
-// 0, 1, .. (strips fastest, then runs, then images).
-template <int N1, int N2>
+// 0, 1, .. (strips fastest, then runs, then images).  O: the output's type,
+// bf16 or float32 (the JAX kernel's out_dtype, cast only at its store: the
+// same plan and sums, c1 in bf16 either way; float32 leaves through the
+// staging region in two halves of the channels, cb::stage_out_f32).
+template <int N1, int N2, typename O>
 __global__ void __launch_bounds__(128 * kb_wgmax(N1, N2), 1)
     block_bf16_kernel(const __grid_constant__ CUtensorMap tm, const KbArgs a) {
   constexpr int MB = kb_mb(N1, N2), DY1 = kb_dy1(N1, N2), PP = kb_pp2(N1, N2), F2 = kb_f2(N1, N2);
@@ -557,33 +581,43 @@ __global__ void __launch_bounds__(128 * kb_wgmax(N1, N2), 1)
         }
         // Every warp's reads of the region (the previous pass's stores) are
         // behind the barrier after them.
-        cb::stage_out<N2, MB, PP>(acc2, region_a, wq, lane);
-        bar_sync(wgbar, 128);
-        // Group grp (positions 8 grp .. + 7: output columns 2 (c0 + 8 grp) ..
-        // of row 2R + oy, both column phases interleaved) of channel co, for
-        // each of the pass's output rows.
-        for (int e = lt; e < PP / 2 * N2 * G; e += 128) {
-          const int grp = e % G, rest = e / G, co = rest % N2, oyl = rest / N2, cc = c0 + 8 * grp;
-          if (8 * grp >= a.tc || cc >= a.W || co >= a.cout) continue;
-          const int pa = 2 * oyl, orow = 2 * R + (PP == 4 ? oyl : oy);
-          const uint4 v0 = *reinterpret_cast<const uint4*>(region + 16 * ((pa * N2 + co) * G1 + grp));
-          const uint4 v1 = *reinterpret_cast<const uint4*>(region + 16 * (((pa + 1) * N2 + co) * G1 + grp));
-          bf16* dst = a.y + (((size_t)b * a.cout + co) * 2 * a.H + orow) * 2 * a.W + 2 * cc;
-          const uint32_t* w0 = reinterpret_cast<const uint32_t*>(&v0);
-          const uint32_t* w1 = reinterpret_cast<const uint32_t*>(&v1);
-          uint32_t o[8];
+        if constexpr (!std::is_same<O, bf16>::value) {
+          cb::stage_out_f32<N2, MB, PP, 0>(acc2, reinterpret_cast<float*>(region), wq, lane);
+          bar_sync(wgbar, 128);
+          store_pass_f32<N2, MB, PP>(region, a, b, c0, R, oy, 0, lt);
+          bar_sync(wgbar, 128);  // every warp's reads of the first half
+          cb::stage_out_f32<N2, MB, PP, 1>(acc2, reinterpret_cast<float*>(region), wq, lane);
+          bar_sync(wgbar, 128);
+          store_pass_f32<N2, MB, PP>(region, a, b, c0, R, oy, N2 / 2, lt);
+        } else {
+          cb::stage_out<N2, MB, PP>(acc2, region_a, wq, lane);
+          bar_sync(wgbar, 128);
+          // Group grp (positions 8 grp .. + 7: output columns 2 (c0 + 8 grp) ..
+          // of row 2R + oy, both column phases interleaved) of channel co, for
+          // each of the pass's output rows.
+          for (int e = lt; e < PP / 2 * N2 * G; e += 128) {
+            const int grp = e % G, rest = e / G, co = rest % N2, oyl = rest / N2, cc = c0 + 8 * grp;
+            if (8 * grp >= a.tc || cc >= a.W || co >= a.cout) continue;
+            const int pa = 2 * oyl, orow = 2 * R + (PP == 4 ? oyl : oy);
+            const uint4 v0 = *reinterpret_cast<const uint4*>(region + 16 * ((pa * N2 + co) * G1 + grp));
+            const uint4 v1 = *reinterpret_cast<const uint4*>(region + 16 * (((pa + 1) * N2 + co) * G1 + grp));
+            bf16* dst = static_cast<bf16*>(a.y) + (((size_t)b * a.cout + co) * 2 * a.H + orow) * 2 * a.W + 2 * cc;
+            const uint32_t* w0 = reinterpret_cast<const uint32_t*>(&v0);
+            const uint32_t* w1 = reinterpret_cast<const uint32_t*>(&v1);
+            uint32_t o[8];
 #pragma unroll
-          for (int e2 = 0; e2 < 4; ++e2) {
-            o[2 * e2] = __byte_perm(w0[e2], w1[e2], 0x5410);
-            o[2 * e2 + 1] = __byte_perm(w0[e2], w1[e2], 0x7632);
-          }
-          const int nv = min(8, a.W - cc);
-          if (a.vec && nv == 8) {
-            reinterpret_cast<uint4*>(dst)[0] = make_uint4(o[0], o[1], o[2], o[3]);
-            reinterpret_cast<uint4*>(dst)[1] = make_uint4(o[4], o[5], o[6], o[7]);
-          } else {
-            const bf16* sv = reinterpret_cast<const bf16*>(o);
-            for (int e2 = 0; e2 < 2 * nv; ++e2) dst[e2] = sv[e2];
+            for (int e2 = 0; e2 < 4; ++e2) {
+              o[2 * e2] = __byte_perm(w0[e2], w1[e2], 0x5410);
+              o[2 * e2 + 1] = __byte_perm(w0[e2], w1[e2], 0x7632);
+            }
+            const int nv = min(8, a.W - cc);
+            if (a.vec && nv == 8) {
+              reinterpret_cast<uint4*>(dst)[0] = make_uint4(o[0], o[1], o[2], o[3]);
+              reinterpret_cast<uint4*>(dst)[1] = make_uint4(o[4], o[5], o[6], o[7]);
+            } else {
+              const bf16* sv = reinterpret_cast<const bf16*>(o);
+              for (int e2 = 0; e2 < 2 * nv; ++e2) dst[e2] = sv[e2];
+            }
           }
         }
         bar_sync(wgbar, 128);  // the region is the next pass's staging
@@ -758,27 +792,29 @@ inline int encode_row_map(const bf16* x, int B, int cin, int H, int W, int rw, C
   return r == CUDA_SUCCESS ? 0 : cb::CB_ENCODE_ERROR + (int)r;
 }
 
-template <int N1, int N2>
+template <int N1, int N2, typename O>
 int launch_kb(const KbPlan& p, const KbArgs& a, const CUtensorMap& tm, int dev, const DeviceInfo& info,
               cudaStream_t stream) {
   static bool opted_in[MAX_DEVICES] = {};
   if (p.smem > info.smem_optin) return (int)cudaErrorInvalidValue;
   if (!opted_in[dev]) {
-    const cudaError_t e = cudaFuncSetAttribute(block_bf16_kernel<N1, N2>,
+    const cudaError_t e = cudaFuncSetAttribute(block_bf16_kernel<N1, N2, O>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize, info.smem_optin);
     if (e != cudaSuccess) return (int)e;
     opted_in[dev] = true;
   }
-  block_bf16_kernel<N1, N2><<<p.blocks, 128 * p.nwg, (size_t)p.smem, stream>>>(tm, a);
+  block_bf16_kernel<N1, N2, O><<<p.blocks, 128 * p.nwg, (size_t)p.smem, stream>>>(tm, a);
   return (int)cudaGetLastError();
 }
 
 // x: (B, cin, H, W) bf16; w1: ops/conv_bf16.py::tc_weights of conv1 (K1
 // bf16's pack), w2: of conv2 (K3 bf16's); b1 (cmid,), b2 (cout,) float32;
-// y: (B, cout, 2H, 2W) bf16; tc, run: 0 for the size rule's.
-inline int launch_block_bf16(const bf16* x, const bf16* w1, const float* b1, const bf16* w2, const float* b2,
-                             bf16* y, int B, int cin, int cmid, int cout, int H, int W, float slope, float eps,
-                             int tc, int run, cudaStream_t stream) {
+// y: (B, cout, 2H, 2W) of O, bf16 or float32; tc, run: 0 for the size
+// rule's.
+template <typename O>
+int launch_block_bf16(const bf16* x, const bf16* w1, const float* b1, const bf16* w2, const float* b2, O* y, int B,
+                      int cin, int cmid, int cout, int H, int W, float slope, float eps, int tc, int run,
+                      cudaStream_t stream) {
   if (b1 == nullptr || b2 == nullptr) return (int)cudaErrorInvalidValue;
   if (((reinterpret_cast<uintptr_t>(w1) | reinterpret_cast<uintptr_t>(w2)) & 15) != 0)
     return (int)cudaErrorInvalidValue;
@@ -843,7 +879,7 @@ inline int launch_block_bf16(const bf16* x, const bf16* w1, const float* b1, con
     if (err != 0) return err;
   }
 #define MG_KB(A, Bw) \
-  if (p.n1 == A && p.n2 == Bw) return launch_kb<A, Bw>(p, a, tm, dev, *info, stream);
+  if (p.n1 == A && p.n2 == Bw) return launch_kb<A, Bw, O>(p, a, tm, dev, *info, stream);
 #define MG_KB_ROW(A) MG_KB(A, 16) MG_KB(A, 32) MG_KB(A, 48) MG_KB(A, 64) MG_KB(A, 80) MG_KB(A, 96) MG_KB(A, 112) MG_KB(A, 128)
   MG_KB_ROW(16) MG_KB_ROW(32) MG_KB_ROW(48) MG_KB_ROW(64) MG_KB_ROW(80) MG_KB_ROW(96) MG_KB_ROW(112) MG_KB_ROW(128)
 #undef MG_KB_ROW

@@ -5,6 +5,7 @@
 // musicgan_tpu/ops/conv.py::fused_conv3x3_msq (_kernel with emit_msq).
 // The kernel of both is conv_tile.cuh's template at K = 3: conv_tc_kernel
 // (large images, 3xTF32 on the tensor cores) or conv_flat_kernel (small).
+// With float32 x and a bf16 output: conv3x3_f32_bf16.cu.
 #include "conv_tile.cuh"
 
 // x: (B, cin, H, W); w: (cin, 9, coutp) from kernel_weights; bias: (cout,)
@@ -13,7 +14,7 @@ extern "C" int mg_conv3x3(const float* x, const float* w, const float* bias,
                           float* y, int B, int cin, int cout, int H, int W,
                           float slope, int use_slope, int pixel_norm, float eps,
                           cudaStream_t stream) {
-  return mg::launch_conv_tile<float, 3>(x, w, bias, y, nullptr, B, cin, cout, H, W, 1,
+  return mg::launch_conv_tile<float, float, 3>(x, w, bias, y, nullptr, B, cin, cout, H, W, 1,
                                         slope, use_slope, pixel_norm, eps, stream);
 }
 
@@ -24,7 +25,7 @@ extern "C" int mg_conv3x3_msq(const float* x, const float* w, const float* bias,
                               int H, int W, float slope, int use_slope, float eps,
                               cudaStream_t stream) {
   if (msq == nullptr) return (int)cudaErrorInvalidValue;
-  return mg::launch_conv_tile<float, 3>(x, w, bias, y, msq, B, cin, cout, H, W, 1,
+  return mg::launch_conv_tile<float, float, 3>(x, w, bias, y, msq, B, cin, cout, H, W, 1,
                                         slope, use_slope, 1, eps, stream);
 }
 

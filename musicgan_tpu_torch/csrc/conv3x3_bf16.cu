@@ -3,6 +3,8 @@
 // and epilogue).  Replaces musicgan_tpu/ops/conv.py::fused_conv3x3 (Pallas
 // kernel _kernel) called with bf16 x and out_dtype=bfloat16, the JAX
 // package's "pallas_bf16" / "pallas_up_bf16" / "pallas_block_bf16" path.
+// With bf16 x and a float32 output (and K2 with bf16 x) the same kernel
+// stores float32: conv3x3_bf16_f32.cu.
 // conv_bf16.cuh's kernel at K = 3: bf16 wgmma m64nNk16 on the tensor cores
 // at every size, both operands from shared memory.  What bounds it at the
 // synthesis shapes is its bytes (conv_bf16.cuh says how the design keeps
@@ -17,7 +19,7 @@ extern "C" int mg_conv3x3_bf16(const mg::bf16* x, const mg::bf16* w, const float
                                mg::bf16* y, int B, int cin, int cout, int H, int W,
                                float slope, int use_slope, int pixel_norm, float eps, int route,
                                int tc, cudaStream_t stream) {
-  return mg::cb::launch_conv_bf16<3>(x, w, bias, y, B, cin, cout, H, W, slope, use_slope, pixel_norm,
+  return mg::cb::launch_conv_bf16<3, mg::bf16>(x, w, bias, y, nullptr, B, cin, cout, H, W, slope, use_slope, pixel_norm,
                                      eps, route, tc, stream);
 }
 

@@ -6,8 +6,17 @@
 // (Pallas _kernel) and ::fused_upconv3x3 (Pallas _upconv_kernel, whose
 // packed-pair interleave exists for its bf16 output) called with bf16 x and
 // out_dtype=bfloat16: the JAX package's "pallas_bf16", "pallas_up_bf16" and
-// "pallas_block_bf16" paths.  Instantiated only in conv3x3_bf16.cu (K = 3)
-// and upconv3x3_bf16.cu (K = 2).
+// "pallas_block_bf16" paths.  Instantiated in conv3x3_bf16.cu (K = 3) and
+// upconv3x3_bf16.cu (K = 2).
+//
+// The output type O: bf16, or float32 for the JAX functions' mixed call
+// (bf16 x, out_dtype=float32: the same exact products summed in float32 and
+// the float32 epilogue, stored unrounded), and for K2 with bf16 x
+// (fused_conv3x3_msq, float32 y and its mean-square map), instantiated in
+// conv3x3_bf16_f32.cu and upconv3x3_bf16_f32.cu.  A float32 tile leaves
+// through the bf16 tile's staging region in two halves of its channels
+// (stage_out_f32), so the plan is the same at both types and the float32
+// output rounded to bf16 is the bf16 output, bit for bit.
 //
 // What bounds them on an H100: bytes at every large shape of synthesis (in
 // bf16 one k16 product does the work of six of 3xTF32's k8 ones, so the
@@ -275,7 +284,8 @@ struct CbArgs {
   const bf16* x;
   const bf16* w;
   const float* bias;
-  bf16* y;
+  void* y;     // of the kernel's output type O
+  float* msq;  // K2: (B, 1, H, W), or null
   int B, cin, cout, H, W;
   int nsplit, nchunks, tc, sw, th, nb, ntx, nty, nph, ntiles;
   int stages, resident, tma, vec, nwg, rows_w, rw, ptrans;
@@ -457,7 +467,7 @@ __device__ __forceinline__ void store_out(const unsigned char* region, const CbA
     if (gco >= a.cout) continue;
     if constexpr (K == 3) {
       const uint4 v = *reinterpret_cast<const uint4*>(region + 16 * (co * G1 + grp));
-      bf16* dst = a.y + (((size_t)b * a.cout + gco) * a.H + r) * a.W + c;
+      bf16* dst = static_cast<bf16*>(a.y) + (((size_t)b * a.cout + gco) * a.H + r) * a.W + c;
       if (a.vec && nv == 8) {
         *reinterpret_cast<uint4*>(dst) = v;
       } else {
@@ -469,7 +479,7 @@ __device__ __forceinline__ void store_out(const unsigned char* region, const CbA
       const int pa = PPB == 4 ? 2 * oyl : 0;  // the row's ox = 0 phase in region
       const uint4 v0 = *reinterpret_cast<const uint4*>(region + 16 * ((pa * N + co) * G1 + grp));
       const uint4 v1 = *reinterpret_cast<const uint4*>(region + 16 * (((pa + 1) * N + co) * G1 + grp));
-      bf16* dst = a.y + (((size_t)b * a.cout + gco) * 2 * a.H + 2 * r + oy) * 2 * a.W + 2 * c;
+      bf16* dst = static_cast<bf16*>(a.y) + (((size_t)b * a.cout + gco) * 2 * a.H + 2 * r + oy) * 2 * a.W + 2 * c;
       const uint32_t* w0 = reinterpret_cast<const uint32_t*>(&v0);
       const uint32_t* w1 = reinterpret_cast<const uint32_t*>(&v1);
       uint32_t o[8];
@@ -489,12 +499,114 @@ __device__ __forceinline__ void store_out(const unsigned char* region, const CbA
   }
 }
 
+// A float32 output (the mixed call bf16 in, float32 out: the JAX kernel's
+// float32 epilogue stored unrounded) leaves through the same region in two
+// halves of the block's channels, HF = 0 then 1: half HF's N / 2 channels
+// as [phase][N / 2 channels][8 MB + 1 groups][8 positions] of floats, the
+// bytes stage_out's bf16 layout of all N takes, so the plan and the layout
+// are the bf16 output's.  Each thread writes its own floats (position 16 wq
+// + g + 8 i of m64 block m, channel 8 j + 2 t + e); a warp's store covers 8
+// positions of 4 channels (two of them share banks).
+template <int N, int MB, int PPB, int HF>
+__device__ __forceinline__ void stage_out_f32(const float (&acc)[MB * PPB][N / 2], float* region, int wq,
+                                              int lane) {
+  constexpr int G1 = 8 * MB + 1, NH = N / 2, JH = N / 16;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int u = 0; u < MB * PPB; ++u) {
+    const int m = u / PPB, p = u % PPB;
+#pragma unroll
+    for (int jl = 0; jl < JH; ++jl)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          region[((p * NH + 8 * jl + 2 * t + e) * G1 + 8 * m + 2 * wq + i) * 8 + g] =
+              acc[u][4 * (HF * JH + jl) + 2 * i + e];
+  }
+}
+
+// 8 staged columns of both column phases of a K3 output row (s0: ox = 0,
+// s1: ox = 1, 8 floats each) interleaved into 16 floats at dst: four
+// 16-byte stores where vec and all 8 lie in the row, else 2 nv single ones.
+__device__ __forceinline__ void store_phases_f32(float* dst, const float* s0, const float* s1, int nv, int vec) {
+  if (vec && nv == 8) {
+    const float4 v0a = reinterpret_cast<const float4*>(s0)[0], v0b = reinterpret_cast<const float4*>(s0)[1];
+    const float4 v1a = reinterpret_cast<const float4*>(s1)[0], v1b = reinterpret_cast<const float4*>(s1)[1];
+    float4* d4 = reinterpret_cast<float4*>(dst);
+    d4[0] = make_float4(v0a.x, v1a.x, v0a.y, v1a.y);
+    d4[1] = make_float4(v0a.z, v1a.z, v0a.w, v1a.w);
+    d4[2] = make_float4(v0b.x, v1b.x, v0b.y, v1b.y);
+    d4[3] = make_float4(v0b.z, v1b.z, v0b.w, v1b.w);
+  } else {
+    for (int k = 0; k < nv; ++k) {
+      dst[2 * k] = s0[k];
+      dst[2 * k + 1] = s1[k];
+    }
+  }
+}
+
+// region's float32 groups of one half (channels co_base .. co_base + N / 2
+// - 1) to y, as store_out stores bf16 ones: K1 8 output columns of one row
+// and channel (two 16-byte stores), K3 the two column phases interleaved
+// into 16 columns (four).
+template <int K, int N, int MB, int PPB>
+__device__ __forceinline__ void store_out_f32(const unsigned char* region, const CbArgs& a, const CbTile& tl,
+                                              int co_base, int lt, const StoreMap& sm) {
+  constexpr int G = 8 * MB, G1 = G + 1, NH = N / 2, NOY = K == 3 ? 1 : PPB / 2;
+  constexpr int ITEMS = (NOY * NH * G + 127) / 128;
+  static_assert(128 % G == 0, "a thread's groups");
+  if (sm.img < 0) return;
+  const int b = tl.b0 + sm.img, r = tl.r0 + sm.lr, c = tl.c0 + sm.col;
+  if (b >= a.B || r >= a.H || c >= a.W) return;
+  const int nv = min(8, a.W - c), grp = lt % G;
+  const float* rf = reinterpret_cast<const float*>(region);
+#pragma unroll
+  for (int it = 0; it < ITEMS; ++it) {
+    const int rest = lt / G + it * (128 / G), co = rest % NH, oyl = rest / NH;
+    const int gco = co_base + co;
+    if (oyl >= NOY || gco >= a.cout) continue;
+    if constexpr (K == 3) {
+      const float4* s = reinterpret_cast<const float4*>(rf + (co * G1 + grp) * 8);
+      float* dst = static_cast<float*>(a.y) + (((size_t)b * a.cout + gco) * a.H + r) * a.W + c;
+      if (a.vec && nv == 8) {
+        reinterpret_cast<float4*>(dst)[0] = s[0];
+        reinterpret_cast<float4*>(dst)[1] = s[1];
+      } else {
+        const float* sv = reinterpret_cast<const float*>(s);
+        for (int k = 0; k < nv; ++k) dst[k] = sv[k];
+      }
+    } else {
+      const int oy = PPB == 4 ? oyl : tl.oy;
+      const int pa = PPB == 4 ? 2 * oyl : 0;  // the row's ox = 0 phase in region
+      const float* s0 = rf + ((pa * NH + co) * G1 + grp) * 8;
+      const float* s1 = rf + (((pa + 1) * NH + co) * G1 + grp) * 8;
+      store_phases_f32(static_cast<float*>(a.y) + (((size_t)b * a.cout + gco) * 2 * a.H + 2 * r + oy) * 2 * a.W
+                           + 2 * c, s0, s1, nv, a.vec);
+    }
+  }
+}
+
+// K2: the pre-norm mean_c(u^2) of the thread's pixel (m64 block u, row i
+// of its pair), m, into msq (B, 1, H, W) where the pixel is a stored output
+// (not a halo row or column, not past tc).
+__device__ __forceinline__ void store_msq(const CbArgs& a, const CbTile& tl, int u, int i, int wq, int g,
+                                          float m) {
+  const int p = a.sw + 1 + 64 * u + 16 * wq + g + 8 * i, sr = p / a.sw, sc = p - sr * a.sw;
+  const int img = sr / (a.th + 2), lr = sr - img * (a.th + 2) - 1;
+  if (sc < 1 || sc - 1 >= a.tc || img >= a.nb || lr < 0 || lr >= a.th) return;
+  const int b = tl.b0 + img, r = tl.r0 + lr, c = tl.c0 + sc - 1;
+  if (b < a.B && r < a.H && c < a.W) a.msq[((size_t)b * a.H + r) * a.W + c] = m;
+}
+
 // Block x = cluster * nsplit + split: output channels [split * N, split * N
 // + N).  Warpgroup wg walks the tiles cluster + (k * nwg + wg) * clusters,
 // k = 0, 1, .. (columns fastest, after K3's two row parities), each
 // nchunks chunks of 16 input channels; its chunk q lands in slot q % stages
-// on mbarrier full[q % stages].
-template <int K, int N>
+// on mbarrier full[q % stages].  O: the output's type, bf16 or float32 (the
+// same plan, sums and epilogue; float32 stored unrounded, and for K2 the
+// mean-square map beside it).
+template <int K, int N, typename O>
 __global__ void __launch_bounds__(256, 1) conv_bf16_kernel(const __grid_constant__ CUtensorMap tm, const CbArgs a) {
   constexpr Geom GM = geom(K, N);
   constexpr int MB = GM.mb, PPB = GM.ppb, NT = MB * PPB, ND = N / 2, DP = K == 3 ? MB : MB * GM.dp;
@@ -602,11 +714,27 @@ __global__ void __launch_bounds__(256, 1) conv_bf16_kernel(const __grid_constant
 #pragma unroll
       for (int u = 0; u < NT; ++u)
 #pragma unroll
-        for (int i = 0; i < 2; ++i) pn_scale<NT, N>(acc, u, i, sum[u][i] / (float)a.cout, a.eps);
+        for (int i = 0; i < 2; ++i) {
+          const float m = sum[u][i] / (float)a.cout;
+          // K2: the cluster's sums (past 128 channels) are whole here.
+          if constexpr (K == 3 && std::is_same<O, float>::value)
+            if (a.msq != nullptr && t == 0 && split == 0) store_msq(a, tl, u, i, wq, g, m);
+          pn_scale<NT, N>(acc, u, i, m, a.eps);
+        }
     }
-    stage_out<N, MB, PPB>(acc, region_a, wq, lane);
-    bar_sync(wgbar, 128);
-    store_out<K, N, MB, PPB>(region, a, tl, co_base, lt, sm);
+    if constexpr (std::is_same<O, bf16>::value) {
+      stage_out<N, MB, PPB>(acc, region_a, wq, lane);
+      bar_sync(wgbar, 128);
+      store_out<K, N, MB, PPB>(region, a, tl, co_base, lt, sm);
+    } else {
+      stage_out_f32<N, MB, PPB, 0>(acc, reinterpret_cast<float*>(region), wq, lane);
+      bar_sync(wgbar, 128);
+      store_out_f32<K, N, MB, PPB>(region, a, tl, co_base, lt, sm);
+      bar_sync(wgbar, 128);  // every warp's reads of the first half
+      stage_out_f32<N, MB, PPB, 1>(acc, reinterpret_cast<float*>(region), wq, lane);
+      bar_sync(wgbar, 128);
+      store_out_f32<K, N, MB, PPB>(region, a, tl, co_base + N / 2, lt, sm);
+    }
     bar_sync(wgbar, 128);  // region is the next chunk's transposed window
   }
   // A block's shared memory must outlive the other blocks' reads of it.
@@ -750,7 +878,7 @@ inline int encode_input_map(const bf16* x, int B, int cin, int H, int W, int sw,
   return r == CUDA_SUCCESS ? 0 : CB_ENCODE_ERROR + (int)r;
 }
 
-template <int K, int N>
+template <int K, int N, typename O>
 int launch_cb(const CbPlan& p, const CbArgs& a, const CUtensorMap& tm, int dev, const DeviceInfo& info,
               cudaStream_t stream) {
   // Above 48 KB a kernel gets dynamic shared memory by request only: once
@@ -758,7 +886,7 @@ int launch_cb(const CbPlan& p, const CbArgs& a, const CUtensorMap& tm, int dev, 
   static bool opted_in[MAX_DEVICES] = {};
   if (p.smem > info.smem_optin) return (int)cudaErrorInvalidValue;
   if (!opted_in[dev]) {
-    const cudaError_t e = cudaFuncSetAttribute(conv_bf16_kernel<K, N>,
+    const cudaError_t e = cudaFuncSetAttribute(conv_bf16_kernel<K, N, O>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize, info.smem_optin);
     if (e != cudaSuccess) return (int)e;
     opted_in[dev] = true;
@@ -775,19 +903,21 @@ int launch_cb(const CbPlan& p, const CbArgs& a, const CUtensorMap& tm, int dev, 
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = p.cluster > 1 ? 1 : 0;
-  const cudaError_t e = cudaLaunchKernelEx(&cfg, conv_bf16_kernel<K, N>, tm, a);
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, conv_bf16_kernel<K, N, O>, tm, a);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
 // x: (B, cin, H, W) bf16; w: ops/conv_bf16.py::tc_weights; bias (cout,)
 // float32 or null; y: (B, cout, H, W) (K = 3) or (B, cout, 2H, 2W) (K = 2)
-// bf16; route and tc: 0, or a forced route and tile width (measurements and
-// tests).
-template <int K>
-int launch_conv_bf16(const bf16* x, const bf16* w, const float* bias, bf16* y, int B, int cin, int cout, int H,
-                     int W, float slope, int use_slope, int pixel_norm, float eps, int route, int tc,
+// of O, bf16 or float32; msq: null, or (K2: K = 3, O float32, PixelNorm)
+// (B, 1, H, W) float32 for the pre-norm mean over channels of u^2; route and
+// tc: 0, or a forced route and tile width (measurements and tests).
+template <int K, typename O>
+int launch_conv_bf16(const bf16* x, const bf16* w, const float* bias, O* y, float* msq, int B, int cin, int cout,
+                     int H, int W, float slope, int use_slope, int pixel_norm, float eps, int route, int tc,
                      cudaStream_t stream) {
+  if (msq != nullptr && !(K == 3 && std::is_same<O, float>::value && pixel_norm)) return (int)cudaErrorInvalidValue;
   int dev = 0;
   const DeviceInfo* info = nullptr;
   int err = current_device(&dev, &info);
@@ -804,6 +934,7 @@ int launch_conv_bf16(const bf16* x, const bf16* w, const float* bias, bf16* y, i
   a.w = w;
   a.bias = bias;
   a.y = y;
+  a.msq = msq;
   a.B = B;
   a.cin = cin;
   a.cout = cout;
@@ -846,7 +977,7 @@ int launch_conv_bf16(const bf16* x, const bf16* w, const float* bias, bf16* y, i
   }
 #define MG_CB(NN) \
   case NN:        \
-    return launch_cb<K, NN>(p, a, tm, dev, *info, stream)
+    return launch_cb<K, NN, O>(p, a, tm, dev, *info, stream)
   switch (p.n) {
     MG_CB(16); MG_CB(32); MG_CB(48); MG_CB(64); MG_CB(80); MG_CB(96); MG_CB(112); MG_CB(128);
     default: return (int)cudaErrorInvalidValue;

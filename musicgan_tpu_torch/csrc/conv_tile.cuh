@@ -121,10 +121,15 @@
 // row stays: the tensor cores' additions inside a wgmma truncate in bf16 as
 // in TF32.  K1 bf16 and K3 bf16 are a kernel of their own (conv_bf16.cuh)
 // that sums in this order, so K4 bf16 gives their bits.  The small shape
-// is float32 only.  Each library holds the instances of one type
-// (block3x3_bf16.cu the bf16 ones): g++ makes the function-local statics of
-// template instances (launch's opt-in flags) unique across the process,
-// and two libraries holding the same instance would share them.
+// is float32 only.  The output's type O is E's, or the other for the JAX
+// functions' mixed calls (they compute in x's dtype and cast only at the
+// store): the same plan and sums, only store_tiles' type differs (K1 and
+// K3 with float32 x and a bf16 output, K4 both ways).  Each library holds
+// the instances of one (E, O) pair (block3x3_bf16.cu the bf16 ones,
+// *_f32_bf16.cu and *_bf16_f32.cu the mixed ones): g++ makes the
+// function-local statics of template instances (launch's opt-in flags)
+// unique across the process, and two libraries holding the same instance
+// would share them.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -826,13 +831,13 @@ __device__ __forceinline__ void store_pair(bf16* dst, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(a, b);
 }
 
-// Stores of a warpgroup's tiles to y (B, cout, H * st, W * st), rounded to
-// E: tile u is image row r0 + u / PPB of phase ph0 + u % PPB, pixels c0 + m
+// Stores of a warpgroup's tiles to y (B, cout, H * st, W * st), of the
+// output type O (rounded once where it is bf16): tile u is image row r0 + u / PPB of phase ph0 + u % PPB, pixels c0 + m
 // for m < mlim; rows from rlim on are not stored.  A warp's store covers 8
 // consecutive pixels of 4 channels, or, where the block holds both column
 // phases of K3's output row, the two phases of 8 pixels as pairs.
-template <typename E, int K, int T, int N, int PPB>
-__device__ __forceinline__ void store_tiles(const float (&acc)[T][N / 2], E* __restrict__ y, int b,
+template <typename O, int K, int T, int N, int PPB>
+__device__ __forceinline__ void store_tiles(const float (&acc)[T][N / 2], O* __restrict__ y, int b,
                                             int cout, int co_base, int H, int W, int st, int r0, int c0,
                                             int ph0, int rlim, int mlim, int wq, int g, int t) {
   const size_t plane_o = (size_t)H * st * W * st;
@@ -844,7 +849,7 @@ __device__ __forceinline__ void store_tiles(const float (&acc)[T][N / 2], E* __r
     if (PPB >= 2 && (pu & 1)) continue;  // stored with its ox = 0 partner
     const int r = r0 + ru;
     if (r >= rlim) continue;
-    E* yrow = y + (size_t)b * cout * plane_o + (size_t)(r * st + oy) * W * st;
+    O* yrow = y + (size_t)b * cout * plane_o + (size_t)(r * st + oy) * W * st;
 #pragma unroll
     for (int j = 0; j < N / 8; ++j)
 #pragma unroll
@@ -855,11 +860,11 @@ __device__ __forceinline__ void store_tiles(const float (&acc)[T][N / 2], E* __r
         for (int i = 0; i < 2; ++i) {
           const int m = 16 * wq + g + 8 * i, c = c0 + m;
           if (m >= mlim || c >= W) continue;
-          E* dst = yrow + co * plane_o;
+          O* dst = yrow + co * plane_o;
           if constexpr (PPB >= 2)
             store_pair(dst + 2 * c, acc[u][4 * j + 2 * i + e], acc[u + 1][4 * j + 2 * i + e]);
           else
-            dst[c * st + ox] = from_f32<E>(acc[u][4 * j + 2 * i + e]);
+            dst[c * st + ox] = from_f32<O>(acc[u][4 * j + 2 * i + e]);
         }
       }
   }
@@ -880,11 +885,12 @@ __device__ __forceinline__ void store_tiles(const float (&acc)[T][N / 2], E* __r
 // split into big and small) and transposed to K-major; it hands a stage
 // over by a named barrier (full) and takes it back by another (empty).  The
 // two consumer warpgroups multiply and run the epilogue.  E: float32 or
-// bf16 x, w and y (the bias and msq are float32).
-template <typename E, int K, int N>
+// bf16 x and w; O: float32 or bf16 y, stored from the float32 epilogue
+// (the bias and msq are float32).
+template <typename E, typename O, int K, int N>
 __global__ void __launch_bounds__(TC_THREADS, 1)
 conv_tc_kernel(const E* __restrict__ x, const E* __restrict__ w,
-               const float* __restrict__ bias, E* __restrict__ y,
+               const float* __restrict__ bias, O* __restrict__ y,
                float* __restrict__ msq, int cin, int cout, int coutp, int H, int W,
                int nphase, int nsplit, int ntx, int nty, int nz, float slope, int use_slope,
                int pixel_norm, float eps) {
@@ -1037,7 +1043,7 @@ conv_tc_kernel(const E* __restrict__ x, const E* __restrict__ w,
           pn_scale<T, N>(acc, u, i, m, eps);
         }
     }
-    store_tiles<E, K, T, N, PPB>(acc, y, b, cout, co_base, H, W, nphase == 4 ? 2 : 1, r0 + wg * RW, c0,
+    store_tiles<O, K, T, N, PPB>(acc, y, b, cout, co_base, H, W, nphase == 4 ? 2 : 1, r0 + wg * RW, c0,
                                  ph0, H, TC_W, wq, g, t);
   }
   // A block's shared memory must outlive the other blocks' reads of it.
@@ -1051,11 +1057,11 @@ conv_tc_kernel(const E* __restrict__ x, const E* __restrict__ w,
 // ks * csteps + csteps).  The S blocks of a (tile, split) are one cluster;
 // with PixelNorm and nsplit > 1 the nsplit * S blocks of a tile are.
 // blockIdx.y is the phase.  E: float32 (K1 bf16 and K3 bf16 are
-// conv_bf16.cuh's).
-template <typename E, int K, int PR, int CK>
+// conv_bf16.cuh's); O: float32 or bf16 y.
+template <typename E, typename O, int K, int PR, int CK>
 __global__ void __launch_bounds__(256, 2)
 conv_flat_kernel(const E* __restrict__ x, const E* __restrict__ w,
-                 const float* __restrict__ bias, E* __restrict__ y,
+                 const float* __restrict__ bias, O* __restrict__ y,
                  float* __restrict__ msq, int cin, int cout, int coutp, int H, int W,
                  int N, int rg, int nphase, int nsplit, int S, int csteps, float slope,
                  int use_slope, int pixel_norm, float eps) {
@@ -1253,7 +1259,7 @@ conv_flat_kernel(const E* __restrict__ x, const E* __restrict__ w,
     float v = red[co * NP + sl0 + j];
     if (pixel_norm) v *= scl[j];
     const int bq = p / HW, rem = p - bq * HW, r = rem / W, c = rem - r * W;
-    y[((size_t)bq * cout + gco) * Ho * Wo + (size_t)(r * sts + oy) * Wo + c * sts + ox] = from_f32<E>(v);
+    y[((size_t)bq * cout + gco) * Ho * Wo + (size_t)(r * sts + oy) * Wo + c * sts + ox] = from_f32<O>(v);
   }
   // A block's shared memory must outlive the other blocks' reads of it.
   if (csize > 1) coop::this_cluster().sync();
@@ -1438,8 +1444,10 @@ int launch(const ConvPlan& p, int dev, const DeviceInfo& info, cudaStream_t stre
   return (int)cudaGetLastError();
 }
 
-template <typename E, int K>
-int launch_conv_tile(const E* x, const E* w, const float* bias, E* y,
+// O: y's type, float32 or bf16 (K1 and K3 with a bf16 output: x float32,
+// the same plan and sums, the store rounded once).
+template <typename E, typename O, int K>
+int launch_conv_tile(const E* x, const E* w, const float* bias, O* y,
                      float* msq, int B, int cin, int cout, int H, int W, int nphase,
                      float slope, int use_slope, int pixel_norm, float eps,
                      cudaStream_t stream) {
@@ -1455,7 +1463,7 @@ int launch_conv_tile(const E* x, const E* w, const float* bias, E* y,
   if (p.shape == 1) {
 #define MG_TC(CG)                                                                            \
   case CG:                                                                                   \
-    return launch<conv_tc_kernel<E, K, CG * CO>>(p, dev, *info, stream, x, w, bias, y, msq,  \
+    return launch<conv_tc_kernel<E, O, K, CG * CO>>(p, dev, *info, stream, x, w, bias, y, msq, \
                                                  cin, cout, coutp, H, W, nphase, p.nsplit, \
                                                  p.ntx, p.nty, p.nz, slope, use_slope,     \
                                                  pixel_norm, eps)
@@ -1467,7 +1475,7 @@ int launch_conv_tile(const E* x, const E* w, const float* bias, E* y,
   }
   const int N = B * H * W;
 #define MG_FLAT(PR)                                                                         \
-  launch<conv_flat_kernel<E, K, PR, FLAT_CK>>(p, dev, *info, stream, x, w, bias, y, msq, \
+  launch<conv_flat_kernel<E, O, K, PR, FLAT_CK>>(p, dev, *info, stream, x, w, bias, y, msq, \
          cin, cout, coutp, H, W, N, p.rg, nphase, p.nsplit, p.S, p.csteps, slope,      \
          use_slope, pixel_norm, eps)
   switch (p.pr) {

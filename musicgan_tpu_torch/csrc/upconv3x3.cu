@@ -5,7 +5,8 @@
 // conv_tc_kernel (large images, 3xTF32 on the tensor cores, up to four
 // phases a block) or conv_flat_kernel (small, the phase on blockIdx.y);
 // phase results go straight to (2i+a, 2j+b), the interleave that Mosaic
-// refused in float32.
+// refused in float32.  With float32 x and a bf16 output:
+// upconv3x3_f32_bf16.cu.
 #include "conv_tile.cuh"
 
 // x: (B, cin, H, W); w: (4, cin, 4, coutp) from kernel_upconv_weights;
@@ -14,7 +15,7 @@ extern "C" int mg_upconv3x3(const float* x, const float* w, const float* bias,
                             float* y, int B, int cin, int cout, int H, int W,
                             float slope, int use_slope, int pixel_norm, float eps,
                             cudaStream_t stream) {
-  return mg::launch_conv_tile<float, 2>(x, w, bias, y, nullptr, B, cin, cout, H, W, 4,
+  return mg::launch_conv_tile<float, float, 2>(x, w, bias, y, nullptr, B, cin, cout, H, W, 4,
                                         slope, use_slope, pixel_norm, eps, stream);
 }
 

@@ -4,7 +4,8 @@
 // JAX package packs them) and a bf16 output.  Replaces
 // musicgan_tpu/ops/conv.py::fused_upconv3x3 (Pallas kernel _upconv_kernel,
 // whose packed-pair interleave exists for its bf16 output) called with bf16
-// x and out_dtype=bfloat16.  conv_bf16.cuh's kernel at K = 2: a tile's
+// x and out_dtype=bfloat16 (with out_dtype=float32: upconv3x3_bf16_f32.cu,
+// the same kernel storing float32).  conv_bf16.cuh's kernel at K = 2: a tile's
 // phases share its staged window, and both column phases of an output row
 // leave interleaved in 16-byte stores.  At the largest output, (5, 16, 512,
 // 5120), what bounds it is its bytes.
@@ -17,7 +18,7 @@ extern "C" int mg_upconv3x3_bf16(const mg::bf16* x, const mg::bf16* w, const flo
                                  mg::bf16* y, int B, int cin, int cout, int H, int W,
                                  float slope, int use_slope, int pixel_norm, float eps, int route,
                                  int tc, cudaStream_t stream) {
-  return mg::cb::launch_conv_bf16<2>(x, w, bias, y, B, cin, cout, H, W, slope, use_slope, pixel_norm,
+  return mg::cb::launch_conv_bf16<2, mg::bf16>(x, w, bias, y, nullptr, B, cin, cout, H, W, slope, use_slope, pixel_norm,
                                      eps, route, tc, stream);
 }
 

@@ -111,19 +111,20 @@ class GenBlock(nn.Module):
             return conv_ops.fused_block(
                 x, w1, self.conv1.bias, w2, self.conv2.bias, slope, eps,
                 w1_packed=self._packed("conv1", dt, False, tcb), w2_packed=self._packed("conv2", dt, True, tcb),
+                out_dtype=dt,
             )
         x = conv_ops.fused_conv3x3(
             x, self.conv1.weight, self.conv1.bias, slope, True, eps,
-            w_packed=self._packed("conv1", dt, False, tc),
+            w_packed=self._packed("conv1", dt, False, tc), out_dtype=dt,
         )
         if not (use_upconv or use_block):
             return conv_ops.fused_conv3x3(
                 upsample_nearest_2x(x), self.conv2.weight, self.conv2.bias, slope, True, eps,
-                w_packed=self._packed("conv2", dt, False, tc),
+                w_packed=self._packed("conv2", dt, False, tc), out_dtype=dt,
             )
         return conv_ops.fused_upconv3x3(
             x, self.conv2.weight, self.conv2.bias, slope, True, eps,
-            w_packed=self._packed("conv2", dt, True, tc),
+            w_packed=self._packed("conv2", dt, True, tc), out_dtype=dt,
         )
 
     def forward_train(self, x: torch.Tensor, slope: float, eps: float) -> torch.Tensor:

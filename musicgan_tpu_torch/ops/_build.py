@@ -20,6 +20,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -88,18 +89,31 @@ def _finish_build(job: tuple[subprocess.Popen, Path, Path]) -> None:
     os.replace(tmp, out)  # atomic: a concurrent builder sees all or nothing
 
 
+# Seconds each source's nvcc took in the last build_all (from the common start).
+LAST_BUILD_S: dict[str, float] = {}
+
+
 def build_all() -> float:
     """Compile every ``csrc/*.cu`` that is not built yet, one ``nvcc`` per
-    source, all started together.  Returns the seconds it took."""
+    source, all started together.  Returns the seconds it took; each
+    source's are in ``LAST_BUILD_S``."""
     t0 = time.perf_counter()
-    jobs = [_start_build(src.stem) for src in sorted(SRC_DIR.glob("*.cu"))]
+    jobs = {src.stem: _start_build(src.stem) for src in sorted(SRC_DIR.glob("*.cu"))}
+    LAST_BUILD_S.clear()
     errors = []
-    for job in jobs:  # wait for every nvcc, failed or not, before raising
-        if job is not None:
-            try:
-                _finish_build(job)
-            except RuntimeError as e:
-                errors.append(str(e))
+
+    def finish(name, job):  # one thread a job reads its nvcc's output as it comes
+        try:
+            _finish_build(job)
+        except RuntimeError as e:
+            errors.append(str(e))
+        LAST_BUILD_S[name] = time.perf_counter() - t0
+
+    threads = [threading.Thread(target=finish, args=item) for item in jobs.items() if item[1] is not None]
+    for t in threads:
+        t.start()
+    for t in threads:  # wait for every nvcc, failed or not, before raising
+        t.join()
     if errors:
         raise RuntimeError("\n".join(errors))
     return time.perf_counter() - t0

@@ -14,10 +14,15 @@ launch, ``csrc/block3x3.cuh``, built from the template's tensor-core pieces
 so that it sums every pixel in their order; the first conv's output stays
 in a ring of rows in shared memory, zero outside the image.
 
-Dtypes: each of K1, K3 and K4 takes float32 in and out, or bf16 in and out
-(the JAX functions' ``out_dtype=jnp.bfloat16`` with bf16 activations): the
-bf16 kernels are their own sources (``csrc/conv3x3_bf16.cu``,
-``upconv3x3_bf16.cu``, ``block3x3_bf16.cu``).  K1 bf16 and K3 bf16 are a
+Dtypes: each of K1, K3 and K4 takes float32 in and out, bf16 in and out
+(the JAX functions' ``out_dtype=jnp.bfloat16`` with bf16 activations), or
+one of the JAX functions' two mixed pairs: bf16 in and float32 out, float32
+in and bf16 out.  As the JAX functions do, the wrappers default to a
+float32 output whatever ``x`` is (``out_dtype=torch.float32``); the plain
+versions default to ``x``'s dtype.  The bf16 kernels are their own sources
+(``csrc/conv3x3_bf16.cu``, ``upconv3x3_bf16.cu``, ``block3x3_bf16.cu``),
+and so is each mixed pair (``<kernel>_bf16_f32.cu``, ``<kernel>_f32_bf16.cu``,
+``block3x3_bf16_wide_f32.cu``).  K1 bf16 and K3 bf16 are a
 kernel of their own, ``csrc/conv_bf16.cuh``, on the tensor cores at every
 size, with its plan mirrored and its weight pack made by
 ``ops/conv_bf16.py``; K4 bf16 up to 128 channels is ``csrc/block_bf16.cuh``,
@@ -29,11 +34,17 @@ weights are rounded
 to bf16 after packing (for K3 and K4's conv2, the summed sub-pixel phase
 kernels), the bias stays float32, products are exact and summed in
 float32, the epilogue runs in float32, and the output is rounded to bf16
-once; K4 holds conv1's output in bf16, so it is K1 bf16 then K3 bf16.  A
-mixed pair (bf16 in, float32 out) raises ``NotImplementedError``: the JAX
-functions allow it, no path uses it (ROADMAP.md section B item 8b).  K2
-stays float32 (training).  Each wrapper counts its bf16 launches apart in
-``.bf16_launches`` (they are also in ``.launches``).
+once; K4 holds conv1's output in bf16, so it is K1 bf16 then K3 bf16.  The
+JAX kernels compute in ``x``'s dtype and cast to ``out_dtype`` only at the
+store, and so do the mixed kernels: bf16 in, float32 out is the bf16
+kernel's exact products summed in float32 and its float32 epilogue, stored
+unrounded (K4's c1 still bf16); float32 in, bf16 out is the float32
+kernel's result rounded to bf16 once.  Each takes its same-dtype kernel's
+plan, so its output rounded to bf16 is that kernel's bits.  K2 takes
+float32, or bf16 with float32 ``y`` and ``m`` (the JAX function's outputs
+are float32).  Each wrapper counts its bf16-in-and-out launches apart in
+``.bf16_launches`` and its mixed ones in ``.mixed_launches`` (both are also
+in ``.launches``).
 
 Widths: any ``cout``.  Past 128 channels the kernel splits the channel
 groups of a pixel over several thread blocks; with PixelNorm those blocks
@@ -114,35 +125,52 @@ __all__ = [
 MAX_PIXEL_NORM_CHANNELS = 8 * 128
 # Output channels rounded up to this in the kernel layout.
 _CO = 16
-# The element types a kernel takes (in and out alike).
+# The element types a kernel takes, in and out (any pair of them).
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+_TAG = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
 def out_dtype_of(name: str, x: torch.Tensor, out_dtype=None) -> torch.dtype:
-    """The output dtype of a conv call: ``x``'s unless ``out_dtype`` says
-    otherwise.  A pair that differs (the JAX functions' bf16 in, float32
-    out) is not ported."""
+    """The output dtype of a conv call: ``out_dtype``, or ``x``'s where it
+    is None.  ``x``'s dtype, or the other of float32 and bf16 (the JAX
+    functions' mixed pairs); any other pair raises."""
     out = x.dtype if out_dtype is None else out_dtype
-    if out != x.dtype:
+    if out != x.dtype and not (x.dtype in KERNEL_DTYPES and out in KERNEL_DTYPES):
         raise NotImplementedError(
-            f"{name}: {x.dtype} in and {out} out is not ported; the kernels take float32 or "
-            "bfloat16 in and out alike (ROADMAP.md section B item 8b)"
+            f"{name}: {x.dtype} in and {out} out; a mixed pair is float32 and bfloat16, either way"
         )
     return out
 
 
-def _lib(name: str, dtype: torch.dtype) -> str:
-    """The source (library) of kernel ``name`` for ``dtype``."""
-    return f"{name}_bf16" if dtype == torch.bfloat16 else name
+def _kernel_out_dtype(name: str, x: torch.Tensor, out_dtype) -> torch.dtype:
+    """A wrapper's checks before a kernel: the device, then ``x``'s dtype
+    (one no kernel takes raises ValueError whatever the output's), then the
+    pair (:func:`out_dtype_of`)."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {x.device}")
+    if x.dtype not in KERNEL_DTYPES:
+        raise ValueError(f"{name}: x is {x.dtype}; the kernels take float32 or bfloat16")
+    return out_dtype_of(name, x, out_dtype)
 
 
-def _block_lib(dtype: torch.dtype, cmid: int, cout: int) -> str:
-    """K4's source for ``dtype`` and these widths: in bf16 up to 128
-    channels ``block3x3_bf16`` (``csrc/block_bf16.cuh``), past them
-    ``block3x3_bf16_wide`` (``block3x3.cuh`` at bf16)."""
+def _lib(name: str, dtype: torch.dtype, out: torch.dtype | None = None) -> str:
+    """The source (library) of kernel ``name`` for ``x``'s ``dtype`` and
+    the output's ``out`` (``dtype``'s by default): ``name``,
+    ``name_bf16``, ``name_f32_bf16`` or ``name_bf16_f32``."""
+    if out is None or out == dtype:
+        return f"{name}_bf16" if dtype == torch.bfloat16 else name
+    return f"{name}_{_TAG[dtype]}_{_TAG[out]}"
+
+
+def _block_lib(dtype: torch.dtype, cmid: int, cout: int, out: torch.dtype | None = None) -> str:
+    """K4's source for ``x``'s ``dtype``, the output's ``out`` and these
+    widths: in bf16 up to 128 channels ``block3x3_bf16`` (``csrc/block_bf16.cuh``),
+    past them ``block3x3_bf16_wide`` (``block3x3.cuh`` at bf16), each with
+    ``_f32`` for a float32 output; float32 ``block3x3`` or
+    ``block3x3_f32_bf16``."""
     if dtype == torch.bfloat16 and conv_bf16.block_route(cmid, cout) != "bf16_tc":
-        return "block3x3_bf16_wide"
-    return _lib("block3x3", dtype)
+        return "block3x3_bf16_wide" + ("_f32" if out == torch.float32 else "")
+    return _lib("block3x3", dtype, out)
 
 
 def pack_weights(w: torch.Tensor) -> torch.Tensor:
@@ -229,7 +257,11 @@ def conv3x3_plain(x, w, b, slope=None, pixel_norm=False, eps=1e-8, out_dtype=Non
 def conv3x3_msq_plain(x, w, b, slope=None, eps=1e-8):
     """Plain version of K2: ``(y, m)`` with ``y`` as :func:`conv3x3_plain`
     with PixelNorm and ``m`` the ``(B, 1, H, W)`` mean over channels of the
-    squared post-LeakyReLU activation (before ``+ eps`` and the scale)."""
+    squared post-LeakyReLU activation (before ``+ eps`` and the scale).  A
+    bf16 ``x``: computed in float32 on the weights rounded to bf16, as
+    :func:`conv3x3_plain`; ``y`` and ``m`` float32 (the JAX function's)."""
+    if x.dtype == torch.bfloat16:
+        x, w = x.float(), w.to(torch.bfloat16).float()
     u = _epilogue(conv2d_same(x, w, b), slope, False, eps)
     m = torch.mean(torch.square(u), dim=1, keepdim=True)
     return u * torch.rsqrt(m + eps), m
@@ -308,14 +340,14 @@ def _bf16_weights(name, w, w_packed, upconv):
     return wp if wp.data_ptr() % 16 == 0 else wp.clone()
 
 
-def _launch(name, x, w_packed, b, cout, out_hw, slope, pixel_norm, eps, route=None, tc=0):
-    """Check the operands, allocate the output and launch ``mg_<name>`` (or
-    ``mg_<name>_bf16``, with its forced ``route`` name and tile width
-    ``tc`` where given) for ``x``'s dtype."""
+def _launch(name, x, w_packed, b, cout, out_hw, slope, pixel_norm, eps, route, tc, out):
+    """Check the operands, allocate the output of dtype ``out`` and launch
+    the entry of :func:`_lib`'s source for the pair (for bf16 ``x`` with
+    its forced ``route`` name and tile width ``tc`` where given)."""
     bsz, cin, h, w = x.shape
     x, w_packed, b, b_ptr = _operands(name, x, w_packed, b, pixel_norm, cout)
-    y = torch.empty(bsz, cout, *out_hw, device=x.device, dtype=x.dtype)
-    lib = _lib(name, x.dtype)
+    y = torch.empty(bsz, cout, *out_hw, device=x.device, dtype=out)
+    lib = _lib(name, x.dtype, out)
     args = [x.data_ptr(), w_packed.data_ptr(), b_ptr, y.data_ptr(),
             bsz, cin, cout, h, w, 0.0 if slope is None else slope,
             int(slope is not None), int(pixel_norm), eps]
@@ -329,33 +361,35 @@ def _launch(name, x, w_packed, b, cout, out_hw, slope, pixel_norm, eps, route=No
     return y
 
 
-def _count(wrapper, dtype) -> None:
+def _count(wrapper, dtype, out) -> None:
     wrapper.launches += 1
-    if dtype == torch.bfloat16:
+    if dtype != out:
+        wrapper.mixed_launches += 1
+    elif dtype == torch.bfloat16:
         wrapper.bf16_launches += 1
 
 
-def fused_conv3x3(x, w, b, slope=None, pixel_norm=False, eps=1e-8, w_packed=None, out_dtype=None,
+def fused_conv3x3(x, w, b, slope=None, pixel_norm=False, eps=1e-8, w_packed=None, out_dtype=torch.float32,
                   route=None, tc=0):
     """3x3 'SAME' conv on NCHW ``(B, cin, H, W)`` with OIHW weights ->
     ``(B, cout, H, W)``, with the bias / LeakyReLU / PixelNorm epilogue.
     ``b`` may be None (no bias: the input-gradient convs).  ``x`` float32 or
-    bf16; ``out_dtype`` ``x``'s (the default; another raises).
+    bf16; ``out_dtype`` float32 or bf16, float32 by default as the JAX
+    function's (a caller that wants ``x``'s dtype passes it).
     ``w_packed``: ``kernel_weights(w, x.dtype)`` made ahead, for the kernel
     (bf16: or ``kernel_weights_tc(w)``, the pack K1 bf16 reads).  ``route``
     and ``tc`` force K1 bf16's route (``"small_bf16_tc"``,
     ``"large_bf16_tc"``) and tile width, for measurements and tests."""
-    out_dtype_of("fused_conv3x3", x, out_dtype)
     if x.device.type == "cpu":
-        return checked("fused_conv3x3", conv3x3_plain(x, w, b, slope, pixel_norm, eps))
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_conv3x3: no kernel for device {x.device}")
+        out = out_dtype_of("fused_conv3x3", x, out_dtype)
+        return checked("fused_conv3x3", conv3x3_plain(x, w, b, slope, pixel_norm, eps, out))
+    out = _kernel_out_dtype("fused_conv3x3", x, out_dtype)
     if x.dtype == torch.bfloat16:
         wp = _bf16_weights("fused_conv3x3", w, w_packed, False)
     else:
         wp = _kernel_layout("fused_conv3x3", w, w_packed, False, x.dtype)
-    y = _launch("conv3x3", x, wp, b, w.shape[0], x.shape[2:], slope, pixel_norm, eps, route, tc)
-    _count(fused_conv3x3, x.dtype)
+    y = _launch("conv3x3", x, wp, b, w.shape[0], x.shape[2:], slope, pixel_norm, eps, route, tc, out)
+    _count(fused_conv3x3, x.dtype, out)
     return checked("fused_conv3x3", y)
 
 
@@ -363,29 +397,37 @@ def fused_conv3x3_msq(x, w, b, slope=None, eps=1e-8, w_packed=None):
     """Training forward of :func:`fused_conv3x3` with PixelNorm: returns
     ``(y, m)``, ``m`` the pre-norm ``mean_c(u^2)`` map ``(B, 1, H, W)``.
     It is the one intermediate the backward pass cannot rebuild from ``y``
-    in float32: ``mean_c(y^2) = m / (m + eps)`` rounds to 1 for ``m >> eps``."""
+    in float32: ``mean_c(y^2) = m / (m + eps)`` rounds to 1 for ``m >> eps``.
+    ``x`` float32, or bf16 (``w_packed`` then K1 bf16's pack or the bf16
+    kernel layout): ``y`` and ``m`` are float32 either way, as the JAX
+    function's; the bf16 call is K1 bf16's kernel with a float32 store
+    (counted in ``.mixed_launches``)."""
     if x.device.type == "cpu":
         return checked("fused_conv3x3_msq", conv3x3_msq_plain(x, w, b, slope, eps))
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_conv3x3_msq: no kernel for device {x.device}")
-    if x.dtype != torch.float32:
-        raise ValueError(f"fused_conv3x3_msq: x is {x.dtype}; the training kernel K2 takes float32")
-    wp = _kernel_layout("fused_conv3x3_msq", w, w_packed, False)
+    _kernel_out_dtype("fused_conv3x3_msq", x, torch.float32)
+    bf16 = x.dtype == torch.bfloat16
+    if bf16:
+        wp = _bf16_weights("fused_conv3x3_msq", w, w_packed, False)
+    else:
+        wp = _kernel_layout("fused_conv3x3_msq", w, w_packed, False)
     bsz, cin, h, wd = x.shape
     cout = w.shape[0]
     x, wp, b, b_ptr = _operands("conv3x3_msq", x, wp, b, True, cout)
     y = torch.empty(bsz, cout, h, wd, device=x.device, dtype=torch.float32)
     m = torch.empty(bsz, 1, h, wd, device=x.device, dtype=torch.float32)
-    _build.kernel("conv3x3", "mg_conv3x3_msq", _MSQ_ARGS)(
+    lib, sym = ("conv3x3_bf16_f32", "mg_conv3x3_msq_bf16") if bf16 else ("conv3x3", "mg_conv3x3_msq")
+    _build.kernel(lib, sym, _MSQ_ARGS)(
         x.data_ptr(), wp.data_ptr(), b_ptr, y.data_ptr(), m.data_ptr(),
         bsz, cin, cout, h, wd, 0.0 if slope is None else slope,
         int(slope is not None), eps, device=x.device,
     )
     fused_conv3x3_msq.launches += 1
+    if bf16:
+        fused_conv3x3_msq.mixed_launches += 1
     return checked("fused_conv3x3_msq", (y, m))
 
 
-def fused_upconv3x3(x, w, b, slope=None, pixel_norm=False, eps=1e-8, w_packed=None, out_dtype=None,
+def fused_upconv3x3(x, w, b, slope=None, pixel_norm=False, eps=1e-8, w_packed=None, out_dtype=torch.float32,
                     route=None, tc=0):
     """``conv3x3(upsample_nearest_2x(x))`` on NCHW ``(B, cin, H, W)`` with
     OIHW weights -> ``(B, cout, 2H, 2W)``, with the fused epilogue.  Dtypes
@@ -393,25 +435,25 @@ def fused_upconv3x3(x, w, b, slope=None, pixel_norm=False, eps=1e-8, w_packed=No
     x.dtype)`` made ahead, for the kernel (bf16: or
     ``kernel_weights_tc(w, upconv=True)``).  ``route``, ``tc``: as
     :func:`fused_conv3x3`'s, for K3 bf16."""
-    out_dtype_of("fused_upconv3x3", x, out_dtype)
     if x.device.type == "cpu":
-        return checked("fused_upconv3x3", upconv3x3_plain(x, w, b, slope, pixel_norm, eps))
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_upconv3x3: no kernel for device {x.device}")
+        out = out_dtype_of("fused_upconv3x3", x, out_dtype)
+        return checked("fused_upconv3x3", upconv3x3_plain(x, w, b, slope, pixel_norm, eps, out))
+    out = _kernel_out_dtype("fused_upconv3x3", x, out_dtype)
     if x.dtype == torch.bfloat16:
         wp = _bf16_weights("fused_upconv3x3", w, w_packed, True)
     else:
         wp = _kernel_layout("fused_upconv3x3", w, w_packed, True, x.dtype)
     h, w_ = x.shape[2:]
-    y = _launch("upconv3x3", x, wp, b, w.shape[0], (2 * h, 2 * w_), slope, pixel_norm, eps, route, tc)
-    _count(fused_upconv3x3, x.dtype)
+    y = _launch("upconv3x3", x, wp, b, w.shape[0], (2 * h, 2 * w_), slope, pixel_norm, eps, route, tc, out)
+    _count(fused_upconv3x3, x.dtype, out)
     return checked("fused_upconv3x3", y)
 
 
 def fused_block_plain(x, w1, b1, w2, b2, slope=0.2, eps=1e-8, out_dtype=None):
     """Plain version of K4: :func:`conv3x3_plain` then :func:`upconv3x3_plain`,
     both with LeakyReLU and PixelNorm; conv1's output in ``x``'s dtype (the
-    JAX kernel's c1 scratch), so in bf16 it is the bf16 pair's."""
+    JAX kernel's c1 scratch), so in bf16 it is the bf16 pair's, and with a
+    float32 ``out_dtype`` K1 bf16 then K3 bf16 with a float32 output."""
     out = out_dtype_of("fused_block_plain", x, out_dtype)
     mid = conv3x3_plain(x, w1, b1, slope, True, eps)
     return upconv3x3_plain(mid, w2, b2, slope, True, eps, out)
@@ -651,7 +693,7 @@ def _block_workspace(cin: int, cmid: int, cout: int, lib: str) -> int:
     return fn(cin, cmid, cout)
 
 
-def fused_block(x, w1, b1, w2, b2, slope=0.2, eps=1e-8, w1_packed=None, w2_packed=None, out_dtype=None,
+def fused_block(x, w1, b1, w2, b2, slope=0.2, eps=1e-8, w1_packed=None, w2_packed=None, out_dtype=torch.float32,
                 tc=0, run=0):
     """A whole generator block on NCHW ``(B, cin, H, W)`` with OIHW weights
     ``w1`` ``(cmid, cin, 3, 3)`` and ``w2`` ``(cout, cmid, 3, 3)`` ->
@@ -665,11 +707,10 @@ def fused_block(x, w1, b1, w2, b2, slope=0.2, eps=1e-8, w1_packed=None, w2_packe
     and K4 bf16 reads (the kernel layout is moved into them on the card).
     ``tc``, ``run``: K4 bf16's strip width and run length forced, for
     measurements and tests."""
-    out_dtype_of("fused_block", x, out_dtype)
     if x.device.type == "cpu":
-        return checked("fused_block", fused_block_plain(x, w1, b1, w2, b2, slope, eps))
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_block: no kernel for device {x.device}")
+        out = out_dtype_of("fused_block", x, out_dtype)
+        return checked("fused_block", fused_block_plain(x, w1, b1, w2, b2, slope, eps, out))
+    out = _kernel_out_dtype("fused_block", x, out_dtype)
     bsz, cin, h, wd = x.shape
     cmid, cout = w1.shape[0], w2.shape[0]
     if w1.shape[1] != cin or w2.shape[1] != cmid:
@@ -697,16 +738,18 @@ def fused_block(x, w1, b1, w2, b2, slope=0.2, eps=1e-8, w1_packed=None, w2_packe
         w2p = _kernel_layout("fused_block", w2, w2_packed, True, x.dtype)
     x, w1p, b1, b1_ptr = _operands("block3x3", x, w1p, b1, True, cmid)
     _, w2p, b2, b2_ptr = _operands("block3x3", x, w2p, b2, True, cout)
-    y = torch.empty(bsz, cout, 2 * h, 2 * wd, device=x.device, dtype=x.dtype)
-    lib = _block_lib(x.dtype, cmid, cout)
-    ws = torch.empty(_block_workspace(cin, cmid, cout, lib), device=x.device, dtype=torch.float32)
+    y = torch.empty(bsz, cout, 2 * h, 2 * wd, device=x.device, dtype=out)
+    lib = _block_lib(x.dtype, cmid, cout, out)
+    # The workspace (and the plan) are those of x's dtype, whatever the output's.
+    ws = torch.empty(_block_workspace(cin, cmid, cout, _block_lib(x.dtype, cmid, cout)), device=x.device,
+                     dtype=torch.float32)
     args = [x.data_ptr(), w1p.data_ptr(), b1_ptr, w2p.data_ptr(), b2_ptr, ws.data_ptr(), y.data_ptr(),
             bsz, cin, cmid, cout, h, wd, slope, eps]
     if bf16_tc:
         _build.kernel(lib, f"mg_{lib}", _BLOCK_BF16_ARGS)(*args, tc, run, device=x.device)
     else:
         _build.kernel(lib, f"mg_{lib}", _BLOCK_ARGS)(*args, device=x.device)
-    _count(fused_block, x.dtype)
+    _count(fused_block, x.dtype, out)
     return checked("fused_block", y)
 
 
@@ -733,8 +776,9 @@ def conv_plan(kind: str, bsz: int, cin: int, cout: int, h: int, w: int, pixel_no
     ``ops/conv_bf16.py::plan`` that the launcher reports (``route``
     "small_bf16_tc" or "large_bf16_tc", ``tc``, ``th``, ``nb``, ...), with
     ``tile`` ``(th, tc)`` and ``phases_a_block``; ``route`` and ``tc``
-    force them as the wrapper's do.  Needs the card (the plan reads its SM
-    count)."""
+    force them as the wrapper's do.  A mixed pair takes the plan of ``x``'s
+    dtype (the kernels store another type, nothing else).  Needs the card
+    (the plan reads its SM count)."""
     k, nphase = (2, 4) if kind == "upconv3x3" else (3, 1)
     lib = _build.load(_lib(kind, dtype))
     if dtype == torch.bfloat16:
@@ -768,7 +812,7 @@ def conv_plan(kind: str, bsz: int, cin: int, cout: int, h: int, w: int, pixel_no
     return plan
 
 
-fused_conv3x3.launches = fused_conv3x3.bf16_launches = 0
-fused_conv3x3_msq.launches = 0
-fused_upconv3x3.launches = fused_upconv3x3.bf16_launches = 0
-fused_block.launches = fused_block.bf16_launches = 0
+fused_conv3x3.launches = fused_conv3x3.bf16_launches = fused_conv3x3.mixed_launches = 0
+fused_conv3x3_msq.launches = fused_conv3x3_msq.mixed_launches = 0
+fused_upconv3x3.launches = fused_upconv3x3.bf16_launches = fused_upconv3x3.mixed_launches = 0
+fused_block.launches = fused_block.bf16_launches = fused_block.mixed_launches = 0

@@ -35,6 +35,12 @@ K4 bf16 (``csrc/block_bf16.cuh``, up to 128 channels each conv) reads the
 same packs and keeps the same order; :func:`block_plan` mirrors its plan
 (strip width, run length, weights resident or streamed, warpgroups a
 block) and says whether the generator takes it (``takes``).
+
+A float32 output (the JAX functions' bf16 ``x`` with ``out_dtype=float32``,
+and K2 with bf16 ``x``) leaves through the bf16 output's staging region in
+two halves of the block's channels, ``[phase][N / 2][8 mb + 1][8]`` floats,
+the same bytes: so neither plan (nor its mirror here) depends on the output
+type, and the float32 output rounded to bf16 is the bf16 output's bits.
 """
 
 from __future__ import annotations
@@ -102,7 +108,9 @@ def _wgmma_clk4(n: int) -> int:
 
 
 def _smem(k, n, g, nwg, sw, rows_w, resident, stages, nchunks, nsplit, pixel_norm) -> int:
-    """Bytes of shared memory a block takes (``conv_bf16.cuh::cb_layout``)."""
+    """Bytes of shared memory a block takes (``conv_bf16.cuh::cb_layout``),
+    either output type: ``out`` holds a tile's bf16 outputs or half its
+    float32 ones."""
     raw = 32 * rows_w * (sw + 16)
     wchunk = 32 * n * g["wtaps"]
     ptrans = _round(max(rows_w * sw + 1, 64 * g["mb"] + 2 * sw + 2), 8)

@@ -385,7 +385,7 @@ def conv3x3_act_backward(x, w, y, m, g, slope, pixel_norm, eps, needs=(True, Tru
     dx = dw = db = None
     if needs[0]:
         w_t = w.flip(2, 3).transpose(0, 1)  # rot180, in/out swap (OIHW)
-        dx = fused_conv3x3(dpre, w_t, None)
+        dx = fused_conv3x3(dpre, w_t, None, out_dtype=dpre.dtype)
     if needs[1]:
         dw = weight_grad3x3(x, dpre, w.shape)
     if needs[2]:
@@ -399,7 +399,7 @@ class _Conv3x3Act(torch.autograd.Function):
         if pixel_norm:
             y, m = fused_conv3x3_msq(x, w, b, slope, eps)
         else:
-            y, m = fused_conv3x3(x, w, b, slope, False, eps), None
+            y, m = fused_conv3x3(x, w, b, slope, False, eps, out_dtype=x.dtype), None
         ctx.slope, ctx.pixel_norm, ctx.eps = slope, pixel_norm, eps
         ctx.save_for_backward(x if ctx.needs_input_grad[1] else None, w, y, m)
         return y

@@ -289,17 +289,17 @@ def main() -> None:
         k1p, k3p = conv_ops.kernel_weights(w1, bf), conv_ops.kernel_upconv_weights(w2, bf)
         w1p, w2p = (tc_pack(w1), tc_pack(w2, True)) if tc_pack else (k1p, k3p)
         xu = F.interpolate(x, scale_factor=2, mode="nearest")
-        mid_up = F.interpolate(conv_ops.fused_conv3x3(x, w1, b1, 0.2, True, w_packed=w1p), scale_factor=2,
+        mid_up = F.interpolate(conv_ops.fused_conv3x3(x, w1, b1, 0.2, True, w_packed=w1p, out_dtype=bf), scale_factor=2,
                                mode="nearest")
         w1b, b1b, w2b, b2b = w1.to(bf), b1.to(bf), w2.to(bf), b2.to(bf)
         cases = {
-            "synth_k1_bf16": (lambda: conv_ops.fused_conv3x3(x, w1, b1, 0.2, True, w_packed=w1p),  # noqa: E731
+            "synth_k1_bf16": (lambda: conv_ops.fused_conv3x3(x, w1, b1, 0.2, True, w_packed=w1p, out_dtype=bf),  # noqa: E731
                               lambda: F.conv2d(x, w1b, b1b, padding=1), [5, cin, cin, hh, ww]),
-            "synth_k3_bf16": (lambda: conv_ops.fused_upconv3x3(x, w2, b2, 0.2, True, w_packed=w2p),  # noqa: E731
+            "synth_k3_bf16": (lambda: conv_ops.fused_upconv3x3(x, w2, b2, 0.2, True, w_packed=w2p, out_dtype=bf),  # noqa: E731
                               lambda: F.conv2d(xu, w2b, b2b, padding=1), [5, cin, cout, hh, ww]),
             "synth_k4_bf16": (lambda: conv_ops.fused_block(x, w1, b1, w2, b2, 0.2, 1e-8,  # noqa: E731
                                                            w1_packed=w1p if k4_tc else k1p,
-                                                           w2_packed=w2p if k4_tc else k3p),
+                                                           w2_packed=w2p if k4_tc else k3p, out_dtype=bf),
                               lambda: (F.conv2d(x, w1b, b1b, padding=1), F.conv2d(mid_up, w2b, b2b, padding=1)),
                               [5, cin, cin, cout, hh, ww]),
         }
@@ -308,7 +308,8 @@ def main() -> None:
                               "library_ms": smoke.time_ms(library)})
             if role == "synth_k4_bf16":  # beside K1 bf16 then K3 bf16, and whether the size rule takes it
                 bf16_rows[-1]["pair_ms"] = smoke.time_ms(lambda: conv_ops.fused_upconv3x3(
-                    conv_ops.fused_conv3x3(x, w1, b1, 0.2, True, w_packed=w1p), w2, b2, 0.2, True, w_packed=w2p))
+                    conv_ops.fused_conv3x3(x, w1, b1, 0.2, True, w_packed=w1p, out_dtype=bf), w2, b2, 0.2, True,
+                    w_packed=w2p, out_dtype=bf))
                 bf16_rows[-1]["takes"] = conv_ops.fused_block_fits(
                     cin, cin, cout, size=(5, hh, ww), device=dev,
                     **({"dtype": bf} if k4_tc else {}))

@@ -116,7 +116,7 @@ def sweep_bf16(card: str, dev) -> None:
         xl = upsample_nearest_2x(x) if k == 2 else x
         ref = (conv_ops.conv3x3_plain if k == 3 else conv_ops.upconv3x3_plain)(x, wt, bb, 0.2, True)
         rule = conv_bf16.plan(k, b, cin, cout, h, w, True, sms)
-        want = fn(x, wt, bb, 0.2, True, w_packed=wp)
+        want = fn(x, wt, bb, 0.2, True, w_packed=wp, out_dtype=torch.bfloat16)
         plans = {}
         for route in conv_bf16.routes_for(k, b, cin, cout, h, w, True, sms):
             for tc in (0, *BF16_TC):
@@ -127,7 +127,8 @@ def sweep_bf16(card: str, dev) -> None:
                 name = f"{route.split('_')[0]}:{p['nb']}x{p['th']}x{p['tc']}"
                 if name in plans:
                     continue
-                run = lambda: fn(x, wt, bb, 0.2, True, w_packed=wp, route=route, tc=p["tc"])  # noqa: E731
+                run = lambda: fn(x, wt, bb, 0.2, True, w_packed=wp, route=route, tc=p["tc"],  # noqa: E731
+                                 out_dtype=torch.bfloat16)
                 got = run()
                 a, r = got.float(), ref.float()
                 if ((a - r).abs() > 2.0**-7 * torch.maximum(a.abs(), r.abs()) + 1e-5).any():
@@ -138,7 +139,7 @@ def sweep_bf16(card: str, dev) -> None:
         chosen = f"{rule['route'].split('_')[0]}:{rule['nb']}x{rule['th']}x{rule['tc']}"
         best = min(plans, key=plans.get)
         row = {"role": role, "shape": [b, cin, cout, h, w], "chosen": chosen,
-               "chosen_ms": time_ms(lambda: fn(x, wt, bb, 0.2, True, w_packed=wp)), "best": best,
+               "chosen_ms": time_ms(lambda: fn(x, wt, bb, 0.2, True, w_packed=wp, out_dtype=torch.bfloat16)), "best": best,
                "best_ms": plans[best], "library_ms": time_ms(lambda: F.conv2d(xl, wt.to(torch.bfloat16),
                                                                          bb.to(torch.bfloat16), padding=1)),
                "plans_ms": plans}
@@ -170,8 +171,8 @@ def sweep_k4_bf16(card: str, dev) -> None:
         w1p, w2p = conv_ops.kernel_weights_tc(w1), conv_ops.kernel_weights_tc(w2, True)
 
         def pair():
-            mid = conv_ops.fused_conv3x3(x, w1, b1, 0.2, True, w_packed=w1p)
-            return conv_ops.fused_upconv3x3(mid, w2, b2, 0.2, True, w_packed=w2p)
+            mid = conv_ops.fused_conv3x3(x, w1, b1, 0.2, True, w_packed=w1p, out_dtype=torch.bfloat16)
+            return conv_ops.fused_upconv3x3(mid, w2, b2, 0.2, True, w_packed=w2p, out_dtype=torch.bfloat16)
 
         want = pair()
         rule = conv_bf16.block_plan(b, cin, cmid, cout, h, w, sms)
@@ -187,14 +188,15 @@ def sweep_k4_bf16(card: str, dev) -> None:
                 if name in plans:
                     continue
                 fn = lambda: conv_ops.fused_block(x, w1, b1, w2, b2, w1_packed=w1p, w2_packed=w2p,  # noqa: E731
-                                                  tc=p["tc"], run=p["run"])
+                                                  tc=p["tc"], run=p["run"], out_dtype=torch.bfloat16)
                 if not torch.equal(fn(), want):
                     raise AssertionError(f"K4 bf16 {(b, cin, cmid, cout, h, w)} plan {name}: not the pair's bits")
                 plans[name] = {"ms": time_ms(fn), "cost": p["cost"]}
         chosen = f"{rule['tc']}x{rule['run']}:{rule['nwg']}wg"
         best = min(plans, key=lambda k: plans[k]["ms"])
         row = {"shape": [b, cin, cmid, cout, h, w], "chosen": chosen,
-               "chosen_ms": time_ms(lambda: conv_ops.fused_block(x, w1, b1, w2, b2, w1_packed=w1p, w2_packed=w2p)),
+               "chosen_ms": time_ms(lambda: conv_ops.fused_block(x, w1, b1, w2, b2, w1_packed=w1p, w2_packed=w2p,
+                                                                 out_dtype=torch.bfloat16)),
                "best": best, "best_ms": plans[best]["ms"], "pair_ms": time_ms(pair), "cost": rule["cost"],
                "pair_cost": rule["pair_cost"], "takes": rule["takes"], "plans": plans}
         rows.append(row)

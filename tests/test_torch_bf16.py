@@ -93,7 +93,8 @@ def test_bf16_conv3x3_matches_jax_interpret(b, cin, cout, h, w, slope, pn):
     x, wt, bias = _inputs(b + cout, b, cin, cout, h, w)
     ref = jax_conv.fused_conv3x3(_bf16_jax(x), jnp.asarray(wt), jnp.asarray(bias), slope=slope,
                                  pixel_norm=pn, out_dtype=jnp.bfloat16, interpret=True)
-    got = conv_ops.fused_conv3x3(_bf16_torch(x), _oihw(wt), torch.from_numpy(bias), slope, pn)
+    got = conv_ops.fused_conv3x3(_bf16_torch(x), _oihw(wt), torch.from_numpy(bias), slope, pn,
+                                 out_dtype=torch.bfloat16)
     _assert_within_one_ulp(_f32(got), _f32(ref))
 
 
@@ -103,7 +104,8 @@ def test_bf16_upconv3x3_matches_jax_interpret(b, cin, cout, h, w, slope, pn):
     x, wt, bias = _inputs(b + cin, b, cin, cout, h, w)
     ref = jax_conv.fused_upconv3x3(_bf16_jax(x), jnp.asarray(wt), jnp.asarray(bias), slope=slope,
                                    pixel_norm=pn, out_dtype=jnp.bfloat16, interpret=True)
-    got = conv_ops.fused_upconv3x3(_bf16_torch(x), _oihw(wt), torch.from_numpy(bias), slope, pn)
+    got = conv_ops.fused_upconv3x3(_bf16_torch(x), _oihw(wt), torch.from_numpy(bias), slope, pn,
+                                   out_dtype=torch.bfloat16)
     assert got.shape == (b, cout, 2 * h, 2 * w)
     _assert_within_one_ulp(_f32(got), _f32(ref))
 
@@ -121,7 +123,7 @@ def test_bf16_block_matches_jax_interpret(b, cin, cmid, cout, h, w):
     ref = jax_conv.fused_block(_bf16_jax(x), *(jnp.asarray(a) for a in (w1, b1, w2, b2)), slope=0.2,
                                eps=1e-8, out_dtype=jnp.bfloat16, interpret=True)
     got = conv_ops.fused_block(_bf16_torch(x), _oihw(w1), torch.from_numpy(b1), _oihw(w2),
-                               torch.from_numpy(b2), 0.2, 1e-8)
+                               torch.from_numpy(b2), 0.2, 1e-8, out_dtype=torch.bfloat16)
     _assert_within_one_ulp(_f32(got), _f32(ref))
 
 
@@ -132,9 +134,10 @@ def test_bf16_block_plain_is_the_bf16_pair_exactly():
     _, w2, b2 = _inputs(5, 1, 16, 12, 1, 1)
     xt, w1t, w2t = _bf16_torch(x), _oihw(w1), _oihw(w2)
     b1t, b2t = torch.from_numpy(b1), torch.from_numpy(b2)
-    block = conv_ops.fused_block(xt, w1t, b1t, w2t, b2t, 0.2, 1e-8)
-    mid = conv_ops.fused_conv3x3(xt, w1t, b1t, 0.2, True, 1e-8)
-    pair = conv_ops.fused_upconv3x3(mid, w2t, b2t, 0.2, True, 1e-8)
+    bf = torch.bfloat16
+    block = conv_ops.fused_block(xt, w1t, b1t, w2t, b2t, 0.2, 1e-8, out_dtype=bf)
+    mid = conv_ops.fused_conv3x3(xt, w1t, b1t, 0.2, True, 1e-8, out_dtype=bf)
+    pair = conv_ops.fused_upconv3x3(mid, w2t, b2t, 0.2, True, 1e-8, out_dtype=bf)
     assert mid.dtype == block.dtype == torch.bfloat16
     assert torch.equal(block, pair)
     assert torch.equal(block, conv_ops.fused_block_plain(xt, w1t, b1t, w2t, b2t, 0.2, 1e-8))
@@ -191,18 +194,6 @@ def test_plain_versions_round_the_weights_as_the_kernels_read_them():
 
     want = subpixel_conv(xt.float(), phases, bt).to(torch.bfloat16)
     assert torch.equal(conv_ops.upconv3x3_plain(xt, wo, bt), want)
-
-
-@pytest.mark.parametrize("wrapper", ["fused_conv3x3", "fused_upconv3x3", "fused_block"])
-def test_a_mixed_dtype_pair_is_not_ported(wrapper):
-    x, wt, bias = _inputs(1, 1, 4, 4, 3, 3)
-    xt, wo, bt = _bf16_torch(x), _oihw(wt), torch.from_numpy(bias)
-    args = (xt, wo, bt, wo, bt) if wrapper == "fused_block" else (xt, wo, bt, 0.2, True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        getattr(conv_ops, wrapper)(*args, out_dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        getattr(conv_ops, wrapper)(xt.float(), *args[1:], out_dtype=torch.bfloat16)
-    assert getattr(conv_ops, wrapper)(*args, out_dtype=torch.bfloat16).dtype == torch.bfloat16
 
 
 def test_kernel_operands_are_checked_for_the_call_dtype():

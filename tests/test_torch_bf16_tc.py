@@ -348,3 +348,95 @@ def test_tc_weights_is_the_kernel_layout_moved():
                     v = pack[co // n, c // 16, tap, (c % 16) // 8, co % n, c % 8]
                     want = lay[c, tap, co] if c < cin and co < cout else 0
                     assert v == want
+
+
+# ---- The float32 output (the mixed call bf16 in, float32 out, and K2 with
+# bf16 x): the tile leaves through the bf16 output's staging region in two
+# halves of its channels (conv_bf16.cuh::stage_out_f32, store_out_f32), so
+# the plan and the layout are the bf16 output's.
+
+def _f32_halves(k, n):
+    """stage_out_f32 then store_out_f32 for one tile, thread by thread, at
+    N = ``n`` channels: each half's region as the staging threads fill it
+    (each float tagged with its (phase, position, channel)), and what each
+    store item reads back.  Raises AssertionError on a float written twice
+    or outside the bf16 region, an item twice, or a read of another tag."""
+    g_ = cb.geometry(k, n)
+    mb, ppb = g_["mb"], g_["ppb"]
+    G, G1, NH, JH = 8 * mb, 8 * mb + 1, n // 2, n // 16
+    floats = ppb * n * G1 * 16 // 4  # the bf16 output's region, conv_bf16.py::_smem's out
+    noy = 1 if k == 3 else ppb // 2
+    items = -(-noy * NH * G // 128)
+    stored = set()
+    for hf in (0, 1):
+        region = {}
+        for wq in range(4):
+            for lane in range(32):
+                g, t = lane >> 2, lane & 3
+                for u in range(mb * ppb):
+                    m, p = u // ppb, u % ppb
+                    for jl in range(JH):
+                        for e in range(2):
+                            for i in range(2):
+                                idx = ((p * NH + 8 * jl + 2 * t + e) * G1 + 8 * m + 2 * wq + i) * 8 + g
+                                assert 0 <= idx < floats and idx not in region
+                                region[idx] = (p, 64 * m + 16 * wq + g + 8 * i, 8 * (hf * JH + jl) + 2 * t + e)
+        for lt in range(128):
+            grp = lt % G
+            for it in range(items):
+                rest = lt // G + it * (128 // G)
+                co, oyl = rest % NH, rest // NH
+                if oyl >= noy:
+                    continue
+                assert (hf, oyl, co, grp) not in stored
+                stored.add((hf, oyl, co, grp))
+                phases = [0] if k == 3 else [2 * oyl, 2 * oyl + 1] if ppb == 4 else [0, 1]
+                for ph in phases:
+                    for slot in range(8):
+                        assert region[((ph * NH + co) * G1 + grp) * 8 + slot] == (ph, 8 * grp + slot, hf * NH + co)
+    return stored, noy, G, NH
+
+
+@pytest.mark.parametrize("k", [3, 2])
+@pytest.mark.parametrize("n", [16, 32, 48, 64, 80, 96, 112, 128])
+def test_float32_output_leaves_through_the_bf16_region_in_two_halves(k, n):
+    """Every (position, channel) of a tile is staged once per half inside the
+    bf16 output's region, and every (row parity, channel, group) of both
+    halves is stored once, each reading back the floats staged for it."""
+    stored, noy, G, NH = _f32_halves(k, n)
+    assert len(stored) == 2 * noy * NH * G
+
+
+def _msq_coverage(bsz, h, w, p):
+    """How many times K2 with bf16 x writes each pixel of its mean-square map
+    (conv_bf16.cuh::store_msq: position sw + 1 + 64 u + 16 wq + g + 8 i of
+    every tile, the stored outputs' positions only)."""
+    sw, th, tc = p["sw"], p["th"], p["tc"]
+    pos = sw + 1 + np.arange(64 * p["mb"])
+    sr, sc = pos // sw, pos % sw
+    img = sr // (th + 2)
+    lr = sr - img * (th + 2) - 1
+    ok = (sc >= 1) & (sc - 1 < tc) & (img < p["nb"]) & (lr >= 0) & (lr < th)
+    cov = np.zeros((bsz, h, w), np.int64)
+    b0, r0, c0, _ = _tiles(p, h)
+    for ti in range(p["ntiles"]):
+        b, r, c = b0[ti] + img, r0[ti] + lr, c0[ti] + sc - 1
+        v = ok & (b < bsz) & (r < h) & (c < w)
+        np.add.at(cov, (b[v], r[v], c[v]), 1)
+    return cov
+
+
+def _train_gen_shapes():
+    """K2's shapes in a stage-7 train step at batch 6 (the generator's 16
+    convs), (B, cin, cout, H, W)."""
+    out, h = [], 2
+    for cin, cout in ModelConfig().gen_channels:
+        out += [(6, cin, cin, h, h), (6, cin, cout, 2 * h, 2 * h)]
+        h *= 2
+    return out
+
+
+@pytest.mark.parametrize("bsz,cin,cout,h,w", _train_gen_shapes() + [s[1:] for s in RAGGED if s[0] == 3])
+def test_msq_map_covers_every_pixel_once(bsz, cin, cout, h, w):
+    p = cb.plan(3, bsz, cin, cout, h, w, True, SMS)
+    assert (_msq_coverage(bsz, h, w, p) == 1).all()

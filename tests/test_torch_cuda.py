@@ -628,6 +628,9 @@ def test_weight_grad3x3_routes_match_plain(cuda, route, b, cin, cout, h, w):
 # held within one bf16 ulp of them elementwise, plus 1e-5 for results near
 # zero that the two sums' float32 rounding moves across LeakyReLU's kink.
 
+BF = torch.bfloat16
+
+
 def assert_within_bf16_ulp(got, ref):
     assert got.dtype == ref.dtype == torch.bfloat16 and got.shape == ref.shape
     a, b = got.float(), ref.float()
@@ -680,13 +683,13 @@ def test_bf16_k1_k3_match_plain(cuda, b, cin, cout, h, w, epilogue):
     for k, fn, wp, ref in ((3, conv_ops.fused_conv3x3, w1, ref1), (2, conv_ops.fused_upconv3x3, w3, ref3)):
         for route in [None] + conv_bf16.routes_for(k, b, cin, cout, h, w, pn, sms):
             n0 = fn.bf16_launches
-            got = fn(x, wt, bias, 0.2, pn, w_packed=wp, route=route)
+            got = fn(x, wt, bias, 0.2, pn, w_packed=wp, route=route, out_dtype=BF)
             assert fn.bf16_launches == n0 + 1
             assert_within_bf16_ulp(got, ref)
-            assert torch.equal(got, fn(x, wt, bias, 0.2, pn, w_packed=wp, route=route))
+            assert torch.equal(got, fn(x, wt, bias, 0.2, pn, w_packed=wp, route=route, out_dtype=BF))
     # The kernel layout (K4's) is taken too, moved into the pack on the card.
-    got = conv_ops.fused_conv3x3(x, wt, bias, 0.2, pn, w_packed=conv_ops.kernel_weights(wt, torch.bfloat16))
-    assert torch.equal(got, conv_ops.fused_conv3x3(x, wt, bias, 0.2, pn, w_packed=w1))
+    got = conv_ops.fused_conv3x3(x, wt, bias, 0.2, pn, w_packed=conv_ops.kernel_weights(wt, BF), out_dtype=BF)
+    assert torch.equal(got, conv_ops.fused_conv3x3(x, wt, bias, 0.2, pn, w_packed=w1, out_dtype=BF))
 
 
 @pytest.mark.parametrize("b,cin,cout,h,w", BF16_SHAPES + SYNTHESIS_BF16)
@@ -720,9 +723,9 @@ K4_PLAN_KEYS = (("tc", "tc"), ("run_rows", "run"), ("runs", "nruns"), ("strips",
                 ("takes", "takes"))
 
 
-def _k4_bf16_pair(x, w1, b1, w2, b2):
-    mid = conv_ops.fused_conv3x3(x, w1, b1, 0.2, True)
-    return conv_ops.fused_upconv3x3(mid, w2, b2, 0.2, True)
+def _k4_bf16_pair(x, w1, b1, w2, b2, out_dtype=torch.bfloat16):
+    mid = conv_ops.fused_conv3x3(x, w1, b1, 0.2, True, out_dtype=BF)
+    return conv_ops.fused_upconv3x3(mid, w2, b2, 0.2, True, out_dtype=out_dtype)
 
 
 @pytest.mark.parametrize("b,cin,cmid,cout,h,w", BLOCK_SHAPES + [(2, 16, 16, 16, 33, 70), (1, 48, 48, 32, 130, 300)]
@@ -738,12 +741,12 @@ def test_bf16_k4_matches_plain_and_equals_the_bf16_pair(cuda, b, cin, cmid, cout
     x, w1, b1, w2, b2 = _block_inputs(22, b, cin, cmid, cout, h, w, cuda)
     x = x.to(torch.bfloat16)
     n0 = conv_ops.fused_block.bf16_launches
-    got = conv_ops.fused_block(x, w1, b1, w2, b2)
+    got = conv_ops.fused_block(x, w1, b1, w2, b2, out_dtype=BF)
     assert conv_ops.fused_block.bf16_launches == n0 + 1
     if conv_bf16.block_route(cmid, cout) == "bf16_tc" or _pair_is_large(b, cin, cmid, cout, h, w):
         assert torch.equal(got, _k4_bf16_pair(x, w1, b1, w2, b2))
     assert_k4_bf16_close(got, conv_ops.fused_block_plain(x, w1, b1, w2, b2))
-    assert torch.equal(got, conv_ops.fused_block(x, w1, b1, w2, b2))
+    assert torch.equal(got, conv_ops.fused_block(x, w1, b1, w2, b2, out_dtype=BF))
 
 
 @pytest.mark.parametrize("b,cin,cmid,cout,h,w,tc,run", [
@@ -759,7 +762,7 @@ def test_bf16_k4_forced_strips_and_runs_give_the_pairs_bits(cuda, b, cin, cmid, 
     plan = conv_ops.block_plan(b, cin, cmid, cout, h, w, dtype=torch.bfloat16, tc=tc, run=run)
     assert (plan["tc"], plan["run_rows"]) == (tc, run)
     got = conv_ops.fused_block(x, w1, b1, w2, b2, tc=tc, run=run, w1_packed=conv_ops.kernel_weights_tc(w1),
-                               w2_packed=conv_ops.kernel_weights_tc(w2, True))
+                               w2_packed=conv_ops.kernel_weights_tc(w2, True), out_dtype=BF)
     assert torch.equal(got, _k4_bf16_pair(x, w1, b1, w2, b2))
 
 
@@ -783,18 +786,21 @@ def test_bf16_k4_past_128_channels(cuda):
     x, w1, b1, w2, b2 = _block_inputs(23, 2, 144, 144, 160, 32, 100, cuda)
     x = x.to(torch.bfloat16)
     assert conv_ops.block_tile(144, 160)["cluster"] == 2
-    assert_k4_bf16_close(conv_ops.fused_block(x, w1, b1, w2, b2), conv_ops.fused_block_plain(x, w1, b1, w2, b2))
+    assert_k4_bf16_close(conv_ops.fused_block(x, w1, b1, w2, b2, out_dtype=BF),
+                         conv_ops.fused_block_plain(x, w1, b1, w2, b2))
 
 
 def test_bf16_kernels_refuse_a_mixed_pair_and_mixed_operands(cuda):
+    """Operands of two dtypes raise before any launch: a bf16 x with the
+    float32 kernel layout, for the bf16 kernels and for K2 with bf16 x.  (A
+    mixed pair of x and output dtypes is a kernel of its own.)"""
     x, wt, bias = _conv_inputs(24, 1, 8, 16, 8, 64, cuda)
     xb = x.to(torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        conv_ops.fused_conv3x3(xb, wt, bias, 0.2, True, out_dtype=torch.float32)
+    for out in (BF, torch.float32):
+        with pytest.raises(ValueError):
+            conv_ops.fused_conv3x3(xb, wt, bias, 0.2, True, w_packed=conv_ops.kernel_weights(wt), out_dtype=out)
     with pytest.raises(ValueError):
-        conv_ops.fused_conv3x3(xb, wt, bias, 0.2, True, w_packed=conv_ops.kernel_weights(wt))
-    with pytest.raises(ValueError):
-        conv_ops.fused_conv3x3_msq(xb, wt, bias, 0.2)
+        conv_ops.fused_conv3x3_msq(xb, wt, bias, 0.2, w_packed=conv_ops.kernel_weights(wt))
 
 
 @pytest.mark.parametrize("impl", ["pallas_bf16", "pallas_up_bf16", "pallas_block_bf16", "pallas"])
@@ -835,3 +841,90 @@ def test_generator_new_impls_on_the_card(cuda, impl):
         assert (got - want).abs().max().item() <= 2e-3
     else:
         assert ((got - want).norm() / want.norm()).item() <= 0.08
+
+
+# ---- The mixed-dtype calls (the JAX functions' bf16 x with
+# out_dtype=float32, float32 x with out_dtype=bfloat16): each a kernel of its
+# own (csrc/*_bf16_f32.cu, *_f32_bf16.cu, block3x3_bf16_wide_f32.cu) that
+# stores the output's type itself, with its same-dtype kernel's plan, so:
+# float32 in, bf16 out is the float32 kernel's result rounded once, bit for
+# bit; bf16 in, float32 out rounded to bf16 is the bf16 kernel's, bit for
+# bit, and holds values bf16 cannot.  Against the plain versions: float32
+# in, the float32 bar (1e-4) plus one bf16 ulp; bf16 in, 1e-4.
+MIXED_CONV_SHAPES = [(2, 32, 128, 2, 20), (1, 5, 7, 3, 37), (6, 131, 144, 4, 4), (2, 5, 7, 130, 300),
+                     (4, 16, 32, 70, 130), (2, 64, 112, 64, 70), (1, 24, 272, 64, 70), (5, 80, 64, 32, 320)]
+MIXED_PAIRS = [(torch.float32, BF), (BF, torch.float32)]
+
+
+def _assert_mixed(got, same, ref, x_dtype, out_dtype, tol=1e-4):
+    assert got.dtype == out_dtype and got.shape == ref.shape
+    if out_dtype == BF:
+        assert torch.equal(got, same.to(BF))
+        a, b = got.float(), ref.float()
+        assert not ((a - b).abs() > 2.0**-7 * torch.maximum(a.abs(), b.abs()) + tol).any()
+    else:
+        assert torch.equal(got.to(BF), same)
+        assert (got != got.to(BF).float()).any()  # stored unrounded
+
+
+@pytest.mark.parametrize("x_dtype,out_dtype", MIXED_PAIRS, ids=["f32_bf16", "bf16_f32"])
+@pytest.mark.parametrize("b,cin,cout,h,w", MIXED_CONV_SHAPES)
+def test_mixed_k1_k3_match_plain_and_their_same_dtype_kernels(cuda, b, cin, cout, h, w, x_dtype, out_dtype):
+    from musicgan_tpu_torch.ops import conv_bf16
+
+    x, wt, bias = _conv_inputs(26, b, cin, cout, h, w, cuda)
+    x = x.to(x_dtype)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for k, fn, plain in ((3, conv_ops.fused_conv3x3, conv_ops.conv3x3_plain),
+                         (2, conv_ops.fused_upconv3x3, conv_ops.upconv3x3_plain)):
+        ref = plain(x, wt, bias, 0.2, True, out_dtype=out_dtype)
+        routes = conv_bf16.routes_for(k, b, cin, cout, h, w, True, sms) if x_dtype == BF else []
+        for route in [None] + routes:
+            n0 = (fn.launches, fn.mixed_launches, fn.bf16_launches)
+            got = fn(x, wt, bias, 0.2, True, route=route, out_dtype=out_dtype)
+            assert (fn.launches, fn.mixed_launches, fn.bf16_launches) == (n0[0] + 1, n0[1] + 1, n0[2])
+            same = fn(x, wt, bias, 0.2, True, route=route, out_dtype=x_dtype)
+            _assert_mixed(got, same, ref, x_dtype, out_dtype)
+            if out_dtype == torch.float32:
+                assert (got - ref).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("b,cin,cout,h,w", MIXED_CONV_SHAPES)
+def test_bf16_msq_matches_plain_and_k1_bf16(cuda, b, cin, cout, h, w):
+    """K2 with bf16 x: float32 ``y`` at the conv bar and ``m`` at 1e-4
+    relative, ``y`` rounded to bf16 K1 bf16's bits (past 128 channels ``m``
+    from the cluster's exchanged sums)."""
+    x, wt, bias = _conv_inputs(27, b, cin, cout, h, w, cuda)
+    x = x.to(BF)
+    n0 = conv_ops.fused_conv3x3_msq.mixed_launches
+    y, m = conv_ops.fused_conv3x3_msq(x, wt, bias, 0.2)
+    assert conv_ops.fused_conv3x3_msq.mixed_launches == n0 + 1
+    y_ref, m_ref = conv_ops.conv3x3_msq_plain(x, wt, bias, 0.2)
+    assert y.dtype == m.dtype == torch.float32
+    torch.testing.assert_close(y, y_ref, atol=1e-4, rtol=0)
+    assert float((m - m_ref).abs().max() / m_ref.abs().max()) < 1e-4
+    _assert_mixed(y, conv_ops.fused_conv3x3(x, wt, bias, 0.2, True, out_dtype=BF), y_ref, BF, torch.float32)
+
+
+@pytest.mark.parametrize("x_dtype,out_dtype", MIXED_PAIRS, ids=["f32_bf16", "bf16_f32"])
+@pytest.mark.parametrize("b,cin,cmid,cout,h,w", BLOCK_SHAPES[:6] + SYNTHESIS_K4[4:] + [(2, 144, 144, 160, 32, 100)])
+def test_mixed_k4_matches_plain_and_its_same_dtype_kernel(cuda, b, cin, cmid, cout, h, w, x_dtype, out_dtype):
+    """K4's mixed pairs: float32 in, bf16 out the float32 K4 rounded; bf16
+    in, float32 out K1 bf16 then K3 bf16 -> float32 bit for bit up to 128
+    channels (c1 rounded to bf16 once, as the JAX kernel's scratch), and
+    rounded to bf16 K4 bf16's bits; within the blocks' bars of the plain
+    version (float32: 2e-4 plus one bf16 ulp; bf16 in: the 2-norm)."""
+    from musicgan_tpu_torch.ops import conv_bf16
+
+    x, w1, b1, w2, b2 = _block_inputs(28, b, cin, cmid, cout, h, w, cuda)
+    x = x.to(x_dtype)
+    n0 = conv_ops.fused_block.mixed_launches
+    got = conv_ops.fused_block(x, w1, b1, w2, b2, out_dtype=out_dtype)
+    assert conv_ops.fused_block.mixed_launches == n0 + 1
+    same = conv_ops.fused_block(x, w1, b1, w2, b2, out_dtype=x_dtype)
+    ref = conv_ops.fused_block_plain(x, w1, b1, w2, b2, out_dtype=out_dtype)
+    _assert_mixed(got, same, ref, x_dtype, out_dtype, tol=2e-4)
+    if out_dtype == torch.float32:
+        assert ((got - ref).norm() / ref.norm()).item() <= 1e-2
+        if conv_bf16.block_route(cmid, cout) == "bf16_tc":
+            assert torch.equal(got, _k4_bf16_pair(x, w1, b1, w2, b2, out_dtype=torch.float32))
