@@ -8,8 +8,9 @@
 //
 // cmid and cout up to 128 (ops/conv_bf16.py::block_route): block_bf16.cuh,
 // the kernel designed for Hopper in bf16 (bf16 wgmma from shared memory,
-// TMA input, c1 held in conv2's operand layout).  Wider blocks take
-// block3x3_bf16_wide.cu (block3x3.cuh at bf16, a cluster).
+// TMA input, c1 held in conv2's operand layout).  Wider blocks take the
+// same kernel over a cluster (block3x3_bf16_wide.cu), or where that does
+// not fit block3x3.cuh at bf16 (block3x3_bf16_template.cu).
 #include "block_bf16.cuh"
 
 namespace {
@@ -39,24 +40,11 @@ extern "C" int mg_block3x3_tile(int cmid, int cout, int* out) {
   return 1;
 }
 
-// The plan at these sizes on the current device: out = {takes, tc, run,
-// runs, strips, units, blocks, warpgroups a block, w1 resident, w2 resident,
-// stages, shared-memory bytes, modelled cost, the pair's modelled cost, mb,
-// SMs}; tc, run as mg_block3x3_bf16's.
+// The plan at these sizes on the current device (block_bf16.cuh::plan_out).
 extern "C" int mg_block3x3_plan(int B, int cin, int cmid, int cout, int H, int W, int tc, int run,
                                 long long* out) {
   if (!kb_route(cmid, cout)) return (int)cudaErrorInvalidValue;
-  int dev = 0;
-  const mg::DeviceInfo* info = nullptr;
-  int err = mg::current_device(&dev, &info);
-  if (err != 0) return err;
-  mg::kb::KbPlan p;
-  err = mg::kb::plan_kb(B, cin, cmid, cout, H, W, info->sms, tc, run, &p);
-  if (err != 0) return err;
-  const long long v[16] = {p.takes, p.tc,     p.run,   p.nruns,  p.ntx,     p.nunits,    p.blocks, p.nwg,
-                           p.res1,  p.res2,   p.stages, p.smem, p.cost, p.pair_cost, p.mb,     info->sms};
-  for (int i = 0; i < 16; ++i) out[i] = v[i];
-  return 0;
+  return mg::kb::plan_out(B, cin, cmid, cout, H, W, tc, run, out);
 }
 
 // Words of the workspace mg_block3x3_bf16 needs: none (the packs it reads
@@ -75,6 +63,6 @@ extern "C" int mg_block3x3_bf16(const mg::bf16* x, const mg::bf16* w1, const flo
                                 int cin, int cmid, int cout, int H, int W, float slope, float eps, int tc,
                                 int run, cudaStream_t stream) {
   if (!kb_route(cmid, cout)) return (int)cudaErrorInvalidValue;
-  return mg::kb::launch_block_bf16(x, w1, b1, w2, b2, y, B, cin, cmid, cout, H, W, slope, eps, tc, run,
-                                   stream);
+  return mg::kb::launch_block_bf16<mg::bf16, false>(x, w1, b1, w2, b2, y, B, cin, cmid, cout, H, W, slope, eps,
+                                                    tc, run, stream);
 }

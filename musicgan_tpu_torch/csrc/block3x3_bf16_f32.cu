@@ -7,7 +7,8 @@
 // its store.  It gives K1 bf16 (bf16 out) then K3 bf16 with a float32 output
 // bit for bit, and its output rounded to bf16 is K4 bf16's.  What bounds it
 // is K4 bf16's, with twice the output bytes.  Wider blocks take
-// block3x3_bf16_wide_f32.cu (ops/conv_bf16.py::block_route).  Its own
+// block3x3_bf16_wide_f32.cu or block3x3_bf16_template_f32.cu
+// (ops/conv_bf16.py::block_route).  Its own
 // source, so that its 64 instances build beside block3x3_bf16.cu's.
 #include "block_bf16.cuh"
 
@@ -19,6 +20,6 @@ extern "C" int mg_block3x3_bf16_f32(const mg::bf16* x, const mg::bf16* w1, const
                                     int cout, int H, int W, float slope, float eps, int tc, int run,
                                     cudaStream_t stream) {
   if (cmid > mg::kb::MAX_N || cout > mg::kb::MAX_N) return (int)cudaErrorInvalidValue;
-  return mg::kb::launch_block_bf16(x, w1, b1, w2, b2, y, B, cin, cmid, cout, H, W, slope, eps, tc, run,
-                                   stream);
+  return mg::kb::launch_block_bf16<float, false>(x, w1, b1, w2, b2, y, B, cin, cmid, cout, H, W, slope, eps, tc,
+                                                 run, stream);
 }

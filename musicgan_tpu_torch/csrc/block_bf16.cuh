@@ -5,11 +5,14 @@
 //   y  = PixelNorm(LeakyReLU(conv3x3(up2x(c1)) + b2))     (cmid -> cout, 2H x 2W)
 // Replaces musicgan_tpu/ops/conv.py::fused_block (Pallas kernel
 // _block_kernel, its c1 scratch of x.dtype and its packed-pair interleave)
-// called with bf16 x and out_dtype=bfloat16, for cmid and cout up to 128
-// (wider blocks take block3x3.cuh at bf16, block3x3_bf16_wide.cu).
-// Instantiated in block3x3_bf16.cu; with a float32 output (the JAX
-// function's bf16 x and out_dtype=float32: c1 still bf16, the last
-// epilogue stored unrounded) in block3x3_bf16_f32.cu.
+// called with bf16 x and out_dtype=bfloat16.  Up to 128 channels (cmid and
+// cout) one block holds a unit, instantiated in block3x3_bf16.cu; past them
+// a cluster splits each conv's channels as K1 bf16 and K3 bf16 split them
+// (CL below), in block3x3_bf16_wide.cu, except inputs too wide for its
+// layout (kb_cluster_fits), which take block3x3.cuh at bf16
+// (block3x3_bf16_template.cu).  With a float32 output (the JAX function's
+// bf16 x and out_dtype=float32: c1 still bf16, the last epilogue stored
+// unrounded): block3x3_bf16_f32.cu, block3x3_bf16_wide_f32.cu.
 //
 // What bounds it on an H100.  On paper its bytes: they are K3 bf16's alone
 // (x in, y out, the weights; c1 never leaves the SM), and the products are
@@ -64,12 +67,14 @@
 //   the sizes and the SM count only: the m64 blocks from the channel
 //   counts, the strip width, run length, residency and warpgroups of least
 //   modelled time, and whether K4 takes the block at all (its modelled time
-//   below that of K1 bf16 then K3 bf16's plans).
+//   below that of K1 bf16 then K3 bf16's plans; never over a cluster, see
+//   plan_kb).
 //
 // Sum order: conv_bf16.cuh's (chunks of 16 channels in order; in a chunk the
 // kernel rows in order, each row's taps into a fresh accumulator, added in
 // float32), with the pair's channels a block (N1, N2 = cmid, cout rounded up
-// to 16), so K4 bf16 gives K1 bf16 then K3 bf16's bits.
+// to 16; past 128 the pair's splits, PixelNorm's sums in rank order), so K4
+// bf16 gives K1 bf16 then K3 bf16's bits.
 #pragma once
 
 #include "conv_bf16.cuh"
@@ -87,8 +92,9 @@ using cb::smem_u32;
 using cb::stmatrix_x4;
 using cb::tma_load_4d;
 
-constexpr int MAX_N = 128;  // channels of either conv this kernel takes (one block, no cluster)
+constexpr int MAX_N = 128;  // channels of either conv one block takes (no cluster)
 constexpr int MAX_TC = 224; // widest strip: a TMA box of tc + 24 columns, at most 256
+constexpr int MAX_CH = MAX_CLUSTER * MAX_N;  // channels of either conv a cluster takes
 
 // m64 blocks of positions a row tile, from the registers a thread holds:
 // conv1's sums and fresh sums, MB x N1 floats, at most 160; conv2's two
@@ -149,8 +155,10 @@ struct KbArgs {
   int B, cin, cmid, cout, H, W;
   int nch1, nch2, tc, sw, rw, ntx, run, nruns, nunits, nwg;
   int res1, res2, stages, tma, vec, pt1, pr1, ptr2, np;
+  int cluster, nsplit1, nsplit2, nown;  // past 128 channels (CL): the ranks, each conv's splits, c1 chunks a rank
+  int ss, gs;  // positions a c1 ring slot, output groups a channel staged (CL: from the strip, else 64 / 8 MB)
   uint32_t raw_bytes, stage_bytes, w1chunk_bytes, w2chunk_bytes, w1res_bytes, w2res_bytes;
-  uint32_t wg_off, wg_bytes, region_off, ring_off, in_off, bias_off, bar_off;
+  uint32_t wg_off, wg_bytes, region_off, ring_off, in_off, bias_off, part_off, bar_off;
   float slope, eps;
 };
 
@@ -202,12 +210,12 @@ struct KbWalk {
 };
 
 // An input row's chunk of 16 channels into raw ([16 channels][rw], image
-// row ri, columns c0 - 8 on) by the warpgroup's threads, one element at a
+// row ri, columns c0 - 8 on) by the unit's nt threads, one element at a
 // time: where TMA cannot describe x.
 __device__ __forceinline__ void fill_raw(unsigned short* raw, const KbArgs& a, int b, int ri, int c0, int ci0,
-                                         int lt) {
+                                         int lt, int nt) {
   const unsigned short* x = reinterpret_cast<const unsigned short*>(a.x);
-  for (int e = lt; e < 16 * a.rw; e += 128) {
+  for (int e = lt; e < 16 * a.rw; e += nt) {
     const int col = e % a.rw, ch = e / a.rw, c = ci0 + ch, gc = c0 - 8 + col;
     const bool ok = c < a.cin && ri >= 0 && ri < a.H && gc >= 0 && gc < a.W;
     raw[e] = ok ? x[(((size_t)b * a.cin + c) * a.H + ri) * a.W + gc] : (unsigned short)0;
@@ -219,11 +227,12 @@ __device__ __forceinline__ void fill_raw(unsigned short* raw, const KbArgs& a, i
 // (ldmatrix.trans, then stmatrix), raw column j the window's column j - 6
 // (window column wc is image column c0 - 2 + wc); columns outside the
 // window to the spare position, spare (past every position a stored c1
-// value reads).  Work items (octet, four matrices) go to the warps in turn.
+// value reads).  Work items (octet, four matrices) go to the unit's nw
+// warps in turn.
 __device__ __forceinline__ void transpose_row(uint32_t raw, uint32_t ring, int dst, int spare, const KbArgs& a,
-                                              int wq, int lane) {
+                                              int wq, int nw, int lane) {
   const int kq = a.rw / 8, ng = (kq + 3) / 4, r = lane & 7, j = lane >> 3;
-  for (int it = wq; it < 2 * ng; it += 4) {
+  for (int it = wq; it < 2 * ng; it += nw) {
     const int o = it >= ng, k = min(4 * (it - o * ng) + j, kq - 1);
     uint32_t v[4];
     ldmatrix_x4_trans(raw + 2u * (uint32_t)((o * 8 + r) * a.rw) + 16u * k, v);
@@ -355,14 +364,17 @@ __device__ __forceinline__ void bias_lrelu_s(float (&acc)[T][N / 2], const float
 }
 
 // conv2's float32 outputs of one pass, the half of its channels from co0 on
-// (cb::stage_out_f32's layout in region), to y: group grp of channel co0 +
-// co, both column phases interleaved into 16 columns (cb::store_phases_f32).
-template <int N2, int MB, int PP>
+// (cb::stage_out_f32's layout in region, G groups a channel staged in
+// rows of G + 1), to y by the unit's nt threads: group grp of channel co0 +
+// co, both column phases interleaved into 16 columns
+// (cb::store_phases_f32).
+template <int N2, int PP>
 __device__ __forceinline__ void store_pass_f32(const unsigned char* region, const KbArgs& a, int b, int c0, int R,
-                                               int oy, int co0, int lt) {
-  constexpr int G = 8 * MB, G1 = G + 1, NH = N2 / 2;
+                                               int oy, int co0, int lt, int nt, int G) {
+  constexpr int NH = N2 / 2;
+  const int G1 = G + 1;
   const float* rf = reinterpret_cast<const float*>(region);
-  for (int e = lt; e < PP / 2 * NH * G; e += 128) {
+  for (int e = lt; e < PP / 2 * NH * G; e += nt) {
     const int grp = e % G, rest = e / G, co = rest % NH, oyl = rest / NH, cc = c0 + 8 * grp, gco = co0 + co;
     if (8 * grp >= a.tc || cc >= a.W || gco >= a.cout) continue;
     const int pa = 2 * oyl, orow = 2 * R + (PP == 4 ? oyl : oy);
@@ -373,37 +385,135 @@ __device__ __forceinline__ void store_pass_f32(const unsigned char* region, cons
   }
 }
 
+// cb::stage_out and cb::stage_out_f32 for a warpgroup holding m64 blocks
+// m0 .. m0 + MB - 1 of a unit (two warpgroups a unit past 128 channels),
+// gs groups a channel staged (the strip's, even) in rows of gs + 1: the
+// same stores, group 8 (m0 + m) + 2 wq + i, a warp's pair of groups left
+// out from gs on.
+template <int N, int MB, int PPB>
+__device__ __forceinline__ void stage_out_at(const float (&acc)[MB * PPB][N / 2], uint32_t region, int wq, int lane,
+                                             int m0, int gs) {
+  const int mm = lane >> 3, c = lane & 7, g1 = gs + 1;
+#pragma unroll
+  for (int u = 0; u < MB * PPB; ++u) {
+    const int m = u / PPB, p = u % PPB;
+    if (8 * (m0 + m) + 2 * wq >= gs) continue;
+#pragma unroll
+    for (int j0 = 0; j0 < N / 8; j0 += 2) {
+      const int co = 8 * (j0 + (mm >> 1)) + c, grp = 8 * (m0 + m) + 2 * wq + (mm & 1);
+      const uint32_t r[4] = {pack_bf16(acc[u][4 * j0], acc[u][4 * j0 + 1]),
+                             pack_bf16(acc[u][4 * j0 + 2], acc[u][4 * j0 + 3]),
+                             pack_bf16(acc[u][4 * j0 + 4], acc[u][4 * j0 + 5]),
+                             pack_bf16(acc[u][4 * j0 + 6], acc[u][4 * j0 + 7])};
+      cb::stmatrix_x4_trans(region + 16u * (uint32_t)((p * N + co) * g1 + grp), r);
+    }
+  }
+}
+template <int N, int MB, int PPB, int HF>
+__device__ __forceinline__ void stage_out_f32_at(const float (&acc)[MB * PPB][N / 2], float* region, int wq,
+                                                 int lane, int m0, int gs) {
+  constexpr int NH = N / 2, JH = N / 16;
+  const int g = lane >> 2, t = lane & 3, g1 = gs + 1;
+#pragma unroll
+  for (int u = 0; u < MB * PPB; ++u) {
+    const int m = u / PPB, p = u % PPB;
+    if (8 * (m0 + m) + 2 * wq >= gs) continue;
+#pragma unroll
+    for (int jl = 0; jl < JH; ++jl)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          region[((p * NH + 8 * jl + 2 * t + e) * g1 + 8 * (m0 + m) + 2 * wq + i) * 8 + g] =
+              acc[u][4 * (HF * JH + jl) + 2 * i + e];
+  }
+}
+
+// Past 128 channels: a peer's c1 chunk (its ring's three slots, both
+// octets, 32 ptr2 bytes at src in the peer's shared memory) into dst in
+// this block's by its nt threads, 16-byte loads through distributed shared
+// memory, four in flight a thread.
+__device__ __forceinline__ void copy_peer_chunk(unsigned char* dst, unsigned char* src, int peer, int n16, int lt,
+                                                int nt) {
+  const uint4* s = coop::this_cluster().map_shared_rank(reinterpret_cast<uint4*>(src), peer);
+  uint4* d = reinterpret_cast<uint4*>(dst);
+  for (int e0 = lt; e0 < n16; e0 += 4 * nt) {
+    uint4 v[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (e0 + nt * i < n16) v[i] = s[e0 + nt * i];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (e0 + nt * i < n16) d[e0 + nt * i] = v[i];
+  }
+}
+
 // Block x walks, in warpgroup wg, the units x + (k * nwg + wg) * blocks, k =
 // 0, 1, .. (strips fastest, then runs, then images).  O: the output's type,
 // bf16 or float32 (the JAX kernel's out_dtype, cast only at its store: the
 // same plan and sums, c1 in bf16 either way; float32 leaves through the
 // staging region in two halves of the channels, cb::stage_out_f32).
-template <int N1, int N2, typename O>
-__global__ void __launch_bounds__(128 * kb_wgmax(N1, N2), 1)
+//
+// CL: past 128 channels, a cluster of a.cluster blocks (ranks) of two
+// warpgroups each walks the units cid, cid + clusters, .. together (the two
+// warpgroups of a block share each unit: warpgroup w computes m64 blocks w
+// MB .. w MB + MB - 1 of every row tile, both wait for the same copies and
+// meet at named barrier 1, 256 threads), split as
+// K1 bf16 and K3 bf16 split their channels: rank r computes c1 channels [s1
+// N1, s1 N1 + N1) (s1 = min(r, nsplit1 - 1)) into its own ring, which holds
+// chunks [s1 nown, s1 nown + nown) of conv2's input, and output channels
+// [s2 N2, s2 N2 + N2); a rank past a conv's splits repeats the last split's
+// work and neither stores it nor adds its sums (nor writes its c1).
+// PixelNorm's sums meet in rank order (pn_cluster_sums, as K1 bf16 and K3
+// bf16 meet).  conv2 walks every chunk in order: its own from its ring, a
+// peer's (three rows) copied from the peer's ring through distributed
+// shared memory into a staging slot (two, in the output staging region)
+// when it reaches it.  Per c1 row three cluster barriers:
+// PixelNorm's of conv1 (the rings' slots that conv2 of the row before read
+// are free after it), the c1 row written (peers may copy it), PixelNorm's
+// of conv2 (every read of the rings done).
+template <int N1, int N2, typename O, bool CL>
+__global__ void __launch_bounds__(CL ? 256 : 128 * kb_wgmax(N1, N2), 1)
     block_bf16_kernel(const __grid_constant__ CUtensorMap tm, const KbArgs a) {
   constexpr int MB = kb_mb(N1, N2), DY1 = kb_dy1(N1, N2), PP = kb_pp2(N1, N2), F2 = kb_f2(N1, N2);
   constexpr int DY2 = PP == 4 ? 1 : F2 >= 2 ? 2 : 1, DP2 = F2 / DY2, NP = 4 / PP;
-  constexpr int ND1 = N1 / 2, ND2 = N2 / 2, G = 8 * MB, G1 = G + 1;
-  constexpr int SS = 64 * MB;  // positions a c1 ring slot
+  constexpr int MBT = CL ? 2 * MB : MB;  // m64 blocks of a unit's row tile (CL: two warpgroups')
+  constexpr int ND1 = N1 / 2, ND2 = N2 / 2;
+  // Positions a c1 ring slot and output groups a channel staged: 64 MB and
+  // 8 MB, or with a cluster the strip's (tc + 2 rounded up to 16, tc / 8 to
+  // an even number).
+  const int SS = CL ? a.ss : 64 * MB, G = CL ? a.gs : 8 * MB, G1 = G + 1;
   extern __shared__ __align__(1024) unsigned char kb_smem[];
   const int tid = threadIdx.x, wg = tid >> 7, lt = tid & 127, lane = tid & 31, wq = lt >> 5;
   const int g = lane >> 2, t = lane & 3;
+  // The unit's warpgroups: CL both of the block (uw = 0), else warpgroup wg
+  // alone; their threads (ut of unt), warps (uq of unq) and named barrier;
+  // this warpgroup's first position of a row tile (pos0).
+  const int uw = CL ? 0 : wg, ut = CL ? tid : lt, unt = CL ? 256 : 128, uq = ut >> 5, unq = unt >> 5;
+  const int ubar = 1 + uw, pos0 = CL ? 64 * MB * wg : 0;
   uint64_t* bars = reinterpret_cast<uint64_t*>(kb_smem + a.bar_off);
-  uint64_t* full = bars + 4 * wg;
+  uint64_t* full = bars + 4 * uw;
   uint64_t* wbar = bars + 4 * a.nwg;
+  const int rank = CL ? (int)(blockIdx.x % a.cluster) : 0;
+  const int s1 = CL ? min(rank, a.nsplit1 - 1) : 0, s2 = CL ? min(rank, a.nsplit2 - 1) : 0;
+  const int cm0 = s1 * N1, co0 = s2 * N2;  // the rank's first c1 and output channels
+  const bf16* w1 = a.w1 + (size_t)s1 * a.nch1 * 9 * 16 * N1;   // its splits of the packs
+  const bf16* w2 = a.w2 + (size_t)s2 * a.nch2 * 16 * 16 * N2;
   // The biases, zero past each conv's channels: conv1's N1, then conv2's N2.
   float* bias_s = reinterpret_cast<float*>(kb_smem + a.bias_off);
   for (int e = tid; e < N1 + N2; e += blockDim.x)
-    bias_s[e] = e < N1 ? (e < a.cmid ? a.b1[e] : 0.f) : (e - N1 < a.cout ? a.b2[e - N1] : 0.f);
+    bias_s[e] = e < N1 ? (cm0 + e < a.cmid ? a.b1[cm0 + e] : 0.f)
+                       : (co0 + e - N1 < a.cout ? a.b2[co0 + e - N1] : 0.f);
   if (tid == 0) {
     for (int k = 0; k < 4 * a.nwg + 1; ++k) mbar_init(&bars[k]);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  const int first = blockIdx.x + wg * gridDim.x, slots = gridDim.x * a.nwg;
+  const int first = CL ? (int)blockIdx.x / a.cluster : blockIdx.x + wg * gridDim.x;
+  const int slots = CL ? (int)gridDim.x / a.cluster : gridDim.x * a.nwg;
   const bool any = first < a.nunits;
-  unsigned char* wgbase = kb_smem + a.wg_off + wg * a.wg_bytes;
+  unsigned char* wgbase = kb_smem + a.wg_off + uw * a.wg_bytes;
   const unsigned char* w1s = kb_smem;                  // resident conv1 weights
   const unsigned char* w2s = kb_smem + a.w1res_bytes;  // resident conv2 weights
 
@@ -418,28 +528,27 @@ __global__ void __launch_bounds__(128 * kb_wgmax(N1, N2), 1)
       if (a.tma) tma_load_4d(st, &tm, &full[s], w.c0 - 8, w.kc * 16, w.ra - 2 + w.k, w.b);
     } else if (w.ph == 1) {
       mbar_expect_tx(&full[s], a.w1chunk_bytes);
-      bulk_load(st, a.w1 + (size_t)w.kc * 9 * 16 * N1, a.w1chunk_bytes, &full[s]);
+      bulk_load(st, w1 + (size_t)w.kc * 9 * 16 * N1, a.w1chunk_bytes, &full[s]);
     } else {
       mbar_expect_tx(&full[s], a.w2chunk_bytes);
-      bulk_load(st, a.w2 + ((size_t)w.kc * 16 + 4 * PP * w.oy) * 16 * N2, a.w2chunk_bytes, &full[s]);
+      bulk_load(st, w2 + ((size_t)w.kc * 16 + 4 * PP * w.oy) * 16 * N2, a.w2chunk_bytes, &full[s]);
     }
   };
 
   if (tid == 0 && (a.res1 || a.res2)) {
     mbar_expect_tx(wbar, a.w1res_bytes + a.w2res_bytes);
-    if (a.res1) bulk_load(kb_smem, a.w1, a.w1res_bytes, wbar);
-    if (a.res2) bulk_load(kb_smem + a.w1res_bytes, a.w2, a.w2res_bytes, wbar);
+    if (a.res1) bulk_load(kb_smem, w1, a.w1res_bytes, wbar);
+    if (a.res2) bulk_load(kb_smem + a.w1res_bytes, w2, a.w2res_bytes, wbar);
   }
   KbWalk fill;
   fill.unit(a, first, slots, 0);
-  if (lt == 0)
+  if (ut == 0)
     for (int k = 0; k < a.stages && fill.valid(a, first, slots); ++k) {
       issue(fill, k);
       fill.next(a, first, slots);
     }
   if ((a.res1 || a.res2) && any) mbar_wait(wbar, 0);
 
-  const int wgbar = 1 + wg;
   unsigned char* region = wgbase + a.region_off;
   const uint32_t region_a = smem_u32(region);
   unsigned char* ring = wgbase + a.ring_off;  // c1
@@ -447,6 +556,8 @@ __global__ void __launch_bounds__(128 * kb_wgmax(N1, N2), 1)
   unsigned char* inr = wgbase + a.in_off;     // the transposed input rows
   const uint32_t inr_a = smem_u32(inr);
   const int spare = a.pr1 - 1;
+  float* part1 = reinterpret_cast<float*>(kb_smem + a.part_off);  // CL: PixelNorm's cluster sums
+  float* part2 = part1 + 64 * MBT;
   // Item q: wait for its copies; once every warp is past its reads of the
   // slot (a warp's wgmma.wait_group covers its own quarter of the
   // products), the first thread refills the slot with item q + stages.
@@ -457,8 +568,8 @@ __global__ void __launch_bounds__(128 * kb_wgmax(N1, N2), 1)
     return wgbase + s * a.stage_bytes;
   };
   auto release = [&]() {
-    bar_sync(wgbar, 128);
-    if (lt == 0 && fill.valid(a, first, slots)) {
+    bar_sync(ubar, unt);
+    if (ut == 0 && fill.valid(a, first, slots)) {
       issue(fill, q + a.stages);
       fill.next(a, first, slots);
     }
@@ -476,10 +587,10 @@ __global__ void __launch_bounds__(128 * kb_wgmax(N1, N2), 1)
       for (int kc = 0; kc < a.nch1; ++kc) {
         unsigned char* st = wait_item();
         if (!a.tma) {
-          fill_raw(reinterpret_cast<unsigned short*>(st), a, b, ri, c0, kc * 16, lt);
-          bar_sync(wgbar, 128);
+          fill_raw(reinterpret_cast<unsigned short*>(st), a, b, ri, c0, kc * 16, ut, unt);
+          bar_sync(ubar, unt);
         }
-        transpose_row(smem_u32(st), inr_a, kc * 2 * a.pt1 + ((ri + 6) % 3) * a.sw, spare, a, wq, lane);
+        transpose_row(smem_u32(st), inr_a, kc * 2 * a.pt1 + ((ri + 6) % 3) * a.sw, spare, a, uq, unq, lane);
         fence_proxy_async();  // the ring is read by wgmma
         release();
       }
@@ -488,7 +599,8 @@ __global__ void __launch_bounds__(128 * kb_wgmax(N1, N2), 1)
       // ---- conv1: c1 row r1 = ra - 1 + j (j = k - 2), columns c0 - 1 ..
       // c0 + tc (positions 0 .. tc + 1), from input rows r1 - 1 .. r1 + 1.
       const int r1 = ri - 1;
-      const int base1[3] = {((ri + 4) % 3) * a.sw, ((ri + 5) % 3) * a.sw, ((ri + 6) % 3) * a.sw};
+      const int base1[3] = {((ri + 4) % 3) * a.sw + pos0, ((ri + 5) % 3) * a.sw + pos0,
+                            ((ri + 6) % 3) * a.sw + pos0};
       float acc[MB][ND1], d[DY1 * MB][ND1];
 #pragma unroll
       for (int u = 0; u < MB; ++u)
@@ -508,6 +620,7 @@ __global__ void __launch_bounds__(128 * kb_wgmax(N1, N2), 1)
       {
         float sum[MB][2];
         pn_sums<MB, N1>(acc, sum);
+        if constexpr (CL) pn_cluster_sums<MB>(sum, part1, wg, wq, g, t, a.nsplit1);
 #pragma unroll
         for (int u = 0; u < MB; ++u)
 #pragma unroll
@@ -515,7 +628,7 @@ __global__ void __launch_bounds__(128 * kb_wgmax(N1, N2), 1)
             pn_scale<MB, N1>(acc, u, i, sum[u][i] / (float)a.cmid, a.eps);
             // Position p of the thread's pixel: c1 column c0 - 1 + p; zero
             // outside the image.
-            const int p = 64 * u + 16 * wq + g + 8 * i, c = c0 - 1 + p;
+            const int p = pos0 + 64 * u + 16 * wq + g + 8 * i, c = c0 - 1 + p;
             const bool inside = r1 >= 0 && r1 < a.H && c >= 0 && c < a.W;
             if (!inside)
 #pragma unroll
@@ -529,11 +642,13 @@ __global__ void __launch_bounds__(128 * kb_wgmax(N1, N2), 1)
       // (chunk / 2, octet % 2); lane 8mm + rr gives its row rr's address.
       // The slot's previous row was last read by conv2 two c1 rows ago,
       // whose products every warp has waited for before the barriers since.
-      {
+      if (!CL || rank < a.nsplit1) {
         const int slot = (r1 + 3) % 3, mm = lane >> 3, rr = lane & 7;
+        // A slot holds SS positions: a warp's 16 from SS on are left out.
 #pragma unroll
         for (int u = 0; u < MB; ++u) {
-          const int pos = slot * SS + 64 * u + 16 * wq + 8 * (mm & 1) + rr;
+          if (pos0 + 64 * u + 16 * wq >= SS) continue;
+          const int pos = slot * SS + pos0 + 64 * u + 16 * wq + 8 * (mm & 1) + rr;
 #pragma unroll
           for (int j0 = 0; j0 < N1 / 8; j0 += 2) {
             const int jj = j0 + (mm >> 1);
@@ -546,7 +661,10 @@ __global__ void __launch_bounds__(128 * kb_wgmax(N1, N2), 1)
         }
       }
       fence_proxy_async();  // the ring is read by wgmma
-      bar_sync(wgbar, 128);
+      if constexpr (CL)
+        coop::this_cluster().sync();  // and copied by the peers
+      else
+        bar_sync(ubar, unt);
       if (k < 4) continue;
 
       // ---- conv2: output row R = r1 - 1 (input resolution), from c1 rows
@@ -554,7 +672,8 @@ __global__ void __launch_bounds__(128 * kb_wgmax(N1, N2), 1)
       // with four phases a pass).
       const int R = r1 - 1;
       for (int oy = 0; oy < NP; ++oy) {
-        const int rb[3] = {((R - 1 + oy + 3) % 3) * SS, ((R + oy + 3) % 3) * SS, ((R + 1 + 3) % 3) * SS};
+        const int rb[3] = {((R - 1 + oy + 3) % 3) * SS + pos0, ((R + oy + 3) % 3) * SS + pos0,
+                           ((R + 1 + 3) % 3) * SS + pos0};
         float acc2[PP * MB][ND2], d2[F2 * MB][ND2];
 #pragma unroll
         for (int u = 0; u < PP * MB; ++u)
@@ -564,9 +683,25 @@ __global__ void __launch_bounds__(128 * kb_wgmax(N1, N2), 1)
         for (int u = 0; u < F2 * MB; ++u)
 #pragma unroll
           for (int e = 0; e < ND2; ++e) d2[u][e] = 0.f;
+        int npeer = 0;  // CL: peer chunks copied in this pass (their staging slot's parity)
         for (int kc = 0; kc < a.nch2; ++kc) {
           const unsigned char* wb = a.res2 ? w2s + ((size_t)kc * 16 + 4 * PP * oy) * 32 * N2 : wait_item();
-          products_c2<N2, MB, PP, DY2, DP2>(acc2, d2, smem_desc(ring + (size_t)kc * 32 * a.ptr2, a.ptr2 * 16, 128),
+          const unsigned char* ab = ring + (size_t)kc * 32 * a.ptr2;
+          if constexpr (CL) {
+            const int owner = kc / a.nown, kl = kc - owner * a.nown;
+            ab = ring + (size_t)kl * 32 * a.ptr2;
+            if (owner != rank) {
+              // Slot npeer & 1 was last read by the products of peer chunk
+              // npeer - 2, which every warp waited for before the barrier
+              // after copy npeer - 1.
+              unsigned char* stg = region + (size_t)(npeer++ & 1) * 32 * a.ptr2;
+              copy_peer_chunk(stg, ring + (size_t)kl * 32 * a.ptr2, owner, 2 * a.ptr2, ut, unt);
+              fence_proxy_async();  // read by wgmma
+              bar_sync(ubar, unt);
+              ab = stg;
+            }
+          }
+          products_c2<N2, MB, PP, DY2, DP2>(acc2, d2, smem_desc(ab, a.ptr2 * 16, 128),
                                             smem_desc(wb, 16 * N2, 128), rb);
           if (!a.res2) release();
         }
@@ -574,34 +709,47 @@ __global__ void __launch_bounds__(128 * kb_wgmax(N1, N2), 1)
         {
           float sum[PP * MB][2];
           pn_sums<PP * MB, N2>(acc2, sum);
+          if constexpr (CL) pn_cluster_sums<PP * MB>(sum, part2, wg, wq, g, t, a.nsplit2);
 #pragma unroll
           for (int u = 0; u < PP * MB; ++u)
 #pragma unroll
             for (int i = 0; i < 2; ++i) pn_scale<PP * MB, N2>(acc2, u, i, sum[u][i] / (float)a.cout, a.eps);
         }
-        // Every warp's reads of the region (the previous pass's stores) are
-        // behind the barrier after them.
-        if constexpr (!std::is_same<O, bf16>::value) {
-          cb::stage_out_f32<N2, MB, PP, 0>(acc2, reinterpret_cast<float*>(region), wq, lane);
-          bar_sync(wgbar, 128);
-          store_pass_f32<N2, MB, PP>(region, a, b, c0, R, oy, 0, lt);
-          bar_sync(wgbar, 128);  // every warp's reads of the first half
-          cb::stage_out_f32<N2, MB, PP, 1>(acc2, reinterpret_cast<float*>(region), wq, lane);
-          bar_sync(wgbar, 128);
-          store_pass_f32<N2, MB, PP>(region, a, b, c0, R, oy, N2 / 2, lt);
+        // Every warp's reads of the region (the previous pass's stores, and
+        // with CL the staged peer chunks) are behind the barrier after them.
+        if (CL && rank >= a.nsplit2) {
+          // A rank past conv2's splits: nothing to store.
+        } else if constexpr (!std::is_same<O, bf16>::value) {
+          if constexpr (CL)
+            stage_out_f32_at<N2, MB, PP, 0>(acc2, reinterpret_cast<float*>(region), wq, lane, MB * wg, G);
+          else
+            cb::stage_out_f32<N2, MB, PP, 0>(acc2, reinterpret_cast<float*>(region), wq, lane);
+          bar_sync(ubar, unt);
+          store_pass_f32<N2, PP>(region, a, b, c0, R, oy, co0, ut, unt, G);
+          bar_sync(ubar, unt);  // every warp's reads of the first half
+          if constexpr (CL)
+            stage_out_f32_at<N2, MB, PP, 1>(acc2, reinterpret_cast<float*>(region), wq, lane, MB * wg, G);
+          else
+            cb::stage_out_f32<N2, MB, PP, 1>(acc2, reinterpret_cast<float*>(region), wq, lane);
+          bar_sync(ubar, unt);
+          store_pass_f32<N2, PP>(region, a, b, c0, R, oy, co0 + N2 / 2, ut, unt, G);
         } else {
-          cb::stage_out<N2, MB, PP>(acc2, region_a, wq, lane);
-          bar_sync(wgbar, 128);
+          if constexpr (CL)
+            stage_out_at<N2, MB, PP>(acc2, region_a, wq, lane, MB * wg, G);
+          else
+            cb::stage_out<N2, MB, PP>(acc2, region_a, wq, lane);
+          bar_sync(ubar, unt);
           // Group grp (positions 8 grp .. + 7: output columns 2 (c0 + 8 grp) ..
           // of row 2R + oy, both column phases interleaved) of channel co, for
           // each of the pass's output rows.
-          for (int e = lt; e < PP / 2 * N2 * G; e += 128) {
+          for (int e = ut; e < PP / 2 * N2 * G; e += unt) {
             const int grp = e % G, rest = e / G, co = rest % N2, oyl = rest / N2, cc = c0 + 8 * grp;
-            if (8 * grp >= a.tc || cc >= a.W || co >= a.cout) continue;
+            if (8 * grp >= a.tc || cc >= a.W || co0 + co >= a.cout) continue;
             const int pa = 2 * oyl, orow = 2 * R + (PP == 4 ? oyl : oy);
             const uint4 v0 = *reinterpret_cast<const uint4*>(region + 16 * ((pa * N2 + co) * G1 + grp));
             const uint4 v1 = *reinterpret_cast<const uint4*>(region + 16 * (((pa + 1) * N2 + co) * G1 + grp));
-            bf16* dst = static_cast<bf16*>(a.y) + (((size_t)b * a.cout + co) * 2 * a.H + orow) * 2 * a.W + 2 * cc;
+            bf16* dst =
+                static_cast<bf16*>(a.y) + (((size_t)b * a.cout + co0 + co) * 2 * a.H + orow) * 2 * a.W + 2 * cc;
             const uint32_t* w0 = reinterpret_cast<const uint32_t*>(&v0);
             const uint32_t* w1 = reinterpret_cast<const uint32_t*>(&v1);
             uint32_t o[8];
@@ -620,10 +768,12 @@ __global__ void __launch_bounds__(128 * kb_wgmax(N1, N2), 1)
             }
           }
         }
-        bar_sync(wgbar, 128);  // the region is the next pass's staging
+        bar_sync(ubar, unt);  // the region is the next pass's staging
       }
     }
   }
+  // A block's shared memory must outlive its peers' reads of it.
+  if constexpr (CL) coop::this_cluster().sync();
 }
 
 // ---- The plan (ops/conv_bf16.py::block_plan, integer for integer).
@@ -631,41 +781,76 @@ __global__ void __launch_bounds__(128 * kb_wgmax(N1, N2), 1)
 struct KbPlan {
   int n1, n2, mb, nch1, nch2, tc, sw, rw, ntx, run, nruns, nunits, nwg, res1, res2, stages, blocks;
   int pt1, pr1, ptr2, takes;
+  int cluster, nsplit1, nsplit2, nown;  // ranks (1: no cluster), each conv's splits, c1 chunks a rank
+  int ss, gs;                           // positions a c1 ring slot, output groups staged
   long long smem, cost, pair_cost;
 };
 
 // Bytes of a block's shared memory (ops/conv_bf16.py::_kb_layout): raw, an
 // input row's chunk as it lands ([16 channels][rw]); stage, raw or a
 // streamed chunk's weights (conv1's 9 taps, conv2's 8 of a pass); region,
-// conv2's staged outputs of a pass; ring, the c1 ring of every mid chunk
-// ([octet][3 slots x 64 MB positions + 8]); inr, the transposed input rows
-// of every input chunk ([octet][3 slots x sw positions], pt1 a octet), and
-// past them the positions the junk rows of conv1's m64 blocks read and the
-// spare position (pr1 in all); w1res, w2res, the resident weights; bias,
-// both convs' biases.
+// conv2's staged outputs of a pass (with a cluster also the two staging
+// slots of peer chunks); ring, the c1 ring of the block's n1 / 16 mid
+// chunks ([octet][3 slots of ss positions, and the last slot's reach] a
+// chunk); inr, the transposed
+// input rows of every input chunk ([octet][3 slots x sw positions], pt1 a
+// octet), and past them the positions the junk rows of conv1's m64 blocks
+// read and the spare position (pr1 in all); w1res, w2res, the resident
+// weights (the block's split); bias, both convs' biases; part, with a
+// cluster PixelNorm's sums of conv1 and of conv2.
 struct KbLayout {
-  long long raw, w1chunk, w2chunk, stage, region, pt1, pr1, inr, ptr2, ring, w1res, w2res, wg, bias, total;
+  long long raw, w1chunk, w2chunk, stage, region, pt1, pr1, inr, ss, gs, ptr2, ring, w1res, w2res, wg, bias, part,
+      total;
 };
 inline KbLayout kb_layout(int n1, int n2, int mb, int nch1, int nch2, int tc, int nwg, bool res1, bool res2,
-                          int stages) {
+                          int stages, bool cl) {
   KbLayout l;
   const long long sw = tc + 8, rw = tc + 24, pp = kb_pp2(n1, n2);
   l.raw = 32 * rw;
   l.w1chunk = 9LL * 32 * n1;
   l.w2chunk = 4 * pp * 32 * n2;
   l.stage = cb::round_up(std::max({l.raw, res1 ? 0LL : l.w1chunk, res2 ? 0LL : l.w2chunk}), 128);
-  l.region = cb::round_up(pp * n2 * (8 * mb + 1) * 16, 128);
   l.pt1 = 3 * sw;
   l.pr1 = 2LL * nch1 * l.pt1 + 64LL * mb + 8;
   l.inr = cb::round_up(16 * l.pr1, 128);
-  l.ptr2 = 3LL * 64 * mb + 8;
-  l.ring = 32LL * nch2 * l.ptr2;
+  // A c1 ring slot: 64 mb positions, with a cluster the strip's tc + 2 (in
+  // steps of 16); the last slot's m64 blocks read 64 mb + 2 positions on.
+  // The staged outputs: 8 mb groups a channel, with a cluster the strip's.
+  l.ss = cl ? cb::round_up(tc + 2, 16) : 64LL * mb;
+  l.gs = cl ? cb::round_up(ceil_div(tc, 8), 2) : 8LL * mb;
+  l.ptr2 = 2 * l.ss + 64LL * mb + 8;
+  l.region = cb::round_up(std::max(pp * n2 * (l.gs + 1) * 16, cl ? 64 * l.ptr2 : 0LL), 128);
+  l.ring = 32LL * (n1 / 16) * l.ptr2;
   l.w1res = res1 ? (long long)nch1 * 9 * 32 * n1 : 0;
   l.w2res = res2 ? (long long)nch2 * 16 * 32 * n2 : 0;
   l.wg = stages * l.stage + l.region + l.ring + l.inr;
   l.bias = 4LL * (n1 + n2);
-  l.total = l.w1res + l.w2res + nwg * l.wg + l.bias + 8LL * (nwg * 4 + 1);
+  l.part = cl ? 4LL * 64 * mb * (1 + pp) : 0;
+  l.total = l.w1res + l.w2res + nwg * l.wg + l.bias + l.part + 8LL * (nwg * 4 + 1);
   return l;
+}
+
+// Past 128 channels (ops/conv_bf16.py::channel_split, cb::plan_cb's rule):
+// channels a rank of each conv and the splits.
+inline void kb_split(int c, int* n, int* nsplit) {
+  const int groups = ceil_div(c, 16);
+  *nsplit = ceil_div(groups, 8);
+  *n = 16 * ceil_div(groups, *nsplit);
+}
+
+// Whether the cluster route takes these widths (past 128 channels), by the
+// widths alone: its smallest layout (16-column strips, weights streamed,
+// two stages) fits a block.  Wider inputs keep block3x3.cuh at bf16: every
+// rank holds three transposed rows of every input chunk.
+inline bool kb_cluster_fits(int cin, int cmid, int cout) {
+  if (cin < 1 || cmid < 1 || cout < 1 || cmid > MAX_CH || cout > MAX_CH) return false;
+  int n1, n2, ns1, ns2;
+  kb_split(cmid, &n1, &ns1);
+  kb_split(cout, &n2, &ns2);
+  if (ns1 == 1 && ns2 == 1) return false;
+  const KbLayout l = kb_layout(n1, n2, 2 * kb_mb(n1, n2), ceil_div(cin, 16), ceil_div(cmid, 16), 16, 1, false,
+                               false, 2, true);
+  return l.total <= cb::SMEM_BUDGET;
 }
 
 // Modelled clocks (times 4) in conv_bf16.cuh's terms (cb::plan_cb): of an
@@ -679,6 +864,14 @@ constexpr int ROW1_FIXED_CLK = 1000, ROW2_FIXED_CLK = 2500;
 // blocks 4-7 of synthesis on an H100 (PERF.md): alone, a warpgroup's chain
 // of waits goes unhidden (20); two hide part of it (12); three more (7).
 constexpr int NWG_EIGHTHS[4] = {0, 20, 12, 7};
+// With a cluster: modelled clocks of one cluster barrier, and (times 4) of
+// a peer chunk's copy, 16 bytes a clock; a wave of units (one a cluster,
+// both warpgroups on it) takes its modelled clocks times 23 / 20, fitted to
+// the cluster route against K1 bf16 then K3 bf16 at 13 shapes past 128
+// channels on an H100 (PERF.md: the model's ratio to the pair's was 1.9-2.9
+// times the measured one at x 3).
+constexpr int CLUSTER_SYNC_CLK = 1500, CLUSTER_WAVE_TWENTIETHS = 23;
+inline long long kb_peer_cost4(long long ptr2) { return 4 * 2 * ptr2; }
 inline long long kb_in_cost4(int nch1, int rw) { return nch1 * std::max(12LL * rw, 4LL * rw); }
 inline long long kb_row1_cost4(int n1, int mb, int nch1, bool res1) {
   const long long work = (long long)mb * 9 * std::max(2 * n1, 64 + n1);
@@ -694,16 +887,33 @@ inline long long kb_row2_cost4(int n1, int n2, int mb, int nch2, int tc, bool re
 
 // tc_force, run_force: 0, or a forced strip width (a multiple of 16) and
 // run length (measurements and tests).  takes: K4 bf16's modelled time
-// below K1 bf16 then K3 bf16's plans' (both with PixelNorm).
+// below K1 bf16 then K3 bf16's plans' (both with PixelNorm), and no
+// cluster: over a cluster it was measured at or above the pair at every
+// shape timed on an H100, the closest block 6 of a generator past 128
+// channels at 1.000x (PERF.md), so the generator leaves those blocks to
+// the pair until a redesign beats it (the cost still picks the layout).
+//
+// Past 128 channels (cluster > 1: max(nsplit1, nsplit2) ranks of two
+// warpgroups each, both on every unit, widths kb_cluster_fits takes): mb
+// the two warpgroups' m64 blocks (each one's from the registers, kb_mb, as
+// the row costs are), and the same search with
+// clusters for blocks (as many as the SMs hold, at most the units), a c1
+// row's two cluster barriers and an output pass's one added, and the
+// copies of the peers' chunks (nch2 - nown of them a pass).
 inline int plan_kb(int B, int cin, int cmid, int cout, int H, int W, int sms, int tc_force, int run_force,
                    KbPlan* out) {
-  if (B < 1 || cin < 1 || cmid < 1 || cout < 1 || H < 1 || W < 1 || cmid > MAX_N || cout > MAX_N ||
+  if (B < 1 || cin < 1 || cmid < 1 || cout < 1 || H < 1 || W < 1 || cmid > MAX_CH || cout > MAX_CH ||
       tc_force < 0 || run_force < 0)
     return (int)cudaErrorInvalidValue;
   KbPlan p{};
-  p.n1 = 16 * ceil_div(cmid, 16);
-  p.n2 = 16 * ceil_div(cout, 16);
-  p.mb = kb_mb(p.n1, p.n2);
+  kb_split(cmid, &p.n1, &p.nsplit1);
+  kb_split(cout, &p.n2, &p.nsplit2);
+  p.cluster = std::max(p.nsplit1, p.nsplit2);
+  const bool cl = p.cluster > 1;
+  if (cl && !kb_cluster_fits(cin, cmid, cout)) return (int)cudaErrorInvalidValue;
+  p.nown = p.n1 / 16;
+  const int mbw = kb_mb(p.n1, p.n2);  // a warpgroup's m64 blocks
+  p.mb = cl ? 2 * mbw : mbw;          // a unit's (two warpgroups' with a cluster)
   p.nch1 = ceil_div(cin, 16);
   p.nch2 = ceil_div(cmid, 16);
   const int tc_max = std::min(MAX_TC, 64 * p.mb - 16);
@@ -717,29 +927,38 @@ inline int plan_kb(int B, int cin, int cmid, int cout, int H, int W, int sms, in
     for (int res = 3; res >= 0; --res) {
       const bool r1 = res & 2, r2 = res & 1;
       const long long in = kb_in_cost4(p.nch1, tc + 24);
-      const long long row1 = kb_row1_cost4(p.n1, p.mb, p.nch1, r1);
-      const long long row2 = kb_row2_cost4(p.n1, p.n2, p.mb, p.nch2, tc, r2);
+      long long row1 = kb_row1_cost4(p.n1, mbw, p.nch1, r1);
+      long long row2 = kb_row2_cost4(p.n1, p.n2, mbw, p.nch2, tc, r2);
+      if (cl) {
+        const long long ptr2 = 2 * cb::round_up(tc + 2, 16) + 64LL * p.mb + 8, np = 4 / kb_pp2(p.n1, p.n2);
+        const long long peers = std::max(0, p.nch2 - p.nown);
+        row1 += 4LL * 2 * CLUSTER_SYNC_CLK;
+        row2 += np * (peers * kb_peer_cost4(ptr2) + 4LL * CLUSTER_SYNC_CLK);
+      }
       // Run lengths from the longest, each nruns once at its shortest run.
       for (int nruns = 1; nruns <= H; ++nruns) {
         const int run = run_force ? run_force : ceil_div(H, nruns);
         if (ceil_div(H, run) != nruns) continue;
         const long long units = strips * nruns;
-        const int blocks = (int)std::min<long long>(units, sms);
+        const int blocks = cl ? (int)std::min<long long>(units, std::max(1, sms / p.cluster)) * p.cluster
+                              : (int)std::min<long long>(units, sms);
         const int wgmax = kb_wgmax(p.n1, p.n2);
-        for (int nwg = std::min<long long>(wgmax, (units + blocks - 1) / blocks); nwg >= 1; --nwg) {
+        for (int nwg = cl ? 2 : std::min<long long>(wgmax, (units + blocks - 1) / blocks); nwg >= 1; --nwg) {
           int stages = 0;
           KbLayout l{};
           for (int s = 4; s >= 2 && !stages; --s) {
-            l = kb_layout(p.n1, p.n2, p.mb, p.nch1, p.nch2, tc, nwg, r1, r2, s);
+            l = kb_layout(p.n1, p.n2, p.mb, p.nch1, p.nch2, tc, cl ? 1 : nwg, r1, r2, s, cl);
             if (l.total <= cb::SMEM_BUDGET) stages = s;
           }
           if (!stages) continue;
           // Units go to the blocks' warpgroups in waves, nwg warpgroups an
-          // SM; the factor (eighths) is what sharing an SM does to a row's
-          // chain of waits (NWG_EIGHTHS).
-          const long long slots = (long long)blocks * nwg;
-          const long long cost = (units + slots - 1) / slots * nwg *
-                                 ((run + 4) * in + (run + 2) * row1 + run * row2) * NWG_EIGHTHS[nwg] / 8;
+          // SM (with a cluster both on each unit, a wave a unit a
+          // cluster); the factor (eighths) is what sharing an SM does to
+          // a row's chain of waits (NWG_EIGHTHS).
+          const long long slots = cl ? (long long)blocks / p.cluster : (long long)blocks * nwg;
+          const long long rows = (run + 4) * in + (run + 2) * row1 + run * row2;
+          const long long cost = cl ? (units + slots - 1) / slots * rows * CLUSTER_WAVE_TWENTIETHS / 20
+                                    : (units + slots - 1) / slots * nwg * rows * NWG_EIGHTHS[nwg] / 8;
           if (!found || cost < p.cost) {
             found = true;
             p.tc = tc;
@@ -755,6 +974,8 @@ inline int plan_kb(int B, int cin, int cmid, int cout, int H, int W, int sms, in
             p.pt1 = (int)l.pt1;
             p.pr1 = (int)l.pr1;
             p.ptr2 = (int)l.ptr2;
+            p.ss = (int)l.ss;
+            p.gs = (int)l.gs;
             p.smem = l.total;
             p.cost = cost;
           }
@@ -771,8 +992,28 @@ inline int plan_kb(int B, int cin, int cmid, int cout, int H, int W, int sms, in
   if (err == 0) err = cb::plan_cb(2, B, cmid, cout, H, W, 1, sms, 0, 0, &p3);
   if (err != 0) return err;
   p.pair_cost = p1.cost + p3.cost;
-  p.takes = p.cost < p.pair_cost;
+  p.takes = !cl && p.cost < p.pair_cost;
   *out = p;
+  return 0;
+}
+
+// The plan at these sizes on the current device, for the wrappers and
+// tests: out = {takes, tc, run, runs, strips, units, blocks, warpgroups a
+// block, w1 resident, w2 resident, stages, shared-memory bytes, modelled
+// cost, the pair's modelled cost, mb, SMs, cluster, nsplit1, nsplit2}; tc,
+// run as the launchers'.
+inline int plan_out(int B, int cin, int cmid, int cout, int H, int W, int tc, int run, long long* out) {
+  int dev = 0;
+  const DeviceInfo* info = nullptr;
+  int err = current_device(&dev, &info);
+  if (err != 0) return err;
+  KbPlan p;
+  err = plan_kb(B, cin, cmid, cout, H, W, info->sms, tc, run, &p);
+  if (err != 0) return err;
+  const long long v[19] = {p.takes, p.tc,      p.run,     p.nruns,   p.ntx,    p.nunits, p.blocks,
+                           p.nwg,   p.res1,    p.res2,    p.stages,  p.smem,   p.cost,   p.pair_cost,
+                           p.mb,    info->sms, p.cluster, p.nsplit1, p.nsplit2};
+  for (int i = 0; i < 19; ++i) out[i] = v[i];
   return 0;
 }
 
@@ -792,26 +1033,40 @@ inline int encode_row_map(const bf16* x, int B, int cin, int H, int W, int rw, C
   return r == CUDA_SUCCESS ? 0 : cb::CB_ENCODE_ERROR + (int)r;
 }
 
-template <int N1, int N2, typename O>
+template <int N1, int N2, typename O, bool CL>
 int launch_kb(const KbPlan& p, const KbArgs& a, const CUtensorMap& tm, int dev, const DeviceInfo& info,
               cudaStream_t stream) {
   static bool opted_in[MAX_DEVICES] = {};
   if (p.smem > info.smem_optin) return (int)cudaErrorInvalidValue;
   if (!opted_in[dev]) {
-    const cudaError_t e = cudaFuncSetAttribute(block_bf16_kernel<N1, N2, O>,
+    const cudaError_t e = cudaFuncSetAttribute(block_bf16_kernel<N1, N2, O, CL>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize, info.smem_optin);
     if (e != cudaSuccess) return (int)e;
     opted_in[dev] = true;
   }
-  block_bf16_kernel<N1, N2, O><<<p.blocks, 128 * p.nwg, (size_t)p.smem, stream>>>(tm, a);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)p.blocks);
+  cfg.blockDim = dim3(128 * p.nwg);
+  cfg.dynamicSmemBytes = (size_t)p.smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = p.cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = CL ? 1 : 0;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, block_bf16_kernel<N1, N2, O, CL>, tm, a);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
 // x: (B, cin, H, W) bf16; w1: ops/conv_bf16.py::tc_weights of conv1 (K1
 // bf16's pack), w2: of conv2 (K3 bf16's); b1 (cmid,), b2 (cout,) float32;
 // y: (B, cout, 2H, 2W) of O, bf16 or float32; tc, run: 0 for the size
-// rule's.
-template <typename O>
+// rule's.  CL: the cluster route (widths past 128 that kb_cluster_fits
+// takes), else up to 128 channels.
+template <typename O, bool CL>
 int launch_block_bf16(const bf16* x, const bf16* w1, const float* b1, const bf16* w2, const float* b2, O* y, int B,
                       int cin, int cmid, int cout, int H, int W, float slope, float eps, int tc, int run,
                       cudaStream_t stream) {
@@ -825,7 +1080,10 @@ int launch_block_bf16(const bf16* x, const bf16* w1, const float* b1, const bf16
   KbPlan p;
   err = plan_kb(B, cin, cmid, cout, H, W, info->sms, tc, run, &p);
   if (err != 0) return err;
-  const KbLayout l = kb_layout(p.n1, p.n2, p.mb, p.nch1, p.nch2, p.tc, p.nwg, p.res1, p.res2, p.stages);
+  if ((p.cluster > 1) != CL) return (int)cudaErrorInvalidValue;
+  const int regions = CL ? 1 : p.nwg;  // a cluster's two warpgroups share one unit's rings
+  const KbLayout l =
+      kb_layout(p.n1, p.n2, p.mb, p.nch1, p.nch2, p.tc, regions, p.res1, p.res2, p.stages, CL);
   KbArgs a;
   a.x = x;
   a.w1 = w1;
@@ -848,7 +1106,7 @@ int launch_block_bf16(const bf16* x, const bf16* w1, const float* b1, const bf16
   a.run = p.run;
   a.nruns = p.nruns;
   a.nunits = p.nunits;
-  a.nwg = p.nwg;
+  a.nwg = regions;
   a.res1 = p.res1;
   a.res2 = p.res2;
   a.stages = p.stages;
@@ -858,6 +1116,12 @@ int launch_block_bf16(const bf16* x, const bf16* w1, const float* b1, const bf16
   a.pr1 = p.pr1;
   a.ptr2 = p.ptr2;
   a.np = 4 / kb_pp2(p.n1, p.n2);
+  a.cluster = p.cluster;
+  a.nsplit1 = p.nsplit1;
+  a.nsplit2 = p.nsplit2;
+  a.nown = p.nown;
+  a.ss = p.ss;
+  a.gs = p.gs;
   a.raw_bytes = (uint32_t)l.raw;
   a.stage_bytes = (uint32_t)l.stage;
   a.w1chunk_bytes = (uint32_t)l.w1chunk;
@@ -869,8 +1133,9 @@ int launch_block_bf16(const bf16* x, const bf16* w1, const float* b1, const bf16
   a.region_off = (uint32_t)(p.stages * l.stage);
   a.ring_off = (uint32_t)(p.stages * l.stage + l.region);
   a.in_off = (uint32_t)(p.stages * l.stage + l.region + l.ring);
-  a.bias_off = a.wg_off + p.nwg * a.wg_bytes;
-  a.bar_off = a.bias_off + (uint32_t)l.bias;
+  a.bias_off = a.wg_off + regions * a.wg_bytes;
+  a.part_off = a.bias_off + (uint32_t)l.bias;
+  a.bar_off = a.part_off + (uint32_t)l.part;
   a.slope = slope;
   a.eps = eps;
   CUtensorMap tm = {};
@@ -879,9 +1144,17 @@ int launch_block_bf16(const bf16* x, const bf16* w1, const float* b1, const bf16
     if (err != 0) return err;
   }
 #define MG_KB(A, Bw) \
-  if (p.n1 == A && p.n2 == Bw) return launch_kb<A, Bw, O>(p, a, tm, dev, *info, stream);
+  if (p.n1 == A && p.n2 == Bw) return launch_kb<A, Bw, O, CL>(p, a, tm, dev, *info, stream);
 #define MG_KB_ROW(A) MG_KB(A, 16) MG_KB(A, 32) MG_KB(A, 48) MG_KB(A, 64) MG_KB(A, 80) MG_KB(A, 96) MG_KB(A, 112) MG_KB(A, 128)
-  MG_KB_ROW(16) MG_KB_ROW(32) MG_KB_ROW(48) MG_KB_ROW(64) MG_KB_ROW(80) MG_KB_ROW(96) MG_KB_ROW(112) MG_KB_ROW(128)
+#define MG_KB_WIDE(A) MG_KB(A, 80) MG_KB(A, 96) MG_KB(A, 112) MG_KB(A, 128)
+  if constexpr (CL) {
+    // A split conv has 80 channels a rank or more (kb_split past 128).
+    MG_KB_WIDE(16) MG_KB_WIDE(32) MG_KB_WIDE(48) MG_KB_WIDE(64)
+    MG_KB_ROW(80) MG_KB_ROW(96) MG_KB_ROW(112) MG_KB_ROW(128)
+  } else {
+    MG_KB_ROW(16) MG_KB_ROW(32) MG_KB_ROW(48) MG_KB_ROW(64) MG_KB_ROW(80) MG_KB_ROW(96) MG_KB_ROW(112) MG_KB_ROW(128)
+  }
+#undef MG_KB_WIDE
 #undef MG_KB_ROW
 #undef MG_KB
   return (int)cudaErrorInvalidValue;

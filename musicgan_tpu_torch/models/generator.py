@@ -106,8 +106,8 @@ class GenBlock(nn.Module):
         if use_block and conv_ops.fused_block_fits(
             w1.shape[1], w1.shape[0], w2.shape[0], size=(x.shape[0], *x.shape[2:]), device=x.device, dtype=dt
         ):
-            # K4 bf16 up to 128 channels reads K1 bf16's and K3 bf16's packs.
-            tcb = tc and conv_bf16.block_route(w1.shape[0], w2.shape[0]) == "bf16_tc"
+            # K4 bf16 (but its template route) reads K1 bf16's and K3 bf16's packs.
+            tcb = tc and conv_bf16.block_route(w1.shape[0], w2.shape[0], w1.shape[1]) != "template"
             return conv_ops.fused_block(
                 x, w1, self.conv1.bias, w2, self.conv2.bias, slope, eps,
                 w1_packed=self._packed("conv1", dt, False, tcb), w2_packed=self._packed("conv2", dt, True, tcb),

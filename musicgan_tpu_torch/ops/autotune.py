@@ -50,7 +50,7 @@ from ..config import ModelConfig
 __all__ = [
     "resolve_conv_impl", "measure_conv_impls", "measure_train_impls",
     "resolve_istft_impl", "measure_istft_impls", "VOCODER_IMPLS",
-    "TRAINING_IMPLS", "SECOND_ORDER_IMPLS", "ALL_IMPLS",
+    "TRAINING_IMPLS", "SECOND_ORDER_IMPLS", "ALL_IMPLS", "FLOAT32_IMPLS",
 ]
 
 _CACHE: dict = {}
@@ -79,6 +79,9 @@ ALL_IMPLS = (
     "xla", "subpixel", "pallas", "pallas_bf16", "pallas_up",
     "pallas_up_bf16",
 )
+# The float32 inference candidates: what a caller that promises float32
+# throughout (the long clip, as JAX's, whose "auto" is "xla") may get.
+FLOAT32_IMPLS = tuple(i for i in ALL_IMPLS if not i.endswith("_bf16"))
 # Vocoder (iSTFT) lowerings: the plain matmul-DFT (audio/stft.py) on the
 # card vs the fused kernel K5 (ops/istft_fused.py).  Same contract.
 VOCODER_IMPLS = ("xla", "pallas")
@@ -340,12 +343,15 @@ def resolve_istft_impl(
 
 
 def _candidates_and_key(
-    backend: str, z_shape: tuple, stage: int, for_training: bool, train_cfg
+    backend: str, z_shape: tuple, stage: int, for_training: bool, train_cfg,
+    inference: tuple = ALL_IMPLS,
 ) -> tuple[tuple, str]:
     """Candidate impls and the persisted-table key for one resolution.
     Training keys carry a ``train`` marker plus batch and compute dtype, so
     a training winner can never alias an inference winner (they are
-    measured on different graphs and rank differently)."""
+    measured on different graphs and rank differently).  An inference key
+    carries its candidates, so a winner over ``FLOAT32_IMPLS`` is never
+    read from one measured over all six."""
     if for_training:
         candidates = TRAINING_IMPLS
         if train_cfg is not None and train_cfg.compute_dtype != "float32":
@@ -359,7 +365,7 @@ def _candidates_and_key(
             f"{'x'.join(map(str, z_shape))}|b{batch}|{cdt}|{candidates}"
         )
     else:
-        candidates = ALL_IMPLS
+        candidates = inference
         key = (
             f"v{_CACHE_VERSION}|{backend}|s{stage}|"
             f"{'x'.join(map(str, z_shape))}|float32|{candidates}"
@@ -375,10 +381,12 @@ def resolve_conv_impl(
     train_cfg=None,
     allow_measure: bool = True,
     device=None,
+    candidates: tuple = ALL_IMPLS,
 ) -> ModelConfig:
     """Return ``cfg`` with ``conv_impl="auto"`` replaced by the measured
     winner for (card, stage, z_shape); ``z_shape`` is the NHWC latent shape,
-    as in JAX.  Non-auto configs pass through, except that training rejects
+    as in JAX.  ``candidates``: the inference impls to choose among
+    (``FLOAT32_IMPLS`` for a caller that must stay float32).  Non-auto configs pass through, except that training rejects
     the inference-only kernel impls, and the float32 kernel impls under a
     bf16 ``compute_dtype``.
 
@@ -419,7 +427,9 @@ def resolve_conv_impl(
         # spend start-up time measuring them.
         return dataclasses.replace(cfg, conv_impl="xla")
 
-    candidates, key = _candidates_and_key(_backend(device), z_shape, stage, for_training, train_cfg)
+    candidates, key = _candidates_and_key(
+        _backend(device), z_shape, stage, for_training, train_cfg, candidates
+    )
     if not (allow_measure and not _capturing(device)) and key not in _CACHE:
         winner = _load_persisted().get(key)
         return dataclasses.replace(cfg, conv_impl=winner or "xla")

@@ -25,11 +25,14 @@ and so is each mixed pair (``<kernel>_bf16_f32.cu``, ``<kernel>_f32_bf16.cu``,
 ``block3x3_bf16_wide_f32.cu``).  K1 bf16 and K3 bf16 are a
 kernel of their own, ``csrc/conv_bf16.cuh``, on the tensor cores at every
 size, with its plan mirrored and its weight pack made by
-``ops/conv_bf16.py``; K4 bf16 up to 128 channels is ``csrc/block_bf16.cuh``,
-built from its pieces (a strip walks down a run of rows, c1 held in a ring of
-rows in conv2's operand layout; plan ``ops/conv_bf16.py::block_plan``, the
-same packs), past 128 its float32 template at bf16 (a cluster,
-``csrc/block3x3_bf16_wide.cu``).  The
+``ops/conv_bf16.py``; K4 bf16 is ``csrc/block_bf16.cuh``, built from its
+pieces (a strip walks down a run of rows, c1 held in a ring of rows in
+conv2's operand layout; plan ``ops/conv_bf16.py::block_plan``, the same
+packs): one block up to 128 channels, past them a cluster split as K1
+bf16 and K3 bf16 split (``csrc/block3x3_bf16_wide.cu``), and where that
+layout does not fit (``conv_bf16.cluster_fits``: inputs past 608
+channels, at some widths of c1 and the output) its float32 template at
+bf16 (``csrc/block3x3_bf16_template.cu``).  The
 weights are rounded
 to bf16 after packing (for K3 and K4's conv2, the summed sub-pixel phase
 kernels), the bias stays float32, products are exact and summed in
@@ -162,14 +165,21 @@ def _lib(name: str, dtype: torch.dtype, out: torch.dtype | None = None) -> str:
     return f"{name}_{_TAG[dtype]}_{_TAG[out]}"
 
 
-def _block_lib(dtype: torch.dtype, cmid: int, cout: int, out: torch.dtype | None = None) -> str:
+# K4 bf16's source a route (ops/conv_bf16.py::block_route).
+_BF16_BLOCK_LIBS = {"bf16_cluster": "block3x3_bf16_wide", "template": "block3x3_bf16_template"}
+
+
+def _block_lib(dtype: torch.dtype, cin: int, cmid: int, cout: int, out: torch.dtype | None = None) -> str:
     """K4's source for ``x``'s ``dtype``, the output's ``out`` and these
     widths: in bf16 up to 128 channels ``block3x3_bf16`` (``csrc/block_bf16.cuh``),
-    past them ``block3x3_bf16_wide`` (``block3x3.cuh`` at bf16), each with
-    ``_f32`` for a float32 output; float32 ``block3x3`` or
-    ``block3x3_f32_bf16``."""
-    if dtype == torch.bfloat16 and conv_bf16.block_route(cmid, cout) != "bf16_tc":
-        return "block3x3_bf16_wide" + ("_f32" if out == torch.float32 else "")
+    past them ``block3x3_bf16_wide`` (the same kernel over a cluster) or,
+    where that does not fit, ``block3x3_bf16_template`` (``block3x3.cuh``
+    at bf16), each with ``_f32`` for a float32 output; float32
+    ``block3x3`` or ``block3x3_f32_bf16``."""
+    if dtype == torch.bfloat16:
+        route = conv_bf16.block_route(cmid, cout, cin)
+        if route != "bf16_tc":
+            return _BF16_BLOCK_LIBS[route] + ("_f32" if out == torch.float32 else "")
     return _lib("block3x3", dtype, out)
 
 
@@ -557,14 +567,14 @@ _PLAN_BLOCK_KEYS = ("takes", "run_rows", "runs", "strips", "units", "blocks", "c
 
 
 _PLAN_BLOCK_BF16_KEYS = ("takes", "tc", "run_rows", "runs", "strips", "units", "blocks", "nwg", "res1", "res2",
-                         "stages", "smem_bytes", "cost", "pair_cost", "mb", "sms")
+                         "stages", "smem_bytes", "cost", "pair_cost", "mb", "sms", "cluster", "nsplit1", "nsplit2")
 
 
 @functools.lru_cache(maxsize=256)
 def _block_plan(bsz: int, cin: int, cmid: int, cout: int, h: int, w: int, device: int, lib: str,
                 tc: int = 0, run: int = 0) -> dict:
     fn = _build.load(lib).mg_block3x3_plan
-    bf16_route = lib == "block3x3_bf16"
+    bf16_route = lib in ("block3x3_bf16", "block3x3_bf16_wide")
     keys = _PLAN_BLOCK_BF16_KEYS if bf16_route else _PLAN_BLOCK_KEYS
     if bf16_route:
         fn.argtypes = [ctypes.c_int] * 8 + [ctypes.POINTER(ctypes.c_longlong)]
@@ -581,7 +591,7 @@ def _block_plan(bsz: int, cin: int, cmid: int, cout: int, h: int, w: int, device
     plan = dict(zip(keys, out))
     plan["takes"] = bool(plan["takes"])
     if bf16_route:
-        plan["route"] = "bf16_tc"
+        plan["route"] = "bf16_tc" if plan["cluster"] == 1 else "bf16_cluster"
         plan["res1"], plan["res2"] = bool(plan["res1"]), bool(plan["res2"])
         # conv1's pixels computed over those the block needs: the strip's
         # two halo columns and the runs' two halo rows.
@@ -597,20 +607,21 @@ def block_plan(bsz: int, cin: int, cmid: int, cout: int, h: int, w: int, device=
                dtype: torch.dtype = torch.float32, tc: int = 0, run: int = 0) -> dict:
     """How K4 launches at these sizes on a CUDA device (the current one by
     default), as its launcher plans it from the sizes and the SM count.
-    float32 (and bf16 past 128 channels, ``route`` "template"): whether the
-    generator ``takes`` it, the run of image rows a unit walks, the runs and
-    strips, units, blocks, cluster, and ``recompute``, conv1's pixels
-    computed over the c1 pixels needed.  bf16 up to 128 channels (``route``
-    "bf16_tc", ``csrc/block_bf16.cuh``): the keys of
-    ``ops/conv_bf16.py::block_plan`` the launcher reports (``takes``, ``tc``,
-    ``run_rows``, ``runs``, ``units``, ``nwg``, residency, ``stages``,
-    ``cost`` and ``pair_cost``, ...), ``tc`` and ``run`` forced as
-    :func:`fused_block`'s.  Needs the card."""
+    float32 (and bf16 ``route`` "template", inputs too wide for the
+    cluster): whether the generator ``takes`` it, the run of image rows a
+    unit walks, the runs and strips, units, blocks, cluster, and
+    ``recompute``, conv1's pixels computed over the c1 pixels needed.  bf16
+    (``route`` "bf16_tc" up to 128 channels, "bf16_cluster" past them,
+    ``csrc/block_bf16.cuh``): the keys of ``ops/conv_bf16.py::block_plan``
+    the launcher reports (``takes``, ``tc``, ``run_rows``, ``runs``,
+    ``units``, ``nwg``, residency, ``stages``, ``cost`` and ``pair_cost``,
+    ``cluster``, ``nsplit1``, ``nsplit2``, ...), ``tc`` and ``run`` forced
+    as :func:`fused_block`'s.  Needs the card."""
     dev = torch.device("cuda") if device is None else torch.device(device)
     index = dev.index if dev.index is not None else torch.cuda.current_device()
     if dtype != torch.bfloat16 and (tc or run):
         raise ValueError("block_plan: a forced strip width or run is for K4 bf16 only")
-    return dict(_block_plan(bsz, cin, cmid, cout, h, w, index, _block_lib(dtype, cmid, cout), tc, run))
+    return dict(_block_plan(bsz, cin, cmid, cout, h, w, index, _block_lib(dtype, cin, cmid, cout), tc, run))
 
 
 # SMs of an H100 SXM: the card the generator's rule is stated for where
@@ -648,10 +659,11 @@ def fused_block_fits(cin: int, cmid: int, cout: int, size=None, device=None,
     streams through in steps of 8 channels), in both dtypes.  With ``size =
     (B, H, W)``, also the kernel's own size rule for the SMs of ``device``
     (a CUDA one; otherwise an H100's): in float32 :func:`block_takes`
-    (blocks 4 to 7 of a 5-clip, nb_vec-10 call on an H100); in bf16 up to
-    128 channels K4 bf16's (``ops/conv_bf16.py::block_plan``'s ``takes``:
-    its modelled time below K1 bf16 then K3 bf16's), past 128 float32's,
-    whose template that route runs."""
+    (blocks 4 to 7 of a 5-clip, nb_vec-10 call on an H100); in bf16 K4
+    bf16's (``ops/conv_bf16.py::block_plan``'s ``takes``: its modelled time
+    below K1 bf16 then K3 bf16's, and never past 128 channels, where the
+    cluster route was measured no faster than the pair), and for inputs
+    too wide for the cluster float32's, whose template that route runs."""
     if _block_tile(cmid, cout) is None:
         return False
     if size is None:
@@ -672,7 +684,7 @@ def _sms(device: int) -> int:
 # synthesis call's host time).
 @functools.lru_cache(maxsize=4096)
 def _block_fits(cin: int, cmid: int, cout: int, size: tuple, sms: int, bf16: bool) -> bool:
-    if bf16 and conv_bf16.block_route(cmid, cout) == "bf16_tc":
+    if bf16 and conv_bf16.block_route(cmid, cout, cin) != "template":
         return conv_bf16.block_plan(size[0], cin, cmid, cout, size[1], size[2], sms)["takes"]
     return block_takes(size[0], cin, cmid, cout, size[1], size[2], sms)
 
@@ -701,12 +713,12 @@ def fused_block(x, w1, b1, w2, b2, slope=0.2, eps=1e-8, w1_packed=None, w2_packe
     ``pn(lrelu(conv3x3(up2x(.))))``, in one launch.  Dtypes as
     :func:`fused_conv3x3`.  ``w1_packed``, ``w2_packed``:
     ``kernel_weights(w1, x.dtype)`` and ``kernel_upconv_weights(w2,
-    x.dtype)`` made ahead, the layouts K1 and K3 read too; in bf16 up to
-    128 channels (``csrc/block_bf16.cuh``) also ``kernel_weights_tc(w1)``
-    and ``kernel_weights_tc(w2, True)``, the packs K1 bf16 and K3 bf16 read
-    and K4 bf16 reads (the kernel layout is moved into them on the card).
-    ``tc``, ``run``: K4 bf16's strip width and run length forced, for
-    measurements and tests."""
+    x.dtype)`` made ahead, the layouts K1 and K3 read too; in bf16 where
+    ``csrc/block_bf16.cuh`` takes the widths (one block or a cluster) also
+    ``kernel_weights_tc(w1)`` and ``kernel_weights_tc(w2, True)``, the packs
+    K1 bf16 and K3 bf16 read and K4 bf16 reads (the kernel layout is moved
+    into them on the card).  ``tc``, ``run``: K4 bf16's strip width and run
+    length forced, for measurements and tests."""
     if x.device.type == "cpu":
         out = out_dtype_of("fused_block", x, out_dtype)
         return checked("fused_block", fused_block_plain(x, w1, b1, w2, b2, slope, eps, out))
@@ -722,15 +734,16 @@ def fused_block(x, w1, b1, w2, b2, slope=0.2, eps=1e-8, w1_packed=None, w2_packe
         )
     if b1 is None or b2 is None:
         raise ValueError("fused_block: both convs carry a bias")
-    bf16_tc = x.dtype == torch.bfloat16 and conv_bf16.block_route(cmid, cout) == "bf16_tc"
+    bf16_tc = x.dtype == torch.bfloat16 and conv_bf16.block_route(cmid, cout, cin) != "template"
     if (tc or run) and not bf16_tc:
-        raise ValueError("fused_block: a forced strip width or run is for K4 bf16 up to 128 channels only")
+        raise ValueError("fused_block: a forced strip width or run is for K4 bf16's block_bf16.cuh only")
     if bf16_tc:
         w1p = _bf16_weights("fused_block", w1, w1_packed, False)
         w2p = _bf16_weights("fused_block", w2, w2_packed, True)
     else:
-        # Past 128 channels K4 bf16 is block3x3.cuh at bf16, which reads the
-        # kernel layout (a pack of K1 bf16 / K3 bf16 given is made anew).
+        # K4 bf16's template route (inputs too wide for the cluster) is
+        # block3x3.cuh at bf16, which reads the kernel layout (a pack of K1
+        # bf16 / K3 bf16 given is made anew).
         if x.dtype == torch.bfloat16:
             w1_packed = None if w1_packed is not None and w1_packed.dim() == 6 else w1_packed
             w2_packed = None if w2_packed is not None and w2_packed.dim() == 6 else w2_packed
@@ -739,9 +752,9 @@ def fused_block(x, w1, b1, w2, b2, slope=0.2, eps=1e-8, w1_packed=None, w2_packe
     x, w1p, b1, b1_ptr = _operands("block3x3", x, w1p, b1, True, cmid)
     _, w2p, b2, b2_ptr = _operands("block3x3", x, w2p, b2, True, cout)
     y = torch.empty(bsz, cout, 2 * h, 2 * wd, device=x.device, dtype=out)
-    lib = _block_lib(x.dtype, cmid, cout, out)
+    lib = _block_lib(x.dtype, cin, cmid, cout, out)
     # The workspace (and the plan) are those of x's dtype, whatever the output's.
-    ws = torch.empty(_block_workspace(cin, cmid, cout, _block_lib(x.dtype, cmid, cout)), device=x.device,
+    ws = torch.empty(_block_workspace(cin, cmid, cout, _block_lib(x.dtype, cin, cmid, cout)), device=x.device,
                      dtype=torch.float32)
     args = [x.data_ptr(), w1p.data_ptr(), b1_ptr, w2p.data_ptr(), b2_ptr, ws.data_ptr(), y.data_ptr(),
             bsz, cin, cmid, cout, h, wd, slope, eps]

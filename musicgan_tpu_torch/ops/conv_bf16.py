@@ -31,10 +31,11 @@ is then added to the tile's in float32 (the order of ``conv_tile.cuh``'s
 tensor-core route, which K4 bf16 also keeps, so K4 bf16 equals K1 bf16 then
 K3 bf16 bit for bit).
 
-K4 bf16 (``csrc/block_bf16.cuh``, up to 128 channels each conv) reads the
-same packs and keeps the same order; :func:`block_plan` mirrors its plan
-(strip width, run length, weights resident or streamed, warpgroups a
-block) and says whether the generator takes it (``takes``).
+K4 bf16 (``csrc/block_bf16.cuh``) reads the same packs and keeps the same
+order; :func:`block_plan` mirrors its plan (strip width, run length,
+weights resident or streamed, warpgroups a block; past 128 channels the
+cluster and each conv's splits) and says whether the generator takes it
+(``takes``).
 
 A float32 output (the JAX functions' bf16 ``x`` with ``out_dtype=float32``,
 and K2 with bf16 ``x``) leaves through the bf16 output's staging region in
@@ -53,7 +54,9 @@ __all__ = [
     "ROUTES",
     "SMEM_BUDGET",
     "BLOCK_MAX_CHANNELS",
+    "CLUSTER_MAX_CHANNELS",
     "block_geometry",
+    "cluster_fits",
     "block_plan",
     "block_route",
     "channel_split",
@@ -273,9 +276,11 @@ def tc_weights(wk: torch.Tensor, upconv: bool, cout: int) -> torch.Tensor:
 # here from ``plan_kb`` integer for integer so that the generator's choice
 # (``ops/conv.py::fused_block_fits``) is known without the card.
 
-# Widest conv1 and conv2 the kernel takes (one block, no cluster); wider
-# blocks take csrc/block3x3.cuh at bf16.
+# Widest conv1 and conv2 one block takes (no cluster); past them the same
+# kernel runs over a cluster of MAX_PIXEL_NORM_SPLITS blocks at most, where
+# its layout fits (cluster_fits), else csrc/block3x3.cuh at bf16.
 BLOCK_MAX_CHANNELS = 128
+CLUSTER_MAX_CHANNELS = MAX_PIXEL_NORM_SPLITS * BLOCK_MAX_CHANNELS
 BLOCK_MAX_TC = 224
 # Modelled fixed clocks of a c1 row (its epilogue, the ring's stores) and of
 # an output row's pass (epilogue, staging, stores).
@@ -285,13 +290,47 @@ ROW1_FIXED_CLK, ROW2_FIXED_CLK = 1000, 2500
 # blocks 4-7 of synthesis on an H100 (PERF.md): alone, a warpgroup's chain
 # of waits goes unhidden; two hide part of it, three more.
 NWG_EIGHTHS = (0, 20, 12, 7)
+# With a cluster: modelled clocks of one cluster barrier (a c1 row meets
+# twice, an output pass once), and a wave of units (one a cluster, both
+# warpgroups on it) at its modelled clocks times 23 / 20, fitted to the
+# cluster route against K1 bf16 then K3 bf16 at 13 shapes past 128 channels
+# on an H100 (PERF.md; ``scripts/torch_conv_sweep.py --part k4wide``).
+CLUSTER_SYNC_CLK, CLUSTER_WAVE_TWENTIETHS = 1500, 23
 
 
-def block_route(cmid: int, cout: int) -> str:
-    """K4 bf16's route by the widths alone: ``"bf16_tc"`` (``block_bf16.cuh``)
-    where both convs have at most 128 channels, else ``"template"``
-    (``block3x3.cuh`` at bf16, a cluster past 128)."""
-    return "bf16_tc" if cmid <= BLOCK_MAX_CHANNELS and cout <= BLOCK_MAX_CHANNELS else "template"
+def _kb_peer_cost4(ptr2: int) -> int:
+    """Modelled clocks (times 4) of copying a peer's c1 chunk (``32 * ptr2``
+    bytes) through distributed shared memory, 16 bytes a clock."""
+    return 4 * 2 * ptr2
+
+
+def cluster_fits(cin: int, cmid: int, cout: int) -> bool:
+    """Whether K4 bf16's cluster route takes these widths
+    (``block_bf16.cuh::kb_cluster_fits``), by the widths alone: past 128
+    channels (either conv) and up to ``CLUSTER_MAX_CHANNELS``, where its
+    smallest layout (16-column strips, both convs' weights streamed, two
+    stages) fits a block.  Every rank holds three transposed rows of every
+    input chunk, so wide inputs do not fit."""
+    if min(cin, cmid, cout) < 1 or max(cmid, cout) > CLUSTER_MAX_CHANNELS:
+        return False
+    (n1, ns1), (n2, ns2) = channel_split(cmid), channel_split(cout)
+    if ns1 == ns2 == 1:
+        return False
+    geo = block_geometry(cmid, cout)
+    lay = _kb_layout(n1, n2, geo["mb"], -(-cin // CHUNK), -(-cmid // CHUNK), 16, 1, False, False, 2,
+                     geo["pp2"], True)
+    return lay["total"] <= SMEM_BUDGET
+
+
+def block_route(cmid: int, cout: int, cin: int) -> str:
+    """K4 bf16's route by the widths alone: ``"bf16_tc"`` (``block_bf16.cuh``,
+    one block) where both convs have at most 128 channels; past them
+    ``"bf16_cluster"`` (the same kernel over a cluster,
+    ``block3x3_bf16_wide.cu``) where :func:`cluster_fits`, else
+    ``"template"`` (``block3x3.cuh`` at bf16, ``block3x3_bf16_template.cu``)."""
+    if cmid <= BLOCK_MAX_CHANNELS and cout <= BLOCK_MAX_CHANNELS:
+        return "bf16_tc"
+    return "bf16_cluster" if cluster_fits(cin, cmid, cout) else "template"
 
 
 def _mb1_max(n1: int) -> int:
@@ -304,9 +343,13 @@ def _mb2_max(n2: int) -> int:
 
 
 def block_geometry(cmid: int, cout: int) -> dict:
-    """The widths' part of K4 bf16's plan (``mg_block3x3_tile``'s first
-    route): channels a block ``n1``, ``n2`` (the pair's: K4 bf16 sums in
-    their order), ``mb`` m64 blocks of positions a row tile (registers:
+    """The widths' part of K4 bf16's plan (``mg_block3x3_tile``): channels a
+    block ``n1``, ``n2`` and each conv's splits ``nsplit1``, ``nsplit2``
+    (the pair's, :func:`channel_split`: K4 bf16 sums in their order), the
+    ``cluster`` (``max(nsplit1, nsplit2)``, 1 up to 128 channels), ``mb``
+    m64 blocks of positions a row tile (``mb_wg`` a warpgroup's, ``mb`` below;
+    with a cluster two warpgroups share each row tile, ``mb = 2 * mb_wg``;
+    a warpgroup's from its registers:
     conv1's sums and fresh sums ``mb * n1`` floats, conv2's ``3 * mb * n2 /
     2``, at most 160 each but at ``n2 = 128``; at most two, so that
     two warpgroups' rings and windows fit a block), conv2's phases a pass
@@ -315,10 +358,10 @@ def block_geometry(cmid: int, cout: int) -> dict:
     conv1's kernel rows, 3 or 1; ``f2`` conv2's (kernel row, phase) fresh
     sums, 4, 2 or 1; registers as above), the warpgroups a block at most
     (``wgmax``: three, at 168 registers a thread, where the sums fit in 64
-    floats with ``dy1`` 1, ``pp2`` 2 and ``f2`` 2; else two), and the
-    widest strip ``max_tc`` (``64 * mb - 16``: its ``tc + 2`` c1 columns
-    fit conv1's ``mb`` blocks)."""
-    n1, n2 = 16 * -(-cmid // 16), 16 * -(-cout // 16)
+    floats with ``dy1`` 1, ``pp2`` 2 and ``f2`` 2; else two; with a cluster
+    the two on each unit), and the widest strip ``max_tc`` (``64 * mb -
+    16``: its ``tc + 2`` c1 columns fit conv1's ``mb`` blocks)."""
+    (n1, nsplit1), (n2, nsplit2) = channel_split(cmid), channel_split(cout)
     mb = min(_mb1_max(n1), _mb2_max(n2))
     wgmax = 3 if 2 * mb * n1 // 2 <= 64 and 4 * mb * n2 // 2 <= 64 else 2
     pp2 = 4 if wgmax == 2 and 8 * mb * n2 // 2 <= 160 else 2
@@ -327,33 +370,46 @@ def block_geometry(cmid: int, cout: int) -> dict:
         f2 = 2
     else:
         f2 = 4 if pp2 == 4 or 6 * mb * n2 // 2 <= 160 else 2 if 4 * mb * n2 // 2 <= 160 else 1
-    return {"n1": n1, "n2": n2, "mb": mb, "dy1": dy1, "f2": f2, "pp2": pp2, "wgmax": wgmax,
-            "max_tc": min(BLOCK_MAX_TC, 64 * mb - 16)}
+    cluster = max(nsplit1, nsplit2)
+    mbt = 2 * mb if cluster > 1 else mb
+    return {"n1": n1, "n2": n2, "nsplit1": nsplit1, "nsplit2": nsplit2, "cluster": cluster, "mb": mbt,
+            "mb_wg": mb, "dy1": dy1, "f2": f2, "pp2": pp2, "wgmax": 2 if cluster > 1 else wgmax,
+            "max_tc": min(BLOCK_MAX_TC, 64 * mbt - 16)}
 
 
-def _kb_layout(n1, n2, mb, nch1, nch2, tc, nwg, res1, res2, stages, pp) -> dict:
+def _kb_layout(n1, n2, mb, nch1, nch2, tc, nwg, res1, res2, stages, pp, cl=False) -> dict:
     """Bytes of a K4 bf16 block's shared memory (``block_bf16.cuh::kb_layout``):
     per warpgroup the stages (an input row's chunk as it lands, or a
-    streamed chunk's weights), the staged outputs, the c1 ring (``ptr2``
-    positions an octet) and the transposed input rows (``pt1`` positions an
-    octet, ``pr1`` in all with the junk rows' reach and the spare one)."""
+    streamed chunk's weights), the staged outputs (with a cluster also the
+    two staging slots of peer c1 chunks), the c1 ring of the block's ``n1 /
+    16`` mid chunks (``ptr2`` positions an octet), and the transposed input rows
+    (``pt1`` positions an octet, ``pr1`` in all with the junk rows' reach
+    and the spare one); with a cluster PixelNorm's sums (``part``).  A
+    ring slot holds ``ss`` positions (``64 * mb``, with a cluster the
+    strip's ``tc + 2`` in steps of 16; the last slot's m64 blocks read ``64
+    * mb + 2`` on), the staged outputs ``gs`` groups a channel (``8 * mb``,
+    with a cluster the strip's ``tc / 8`` rounded up to an even number) in
+    rows of ``gs + 1``."""
     sw, rw = tc + 8, tc + 24
     raw = 32 * rw
     w1chunk, w2chunk = 9 * 32 * n1, 4 * pp * 32 * n2
     stage = _round(max(raw, 0 if res1 else w1chunk, 0 if res2 else w2chunk), 128)
-    region = _round(pp * n2 * (8 * mb + 1) * 16, 128)
     pt1 = 3 * sw
     pr1 = 2 * nch1 * pt1 + 64 * mb + 8
     inr = _round(16 * pr1, 128)
-    ptr2 = 3 * 64 * mb + 8
-    ring = 32 * nch2 * ptr2
+    ss = _round(tc + 2, 16) if cl else 64 * mb
+    gs = _round(-(-tc // 8), 2) if cl else 8 * mb
+    ptr2 = 2 * ss + 64 * mb + 8
+    region = _round(max(pp * n2 * (gs + 1) * 16, 64 * ptr2 if cl else 0), 128)
+    ring = 32 * (n1 // 16) * ptr2
     w1res = nch1 * 9 * 32 * n1 if res1 else 0
     w2res = nch2 * 16 * 32 * n2 if res2 else 0
     wg = stages * stage + region + ring + inr
     bias = 4 * (n1 + n2)
+    part = 4 * 64 * mb * (1 + pp) if cl else 0
     return {"raw": raw, "w1chunk": w1chunk, "w2chunk": w2chunk, "stage": stage, "region": region, "pt1": pt1,
-            "pr1": pr1, "inr": inr, "ptr2": ptr2, "ring": ring, "w1res": w1res, "w2res": w2res, "wg": wg,
-            "bias": bias, "total": w1res + w2res + nwg * wg + bias + 8 * (nwg * 4 + 1)}
+            "pr1": pr1, "inr": inr, "ss": ss, "gs": gs, "ptr2": ptr2, "ring": ring, "w1res": w1res, "w2res": w2res, "wg": wg,
+            "bias": bias, "part": part, "total": w1res + w2res + nwg * wg + bias + part + 8 * (nwg * 4 + 1)}
 
 
 def _kb_in_cost4(nch1, rw) -> int:
@@ -387,15 +443,16 @@ def _block_plan(bsz, cin, cmid, cout, h, w, sms, tc, run) -> dict:
 def block_plan(bsz: int, cin: int, cmid: int, cout: int, h: int, w: int, sms: int,
                tc: int = 0, run: int = 0) -> dict:
     """K4 bf16's launch plan at these sizes on a card of ``sms`` SMs
-    (``block_bf16.cuh::plan_kb`` in Python, cached; widths up to 128):
-    see :func:`_block_plan_uncached`."""
+    (``block_bf16.cuh::plan_kb`` in Python, cached; widths up to 128, or
+    past them where :func:`cluster_fits`): see
+    :func:`_block_plan_uncached`."""
     return dict(_block_plan(bsz, cin, cmid, cout, h, w, sms, tc, run))
 
 
 def _block_plan_uncached(bsz: int, cin: int, cmid: int, cout: int, h: int, w: int, sms: int,
                          tc: int = 0, run: int = 0) -> dict:
     """K4 bf16's launch plan at these sizes on a card of ``sms`` SMs
-    (``block_bf16.cuh::plan_kb`` in Python; widths up to 128).  ``tc``, ``run``:
+    (``block_bf16.cuh::plan_kb`` in Python).  ``tc``, ``run``:
     0, or a forced strip width (a multiple of 16 up to ``max_tc``) and run
     length (measurements and tests).  Raises ValueError where nothing fits.
 
@@ -410,12 +467,27 @@ def _block_plan_uncached(bsz: int, cin: int, cmid: int, cout: int, h: int, w: in
     rows over the warpgroups, and what sharing an SM does to them); ties to
     the first found (wider, more
     resident, longer runs).  ``takes``: that time below K1 bf16
-    then K3 bf16's (their plans' costs, with PixelNorm).  No timing."""
-    if (min(bsz, cin, cmid, cout, h, w) < 1 or cmid > BLOCK_MAX_CHANNELS or cout > BLOCK_MAX_CHANNELS
+    then K3 bf16's (their plans' costs, with PixelNorm).  No timing.
+
+    Past 128 channels (``cluster`` > 1, widths :func:`cluster_fits` takes):
+    the same search with clusters of ``cluster`` blocks of two warpgroups
+    (``nwg`` 2, both on every unit, one region of rings: a wave is a unit a
+    cluster) for blocks (``blocks`` = as many clusters as the SMs hold, at most the
+    units, times ``cluster``), a c1 row's two cluster barriers and an
+    output pass's one added (``CLUSTER_SYNC_CLK``), and the copies of the
+    peers' ``nch2 - n1 / 16`` c1 chunks, each whole a pass into a staging
+    slot.  ``takes`` is False there: the cluster was measured at or above
+    the pair at every shape timed on an H100 (``scripts/torch_conv_sweep.py
+    --part k4wide``; the closest 1.000x), so the generator leaves those
+    blocks to the pair; the cost still picks the layout."""
+    if (min(bsz, cin, cmid, cout, h, w) < 1 or cmid > CLUSTER_MAX_CHANNELS or cout > CLUSTER_MAX_CHANNELS
             or tc < 0 or run < 0):
         raise ValueError(f"block_plan: sizes {(bsz, cin, cmid, cout, h, w)}, tc {tc}, run {run}")
     geo = block_geometry(cmid, cout)
-    n1, n2, mb = geo["n1"], geo["n2"], geo["mb"]
+    n1, n2, mb, mbw, cluster = geo["n1"], geo["n2"], geo["mb"], geo["mb_wg"], geo["cluster"]
+    cl = cluster > 1
+    if cl and not cluster_fits(cin, cmid, cout):
+        raise ValueError(f"block_plan: widths {(cin, cmid, cout)} do not fit the cluster route")
     nch1, nch2 = -(-cin // CHUNK), -(-cmid // CHUNK)
     if tc % 16 or tc > geo["max_tc"]:
         raise ValueError(f"block_plan: strip width {tc} (a multiple of 16 up to {geo['max_tc']})")
@@ -430,34 +502,42 @@ def _block_plan_uncached(bsz: int, cin: int, cmid: int, cout: int, h: int, w: in
         for res in (3, 2, 1, 0):
             r1, r2 = bool(res & 2), bool(res & 1)
             inp = _kb_in_cost4(nch1, tcc + 24)
-            row1 = _kb_row1_cost4(n1, mb, nch1, r1)
-            row2 = _kb_row2_cost4(n2, mb, nch2, tcc, r2, geo["pp2"])
+            row1 = _kb_row1_cost4(n1, mbw, nch1, r1)
+            row2 = _kb_row2_cost4(n2, mbw, nch2, tcc, r2, geo["pp2"])
+            if cl:
+                peer = max(0, nch2 - n1 // 16) * _kb_peer_cost4(2 * _round(tcc + 2, 16) + 64 * mb + 8)
+                row1 += 4 * 2 * CLUSTER_SYNC_CLK
+                row2 += 4 // geo["pp2"] * (peer + 4 * CLUSTER_SYNC_CLK)
             for nruns in range(1, h + 1):  # each number of runs once, at its shortest run
                 rr = run if run else -(-h // nruns)
                 if -(-h // rr) != nruns:
                     continue
                 units = strips * nruns
-                blocks = min(units, sms)
-                for nwg in range(min(geo["wgmax"], -(-units // blocks)), 0, -1):
+                blocks = min(units, max(1, sms // cluster)) * cluster if cl else min(units, sms)
+                for nwg in range(2 if cl else min(geo["wgmax"], -(-units // blocks)), 0, -1):
                     stages, lay = 0, None
                     for s in (4, 3, 2):
-                        lay = _kb_layout(n1, n2, mb, nch1, nch2, tcc, nwg, r1, r2, s, geo["pp2"])
+                        lay = _kb_layout(n1, n2, mb, nch1, nch2, tcc, 1 if cl else nwg, r1, r2, s, geo["pp2"],
+                                         cl)
                         if lay["total"] <= SMEM_BUDGET:
                             stages = s
                             break
                     if not stages:
                         continue
-                    cost = (-(-units // (blocks * nwg)) * nwg * ((rr + 4) * inp + (rr + 2) * row1 + rr * row2)
-                            * NWG_EIGHTHS[nwg] // 8)
+                    slots = blocks // cluster if cl else blocks * nwg
+                    rows = (rr + 4) * inp + (rr + 2) * row1 + rr * row2
+                    cost = (-(-units // slots) * rows * CLUSTER_WAVE_TWENTIETHS // 20 if cl
+                            else -(-units // slots) * nwg * rows * NWG_EIGHTHS[nwg] // 8)
                     if best is None or cost < best["cost"]:
                         best = dict(tc=tcc, ntx=ntx, run=rr, nruns=nruns, units=units, nwg=nwg, res1=r1,
                                     res2=r2, stages=stages, blocks=blocks, pt1=lay["pt1"], pr1=lay["pr1"],
-                                    ptr2=lay["ptr2"], smem_bytes=lay["total"], cost=cost)
+                                    ptr2=lay["ptr2"], ss=lay["ss"], gs=lay["gs"], smem_bytes=lay["total"],
+                                    cost=cost)
                     break
     if best is None:
         raise ValueError(f"block_plan: no layout fits sizes {(bsz, cin, cmid, cout, h, w)}")
     pair_cost = (plan(3, bsz, cin, cmid, h, w, True, sms)["cost"]
                  + plan(2, bsz, cmid, cout, h, w, True, sms)["cost"])
     best.update(geo, sw=best["tc"] + 8, rw=best["tc"] + 24, strips=best["ntx"], nch1=nch1, nch2=nch2,
-                pair_cost=pair_cost, takes=best["cost"] < pair_cost, threads=128 * best["nwg"])
+                pair_cost=pair_cost, takes=not cl and best["cost"] < pair_cost, threads=128 * best["nwg"])
     return best

@@ -92,11 +92,13 @@ def sharded_synthesize_fn(
     ``z``: ``(1, h, w_total, C)`` (numpy or tensor), ``w_total`` divisible
     by ``mesh.size``.  The pieces joined are the waveform of length ``(256 *
     w_total - 1) * hop`` that ``generate.synthesize_fn(model_cfg, stage)``
-    gives for ``z``.  ``model_cfg.conv_impl`` "auto" resolves per shard
-    shape (``ops/autotune.py``: each shard's widened latent is a key of its
-    own), and the vocoder per shard length.  ``axis`` is the mesh's axis
-    name, as in JAX."""
-    from ..ops.autotune import resolve_conv_impl, resolve_istft_impl
+    gives for ``z``.  ``model_cfg.conv_impl`` "auto" resolves once a clip,
+    among the float32 candidates only (JAX's clip is float32 throughout:
+    its "auto" is "xla"), under the widest shard's widened latent, and
+    every shard runs that impl; the vocoder resolves per shard length (both
+    of its routes are float32).  ``axis`` is the mesh's axis name, as in
+    JAX."""
+    from ..ops.autotune import FLOAT32_IMPLS, resolve_conv_impl, resolve_istft_impl
 
     acfg = AudioConfig()
     hop, n = acfg.stft_stride, mesh.size
@@ -132,15 +134,19 @@ def sharded_synthesize_fn(
         if w % n:
             raise ValueError(f"latent width {w} does not divide over {n} shards")
         cols = w // n
+        spans = [(max(0, k * cols - halo), min(w, (k + 1) * cols + halo)) for k in range(n)]
+        widest = max(b - a for a, b in spans)
+        impl = resolve_conv_impl(
+            model_cfg, (1, z.shape[1], widest, z.shape[3]), stage, device=devices[0],
+            candidates=FLOAT32_IMPLS,
+        ).conv_impl
 
         # Generator, magnitude and instantaneous frequency, shard by shard.
         magn, freq = [], []
-        for k, dev in enumerate(devices):
+        for k, (dev, (a, b)) in enumerate(zip(devices, spans)):
             lo, hi = k * cols, (k + 1) * cols
-            a, b = max(0, lo - halo), min(w, hi + halo)
             zk = z[:, :, a:b].to(dev)
-            cfg = resolve_conv_impl(model_cfg, tuple(zk.shape), stage, device=dev)
-            img = generator_on(gen, dev).forward_nchw(zk.permute(0, 3, 1, 2), stage, 1.0, cfg.conv_impl)
+            img = generator_on(gen, dev).forward_nchw(zk.permute(0, 3, 1, 2), stage, 1.0, impl)
             img = img[..., (lo - a) * px : (hi - a) * px]  # this shard's own frames
             if upsample > 1:
                 img = F.interpolate(img, scale_factor=upsample, mode="nearest")

@@ -5,14 +5,15 @@ synthesis's eight blocks (5 clips x nb_vec 10), the device time of the
 wrapper under each plan, against the launcher's own choice and
 ``F.conv2d``.
 
-    python3 scripts/torch_conv_sweep.py [--part fp32|bf16|k4bf16|all]
+    python3 scripts/torch_conv_sweep.py [--part fp32|bf16|k4bf16|k4wide|all]
 
 Plans: the large-image shape (the tensor-core route, "large_tc"), and the
 small-image shape at every (pixels a lane in 1, 2, 4) x (cluster split over
 input channels in 1, 2, 4, 8) that the cluster allows.  The script builds the kernels with
 ``-DMG_CONV_SWEEP``, which compiles in ``mg_conv_force`` (a switch that
 forces the plan of every later launch) and gives the libraries other
-names; the libraries the port loads have no such switch.  Weights are packed
+names; the libraries the port loads have no such switch (the other parts
+use those).  Weights are packed
 ahead; times are CUDA-graph replays timed by CUDA events
 (``chip_smoke.time_ms``).  This is what the launcher's rule
 (``csrc/conv_tile.cuh::plan_conv``) was fitted to.  Every plan's output is
@@ -36,6 +37,20 @@ picks them for that strip and run), beside K1 bf16 then K3 bf16 and the
 rule's modelled costs of both: what the rule's constants (``NWG_EIGHTHS``
 and the fixed clocks) were fitted to.  Every plan is held to the pair's
 bits.  Results go to ``chiprun_out/conv_sweep_k4bf16.json``.
+
+The k4wide part (K4 bf16 past 128 channels) times, at the eight blocks of
+``chip_smoke.py``'s generator past 128 channels (``WIDE_GEN_CHANNELS``, 5
+clips x nb_vec 10 at stage 7), at ``WIDE_BLOCK``, ``THREE_RANK_BLOCK``,
+three wider shapes and ``TEMPLATE_BLOCK``: the cluster route
+(``csrc/block3x3_bf16_wide.cu``) under the size rule's plan, the template
+(``csrc/block3x3_bf16_template.cu``, ``block3x3.cuh`` at bf16, launched
+at every shape through ``fused_block`` with its route forced to it and
+its own weight layout made ahead), K1 bf16 then K3 bf16 and two bf16
+``F.conv2d``, in ``--rounds`` rounds of the four one after another,
+beside the rule's modelled costs and ``takes``: what
+``CLUSTER_WAVE_TWENTIETHS`` was fitted to.  The cluster is held to the
+pair's bits, the template to the pair in the relative 2-norm (1e-2).
+Results go to ``chiprun_out/conv_sweep_k4wide.json``.
 """
 
 from __future__ import annotations
@@ -52,7 +67,8 @@ import torch.nn.functional as F
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
-from chip_smoke import card_line, time_ms, train_conv_shapes  # noqa: E402
+from chip_smoke import (THREE_RANK_BLOCK, TEMPLATE_BLOCK, WIDE_BLOCK, WIDE_GEN_CHANNELS,  # noqa: E402
+                        card_line, rel_l2, time_ms, train_conv_shapes)
 from musicgan_tpu_torch.config import ModelConfig, TrainConfig  # noqa: E402
 from musicgan_tpu_torch.models.layers import upsample_nearest_2x  # noqa: E402
 from musicgan_tpu_torch.ops import _build  # noqa: E402
@@ -60,7 +76,6 @@ from musicgan_tpu_torch.ops import conv as conv_ops  # noqa: E402
 from musicgan_tpu_torch.ops import conv_bf16  # noqa: E402
 
 TOL = 1e-4
-_build.NVCC_FLAGS = (*_build.NVCC_FLAGS, "-DMG_CONV_SWEEP")
 # Tile widths the bf16 part forces (where a tile of that width fits).
 BF16_TC = (16, 32, 48, 64, 80, 96, 128, 160, 240)
 # Ragged bf16 shapes (B, cin, cout, H, W): W no multiple of 8 or of 64,
@@ -211,12 +226,96 @@ def sweep_k4_bf16(card: str, dev) -> None:
     (out / "conv_sweep_k4bf16.json").write_text(json.dumps({"card": card, "rows": rows}, indent=1))
 
 
+def k4_wide_shapes() -> list:
+    """(B, cin, cmid, cout, H, W) of the k4wide part."""
+    cfg = ModelConfig()
+    gen = [(5, c, c, o, cfg.latent_height * 2**i, cfg.latent_width * 10 * 2**i)
+           for i, (c, o) in enumerate(WIDE_GEN_CHANNELS)]
+    return gen + [WIDE_BLOCK, THREE_RANK_BLOCK, (5, 512, 512, 512, 4, 40), (5, 384, 384, 384, 16, 160),
+                  (2, 256, 256, 256, 64, 640), TEMPLATE_BLOCK]
+
+
+def sweep_k4_wide(card: str, dev, rounds: int) -> None:
+    """K4 bf16 past 128 channels: the cluster route, the template, the pair
+    and the library, ``rounds`` times each in turn."""
+    from unittest import mock
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rng = torch.Generator(device=dev).manual_seed(0)
+    bf = torch.bfloat16
+    rows = []
+    for b, cin, cmid, cout, h, w in k4_wide_shapes():
+        route = conv_bf16.block_route(cmid, cout, cin)
+        x = torch.randn(b, cin, h, w, generator=rng, device=dev).to(bf)
+        w1 = torch.randn(cmid, cin, 3, 3, generator=rng, device=dev) / (9 * cin) ** 0.5
+        w2 = torch.randn(cout, cmid, 3, 3, generator=rng, device=dev) / (9 * cmid) ** 0.5
+        b1, b2 = (torch.randn(c, generator=rng, device=dev) * 0.1 for c in (cmid, cout))
+        w1t, w2t = conv_ops.kernel_weights_tc(w1), conv_ops.kernel_weights_tc(w2, True)
+        w1k, w2k = conv_ops.kernel_weights(w1, bf), conv_ops.kernel_upconv_weights(w2, bf)
+        w1b, b1b, w2b, b2b = (t.to(bf) for t in (w1, b1, w2, b2))
+        mid_up = upsample_nearest_2x(conv_ops.fused_conv3x3(x, w1, b1, 0.2, True, w_packed=w1t, out_dtype=bf))
+
+        def pair():
+            mid = conv_ops.fused_conv3x3(x, w1, b1, 0.2, True, w_packed=w1t, out_dtype=bf)
+            return conv_ops.fused_upconv3x3(mid, w2, b2, 0.2, True, w_packed=w2t, out_dtype=bf)
+
+        def cluster():
+            return conv_ops.fused_block(x, w1, b1, w2, b2, w1_packed=w1t, w2_packed=w2t, out_dtype=bf)
+
+        def template():
+            with mock.patch.object(conv_bf16, "block_route", lambda *a: "template"):
+                return conv_ops.fused_block(x, w1, b1, w2, b2, w1_packed=w1k, w2_packed=w2k, out_dtype=bf)
+
+        def library():
+            F.conv2d(x, w1b, b1b, padding=1)
+            return F.conv2d(mid_up, w2b, b2b, padding=1)
+
+        want = pair()
+        fns = {"template": template, "pair": pair, "library": library}
+        row = {"shape": [b, cin, cmid, cout, h, w], "route": route,
+               "template_l2_vs_pair": rel_l2(template().float(), want.float())}
+        if not row["template_l2_vs_pair"] <= 1e-2:
+            raise AssertionError(f"the template at {row['shape']}: {row['template_l2_vs_pair']:.2e} from the pair")
+        if route == "bf16_cluster":
+            plan = conv_bf16.block_plan(b, cin, cmid, cout, h, w, sms)
+            row.update(cost=plan["cost"], pair_cost=plan["pair_cost"], takes=plan["takes"],
+                       cluster_plan={k: plan[k] for k in ("cluster", "tc", "run", "units", "blocks", "stages")})
+            if not torch.equal(cluster(), want):
+                raise AssertionError(f"the cluster route at {row['shape']}: not the pair's bits")
+            fns = {"cluster": cluster, **fns}
+        times = {k: [] for k in fns}
+        for _ in range(rounds):
+            for k, fn in fns.items():
+                times[k].append(time_ms(fn))
+        row["ms"] = times
+        row["median_ms"] = {k: sorted(v)[len(v) // 2] for k, v in times.items()}
+        rows.append(row)
+        med = row["median_ms"]
+        line = " ".join(f"{k} {med[k]:.4f}" for k in fns)
+        extra = ""
+        if route == "bf16_cluster":
+            wins = sum(c < p for c, p in zip(times["cluster"], times["pair"]))
+            extra = (f"; cluster / pair {med['cluster'] / med['pair']:.3f} (below in {wins} of {rounds} rounds), "
+                     f"cluster / template {med['cluster'] / med['template']:.3f}, modelled "
+                     f"{row['cost'] / row['pair_cost']:.3f}, takes {row['takes']}")
+        print(f"[sweep k4wide] {str(tuple(row['shape'])):34s} {route:12s} median ms: {line}{extra}", flush=True)
+        del x, want, mid_up
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "conv_sweep_k4wide.json").write_text(json.dumps({"card": card, "rounds": rounds, "rows": rows},
+                                                           indent=1))
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--part", choices=("fp32", "bf16", "k4bf16", "all"), default="all")
-    part = ap.parse_args().part
+    ap.add_argument("--part", choices=("fp32", "bf16", "k4bf16", "k4wide", "all"), default="all")
+    ap.add_argument("--rounds", type=int, default=5, help="k4wide: rounds of the four calls timed in turn")
+    args = ap.parse_args()
+    part = args.part
     if not torch.cuda.is_available():
         sys.exit("torch_conv_sweep: no CUDA device")
+    if part in ("fp32", "all"):  # mg_conv_force, in libraries of other names
+        _build.NVCC_FLAGS = (*_build.NVCC_FLAGS, "-DMG_CONV_SWEEP")
     card = card_line()
     print(f"[card] {card}")
     torch.backends.cudnn.allow_tf32 = False
@@ -227,7 +326,9 @@ def main() -> None:
         sweep_bf16(card, dev)
     if part in ("k4bf16", "all"):
         sweep_k4_bf16(card, dev)
-    if part in ("bf16", "k4bf16"):
+    if part in ("k4wide", "all"):
+        sweep_k4_wide(card, dev, args.rounds)
+    if part in ("bf16", "k4bf16", "k4wide"):
         return
     rng = torch.Generator(device=dev).manual_seed(0)
     rows = []

@@ -22,6 +22,14 @@ NaNs, so a valid output that read it would show.  Whole blocks at small,
 ragged sizes are held against a float64 block of the same bf16 values (c1
 rounded to bf16 as the JAX kernel's c1 scratch of ``x.dtype`` holds it),
 and every output is stored exactly once.
+
+Past 128 channels the model walks a cluster's ranks in step: each computes
+its split of c1 into its own ring and its split of the outputs, PixelNorm's
+sums meet in rank order, and conv2 copies a peer's c1 chunks into its
+staging slots.  Run in float32 with each wgmma chain one exact sum, it
+gives bit for bit what K1 bf16 then K3 bf16 give with the same chains
+straight from the images (``_model_pair``), which is held to the plain
+versions.
 """
 
 import numpy as np
@@ -117,20 +125,26 @@ def test_fused_block_fits_in_bf16_takes_what_the_plan_takes(bsz, cin, cmid, cout
 
 
 def test_block_routes_by_width_alone():
-    """Up to 128 channels each the kernel of this PR, past 128 (a cluster)
-    block3x3.cuh at bf16, which float32's rule sizes; float32's rule and
-    route are unchanged."""
-    assert cb.block_route(128, 128) == "bf16_tc" and cb.block_route(1, 1) == "bf16_tc"
-    assert cb.block_route(129, 16) == "template" and cb.block_route(16, 144) == "template"
+    """Up to 128 channels each one block of block_bf16.cuh, past 128 the
+    same kernel over a cluster where its layout fits (inputs up to 608
+    channels fit at every width), else block3x3.cuh at bf16, which
+    float32's rule sizes; float32's rule and route are unchanged."""
+    assert cb.block_route(128, 128, 128) == "bf16_tc" and cb.block_route(1, 1, 1) == "bf16_tc"
+    assert cb.block_route(129, 16, 16) == "bf16_cluster" and cb.block_route(16, 144, 16) == "bf16_cluster"
+    assert cb.block_route(1024, 1024, 608) == "bf16_cluster" and cb.block_route(1024, 1024, 609) == "template"
+    assert all(cb.cluster_fits(608, cm, co) for cm in range(129, 1025, 37) for co in (1, 200, 1024))
     assert conv_ops.fused_block_fits(144, 144, 160, dtype=torch.bfloat16)
     size = (5, 32, 320)
     assert (conv_ops.fused_block_fits(144, 144, 160, size=size, dtype=torch.bfloat16)
-            == conv_ops.block_takes(5, 144, 144, 160, 32, 320, SMS))
+            == cb.block_plan(5, 144, 144, 160, 32, 320, SMS)["takes"])
+    assert cb.block_route(640, 640, 640) == "template"
+    assert (conv_ops.fused_block_fits(640, 640, 640, size=size, dtype=torch.bfloat16)
+            == conv_ops.block_takes(5, 640, 640, 640, 32, 320, SMS))
     for bsz, cin, cmid, cout, h, w in SYNTHESIS:
         assert (conv_ops.fused_block_fits(cin, cmid, cout, size=(bsz, h, w))
                 == conv_ops.block_takes(bsz, cin, cmid, cout, h, w, SMS))
     with pytest.raises(ValueError):
-        cb.block_plan(1, 8, 129, 16, 4, 4, SMS)
+        cb.block_plan(1, 609, 1024, 1024, 4, 4, SMS)
     with pytest.raises(ValueError):
         cb.block_plan(1, 8, 16, 16, 4, 64, SMS, tc=24)
 
@@ -188,27 +202,60 @@ def _b_read(pack: np.ndarray, tap: int, n: int) -> np.ndarray:
     return _f(pack[byte // 2])
 
 
-def _epilogue(acc, bias, c, slope, eps):
-    """Bias, LeakyReLU, PixelNorm over the first ``c`` channels (float64)."""
+def _bias_lrelu(acc, bias, c0, c, slope):
+    """Bias (zero past channel ``c``) and LeakyReLU of a rank's channels
+    ``c0 ..``, in the accumulator's dtype."""
     v = acc.copy()
-    v[..., :c] += bias
-    v = np.where(v >= 0, v, slope * v)
-    return v / np.sqrt((v[..., :c] ** 2).sum(-1, keepdims=True) / c + eps)
+    n = acc.shape[-1]
+    bb = np.zeros(n, acc.dtype)
+    k = max(0, min(n, c - c0))
+    bb[:k] = bias[c0 : c0 + k]
+    v += bb
+    return np.where(v >= 0, v, acc.dtype.type(slope) * v)
 
 
-def _model_block(x, w1, b1, w2, b2, p, slope=0.2, eps=1e-8):
-    """The whole block through the modelled kernel, float64 (the last
-    rounding to bf16 left out), and how many times each output was stored."""
+def _pn_scale(vs, nsplit, c, eps):
+    """PixelNorm over ranks' (or splits') slices ``vs``: each one's sum of
+    squares over its channels in order, added in rank order over the first
+    ``nsplit`` (pn_cluster_sums), in the slices' dtype."""
+    dt = vs[0].dtype.type
+    tot = dt(0)
+    for v in vs[:nsplit]:
+        part = np.zeros(v.shape[:-1] + (1,), v.dtype)
+        for j in range(v.shape[-1]):
+            part += v[..., j : j + 1] * v[..., j : j + 1]
+        tot = tot + part
+    scale = dt(1) / np.sqrt(tot / dt(c) + dt(eps))
+    return [v * scale for v in vs]
+
+
+def _model_block(x, w1, b1, w2, b2, p, slope=0.2, eps=1e-8, dt=np.float64):
+    """The whole block through the modelled kernel (the last rounding to
+    bf16 left out), and how many times each output was stored.  Each wgmma
+    chain (a kernel row's taps of a chunk) is one float64 sum of exact
+    products, added in ``dt`` to the row tile's sums; the epilogues run in
+    ``dt``.
+
+    With a cluster (``p["cluster"]`` > 1) every rank walks the unit:
+    rank ``r`` transposes every input chunk into its own rows (modelled
+    once: they are the same bytes), computes c1 channels of split ``s1 =
+    min(r, nsplit1 - 1)`` into its own ring (chunks ``s1 * nown ..``),
+    PixelNorm's sums meet in rank order, and conv2 walks every mid chunk:
+    its own from its ring, a peer's copied whole from the peer's ring into
+    staging slot ``npeer & 1`` (bf16 NaNs until written).  Outputs of split
+    ``s2 = min(r, nsplit2 - 1)``, stored by the ranks below ``nsplit2``."""
     bsz, cin, h, w = x.shape
     cmid, cout = w1.shape[0], w2.shape[0]
     n1, n2, mb, tc, sw, rw = p["n1"], p["n2"], p["mb"], p["tc"], p["sw"], p["rw"]
-    pt1, pr1, ptr2, ss, g = p["pt1"], p["pr1"], p["ptr2"], 64 * p["mb"], 8 * p["mb"]
+    pt1, pr1, ptr2, ss, g = p["pt1"], p["pr1"], p["ptr2"], p["ss"], 8 * p["mb"]
+    nc, ns1, ns2, nown = p["cluster"], p["nsplit1"], p["nsplit2"], n1 // 16
     x16 = _u16(torch.from_numpy(x).to(torch.bfloat16))
-    pack1 = _u16(conv_ops.kernel_weights_tc(torch.from_numpy(w1)))[0]         # [chunk][9][2][n1][8]
-    pack2 = _u16(conv_ops.kernel_weights_tc(torch.from_numpy(w2), True))[0]   # [chunk][16][2][n2][8]
-    y = np.zeros((bsz, cout, 2 * h, 2 * w))
+    pack1 = _u16(conv_ops.kernel_weights_tc(torch.from_numpy(w1)))        # [split][chunk][9][2][n1][8]
+    pack2 = _u16(conv_ops.kernel_weights_tc(torch.from_numpy(w2), True))  # [split][chunk][16][2][n2][8]
+    y = np.zeros((bsz, cout, 2 * h, 2 * w), dt)
     seen = np.zeros(y.shape, np.int64)
-    ring = np.full(p["nch2"] * 2 * ptr2 * 8 + 64 * mb * 8, NAN16, np.uint16)
+    rings = [np.full(nown * 2 * ptr2 * 8 + 64 * mb * 8, NAN16, np.uint16) for _ in range(nc)]
+    stages = [np.full(2 * 2 * ptr2 * 8 + 64 * mb * 8, NAN16, np.uint16) for _ in range(nc)]
     inr = np.full(pr1 * 8, NAN16, np.uint16)  # the transposed input rows of every chunk
     for unit in range(p["units"]):  # every unit, in any warpgroup: each its own rings
         tx, rest = unit % p["ntx"], unit // p["ntx"]
@@ -236,73 +283,141 @@ def _model_block(x, w1, b1, w2, b2, p, slope=0.2, eps=1e-8):
                 continue
             r1 = ri - 1  # the c1 row, from input rows r1 - 1 .. r1 + 1
             base = [((ri + 4) % 3) * sw, ((ri + 5) % 3) * sw, ((ri + 6) % 3) * sw]
-            acc = np.zeros((mb, 64, n1))
-            for kc in range(p["nch1"]):
-                flat = inr[kc * 2 * pt1 * 8 :]
-                chunk = pack1[kc].reshape(-1)
-                for u in range(mb):
-                    for dy in range(3):  # products_c1: a fresh chain a kernel row
-                        fresh = sum(_desc_read(flat, base[dy] + 64 * u + dx, pt1) @ _b_read(chunk, dy * 3 + dx, n1)
-                                    for dx in range(3))
-                        acc[u] += fresh
-            c1 = _epilogue(acc, b1, cmid, slope, eps)  # (mb, 64, n1)
+            c1s = []
+            for r in range(nc):
+                s1 = min(r, ns1 - 1)
+                acc = np.zeros((mb, 64, n1), dt)
+                for kc in range(p["nch1"]):
+                    flat = inr[kc * 2 * pt1 * 8 :]
+                    chunk = pack1[s1, kc].reshape(-1)
+                    for u in range(mb):
+                        for dy in range(3):  # products_c1: a fresh chain a kernel row
+                            fresh = sum(_desc_read(flat, base[dy] + 64 * u + dx, pt1)
+                                        @ _b_read(chunk, dy * 3 + dx, n1) for dx in range(3))
+                            acc[u] += fresh.astype(dt)
+                c1s.append(_bias_lrelu(acc, b1, s1 * n1, cmid, slope))  # (mb, 64, n1)
+            c1s = _pn_scale(c1s, ns1, cmid, eps)
             pcol = c0 - 1 + np.arange(64 * mb).reshape(mb, 64)
             inside = (0 <= r1 < h) & (pcol >= 0) & (pcol < w)
-            c1 = np.where(inside[..., None], c1, 0.0)
-            c1u = _to_u16(c1)  # rounded once to bf16
-            # stmatrix: matrix mm of warp wq's x4 at channel groups j0, j0 + 1
-            # is positions 64u + 16wq + 8(mm & 1) + rr, group jj = j0 + (mm >> 1);
-            # lane 8mm + rr's address: chunk jj >> 1, octet jj & 1.
             slot = (r1 + 3) % 3
-            for u in range(mb):
-                for wq in range(4):
-                    for j0 in range(0, n1 // 8, 2):
-                        for mm in range(4):
-                            for r in range(8):
-                                m = 16 * wq + 8 * (mm & 1) + r
-                                jj = j0 + (mm >> 1)
-                                pos = slot * ss + 64 * u + m
-                                at = (((jj >> 1) * 2 + (jj & 1)) * ptr2 + pos) * 8
-                                ring[at : at + 8] = c1u[u, m, 8 * jj : 8 * jj + 8]
+            for r in range(min(nc, ns1)):  # a rank past conv1's splits writes no c1
+                c1u = _to_u16(np.where(inside[..., None], c1s[r], 0.0))  # rounded once to bf16
+                # stmatrix: matrix mm of warp wq's x4 at channel groups j0, j0 + 1
+                # is positions 64u + 16wq + 8(mm & 1) + rr, group jj = j0 + (mm >> 1);
+                # lane 8mm + rr's address: chunk jj >> 1, octet jj & 1.
+                for u in range(mb):
+                    for wq in range(4):
+                        if 64 * u + 16 * wq >= ss:
+                            continue  # a slot holds ss positions: a warp's 16 past them are left out
+                        for j0 in range(0, n1 // 8, 2):
+                            for mm in range(4):
+                                for rl in range(8):
+                                    m = 16 * wq + 8 * (mm & 1) + rl
+                                    jj = j0 + (mm >> 1)
+                                    pos = slot * ss + 64 * u + m
+                                    at = (((jj >> 1) * 2 + (jj & 1)) * ptr2 + pos) * 8
+                                    rings[r][at : at + 8] = c1u[u, m, 8 * jj : 8 * jj + 8]
             if k < 4:
                 continue
             rout = r1 - 1  # conv2's output row R, from c1 rows R - 1 .. R + 1
             pp = p["pp2"]  # phases a pass: (oy, ox) = (q >> 1, q & 1), or (the pass's oy, q)
+            csize = 2 * ptr2 * 8  # a c1 chunk: both octets
             for ps in range(4 // pp):
                 phases = [(q >> 1, q & 1) for q in range(4)] if pp == 4 else [(ps, 0), (ps, 1)]
-                acc2 = np.zeros((pp * mb, 64, n2))
-                for kc in range(p["nch2"]):
-                    rflat = ring[kc * 2 * ptr2 * 8 :]
-                    chunk = pack2[kc].reshape(-1)
-                    for q, (oy, ox) in enumerate(phases):
-                        for dy in range(2):
-                            start = ((rout - 1 + oy + dy + 3) % 3) * ss
-                            for m in range(mb):
-                                fresh = sum(_desc_read(rflat, start + 64 * m + ox + dx, ptr2)
-                                            @ _b_read(chunk, (2 * oy + ox) * 4 + dy * 2 + dx, n2) for dx in range(2))
-                                acc2[m * pp + q] += fresh
-                out = _epilogue(acc2, b2, cout, slope, eps)
-                # stage_out: [phase][channel][G + 1][8], group 8m + 2wq + i
-                # = positions 64m + 16wq + 8i ..
-                stage = np.full((pp, n2, g + 1, 8), np.nan)
-                for u in range(pp * mb):
-                    m, q = u // pp, u % pp
-                    for grp in range(8):
-                        stage[q, :, 8 * m + grp, :] = out[u, 8 * grp : 8 * grp + 8].T
-                # The store map: group grp, channel co, row parity oyl -> both
-                # column phases of output row 2R + oy from column 2 (c0 + 8 grp) on.
-                for e in range(pp // 2 * n2 * g):
-                    grp, rest = e % g, e // g
-                    co, oyl = rest % n2, rest // n2
-                    cc = c0 + 8 * grp
-                    if 8 * grp >= tc or cc >= w or co >= cout:
-                        continue
-                    nv = min(8, w - cc)
-                    orow = 2 * rout + (oyl if pp == 4 else ps)
-                    run2 = np.stack([stage[2 * oyl, co, grp], stage[2 * oyl + 1, co, grp]], axis=1).reshape(-1)
-                    y[b, co, orow, 2 * cc : 2 * cc + 2 * nv] += run2[: 2 * nv]
-                    seen[b, co, orow, 2 * cc : 2 * cc + 2 * nv] += 1
+                outs = []
+                for r in range(nc):
+                    s2 = min(r, ns2 - 1)
+                    acc2 = np.zeros((pp * mb, 64, n2), dt)
+                    npeer = 0
+                    for kc in range(p["nch2"]):
+                        owner, kl = divmod(kc, nown)
+                        if owner == r:
+                            rflat = rings[r][kl * csize :]
+                        else:  # the peer's chunk through distributed shared memory
+                            at = (npeer & 1) * csize
+                            npeer += 1
+                            stages[r][at : at + csize] = rings[owner][kl * csize : (kl + 1) * csize]
+                            rflat = stages[r][at:]
+                        chunk = pack2[s2, kc].reshape(-1)
+                        for q, (oy, ox) in enumerate(phases):
+                            for dy in range(2):
+                                start = ((rout - 1 + oy + dy + 3) % 3) * ss
+                                for m in range(mb):
+                                    fresh = sum(_desc_read(rflat, start + 64 * m + ox + dx, ptr2)
+                                                @ _b_read(chunk, (2 * oy + ox) * 4 + dy * 2 + dx, n2)
+                                                for dx in range(2))
+                                    acc2[m * pp + q] += fresh.astype(dt)
+                    outs.append(_bias_lrelu(acc2, b2, s2 * n2, cout, slope))
+                outs = _pn_scale(outs, ns2, cout, eps)
+                for r in range(min(nc, ns2)):
+                    out, co0 = outs[r], r * n2
+                    # stage_out: [phase][channel][G + 1][8], group 8m + 2wq + i
+                    # = positions 64m + 16wq + 8i ..
+                    stage = np.full((pp, n2, g + 1, 8), np.nan, dt)
+                    for u in range(pp * mb):
+                        m, q = u // pp, u % pp
+                        for grp in range(8):
+                            stage[q, :, 8 * m + grp, :] = out[u, 8 * grp : 8 * grp + 8].T
+                    # The store map: group grp, channel co, row parity oyl -> both
+                    # column phases of output row 2R + oy from column 2 (c0 + 8 grp) on.
+                    for e in range(pp // 2 * n2 * g):
+                        grp, rest = e % g, e // g
+                        co, oyl = rest % n2, rest // n2
+                        cc = c0 + 8 * grp
+                        if 8 * grp >= tc or cc >= w or co0 + co >= cout:
+                            continue
+                        nv = min(8, w - cc)
+                        orow = 2 * rout + (oyl if pp == 4 else ps)
+                        run2 = np.stack([stage[2 * oyl, co, grp], stage[2 * oyl + 1, co, grp]], axis=1).reshape(-1)
+                        y[b, co0 + co, orow, 2 * cc : 2 * cc + 2 * nv] += run2[: 2 * nv]
+                        seen[b, co0 + co, orow, 2 * cc : 2 * cc + 2 * nv] += 1
     return y, seen
+
+
+def _model_pair(x, w1, b1, w2, b2, slope=0.2, eps=1e-8, dt=np.float32):
+    """K1 bf16 then K3 bf16 as their plans split the channels
+    (``channel_split``), straight from the images: the same wgmma chains
+    (one float64 sum of exact products a chunk and kernel row, or a chunk,
+    kernel row and phase), added in ``dt`` in the same order, the same
+    epilogues and PixelNorm's sums in split order; c1 rounded to bf16."""
+    bsz, cin, h, w = x.shape
+    cmid, cout = w1.shape[0], w2.shape[0]
+    (n1, ns1), (n2, ns2) = cb.channel_split(cmid), cb.channel_split(cout)
+    nch1, nch2 = -(-cin // 16), -(-cmid // 16)
+    xb = np.zeros((bsz, h + 2, w + 2, nch1 * 16))
+    xb[:, 1:-1, 1:-1, :cin] = _f(_u16(torch.from_numpy(x).to(torch.bfloat16))).transpose(0, 2, 3, 1)
+    pack1 = _u16(conv_ops.kernel_weights_tc(torch.from_numpy(w1)))
+    pack2 = _u16(conv_ops.kernel_weights_tc(torch.from_numpy(w2), True))
+    c1s = []
+    for s in range(ns1):
+        acc = np.zeros((bsz, h, w, n1), dt)
+        for kc in range(nch1):
+            chunk = pack1[s, kc].reshape(-1)
+            for dy in range(3):
+                fresh = sum(xb[:, dy : dy + h, dx : dx + w, 16 * kc : 16 * kc + 16] @ _b_read(chunk, dy * 3 + dx, n1)
+                            for dx in range(3))
+                acc += fresh.astype(dt)
+        c1s.append(_bias_lrelu(acc, b1, s * n1, cmid, slope))
+    c1 = np.concatenate(_pn_scale(c1s, ns1, cmid, eps), -1)[..., :cmid]
+    cpad = np.zeros((bsz, h + 2, w + 2, nch2 * 16))
+    cpad[:, 1:-1, 1:-1, :cmid] = _f(_to_u16(c1))
+    outs = []
+    for s in range(ns2):
+        acc = np.zeros((4, bsz, h, w, n2), dt)
+        for kc in range(nch2):
+            chunk = pack2[s, kc].reshape(-1)
+            for ph in range(4):
+                oy, ox = ph >> 1, ph & 1
+                for dy in range(2):
+                    fresh = sum(cpad[:, oy + dy : oy + dy + h, ox + dx : ox + dx + w, 16 * kc : 16 * kc + 16]
+                                @ _b_read(chunk, ph * 4 + dy * 2 + dx, n2) for dx in range(2))
+                    acc[ph] += fresh.astype(dt)
+        outs.append(_bias_lrelu(acc, b2, s * n2, cout, slope))
+    out = np.concatenate(_pn_scale(outs, ns2, cout, eps), -1)[..., :cout]
+    y = np.zeros((bsz, cout, 2 * h, 2 * w), dt)
+    for ph in range(4):
+        y[:, :, ph >> 1 :: 2, ph & 1 :: 2] = out[ph].transpose(0, 3, 1, 2)
+    return y
 
 
 def _reference(x, w1, b1, w2, b2, slope=0.2, eps=1e-8):
@@ -346,6 +461,131 @@ def test_model_of_the_data_path_computes_the_block(bsz, cin, cmid, cout, h, w, t
     got, seen = _model_block(x, w1, b1, w2, b2, p)
     assert (seen == 1).all()
     np.testing.assert_allclose(got, _reference(x, w1, b1, w2, b2), rtol=0, atol=1e-9)
+
+
+# Past 128 channels: WIDE_BLOCK (5, 144 -> 144 -> 160, 32 x 320) cut down, a
+# ragged one (channels no multiple of 16, W no multiple of 8), three ranks.
+CLUSTER_MODEL = [(1, 16, 144, 160, 4, 20), (2, 5, 136, 150, 3, 37), (1, 8, 272, 288, 2, 24)]
+# The launcher's plan (plan_kb compiled for the host, 132 SMs) past 128
+# channels: (takes, tc, run, runs, strips, units, blocks, warpgroups, w1
+# resident, w2 resident, stages, mb, shared bytes, cost, the pair's cost,
+# pt1, pr1, ptr2, cluster, nsplit1, nsplit2).
+CLUSTER_HEADER_PLANS = {
+    (1, 16, 144, 160, 4, 20): (0, 16, 1, 4, 2, 8, 16, 2, 1, 0, 4, 2, 156456, 169280, 50720, 72, 280, 200, 2, 2, 2),
+    (5, 144, 144, 160, 32, 320): (0, 80, 11, 3, 4, 60, 120, 2, 0, 0, 3, 2, 230184, 2118980, 1960256, 264, 4888, 328,
+                                  2, 2, 2),
+    (2, 5, 136, 150, 3, 37): (0, 16, 1, 3, 3, 18, 36, 2, 1, 0, 4, 2, 156456, 169280, 50720, 72, 280, 200, 2, 2, 2),
+    (1, 8, 272, 288, 2, 24): (0, 16, 1, 2, 2, 4, 12, 2, 1, 0, 4, 2, 183976, 263524, 84128, 72, 280, 200, 3, 3, 3),
+    (5, 272, 272, 288, 16, 160): (0, 48, 8, 2, 4, 40, 120, 2, 0, 0, 2, 2, 223400, 2770745, 1570544, 168, 5848, 264, 3,
+                                  3, 3),
+    (1, 448, 1024, 1024, 8, 64): (0, 16, 2, 4, 4, 16, 128, 2, 0, 0, 2, 2, 207016, 2456179, 503328, 72, 4168, 200, 8,
+                                  8, 8),
+    # Block 6 of chip_smoke.py's generator past 128 channels: modelled below
+    # the pair, not taken (no cluster is).
+    (5, 160, 160, 144, 128, 1280): (0, 80, 32, 4, 16, 320, 132, 2, 0, 0, 2, 2, 215592, 32130080, 32638560, 264, 5416,
+                                    328, 2, 2, 2),
+}
+
+
+def _cluster_tuple(p):
+    return _plan_tuple(p) + tuple(int(p[k]) for k in ("cluster", "nsplit1", "nsplit2"))
+
+
+@pytest.mark.parametrize("size", sorted(CLUSTER_HEADER_PLANS))
+def test_cluster_plan_mirror_equals_the_headers_rule(size):
+    assert _cluster_tuple(cb.block_plan(*size, SMS)) == CLUSTER_HEADER_PLANS[size]
+
+
+# Each width tier past 128 (2 to 8 ranks; cin at the widest that fits).
+CLUSTER_TIERS = [(5, 144, 144, 160, 32, 320), (1, 608, 256, 256, 8, 64), (2, 608, 384, 384, 9, 50),
+                 (1, 608, 512, 512, 4, 40), (1, 608, 640, 640, 5, 33), (1, 608, 768, 768, 3, 64),
+                 (1, 608, 896, 896, 4, 17), (1, 608, 1024, 1024, 8, 64), (3, 100, 129, 40, 7, 50),
+                 (1, 16, 16, 1024, 6, 30)]
+
+
+@pytest.mark.parametrize("bsz,cin,cmid,cout,h,w", CLUSTER_MODEL + CLUSTER_TIERS)
+def test_cluster_plan_covers_every_output_once_and_fits(bsz, cin, cmid, cout, h, w):
+    """Past 128 channels: clusters of ``max(nsplit1, nsplit2)`` blocks of two
+    warpgroups (both on each unit), the splits K1 bf16's and K3 bf16's, the units over the
+    clusters, every rank's split of each conv covered once, the layout
+    within 227 KB (``SMEM_BUDGET``)."""
+    p = cb.block_plan(bsz, cin, cmid, cout, h, w, SMS)
+    (n1, ns1), (n2, ns2) = cb.channel_split(cmid), cb.channel_split(cout)
+    assert (p["n1"], p["nsplit1"], p["n2"], p["nsplit2"]) == (n1, ns1, n2, ns2)
+    assert p["cluster"] == max(ns1, ns2) > 1 and p["cluster"] <= cb.MAX_PIXEL_NORM_SPLITS
+    assert (p["n1"], p["n2"]) == (cb.plan(3, bsz, cin, cmid, h, w, True, SMS)["n"],
+                                  cb.plan(2, bsz, cmid, cout, h, w, True, SMS)["n"])
+    assert p["nwg"] == 2 and p["mb"] == 2 * p["mb_wg"] and p["blocks"] % p["cluster"] == 0
+    assert p["blocks"] // p["cluster"] == min(p["units"], SMS // p["cluster"])
+    assert 2 <= p["stages"] <= 4 and p["smem_bytes"] <= cb.SMEM_BUDGET <= 227 * 1024
+    assert p["tc"] % 16 == 0 and p["tc"] + 2 <= 64 * p["mb"] and p["units"] == bsz * p["ntx"] * p["nruns"]
+    cov = np.zeros((bsz, h, w), np.int64)
+    for u in range(p["units"]):
+        tx, rest = u % p["ntx"], u // p["ntx"]
+        rr, b = rest % p["nruns"], rest // p["nruns"]
+        cov[b, rr * p["run"] : (rr + 1) * p["run"], tx * p["tc"] : (tx + 1) * p["tc"]] += 1
+    assert (cov == 1).all()
+    # Each conv's channels once over its splits, and every mid chunk owned by one rank below nsplit1.
+    for c, n, ns in ((cmid, n1, ns1), (cout, n2, ns2)):
+        own = np.zeros(ns * n, np.int64)
+        for r in range(p["cluster"]):
+            if r < ns:
+                own[min(r, ns - 1) * n : (min(r, ns - 1) + 1) * n] += 1
+        assert (own[:c] == 1).all()
+    assert all(kc // (n1 // 16) < ns1 for kc in range(-(-cmid // 16)))
+    # The generator never takes a cluster (measured no faster than the pair).
+    assert not p["takes"]
+    assert conv_ops.fused_block_fits(cin, cmid, cout, size=(bsz, h, w), dtype=torch.bfloat16) == p["takes"]
+
+
+def _block_inputs(seed, bsz, cin, cmid, cout, h, w):
+    rng = np.random.default_rng(seed)
+    f32 = lambda a: np.asarray(a, np.float32)  # noqa: E731
+    return (f32(rng.standard_normal((bsz, cin, h, w))), f32(rng.standard_normal((cmid, cin, 3, 3)) * 0.3),
+            f32(rng.standard_normal(cmid) * 0.1), f32(rng.standard_normal((cout, cmid, 3, 3)) * 0.1),
+            f32(rng.standard_normal(cout) * 0.1))
+
+
+@pytest.mark.parametrize("bsz,cin,cmid,cout,h,w", CLUSTER_MODEL)
+def test_cluster_model_computes_the_block(bsz, cin, cmid, cout, h, w):
+    """The cluster's data path in float64: every output stored once, by the
+    rank of its split, and equal to the float64 block."""
+    x, w1, b1, w2, b2 = _block_inputs(bsz + cin + cmid + cout, bsz, cin, cmid, cout, h, w)
+    p = cb.block_plan(bsz, cin, cmid, cout, h, w, SMS)
+    assert p["cluster"] > 1
+    got, seen = _model_block(x, w1, b1, w2, b2, p)
+    assert (seen == 1).all()
+    np.testing.assert_allclose(got, _reference(x, w1, b1, w2, b2), rtol=0, atol=1e-9)
+
+
+@pytest.mark.parametrize("bsz,cin,cmid,cout,h,w,tc,run", [
+    (1, 16, 144, 160, 4, 20, 0, 0), (2, 5, 136, 150, 3, 37, 16, 2), (2, 5, 136, 150, 3, 37, 0, 0),
+    (1, 8, 272, 288, 2, 24, 0, 0), (3, 12, 129, 40, 3, 30, 0, 0),  # a rank past conv2's split
+    (1, 16, 16, 160, 4, 20, 0, 0),  # a rank past conv1's split
+    (2, 20, 24, 40, 5, 19, 0, 0),  # one block: the narrow route the same way
+])
+def test_model_gives_the_pairs_bits_and_the_pair_is_the_plain_block(bsz, cin, cmid, cout, h, w, tc, run):
+    """In float32, each wgmma chain one exact sum: the modelled kernel
+    (ranks, their rings, the peers' chunks through the staging slots,
+    PixelNorm's sums in rank order) gives K1
+    bf16 then K3 bf16's bits, both output dtypes (the float32 output
+    rounded to bf16 is the bf16 output), and that pair is the plain
+    versions' block within the bf16 block's bar
+    (``tests/test_torch_cuda.py::assert_k4_bf16_close``)."""
+    x, w1, b1, w2, b2 = _block_inputs(7 * bsz + cin + cmid + cout, bsz, cin, cmid, cout, h, w)
+    p = cb.block_plan(bsz, cin, cmid, cout, h, w, SMS, tc=tc, run=run)
+    got, seen = _model_block(x, w1, b1, w2, b2, p, dt=np.float32)
+    assert (seen == 1).all() and got.dtype == np.float32
+    pair = _model_pair(x, w1, b1, w2, b2)
+    assert np.array_equal(got, pair)  # the float32 output
+    assert np.array_equal(_to_u16(got), _to_u16(pair))  # the bf16 output
+    bf = torch.bfloat16
+    xb = torch.from_numpy(x).to(bf)
+    c1 = conv_ops.conv3x3_plain(xb, torch.from_numpy(w1), torch.from_numpy(b1), 0.2, True, 1e-8, out_dtype=bf)
+    plain = conv_ops.upconv3x3_plain(c1, torch.from_numpy(w2), torch.from_numpy(b2), 0.2, True, 1e-8,
+                                     out_dtype=bf).float()
+    mine = torch.from_numpy(pair).to(bf).float()
+    assert ((mine - plain).norm() / plain.norm()).item() <= 1e-2
 
 
 def test_generator_asks_the_bf16_rule_and_hands_k4_its_packs(monkeypatch):

@@ -743,7 +743,7 @@ def test_bf16_k4_matches_plain_and_equals_the_bf16_pair(cuda, b, cin, cmid, cout
     n0 = conv_ops.fused_block.bf16_launches
     got = conv_ops.fused_block(x, w1, b1, w2, b2, out_dtype=BF)
     assert conv_ops.fused_block.bf16_launches == n0 + 1
-    if conv_bf16.block_route(cmid, cout) == "bf16_tc" or _pair_is_large(b, cin, cmid, cout, h, w):
+    if conv_bf16.block_route(cmid, cout, cin) != "template" or _pair_is_large(b, cin, cmid, cout, h, w):
         assert torch.equal(got, _k4_bf16_pair(x, w1, b1, w2, b2))
     assert_k4_bf16_close(got, conv_ops.fused_block_plain(x, w1, b1, w2, b2))
     assert torch.equal(got, conv_ops.fused_block(x, w1, b1, w2, b2, out_dtype=BF))
@@ -773,7 +773,7 @@ def test_bf16_k4_plan_equals_the_mirror(cuda, b, cin, cmid, cout, h, w):
     ``fused_block_fits`` in bf16 takes what it takes."""
     from musicgan_tpu_torch.ops import conv_bf16
 
-    assert conv_bf16.block_route(cmid, cout) == "bf16_tc"
+    assert conv_bf16.block_route(cmid, cout, cin) == "bf16_tc"
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     got = conv_ops.block_plan(b, cin, cmid, cout, h, w, dtype=torch.bfloat16)
     want = conv_bf16.block_plan(b, cin, cmid, cout, h, w, sms)
@@ -788,6 +788,75 @@ def test_bf16_k4_past_128_channels(cuda):
     assert conv_ops.block_tile(144, 160)["cluster"] == 2
     assert_k4_bf16_close(conv_ops.fused_block(x, w1, b1, w2, b2, out_dtype=BF),
                          conv_ops.fused_block_plain(x, w1, b1, w2, b2))
+
+
+# K4 bf16's cluster route (past 128 channels): WIDE_BLOCK (chip_smoke.py)
+# and cut down, a ragged one, three ranks, a rank past conv2's splits and
+# one past conv1's, eight ranks with the widest input that fits.
+CLUSTER_SHAPES = [(5, 144, 144, 160, 32, 320), (1, 16, 144, 160, 4, 20), (2, 5, 136, 150, 3, 37),
+                  (1, 8, 272, 288, 2, 24), (3, 100, 129, 40, 7, 50), (1, 16, 16, 1024, 6, 30),
+                  (1, 608, 1024, 1024, 8, 64)]
+
+
+@pytest.mark.parametrize("b,cin,cmid,cout,h,w", CLUSTER_SHAPES)
+def test_bf16_k4_cluster_gives_the_pairs_bits_in_both_output_dtypes(cuda, b, cin, cmid, cout, h, w):
+    """Past 128 channels K4 bf16 is block_bf16.cuh over a cluster split as
+    K1 bf16 and K3 bf16 split: K1 bf16 then K3 bf16 bit for bit with a bf16
+    and with a float32 output, the float32 one rounded to bf16 the bf16 one,
+    its plan the mirror's, the same bits twice."""
+    from musicgan_tpu_torch.ops import conv_bf16
+
+    assert conv_bf16.block_route(cmid, cout, cin) == "bf16_cluster"
+    x, w1, b1, w2, b2 = _block_inputs(29, b, cin, cmid, cout, h, w, cuda)
+    x = x.to(torch.bfloat16)
+    got = conv_ops.fused_block(x, w1, b1, w2, b2, out_dtype=BF)
+    got32 = conv_ops.fused_block(x, w1, b1, w2, b2, out_dtype=torch.float32)
+    assert torch.equal(got, _k4_bf16_pair(x, w1, b1, w2, b2))
+    assert torch.equal(got32, _k4_bf16_pair(x, w1, b1, w2, b2, out_dtype=torch.float32))
+    assert torch.equal(got32.to(BF), got)
+    assert torch.equal(got, conv_ops.fused_block(x, w1, b1, w2, b2, out_dtype=BF))
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = conv_ops.block_plan(b, cin, cmid, cout, h, w, dtype=BF)
+    want = conv_bf16.block_plan(b, cin, cmid, cout, h, w, sms)
+    assert {k: plan[k] for k, _ in K4_PLAN_KEYS} == {k: want[m] for k, m in K4_PLAN_KEYS}
+    assert plan["route"] == "bf16_cluster" and plan["cluster"] == want["cluster"]
+
+
+@pytest.mark.parametrize("b,cin,cmid,cout,h,w,tc,run", [
+    (5, 144, 144, 160, 32, 320, 96, 6), (5, 144, 144, 160, 32, 320, 48, 3), (2, 5, 136, 150, 3, 37, 16, 2),
+])
+def test_bf16_k4_cluster_forced_strips_and_runs_give_the_pairs_bits(cuda, b, cin, cmid, cout, h, w, tc, run):
+    x, w1, b1, w2, b2 = _block_inputs(30, b, cin, cmid, cout, h, w, cuda)
+    x = x.to(torch.bfloat16)
+    got = conv_ops.fused_block(x, w1, b1, w2, b2, tc=tc, run=run, out_dtype=BF)
+    assert torch.equal(got, _k4_bf16_pair(x, w1, b1, w2, b2))
+
+
+# K4 bf16's template tier (block3x3.cuh at bf16, widths cluster_fits
+# refuses: inputs past 608 channels at these c1 and output widths):
+# TEMPLATE_BLOCK (chip_smoke.py) and a ragged one just past the edge.
+TEMPLATE_SHAPES = [(1, 640, 640, 640, 4, 40), (2, 609, 700, 650, 3, 21)]
+
+
+@pytest.mark.parametrize("out_dtype", [BF, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("b,cin,cmid,cout,h,w", TEMPLATE_SHAPES)
+def test_bf16_k4_template_tier_matches_plain_and_the_pair(cuda, b, cin, cmid, cout, h, w, out_dtype):
+    """Inputs too wide for the cluster take the template: within the
+    2-norm of K1 bf16 then K3 bf16 and of the plain version (its own sums),
+    with a bf16 and a float32 output, the float32 one rounded to bf16 the
+    bf16 one, the same bits twice."""
+    from musicgan_tpu_torch.ops import conv_bf16
+
+    assert conv_bf16.block_route(cmid, cout, cin) == "template"
+    x, w1, b1, w2, b2 = _block_inputs(31, b, cin, cmid, cout, h, w, cuda)
+    x = x.to(BF)
+    got = conv_ops.fused_block(x, w1, b1, w2, b2, out_dtype=out_dtype)
+    assert got.dtype == out_dtype
+    pair = _k4_bf16_pair(x, w1, b1, w2, b2, out_dtype=out_dtype).float()
+    assert ((got.float() - pair).norm() / pair.norm()).item() <= 1e-2
+    assert_k4_bf16_close(got.to(BF), conv_ops.fused_block_plain(x, w1, b1, w2, b2))
+    assert torch.equal(got.to(BF), conv_ops.fused_block(x, w1, b1, w2, b2, out_dtype=BF))
+    assert torch.equal(got, conv_ops.fused_block(x, w1, b1, w2, b2, out_dtype=out_dtype))
 
 
 def test_bf16_kernels_refuse_a_mixed_pair_and_mixed_operands(cuda):
@@ -926,5 +995,5 @@ def test_mixed_k4_matches_plain_and_its_same_dtype_kernel(cuda, b, cin, cmid, co
     _assert_mixed(got, same, ref, x_dtype, out_dtype, tol=2e-4)
     if out_dtype == torch.float32:
         assert ((got - ref).norm() / ref.norm()).item() <= 1e-2
-        if conv_bf16.block_route(cmid, cout) == "bf16_tc":
+        if conv_bf16.block_route(cmid, cout, cin) != "template":
             assert torch.equal(got, _k4_bf16_pair(x, w1, b1, w2, b2, out_dtype=torch.float32))

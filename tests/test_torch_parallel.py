@@ -123,6 +123,74 @@ def test_longclip_sharded_cases_match_unsharded(tiny, shards, stage, nb_vec):
         np.testing.assert_allclose(out, ref, atol=TOL_JAX)
 
 
+@pytest.fixture(scope="module")
+def full_auto(full):
+    """``full``'s weights under the default ``conv_impl="auto"``."""
+    params, gen = full
+    return params, gen, ModelConfig()
+
+
+@pytest.mark.parametrize("shards", [2, 4])
+def test_longclip_auto_matches_jax_auto_and_unsharded(full_auto, shards):
+    """The default "auto" clip on 2 and 4 shards against JAX's
+    ``sharded_synthesize_fn`` under its own "auto" (float32 throughout) on
+    the same latent and weights, and against the port's unsharded float32
+    synthesis."""
+    params, gen, cfg = full_auto
+    z = _latent(cfg, 4, 21 + shards)
+    jax_mesh = jax_make_mesh(jax.devices()[:shards])
+    ref = np.asarray(jax_sharded_synthesize_fn(jax_mesh, JaxModelConfig(), 7)(params, z))
+    out = join_pieces(sharded_synthesize_fn(Mesh(("cpu",) * shards), cfg, 7)(gen, z)).numpy()
+    assert out.shape == ref.shape
+
+    def rel(a, b):
+        return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+    assert rel(out, ref) < TOL_JAX
+    unsharded = synthesize_fn(dataclasses.replace(cfg, conv_impl="xla"), 7)(gen, z)[0].numpy()
+    assert rel(out, unsharded) < TOL_JAX
+
+
+def test_longclip_auto_runs_one_float32_impl_on_every_shard(tiny, monkeypatch):
+    """"auto" resolves once a clip among the float32 candidates, under the
+    widest shard's latent: with a table (as on a card) whose six-candidate
+    winners are bf16 for the inner shards' latents and float32 for the
+    edges', every shard still runs the float32 table's one winner."""
+    from musicgan_tpu_torch.models import generator as gmod
+    from musicgan_tpu_torch.ops import autotune
+
+    _, gen = tiny
+    cfg = dataclasses.replace(TINY, conv_impl="auto")
+    stage, shards, nb_vec = 3, 4, 4  # 2 columns a shard: widened to 5, 7, 7, 5
+    z = _latent(cfg, nb_vec, 31)
+    backend = "cuda:stub"
+    table = {}
+    for width, impl in ((5, "pallas_up"), (7, "pallas_up_bf16")):
+        shape = (1, 2, width, cfg.rand_channels)
+        table[autotune._candidates_and_key(backend, shape, stage, False, None)[1]] = impl
+    widest = (1, 2, 7, cfg.rand_channels)
+    f32_key = autotune._candidates_and_key(backend, widest, stage, False, None, autotune.FLOAT32_IMPLS)[1]
+    table[f32_key] = "subpixel"
+    monkeypatch.setattr(autotune, "_CACHE", table)
+    monkeypatch.setattr(autotune, "_device", lambda device: torch.device("cuda", 0))
+    monkeypatch.setattr(autotune, "_backend", lambda device: backend)
+    monkeypatch.setattr(autotune, "_capturing", lambda device: False)
+    monkeypatch.setattr(autotune, "resolve_istft_impl", lambda t, **kw: "xla")
+    seen = []
+    forward = gmod.Generator.forward_nchw
+
+    def spy(self, x, stage, alpha=1.0, impl=None, **kw):
+        seen.append(impl)
+        return forward(self, x, stage, alpha, impl, **kw)
+
+    monkeypatch.setattr(gmod.Generator, "forward_nchw", spy)
+    out = join_pieces(sharded_synthesize_fn(Mesh(("cpu",) * shards), cfg, stage)(gen, z)).numpy()
+    assert seen == ["subpixel"] * shards
+    assert set(autotune.FLOAT32_IMPLS) == {"xla", "subpixel", "pallas", "pallas_up"}
+    unsharded = synthesize_fn(dataclasses.replace(cfg, conv_impl="subpixel"), stage)(gen, z)[0].numpy()
+    np.testing.assert_allclose(out, unsharded, atol=TOL_UNSHARDED)
+
+
 def test_latent_halo_is_what_a_shard_needs(tiny):
     """The halo is the receptive field: 3 latent columns at stages 1-7 (2 at
     stage 0).  With it a shard's own image columns are the unsharded
