@@ -285,6 +285,7 @@ from musicgan_tpu_torch.train import (
     init_train_state,
     train,
 )
+from musicgan_tpu_torch.utils import profiling
 from musicgan_tpu_torch.utils.watchdog import EXIT_STALLED
 
 ROOT = Path(__file__).resolve().parent
@@ -4405,9 +4406,12 @@ def main() -> None:
     # The native host tail (g++, about a second) builds beside the nvcc jobs.
     with ThreadPoolExecutor(1) as pool:
         host = pool.submit(lambda: (time.perf_counter(), native.build(), time.perf_counter()))
-        build = {"total_s": _build.build_all(), "sources_s": dict(_build.LAST_BUILD_S)}
-        print(f"[build] kernels built in {build['total_s']:.2f} s; each source's nvcc (s from the start): "
-              + ", ".join(f"{k} {v:.1f}" for k, v in sorted(build["sources_s"].items(), key=lambda kv: -kv[1])))
+        start_ns = time.perf_counter_ns()
+        build = {"total_s": _build.build_all()}
+        build["sources_s"] = sorted(((s.t1_ns - start_ns) * 1e-9 for s in profiling.spans()
+                                     if s.name == "mg.build.compile" and s.t0_ns >= start_ns), reverse=True)
+        print(f"[build] kernels built in {build['total_s']:.2f} s; each nvcc's end (s from the start): "
+              + ", ".join(f"{v:.1f}" for v in build["sources_s"]))
         t0, lib, t1 = host.result()
     if not native.is_available() or native.lib_path() != lib:
         raise AssertionError("the native host tail did not build")

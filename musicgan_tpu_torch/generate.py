@@ -39,6 +39,7 @@ from .device import resolve_device
 from .models import Generator
 from .models.layers import library_numerics
 from .ops.istft_fused import istft_fused
+from .utils import profiling
 
 __all__ = ["resolve_device", "latents", "synthesize_fn", "load_generator_params", "generate"]
 
@@ -70,17 +71,24 @@ def _synthesize(
 
     For a partially grown ``stage`` the image is nearest-upsampled to the
     full 512-bin resolution before vocoding, so audio can be auditioned
-    from any growth checkpoint."""
-    img = gen.forward_nchw(z.permute(0, 3, 1, 2), stage, 1.0, model_cfg.conv_impl)  # (M, 2, H, W)
-    n_stages = model_cfg.n_stages
-    if stage < n_stages - 1:
-        img = F.interpolate(img, scale_factor=2 ** (n_stages - 1 - stage), mode="nearest")
-    acfg = AudioConfig()
-    real, imag = mp_to_real_imag(img[:, None], acfg)  # (M, n_bins + 1, T)
-    if istft_impl == "pallas":
-        return istft_fused(real, imag, n_fft=acfg.n_fft, hop=acfg.stft_stride)
-    with library_numerics():  # its products in float32, not TF32
-        return istft_real_imag(real, imag, n_fft=acfg.n_fft, hop=acfg.stft_stride)
+    from any growth checkpoint.
+
+    Spans (``utils/profiling.py``): ``mg.synth.generator`` (the image),
+    ``mg.synth.vocoder`` (the spectra, ``mg.synth.spectrum``, and the
+    iSTFT)."""
+    with profiling.span("mg.synth.generator"):
+        img = gen.forward_nchw(z.permute(0, 3, 1, 2), stage, 1.0, model_cfg.conv_impl)  # (M, 2, H, W)
+        n_stages = model_cfg.n_stages
+        if stage < n_stages - 1:
+            img = F.interpolate(img, scale_factor=2 ** (n_stages - 1 - stage), mode="nearest")
+    with profiling.span("mg.synth.vocoder"):
+        acfg = AudioConfig()
+        with profiling.span("mg.synth.spectrum"):
+            real, imag = mp_to_real_imag(img[:, None], acfg)  # (M, n_bins + 1, T)
+        if istft_impl == "pallas":
+            return istft_fused(real, imag, n_fft=acfg.n_fft, hop=acfg.stft_stride)
+        with library_numerics():  # its products in float32, not TF32
+            return istft_real_imag(real, imag, n_fft=acfg.n_fft, hop=acfg.stft_stride)
 
 
 def synthesize_fn(model_cfg: ModelConfig = ModelConfig(), stage: int = 7):
@@ -91,19 +99,25 @@ def synthesize_fn(model_cfg: ModelConfig = ModelConfig(), stage: int = 7):
     of each latent shape, and the vocoder likewise (cached per process and
     persisted; ``ops/autotune.py``), here, where ``z``'s shape is known.
     Inside a CUDA-graph capture the resolution reads the tables only (the
-    persisted winner, else "xla") and never runs the timing harness."""
+    persisted winner, else "xla") and never runs the timing harness.
+
+    Each call is one ``mg.synth.call`` span, the resolution its
+    ``mg.synth.resolve``."""
     from .ops.autotune import resolve_conv_impl, resolve_istft_impl
 
     def f(gen: Generator, z) -> torch.Tensor:
-        device = next(gen.parameters()).device
-        z = torch.as_tensor(z, dtype=torch.float32, device=device)
-        cfg = resolve_conv_impl(model_cfg, tuple(z.shape), stage, device=device)
-        # Spectrum frames the vocoder inverts: the stack upsamples x2 per
-        # block and partial stages are nearest-upsampled to full resolution,
-        # so every latent column becomes 2^n_stages frames at any stage.
-        t_frames = z.shape[2] * 2**model_cfg.n_stages
-        istft_impl = resolve_istft_impl(t_frames, device=device)
-        return _synthesize(gen, z, stage, cfg, istft_impl)
+        with profiling.span("mg.synth.call"):
+            device = next(gen.parameters()).device
+            z = torch.as_tensor(z, dtype=torch.float32, device=device)
+            with profiling.span("mg.synth.resolve"):
+                cfg = resolve_conv_impl(model_cfg, tuple(z.shape), stage, device=device)
+                # Spectrum frames the vocoder inverts: the stack upsamples x2
+                # per block and partial stages are nearest-upsampled to full
+                # resolution, so every latent column becomes 2^n_stages
+                # frames at any stage.
+                t_frames = z.shape[2] * 2**model_cfg.n_stages
+                istft_impl = resolve_istft_impl(t_frames, device=device)
+            return _synthesize(gen, z, stage, cfg, istft_impl)
 
     return f
 

@@ -26,6 +26,8 @@ from pathlib import Path
 
 import torch
 
+from ..utils import profiling
+
 __all__ = ["build_all", "load", "kernel", "PTR", "INT", "FLOAT"]
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -66,7 +68,7 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
-def _start_build(name: str) -> tuple[subprocess.Popen, Path, Path] | None:
+def _start_build(name: str) -> tuple[subprocess.Popen, Path, Path, int] | None:
     """Start ``nvcc`` for one source unless its library is built already."""
     out = _lib_path(name)
     if out.exists():
@@ -74,42 +76,40 @@ def _start_build(name: str) -> tuple[subprocess.Popen, Path, Path] | None:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SRC_DIR / f"{name}.cu")]
+    t0_ns = time.perf_counter_ns()
     proc = subprocess.Popen(
         cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
     )
-    return proc, tmp, out
+    return proc, tmp, out, t0_ns
 
 
-def _finish_build(job: tuple[subprocess.Popen, Path, Path]) -> None:
-    proc, tmp, out = job
-    log, _ = proc.communicate()
+def _finish_build(job: tuple[subprocess.Popen, Path, Path, int]) -> None:
+    """Wait for one ``nvcc``: an ``mg.build.compile`` span from its start,
+    recorded whether or not a profiler is on."""
+    proc, tmp, out, t0_ns = job
+    with profiling.span("mg.build.compile", always=True, t0_ns=t0_ns):
+        log, _ = proc.communicate()
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed for {out.name}:\n{log}")
     os.replace(tmp, out)  # atomic: a concurrent builder sees all or nothing
 
 
-# Seconds each source's nvcc took in the last build_all (from the common start).
-LAST_BUILD_S: dict[str, float] = {}
-
-
 def build_all() -> float:
     """Compile every ``csrc/*.cu`` that is not built yet, one ``nvcc`` per
     source, all started together.  Returns the seconds it took; each
-    source's are in ``LAST_BUILD_S``."""
+    source's ``nvcc`` is an ``mg.build.compile`` span (``utils/profiling.py``)."""
     t0 = time.perf_counter()
-    jobs = {src.stem: _start_build(src.stem) for src in sorted(SRC_DIR.glob("*.cu"))}
-    LAST_BUILD_S.clear()
+    jobs = [_start_build(src.stem) for src in sorted(SRC_DIR.glob("*.cu"))]
     errors = []
 
-    def finish(name, job):  # one thread a job reads its nvcc's output as it comes
+    def finish(job):  # one thread a job reads its nvcc's output as it comes
         try:
             _finish_build(job)
         except RuntimeError as e:
             errors.append(str(e))
-        LAST_BUILD_S[name] = time.perf_counter() - t0
 
-    threads = [threading.Thread(target=finish, args=item) for item in jobs.items() if item[1] is not None]
+    threads = [threading.Thread(target=finish, args=(job,)) for job in jobs if job is not None]
     for t in threads:
         t.start()
     for t in threads:  # wait for every nvcc, failed or not, before raising

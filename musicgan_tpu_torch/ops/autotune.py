@@ -12,9 +12,10 @@ static default is right everywhere.
 Methodology, as in JAX's: K forwards (or K train iterations) queued in one
 dispatch that ends where the host waits for the device
 (``utils/timing.py``), best of ``_REPS``, the scalar round trip
-subtracted.  The result is cached per (card, stage, latent shape, dtype)
-for the life of the process and persisted to
-``$MUSICGAN_AUTOTUNE_DIR/conv_autotune.json`` (default
+subtracted; each measurement is one ``mg.autotune.measure`` span
+(``utils/profiling.py``), a table hit none.  The result is cached per
+(card, stage, latent shape, dtype) for the life of the process and
+persisted to ``$MUSICGAN_AUTOTUNE_DIR/conv_autotune.json`` (default
 ``~/.cache/musicgan_tpu_torch/``, never the JAX package's file), so later
 processes on the same machine skip the measurement too.  The key's backend
 part names the card (``cuda:NVIDIA H100 80GB HBM3``) where JAX writes
@@ -46,6 +47,7 @@ import numpy as np
 import torch
 
 from ..config import ModelConfig
+from ..utils import profiling
 
 __all__ = [
     "resolve_conv_impl", "measure_conv_impls", "measure_train_impls",
@@ -331,7 +333,8 @@ def resolve_istft_impl(
             if key in persisted:
                 return persisted[key]
             t0 = time.perf_counter()
-            times = measure_istft_impls(n_bins, t, device=device)
+            with profiling.span("mg.autotune.measure", always=True):
+                times = measure_istft_impls(n_bins, t, device=device)
             winner = min(times, key=times.get)
             _report("istft_impl", winner, times, time.perf_counter() - t0)
             persisted[key] = winner
@@ -442,10 +445,11 @@ def resolve_conv_impl(
             if key in persisted:
                 return persisted[key]
             t0 = time.perf_counter()
-            if training:  # steps built without the process group
-                times = measure_train_impls(cfg, train_cfg, stage, candidates, device=device)
-            else:
-                times = measure_conv_impls(cfg, z_shape, stage, candidates, device=device)
+            with profiling.span("mg.autotune.measure", always=True):
+                if training:  # steps built without the process group
+                    times = measure_train_impls(cfg, train_cfg, stage, candidates, device=device)
+                else:
+                    times = measure_conv_impls(cfg, z_shape, stage, candidates, device=device)
             winner = min(times, key=times.get)
             _report(label, winner, times, time.perf_counter() - t0)
             persisted[key] = winner

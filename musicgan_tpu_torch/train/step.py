@@ -14,6 +14,12 @@ G forward without gradient -> D on real and fake -> Wasserstein loss
 critic parameters only -> Adam -> on G iterations the generator trains
 against the *updated* critic, then the EMA.
 
+Spans (``utils/profiling.py``): each iteration is one
+``mg.train.iteration``; inside it ``mg.train.critic`` (noise to the
+critic's gradients), ``mg.train.critic_adam``, and on G iterations
+``mg.train.generator`` and ``mg.train.gen_adam`` (Adam and the EMA); each
+gradient call is an ``mg.train.backward`` inside its phase.
+
 ``ModelConfig.conv_impl`` is resolved when the step is built
 (``ops/autotune.py``: "auto" is measured on a real chunk of this step, once
 per stage and shape) and selects the lowering, as in JAX:
@@ -78,6 +84,7 @@ from ..models.generator import Generator
 from ..models.layers import library_numerics
 from ..models.losses import wasserstein_discriminator_loss, wasserstein_generator_loss
 from ..parallel.mesh import Group, Mesh, all_reduce_sum
+from ..utils import profiling
 from .optim import AdamState, adam_per_leaf
 
 __all__ = [
@@ -234,7 +241,7 @@ def _make_iteration(stage: int, model_cfg: ModelConfig, train_cfg: TrainConfig, 
         return torch.autograd.grad(score.sum(), x_hat, create_graph=True)[0]
 
     def iteration(state: TrainState, x_raw, alpha, do_g: bool, noise=None):
-        with numerics():
+        with profiling.span("mg.train.iteration"), numerics():
             return _iteration(state, x_raw, alpha, do_g, noise)
 
     def _iteration(state: TrainState, x_raw, alpha, do_g: bool, noise):
@@ -243,42 +250,46 @@ def _make_iteration(stage: int, model_cfg: ModelConfig, train_cfg: TrainConfig, 
             alpha = float(alpha)
         batch = x_raw.shape[0]
         device = x_raw.device
-        # The noise is drawn for the global batch: a rank keeps its rows.
-        world, rank = (1, 0) if group is None else (group.world, group.rank)
-        z_shape = (batch * world, model_cfg.rand_channels, model_cfg.latent_height, model_cfg.latent_width)
-        if noise is None:
-            # All three draws are made whether or not the generator trains,
-            # so that the stream does not depend on the n_critic pattern.
-            z = torch.randn(z_shape, generator=state.rng, device=device)
-            eps = torch.rand((batch * world, 1, 1, 1), generator=state.rng, device=device)
-            zg = torch.randn(z_shape, generator=state.rng, device=device)
-        else:  # NHWC latents as the JAX step draws them, for parity tests
-            z, eps, zg = noise
-            z, zg = z.permute(0, 3, 1, 2), zg.permute(0, 3, 1, 2)
-        if group is not None:
-            rows = slice(rank * batch, (rank + 1) * batch)
-            z, eps, zg = (t[rows].to(device) for t in (z, eps, zg))
-
-        x_real = x_raw.to(torch.float32) if pre_scaled else grower_transform(x_raw, size)
-        with torch.no_grad():
-            x_fake = gen.forward_nchw(z, stage, alpha, impl, dtype)
-
         # ---- critic ------------------------------------------------------
-        out_real = disc.forward_nchw(x_real, disc_stage, alpha, impl, dtype)
-        out_fake = disc.forward_nchw(x_fake, disc_stage, alpha, impl, dtype)
-        w_loss = wasserstein_discriminator_loss(out_real, out_fake)
-        if drift:  # ProGAN eps-drift: anchors the critic's output scale
-            w_loss = w_loss + drift * torch.mean(torch.square(out_real))
-        # WGAN-GP: the critic's gradient at a random interpolate has unit norm.
-        x_hat = eps * x_real + (1.0 - eps) * x_fake
-        g = input_grad(disc, x_hat, alpha)
-        g_norm = torch.sqrt(torch.sum(torch.square(g.reshape(batch, -1)), dim=1) + 1e-12)
-        gp = gp_w * torch.mean(torch.square(g_norm - 1.0))
-        disc_params = _params(disc)
-        d_grads = _grads(w_loss + gp, disc_params)
-        if group is not None:
-            d_grads = _mean_over_ranks(d_grads, group)
-        opt_d.update(d_grads, state.opt_disc, disc_params)
+        with profiling.span("mg.train.critic"):
+            # The noise is drawn for the global batch: a rank keeps its rows.
+            world, rank = (1, 0) if group is None else (group.world, group.rank)
+            z_shape = (batch * world, model_cfg.rand_channels, model_cfg.latent_height, model_cfg.latent_width)
+            if noise is None:
+                # All three draws are made whether or not the generator
+                # trains, so that the stream does not depend on the n_critic
+                # pattern.
+                z = torch.randn(z_shape, generator=state.rng, device=device)
+                eps = torch.rand((batch * world, 1, 1, 1), generator=state.rng, device=device)
+                zg = torch.randn(z_shape, generator=state.rng, device=device)
+            else:  # NHWC latents as the JAX step draws them, for parity tests
+                z, eps, zg = noise
+                z, zg = z.permute(0, 3, 1, 2), zg.permute(0, 3, 1, 2)
+            if group is not None:
+                rows = slice(rank * batch, (rank + 1) * batch)
+                z, eps, zg = (t[rows].to(device) for t in (z, eps, zg))
+
+            x_real = x_raw.to(torch.float32) if pre_scaled else grower_transform(x_raw, size)
+            with torch.no_grad():
+                x_fake = gen.forward_nchw(z, stage, alpha, impl, dtype)
+
+            out_real = disc.forward_nchw(x_real, disc_stage, alpha, impl, dtype)
+            out_fake = disc.forward_nchw(x_fake, disc_stage, alpha, impl, dtype)
+            w_loss = wasserstein_discriminator_loss(out_real, out_fake)
+            if drift:  # ProGAN eps-drift: anchors the critic's output scale
+                w_loss = w_loss + drift * torch.mean(torch.square(out_real))
+            # WGAN-GP: the critic's gradient at a random interpolate has unit norm.
+            x_hat = eps * x_real + (1.0 - eps) * x_fake
+            g = input_grad(disc, x_hat, alpha)
+            g_norm = torch.sqrt(torch.sum(torch.square(g.reshape(batch, -1)), dim=1) + 1e-12)
+            gp = gp_w * torch.mean(torch.square(g_norm - 1.0))
+            disc_params = _params(disc)
+            with profiling.span("mg.train.backward"):
+                d_grads = _grads(w_loss + gp, disc_params)
+            if group is not None:
+                d_grads = _mean_over_ranks(d_grads, group)
+        with profiling.span("mg.train.critic_adam"):
+            opt_d.update(d_grads, state.opt_disc, disc_params)
         metrics = {
             "disc_loss": w_loss.detach(), "grad_pen": gp.detach(),
             "e_tp": out_real.detach().mean(), "e_tn": out_fake.detach().mean(),
@@ -286,19 +297,22 @@ def _make_iteration(stage: int, model_cfg: ModelConfig, train_cfg: TrainConfig, 
 
         # ---- generator, against the *updated* critic ---------------------
         if do_g:
-            with _frozen(disc):
-                x_gen = gen.forward_nchw(zg, stage, alpha, impl, dtype)
-                out_gen = disc.forward_nchw(x_gen, disc_stage, alpha, impl, dtype)
-                loss = wasserstein_generator_loss(out_gen)
-                gen_params = _params(gen)
-                g_grads = _grads(loss, gen_params)
-            if group is not None:
-                g_grads = _mean_over_ranks(g_grads, group)
-            opt_g.update(g_grads, state.opt_gen, gen_params)
-            if ema_d > 0:  # EMA over generator UPDATES
-                with torch.no_grad():
-                    for k, p in gen_params.items():
-                        state.gen_ema[k].mul_(ema_d).add_(p, alpha=1.0 - ema_d)
+            with profiling.span("mg.train.generator"):
+                with _frozen(disc):
+                    x_gen = gen.forward_nchw(zg, stage, alpha, impl, dtype)
+                    out_gen = disc.forward_nchw(x_gen, disc_stage, alpha, impl, dtype)
+                    loss = wasserstein_generator_loss(out_gen)
+                    gen_params = _params(gen)
+                    with profiling.span("mg.train.backward"):
+                        g_grads = _grads(loss, gen_params)
+                if group is not None:
+                    g_grads = _mean_over_ranks(g_grads, group)
+            with profiling.span("mg.train.gen_adam"):
+                opt_g.update(g_grads, state.opt_gen, gen_params)
+                if ema_d > 0:  # EMA over generator UPDATES
+                    with torch.no_grad():
+                        for k, p in gen_params.items():
+                            state.gen_ema[k].mul_(ema_d).add_(p, alpha=1.0 - ema_d)
             metrics.update(gen_loss=loss.detach(), e_gen=out_gen.detach().mean())
         else:
             zero = torch.zeros((), device=device)

@@ -997,3 +997,42 @@ def test_mixed_k4_matches_plain_and_its_same_dtype_kernel(cuda, b, cin, cmid, co
         assert ((got - ref).norm() / ref.norm()).item() <= 1e-2
         if conv_bf16.block_route(cmid, cout, cin) != "template":
             assert torch.equal(got, _k4_bf16_pair(x, w1, b1, w2, b2, out_dtype=torch.float32))
+
+
+def test_spans_record_under_a_device_only_profiler_on_the_profilers_clock(cuda):
+    """A profiler of the device alone (``ProfilerActivity.CUDA``, how a
+    cell whose host path the operators' recording would slow is traced)
+    opens the spans' gate; under CPU and CUDA the spans' starts and ends
+    lie within 50 us of their ``record_function`` events' on the profiler's
+    clock (``utils/profiling.py::to_profiler_ns``) by the median, and each
+    within 1 ms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from musicgan_tpu_torch.utils import profiling
+
+    profiling.clear_spans()
+    x = torch.ones(1 << 20, device=cuda)
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]):
+            with profiling.span("mg.test.device_only"):
+                (x * 2).sum()
+        assert [s.name for s in profiling.spans()] == ["mg.test.device_only"]
+        profiling.clear_spans()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with profiling.span("mg.test.warm"):  # the first record_function is slow
+                (x * 2).sum()
+            for k in range(50):
+                with profiling.span(f"mg.test.clock.{k}"):
+                    (x * 2).sum()
+        cpu = torch.autograd.DeviceType.CPU
+        events = {e.name(): e for e in prof.profiler.kineto_results.events() if e.device_type() == cpu}
+        starts, ends = [], []
+        for s in profiling.spans()[1:]:
+            e = events[s.name]
+            starts.append(abs(profiling.to_profiler_ns(s.t0_ns) - e.start_ns()))
+            ends.append(abs(profiling.to_profiler_ns(s.t1_ns) - (e.start_ns() + e.duration_ns())))
+        assert len(starts) == 50
+        assert float(np.median(starts)) < 50_000 and float(np.median(ends)) < 50_000, (starts, ends)
+        assert max(starts + ends) < 1_000_000, (starts, ends)
+    finally:
+        profiling.clear_spans()

@@ -119,19 +119,15 @@ def test_cli_becomes_the_supervisor(monkeypatch):
 
 
 def test_trace_writes_a_chrome_trace(tmp_path):
+    """The operators and the program's own spans, on one timeline."""
     with profiling.trace(str(tmp_path / "t")):
-        torch.mm(torch.ones(8, 8), torch.ones(8, 8))
+        with profiling.span("mg.test.traced"):
+            torch.mm(torch.ones(8, 8), torch.ones(8, 8))
+    profiling.clear_spans()
     with open(tmp_path / "t" / profiling.TRACE_NAME) as f:
         events = json.load(f)["traceEvents"]
     assert any(e.get("name") == "aten::mm" for e in events)
-
-
-def test_step_timer_summary():
-    timer = profiling.step_timer(sync_every=2)
-    for _ in range(4):
-        timer.tick(torch.zeros(1))
-    s = timer.summary()
-    assert s["steps"] == 4 and s["p50_ms"] >= 0 and profiling.StepTimer().summary() == {}
+    assert any(e.get("name") == "mg.test.traced" for e in events)
 
 
 def _nan_batch():
@@ -179,15 +175,19 @@ def _corpus(path, nan=False):
 
 
 def test_cli_profile_and_debug_nans(tmp_path, debug_mode_restored):
-    """``train --profile`` writes the trace of a CPU run; ``train
-    --debug-nans`` on a corpus with NaNs raises at the first op: the CLI
-    trains under "auto", which is the library lowering on the CPU, whose
-    first op is the critic's input head, a ``layers.conv2d``."""
+    """``train --profile`` writes the trace of a CPU run, the iteration's
+    spans in it; ``train --debug-nans`` on a corpus with NaNs raises at the
+    first op: the CLI trains under "auto", which is the library lowering on
+    the CPU, whose first op is the critic's input head, a
+    ``layers.conv2d``."""
     args = ["--max-iters", "1", "--batch-size", "2", "--device", "cpu"]
     trace_dir = str(tmp_path / "trace")
     cli.main(["train", "p", "-i", _corpus(str(tmp_path / "ds")), "-o", str(tmp_path / "run"),
               "--profile", trace_dir, *args])
-    assert os.path.getsize(os.path.join(trace_dir, profiling.TRACE_NAME)) > 0
+    with open(os.path.join(trace_dir, profiling.TRACE_NAME)) as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    profiling.clear_spans()
+    assert {"mg.train.iteration", "mg.train.critic", "mg.train.backward"} <= names
     assert not nan_check.ENABLED
     with pytest.raises(FloatingPointError, match=r"^conv2d: non-finite value"):
         cli.main(["train", "n", "-i", _corpus(str(tmp_path / "ds_nan"), nan=True), "-o",
