@@ -104,7 +104,10 @@ the CUDA toolkit (``nvcc``).  Phases, each of which raises on failure:
    launches counted: none, the cluster route being no faster than the
    pair), and with the rule made to take every block of the cluster route
    (K4 bf16 launched at each), each of those blocks timed beside the pair
-   in rounds;
+   in rounds; the bf16 head kernel (``csrc/head1x1_bf16.cu``) at the
+   synthesis cell's shape, block 7's output for 20 clips of nb_vec 10,
+   against its plain version (2e-6), timed beside it, beside the library
+   lowering's bf16 head and beside its bound (bytes);
 10. serving and evaluation: ``wav_to_stft`` and ``stft_to_phase_magn`` (the
    forward STFT half of ``view_audio``) on 3.5 s of seeded noise against
    the same in float64 on the card (2e-3); the ``SynthesisService`` with
@@ -274,6 +277,7 @@ from musicgan_tpu_torch.ops import autotune
 from musicgan_tpu_torch.ops import conv as conv_ops
 from musicgan_tpu_torch.ops import conv_bf16
 from musicgan_tpu_torch.ops import conv_vjp
+from musicgan_tpu_torch.ops import head as head_ops
 from musicgan_tpu_torch.ops import istft_fused as istft_ops
 from musicgan_tpu_torch.serve import SynthesisService, _make_handler
 from musicgan_tpu_torch.train import (
@@ -390,6 +394,8 @@ SOURCES = {
     "fused_block": ("musicgan_tpu_torch/csrc/block3x3.cu", "musicgan_tpu/ops/conv.py:234"),
     # No Pallas kernel: XLA's conv-backward-weights in the JAX package.
     "weight_grad3x3": ("musicgan_tpu_torch/csrc/wgrad3x3.cu", "musicgan_tpu/ops/conv_vjp.py:107"),
+    # No Pallas kernel: XLA's head (_head_nchw) in the JAX package; bf16 in.
+    "head1x1": ("musicgan_tpu_torch/csrc/head1x1_bf16.cu", "musicgan_tpu/models/generator.py:250"),
 }
 IDFT = "istft_fused.idft"  # K5's second route, counted apart in read_launches
 WRAPPERS = {
@@ -399,6 +405,7 @@ WRAPPERS = {
     "istft_fused": istft_ops.istft_fused,
     "fused_block": conv_ops.fused_block,
     "weight_grad3x3": conv_vjp.weight_grad3x3,
+    "head1x1": head_ops.head1x1,
 }
 
 # The train entry point (phase 8): 24 samples, 12 a stage at batch 6, so
@@ -633,6 +640,7 @@ def plain_on_card():
         mock.patch.object(conv_ops, "fused_upconv3x3",
                           lambda *a, w_packed=None, out_dtype=None: conv_ops.upconv3x3_plain(*a, out_dtype=out_dtype)),
         mock.patch.object(generate_mod, "istft_fused", istft_real_imag),
+        mock.patch.object(head_ops, "head1x1", head_ops.head1x1_plain),
     ]
 
 
@@ -693,7 +701,7 @@ def end_to_end(cfg: ModelConfig, dev) -> dict:
     expect = {
         "fused_conv3x3": cfg.n_stages, "fused_conv3x3_msq": 0,
         "fused_upconv3x3": cfg.n_stages, "istft_fused": 1, "fused_block": 0, IDFT: 0,
-        "weight_grad3x3": 0,
+        "weight_grad3x3": 0, "head1x1": 0,
     }
     if launches != expect:
         raise AssertionError(f"launch counts {launches} != {expect}")
@@ -1102,7 +1110,7 @@ def expected_train_launches(cfg: ModelConfig, stage: int, n_d_only: int, n_d_and
         "fused_conv3x3": n * 7 * c + n_d_and_g * (2 * c + g - 1),
         "fused_conv3x3_msq": n * g + n_d_and_g * g,
         "fused_upconv3x3": 0, "istft_fused": 0, "fused_block": 0, IDFT: 0,
-        "weight_grad3x3": n * 3 * c + n_d_and_g * g,
+        "weight_grad3x3": n * 3 * c + n_d_and_g * g, "head1x1": 0,
     }
 
 
@@ -1456,7 +1464,7 @@ def end_to_end_block(cfg: ModelConfig, dev, waves_default: np.ndarray) -> dict:
     expect = {
         "fused_block": n_fit, "fused_conv3x3": cfg.n_stages - n_fit,
         "fused_upconv3x3": cfg.n_stages - n_fit, "fused_conv3x3_msq": 0, "istft_fused": 1, IDFT: 0,
-        "weight_grad3x3": 0,
+        "weight_grad3x3": 0, "head1x1": 0,
     }
     print(f"[e2e-block] generate with conv_impl='pallas_block': launches {launches}")
     if launches != expect:
@@ -1745,7 +1753,7 @@ def train_entry_point(cfg: ModelConfig, dev) -> dict:
     got = read_launches()
     want = {"fused_block": n_fit, "fused_conv3x3": cfg.n_stages - n_fit,
             "fused_upconv3x3": cfg.n_stages - n_fit, "fused_conv3x3_msq": 0, "istft_fused": 1, IDFT: 0,
-            "weight_grad3x3": 0}
+            "weight_grad3x3": 0, "head1x1": 0}
     if got != want:
         raise AssertionError(f"generate from the run directory launched {got}, not {want}")
     for p in paths:
@@ -1973,6 +1981,62 @@ def wide_bf16_row(shape, rng, slope: float, eps: float, dev) -> dict:
         raise AssertionError(f"K4 bf16 past 128 channels {shape} ({route}) disagrees with K1 bf16 then K3 bf16")
     del x, mid_up, y, y32, want, want32
     return row
+
+
+# The synthesis cell's call (port_bench's synth-offline-b20x10): 20 clips of
+# nb_vec 10, so the stage-7 head's input is (20, 16, 512, 5120).  The kernel
+# and its plain version both sum in float32, in other orders.
+HEAD_CLIPS = 20
+TOL_HEAD = 2e-6
+
+
+def check_head_kernel(gen, cfg: ModelConfig, dev) -> list[dict]:
+    """Phase 9 (d): the bf16 head kernel at the synthesis cell's shape with
+    the shipped generator's stage-7 head, against its plain version (the
+    upcast, the float32 batched product, the bias, tanh: four launches) at
+    ``TOL_HEAD`` and twice the same bits; timed beside it, beside the library
+    lowering's bf16 head (a bf16 1x1 ``F.conv2d`` and tanh) and beside its
+    bound: the bf16 input read once and the float32 image written once
+    (float32 products outside the tensor cores)."""
+    stage = cfg.n_stages - 1
+    cin, side = cfg.gen_channels[stage][1], 2**cfg.n_stages
+    shape = (HEAD_CLIPS, cin, cfg.latent_height * side, cfg.latent_width * NB_VEC * side)
+    head = gen.heads[stage]
+    w, b = head.weight.detach()[:, :, 0, 0], head.bias.detach()
+    wb, bb = head.weight.detach().to(torch.bfloat16), b.to(torch.bfloat16)
+    x = torch.randn(shape, generator=torch.Generator(device=dev).manual_seed(SEED + 21), device=dev).to(torch.bfloat16)
+
+    def kernel():
+        return head_ops.head1x1(x, w, b)
+
+    def plain():
+        return head_ops.head1x1_plain(x, w, b)
+
+    def library():
+        return torch.tanh(F.conv2d(x, wb, bb))
+
+    got = kernel()
+    err = (got - plain()).abs().max().item()
+    repeatable = bool(torch.equal(got, kernel()))
+    del got
+    if not (err <= TOL_HEAD and repeatable):
+        raise AssertionError(f"head1x1 {shape}: max abs err {err:.3e} from its plain version (tol {TOL_HEAD:.0e}), "
+                             f"twice the same bits {repeatable}")
+    px = shape[0] * shape[2] * shape[3]
+    flops, nbytes = 4.0 * px * cin, 2.0 * px * cin + 4.0 * 2 * px
+    t_ops, t_bytes = 1e3 * flops / PEAK_FP32_FLOPS, 1e3 * nbytes / PEAK_BYTES_S
+    row = {
+        "name": "head1x1", "role": "synthesis", "dtype": "bfloat16", "shape": shape, "max_abs_err": err,
+        "repeatable": repeatable, "ms": time_ms(kernel), "plain_ms": time_ms(plain), "library_ms": time_ms(library),
+        "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "ops_ms": t_ops, "bytes_ms": t_bytes, "flops": flops, "bytes": nbytes,
+    }
+    print(f"[bf16]   head1x1 {shape}: err {err:.2e} (tol {TOL_HEAD:.0e}), twice the same bits; kernel "
+          f"{row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ({row['plain_ms'] / row['ms']:.2f}x)  library "
+          f"{row['library_ms']:.4f}  bound {row['bound_ms']:.4f} ({row['bound_by']}: ops {t_ops:.4f}, bytes "
+          f"{t_bytes:.4f})  share {row['bound_ms'] / row['ms']:.2f}")
+    del x
+    return [row]
 
 
 def _block_source(route: str) -> str:
@@ -2249,10 +2313,11 @@ def end_to_end_new_impls(cfg: ModelConfig, dev) -> dict:
     n = cfg.n_stages
     expect = {
         "pallas": ({"fused_conv3x3": 2 * n}, {}),
-        "pallas_bf16": ({"fused_conv3x3": 2 * n}, {"fused_conv3x3_bf16": 2 * n}),
-        "pallas_up_bf16": ({"fused_conv3x3": n, "fused_upconv3x3": n},
+        "pallas_bf16": ({"fused_conv3x3": 2 * n, "head1x1": 1}, {"fused_conv3x3_bf16": 2 * n}),
+        "pallas_up_bf16": ({"fused_conv3x3": n, "fused_upconv3x3": n, "head1x1": 1},
                            {"fused_conv3x3_bf16": n, "fused_upconv3x3_bf16": n}),
-        "pallas_block_bf16": ({"fused_conv3x3": n - n_fit, "fused_upconv3x3": n - n_fit, "fused_block": n_fit},
+        "pallas_block_bf16": ({"fused_conv3x3": n - n_fit, "fused_upconv3x3": n - n_fit, "fused_block": n_fit,
+                               "head1x1": 1},
                               {"fused_conv3x3_bf16": n - n_fit, "fused_upconv3x3_bf16": n - n_fit,
                                "fused_block_bf16": n_fit}),
     }
@@ -2365,13 +2430,15 @@ SERVE_TIMED = 10       # solo requests timed one by one; the median is quoted
 SERVE_CONCURRENT = 8   # requests sent at once for the throughput, 3 rounds
 
 
-def expected_serve_launches(cfg: ModelConfig, dispatches: int, k4_blocks: int = 0) -> dict:
+def expected_serve_launches(cfg: ModelConfig, dispatches: int, k4_blocks: int = 0, bf16: bool = False) -> dict:
     """A synthesis dispatch's launches: K1 and K3 at each block the
-    whole-block kernel does not take, K4 at those it does, K5 once."""
+    whole-block kernel does not take, K4 at those it does, K5 once; under
+    a bf16 impl the head kernel once (synthesis runs at alpha 1: no fade
+    head)."""
     pair = (cfg.n_stages - k4_blocks) * dispatches
     return {"fused_conv3x3": pair, "fused_conv3x3_msq": 0, "fused_upconv3x3": pair,
             "istft_fused": dispatches, "fused_block": k4_blocks * dispatches, IDFT: 0,
-            "weight_grad3x3": 0}
+            "weight_grad3x3": 0, "head1x1": dispatches if bf16 else 0}
 
 
 def counted(total: dict, want: dict, what: str) -> dict:
@@ -2435,7 +2502,7 @@ def serving_and_evaluation(cfg: ModelConfig, dev, run_dir: str, card: str) -> di
     # (b) The service: the generator resident on the card, default impl.
     gen = generate_mod.load_generator_params(str(CKPT), cfg, dev)
     svc = SynthesisService(gen, max_batch=8, default_stage=stage, device=dev)  # window 10 ms
-    svc_b = None
+    svc_b = svc_h = None
     try:
         t0 = time.perf_counter()
         reset_launches()
@@ -2532,6 +2599,21 @@ def serving_and_evaluation(cfg: ModelConfig, dev, run_dir: str, card: str) -> di
         if n_fit < 1 or not err_b <= TOL_WAVE:
             raise AssertionError(f"pallas_block service: {n_fit} K4 blocks, err {err_b:.2e}")
         rec.update(k4_blocks=n_fit, err_block_vs_default=err_b)
+
+        # One dispatch under conv_impl="pallas_up_bf16": K1 bf16 and K3 bf16
+        # at every block, then the bf16 head kernel once.
+        cfg_h = dataclasses.replace(cfg, conv_impl="pallas_up_bf16")
+        svc_h = SynthesisService(generate_mod.load_generator_params(str(CKPT), cfg_h, dev),
+                                 default_stage=stage, device=dev)
+        reset_launches()
+        wh = svc_h.submit(seed=101, nb_vec=SERVE_NB_VEC).result(timeout=600)
+        torch.cuda.synchronize()
+        counted(total, expected_serve_launches(cfg, 1, bf16=True), "a pallas_up_bf16 dispatch")
+        rec["bf16_launches"] = read_bf16_launches()
+        if wh.shape != solo.shape or not torch.isfinite(wh).all():
+            raise AssertionError(f"pallas_up_bf16 service: {tuple(wh.shape)}, finite {bool(torch.isfinite(wh).all())}")
+        say(f"[serve] conv_impl='pallas_up_bf16', one request: K1 bf16 and K3 bf16 at {cfg.n_stages} blocks, "
+            f"the head kernel once; waveform {tuple(wh.shape)}, finite")
 
         # (c) HTTP in the process.
         server = ThreadingHTTPServer(("127.0.0.1", 0), _make_handler(svc))
@@ -2673,8 +2755,9 @@ def serving_and_evaluation(cfg: ModelConfig, dev, run_dir: str, card: str) -> di
             f"{med * 1e3:.3f} ms = {rec['concurrent_audio_s_per_s']:.1f} audio-s/s")
     finally:
         svc.close()
-        if svc_b is not None:
-            svc_b.close()
+        for extra in (svc_b, svc_h):
+            if extra is not None:
+                extra.close()
     rec["launches"] = total
     say(f"[serve] launches in phase 10: {total}")
     return rec
@@ -3313,7 +3396,7 @@ def library_inference(cfg: ModelConfig, dev, say, work: str, tally: Tally, voc_w
     del gen
     n_samples = (cfg.latent_width * NB_VEC * 2**cfg.n_stages - 1) * acfg.stft_stride
     want = {"fused_conv3x3": 0, "fused_conv3x3_msq": 0, "fused_upconv3x3": 0, "fused_block": 0,
-            "weight_grad3x3": 0, IDFT: 0, "istft_fused": int(voc_winner == "pallas")}
+            "weight_grad3x3": 0, "head1x1": 0, IDFT: 0, "istft_fused": int(voc_winner == "pallas")}
     rec = {}
     for impl in ("xla", "subpixel"):
         cfg_i = dataclasses.replace(cfg, conv_impl=impl)
@@ -4461,6 +4544,7 @@ def main() -> None:
 
     gen = load_reference_generator(str(CKPT), cfg, device=dev)
     bf16_rows = check_bf16_kernels(gen, cfg, dev)
+    rows += check_head_kernel(gen, cfg, dev)
     del gen
     torch.cuda.empty_cache()
     e2e_new = end_to_end_new_impls(cfg, dev)
@@ -4486,7 +4570,7 @@ def main() -> None:
     paths = (e2e, train_rec, e2e_block, loop, e2e_new, serving, interchange, selection, parallel)
     # The float32 kernels' launches: a wrapper's count less its bf16 ones.
     launched = {k: sum(p["launches"][k] for p in paths) for k in (*WRAPPERS, IDFT)}
-    bf16_launched = {k: e2e_new["bf16_launches"][k] + selection["bf16_launches"][k] for k in BF16_WRAPPERS}
+    bf16_launched = {k: sum(p["bf16_launches"][k] for p in (e2e_new, serving, selection)) for k in BF16_WRAPPERS}
     for name, fn in BF16_WRAPPERS.items():
         launched[fn.__name__] -= bf16_launched[name]
     kernels = []

@@ -20,9 +20,10 @@ NHWC image out).  :meth:`Generator.forward_nchw` dispatches on
   blocks in bf16 (JAX's ``_generator_forward_nchw`` with
   ``compute_dtype=bfloat16``): the bf16 kernels, float32 inside, a bf16
   activation between them.  Each block packs its conv weights for the
-  kernels once per dtype and layout, not per call.  Heads and the fade-in
-  are plain PyTorch in float32 (the heads upcast their input), as they are
-  XLA in JAX, so the image is float32 either way.
+  kernels once per dtype and layout, not per call.  The image is float32
+  either way: the fade-in is plain PyTorch in float32, as it is XLA in JAX,
+  and so are the heads on a float32 activation; a bf16 one on the card
+  takes the head kernel (``ops/head.py``), which reads it once.
 * ``"pallas_train"`` and ``"pallas_gp"``: :meth:`Generator.forward_nchw_train`
   (counterpart of ``_generator_forward_nchw_train``): each block is
   ``conv3x3_act`` with PixelNorm (forward kernel K2), a plain 2x upsample
@@ -47,6 +48,7 @@ from ..config import ModelConfig
 from ..ops import conv as conv_ops
 from ..ops import conv_bf16
 from ..ops import conv_vjp
+from ..ops import head as head_ops
 from . import layers
 from .layers import upsample_nearest_2x
 
@@ -169,16 +171,16 @@ class Generator(nn.Module):
                     m.bias.uniform_(-bound, bound, generator=g)
 
     def _head(self, i: int, x: torch.Tensor) -> torch.Tensor:
-        """ToMagnPhase head: 1x1 conv + tanh, as a batched ``(2, C) @
-        (C, H*W)`` product on the NCHW activation itself (an einsum over
-        ``bchw``, or a broadcast matmul, first copies it).  A bf16 input is
-        upcast first (JAX's ``_head_nchw``)."""
+        """ToMagnPhase head: 1x1 conv + tanh in float32 (JAX's
+        ``_head_nchw``).  A bf16 activation on the card with no gradient
+        wanted takes the head kernel (``ops/head.py::head1x1``), one pass;
+        every other input its plain version, which upcasts the input."""
         h = self.heads[i]
-        x = x.to(h.weight.dtype)
-        b, c, hh, ww = x.shape
-        w = h.weight[:, :, 0, 0].expand(b, -1, -1)
-        y = torch.bmm(w, x.reshape(b, c, hh * ww))
-        return torch.tanh(y.reshape(b, -1, hh, ww) + h.bias[None, :, None, None])
+        w = h.weight[:, :, 0, 0]
+        needs_grad = torch.is_grad_enabled() and (x.requires_grad or h.weight.requires_grad or h.bias.requires_grad)
+        if head_ops.takes_kernel(x.dtype, x.device.type, needs_grad):
+            return head_ops.head1x1(x, w, h.bias)
+        return head_ops.head1x1_plain(x, w, h.bias)
 
     def forward_nchw(
         self, z: torch.Tensor, stage: int, alpha=1.0, impl: str | None = None,

@@ -1,7 +1,7 @@
 """Hand-written CUDA kernels for Hopper (sources in ``csrc/``), each beside
 its plain PyTorch version: ``conv.fused_conv3x3``, ``conv.fused_conv3x3_msq``,
-``conv.fused_upconv3x3``, ``conv.fused_block`` and
-``istft_fused.istft_fused``; and
+``conv.fused_upconv3x3``, ``conv.fused_block``,
+``istft_fused.istft_fused`` and ``head.head1x1``; and
 ``conv_vjp.conv3x3_act``, the trainable conv built on the first two and
 ``conv_vjp.weight_grad3x3``, its weight gradient."""
 

@@ -1036,3 +1036,98 @@ def test_spans_record_under_a_device_only_profiler_on_the_profilers_clock(cuda):
         assert max(starts + ends) < 1_000_000, (starts, ends)
     finally:
         profiling.clear_spans()
+
+
+# ---- The ToMagnPhase head on a bf16 activation (csrc/head1x1_bf16.cu): one
+# pass from the bf16 activation to the float32 image, against its plain
+# version (the upcast, a float32 batched product, the bias, tanh) at every
+# head width of the generator.  Both sum in float32, in other orders: 2e-6.
+# (B, H, W): planes on the 16-byte route (H * W a multiple of 8, also with a
+# W that is not) and off it, a batch of 1.
+HEAD_SHAPES = [(2, 64, 640), (1, 8, 37), (3, 7, 37), (2, 33, 70)]
+
+
+def _head_inputs(seed, b, c, h, w, device):
+    rng = np.random.default_rng(seed)
+    x = torch.tensor(rng.standard_normal((b, c, h, w)), dtype=torch.float32, device=device).to(BF)
+    wt = torch.tensor(rng.uniform(-1, 1, (2, c)) / np.sqrt(c), dtype=torch.float32, device=device)
+    bias = torch.tensor(rng.uniform(-1, 1, 2) / np.sqrt(c), dtype=torch.float32, device=device)
+    return x, wt, bias
+
+
+@pytest.mark.parametrize("c", [16, 32, 48, 64, 80, 96, 112, 128])
+@pytest.mark.parametrize("b,h,w", HEAD_SHAPES)
+def test_head1x1_kernel_matches_plain(cuda, b, c, h, w):
+    from musicgan_tpu_torch.ops import head as head_ops
+
+    x, wt, bias = _head_inputs(c + h, b, c, h, w, cuda)
+    n = head_ops.head1x1.launches
+    got = head_ops.head1x1(x, wt, bias)
+    assert head_ops.head1x1.launches == n + 1
+    ref = head_ops.head1x1_plain(x, wt, bias)
+    assert got.dtype == torch.float32 and got.shape == (b, 2, h, w)
+    assert (got - ref).abs().max().item() <= 2e-6
+
+
+def test_head1x1_kernel_at_the_synthesis_cells_shape_twice_the_same_bits(cuda):
+    """Block 7's output for 20 clips of nb_vec 10: (20, 16, 512, 5120)."""
+    from musicgan_tpu_torch.ops import head as head_ops
+
+    x, wt, bias = _head_inputs(7, 20, 16, 512, 5120, cuda)
+    got = head_ops.head1x1(x, wt, bias)
+    assert (got - head_ops.head1x1_plain(x, wt, bias)).abs().max().item() <= 2e-6
+    assert torch.equal(got, head_ops.head1x1(x, wt, bias))
+
+
+def test_head1x1_kernel_takes_an_input_off_16_bytes(cuda):
+    """A contiguous view that starts one element in: the element route."""
+    from musicgan_tpu_torch.ops import head as head_ops
+
+    x, wt, bias = _head_inputs(3, 2, 32, 16, 40, cuda)
+    flat = torch.empty(x.numel() + 1, dtype=BF, device=cuda)
+    xv = flat[1:].view(x.shape)
+    xv.copy_(x)
+    assert xv.data_ptr() % 16 != 0 and xv.is_contiguous()
+    got = head_ops.head1x1(xv, wt, bias)
+    assert (got - head_ops.head1x1_plain(x, wt, bias)).abs().max().item() <= 2e-6
+
+
+def test_head1x1_refuses_what_the_kernel_does_not_take(cuda):
+    from musicgan_tpu_torch.ops import head as head_ops
+
+    x, wt, bias = _head_inputs(5, 2, 16, 8, 16, cuda)
+    with pytest.raises(ValueError, match="bf16"):
+        head_ops.head1x1(x.float(), wt, bias)
+    with pytest.raises(ValueError, match="contiguous"):
+        head_ops.head1x1(x.transpose(2, 3), wt, bias)
+    with pytest.raises(ValueError, match="on cuda"):
+        head_ops.head1x1(x, wt.cpu(), bias)
+    with pytest.raises(ValueError, match="on cuda"):
+        head_ops.head1x1(x, wt, bias.cpu())
+    with pytest.raises(ValueError, match="float32"):
+        head_ops.head1x1(x, wt.to(BF), bias)
+    with pytest.raises(ValueError):
+        head_ops.head1x1(x, wt[:, :8], bias)
+
+
+@pytest.mark.parametrize("stage,alpha", [(7, 1.0), (3, 0.5)])
+def test_generator_bf16_heads_take_the_kernel(cuda, monkeypatch, stage, alpha):
+    """``forward_nchw`` under ``pallas_up_bf16`` launches the head kernel
+    once (twice at a fade), and its image is within 2e-6 of the same call
+    with the kernel's route turned off (the plain head on the same bf16
+    activations)."""
+    from musicgan_tpu_torch.config import ModelConfig
+    from musicgan_tpu_torch.models import Generator
+    from musicgan_tpu_torch.ops import head as head_ops
+
+    gen = Generator(ModelConfig(conv_impl="pallas_up_bf16"), device=cuda, seed=4)
+    z = torch.randn(2, 32, 2, 20, generator=torch.Generator(device=cuda).manual_seed(0), device=cuda)
+    n = head_ops.head1x1.launches
+    with torch.no_grad():
+        got = gen.forward_nchw(z, stage, alpha)
+        assert head_ops.head1x1.launches == n + (1 if alpha == 1.0 else 2)
+        monkeypatch.setattr(head_ops, "takes_kernel", lambda *a: False)
+        want = gen.forward_nchw(z, stage, alpha)
+    assert head_ops.head1x1.launches == n + (1 if alpha == 1.0 else 2)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert (got - want).abs().max().item() <= 2e-6
