@@ -107,7 +107,13 @@ the CUDA toolkit (``nvcc``).  Phases, each of which raises on failure:
    in rounds; the bf16 head kernel (``csrc/head1x1_bf16.cu``) at the
    synthesis cell's shape, block 7's output for 20 clips of nb_vec 10,
    against its plain version (2e-6), timed beside it, beside the library
-   lowering's bf16 head and beside its bound (bytes);
+   lowering's bf16 head and beside its bound (bytes); GANSynth's call
+   (``port_bench/configs/gansynth-ifmel-h.json``, 122 notes): every K1 bf16
+   and K3 bf16 shape of its generator, its head at 32 channels and K5 at
+   n_fft 2048 against their plain versions, then one published-width call
+   through ``synthesize_fn`` under ``pallas_up_bf16``, launches counted
+   (K1 bf16 7, 4 of them over a cluster; K3 bf16 6, 3; head 1; K5 1; two
+   mel products);
 10. serving and evaluation: ``wav_to_stft`` and ``stft_to_phase_magn`` (the
    forward STFT half of ``view_audio``) on 3.5 s of seeded noise against
    the same in float64 on the card (2e-3); the ``SynthesisService`` with
@@ -260,6 +266,7 @@ from musicgan_tpu_torch.audio import (
     stft_to_phase_magn,
     wav_to_stft,
 )
+from musicgan_tpu_torch.audio import functions as audio_functions
 from musicgan_tpu_torch.audio import ingest
 from musicgan_tpu_torch.audio.ingest import ShardWriter
 from musicgan_tpu_torch.audio.stft import hann_window, istft_real_imag
@@ -644,7 +651,7 @@ def plain_on_card():
     ]
 
 
-def istft_float64(real, imag, n_fft: int, hop: int) -> torch.Tensor:
+def istft_float64(real, imag, n_fft: int, hop: int, normalized: bool = True) -> torch.Tensor:
     """``audio/stft.py::istft_real_imag`` in float64 throughout (its window,
     bases and envelope made in float64): the reference the float32 paths
     are read against."""
@@ -656,7 +663,7 @@ def istft_float64(real, imag, n_fft: int, hop: int) -> torch.Tensor:
     ang = 2.0 * math.pi * f * k / n_fft
     weight = torch.full((n_bins, 1), 2.0 / n_fft, dtype=torch.float64, device=dev)
     weight[0, 0] = weight[-1, 0] = 1.0 / n_fft
-    scale = torch.sqrt(torch.sum(window**2))
+    scale = torch.sqrt(torch.sum(window**2)) if normalized else 1.0
     frames = ((real * scale).transpose(-1, -2) @ (torch.cos(ang) * weight)
               + (imag * scale).transpose(-1, -2) @ (-torch.sin(ang) * weight)) * window
     t, r = real.shape[-1], n_fft // hop
@@ -1992,19 +1999,25 @@ TOL_HEAD = 2e-6
 
 def check_head_kernel(gen, cfg: ModelConfig, dev) -> list[dict]:
     """Phase 9 (d): the bf16 head kernel at the synthesis cell's shape with
-    the shipped generator's stage-7 head, against its plain version (the
-    upcast, the float32 batched product, the bias, tanh: four launches) at
-    ``TOL_HEAD`` and twice the same bits; timed beside it, beside the library
-    lowering's bf16 head (a bf16 1x1 ``F.conv2d`` and tanh) and beside its
-    bound: the bf16 input read once and the float32 image written once
-    (float32 products outside the tensor cores)."""
+    the shipped generator's stage-7 head (:func:`head_row`)."""
     stage = cfg.n_stages - 1
     cin, side = cfg.gen_channels[stage][1], 2**cfg.n_stages
     shape = (HEAD_CLIPS, cin, cfg.latent_height * side, cfg.latent_width * NB_VEC * side)
     head = gen.heads[stage]
-    w, b = head.weight.detach()[:, :, 0, 0], head.bias.detach()
-    wb, bb = head.weight.detach().to(torch.bfloat16), b.to(torch.bfloat16)
-    x = torch.randn(shape, generator=torch.Generator(device=dev).manual_seed(SEED + 21), device=dev).to(torch.bfloat16)
+    return [head_row(shape, head.weight.detach()[:, :, 0, 0], head.bias.detach(), dev, "synthesis", SEED + 21)]
+
+
+def head_row(shape, w, b, dev, role: str, seed: int) -> dict:
+    """The bf16 head kernel on a random bf16 activation of ``shape`` with the
+    head ``w`` ``(2, cin)``, ``b``, against its plain version (the upcast,
+    the float32 batched product, the bias, tanh: four launches) at
+    ``TOL_HEAD`` and twice the same bits; timed beside it, beside the library
+    lowering's bf16 head (a bf16 1x1 ``F.conv2d`` and tanh) and beside its
+    bound: the bf16 input read once and the float32 image written once
+    (float32 products outside the tensor cores)."""
+    cin = shape[1]
+    wb, bb = w[:, :, None, None].to(torch.bfloat16), b.to(torch.bfloat16)
+    x = torch.randn(shape, generator=torch.Generator(device=dev).manual_seed(seed), device=dev).to(torch.bfloat16)
 
     def kernel():
         return head_ops.head1x1(x, w, b)
@@ -2026,17 +2039,17 @@ def check_head_kernel(gen, cfg: ModelConfig, dev) -> list[dict]:
     flops, nbytes = 4.0 * px * cin, 2.0 * px * cin + 4.0 * 2 * px
     t_ops, t_bytes = 1e3 * flops / PEAK_FP32_FLOPS, 1e3 * nbytes / PEAK_BYTES_S
     row = {
-        "name": "head1x1", "role": "synthesis", "dtype": "bfloat16", "shape": shape, "max_abs_err": err,
+        "name": "head1x1", "role": role, "dtype": "bfloat16", "shape": shape, "max_abs_err": err,
         "repeatable": repeatable, "ms": time_ms(kernel), "plain_ms": time_ms(plain), "library_ms": time_ms(library),
         "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "ops_ms": t_ops, "bytes_ms": t_bytes, "flops": flops, "bytes": nbytes,
     }
-    print(f"[bf16]   head1x1 {shape}: err {err:.2e} (tol {TOL_HEAD:.0e}), twice the same bits; kernel "
+    print(f"[bf16]   head1x1 {role} {shape}: err {err:.2e} (tol {TOL_HEAD:.0e}), twice the same bits; kernel "
           f"{row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ({row['plain_ms'] / row['ms']:.2f}x)  library "
           f"{row['library_ms']:.4f}  bound {row['bound_ms']:.4f} ({row['bound_by']}: ops {t_ops:.4f}, bytes "
           f"{t_bytes:.4f})  share {row['bound_ms'] / row['ms']:.2f}")
     del x
-    return [row]
+    return row
 
 
 def _block_source(route: str) -> str:
@@ -2132,6 +2145,7 @@ def check_bf16_kernels(gen, cfg: ModelConfig, dev) -> list[dict]:
     # ranks, against K1 bf16 then K3 bf16 bit for bit in both output dtypes.
     for shape in (WIDE_BLOCK, THREE_RANK_BLOCK, TEMPLATE_BLOCK):
         rows.append(wide_bf16_row(shape, rng, slope, eps, dev))
+    rows += gansynth_rows(rng, slope, eps, dev)
     taken = [r for r in rows if r["name"] == "fused_block_bf16" and r.get("taken")]
     if not taken:
         raise AssertionError("the bf16 rule gives K4 bf16 no block of the main path")
@@ -2146,6 +2160,126 @@ def check_bf16_kernels(gen, cfg: ModelConfig, dev) -> list[dict]:
               f"{sum(r['plain_ms'] for r in mine):.4f}, library {sum(r['library_ms'] for r in mine):.4f}, "
               f"bound {sum(r['bound_ms'] for r in mine):.4f}")
     return rows
+
+
+# GANSynth's call (port_bench/configs/gansynth-ifmel-h.json: 122 notes, 2
+# instruments x 61 pitches): every K1 bf16 and K3 bf16 of its generator
+# (at 256 channels PixelNorm splits over a cluster of two; the last K1 is
+# the tail), its head at 32 channels and K5 at n_fft 2048, hop 512.
+GANSYNTH_NOTES = 122
+GANSYNTH_K1 = [(GANSYNTH_NOTES, 256, 256, 2 * 2**i, 16 * 2**i) for i in range(4)] + [
+    (GANSYNTH_NOTES, 128, 128, 32, 256), (GANSYNTH_NOTES, 64, 64, 64, 512), (GANSYNTH_NOTES, 32, 32, 128, 1024)]
+GANSYNTH_K3 = [(GANSYNTH_NOTES, 256, 256, 2 * 2**i, 16 * 2**i) for i in range(3)] + [
+    (GANSYNTH_NOTES, 256, 128, 16, 128), (GANSYNTH_NOTES, 128, 64, 32, 256), (GANSYNTH_NOTES, 64, 32, 64, 512)]
+GANSYNTH_HEAD = (GANSYNTH_NOTES, 32, 128, 1024)
+
+
+def gansynth_rows(rng, slope: float, eps: float, dev) -> list[dict]:
+    """Phase 9 (d): GANSynth's bf16 convs at every shape of its call (random
+    weights at the He scale) against their plain versions within one bf16
+    ulp, with their plans (held to the mirror: a cluster of two past 128
+    channels, else none) and times; its head at 32 channels (random weights
+    at ``to_rgb``'s scale) at ``TOL_HEAD``; K5 at GANSynth's spectra, not
+    normalized, against its plain version.  Role "gansynth": kept out of
+    the path's sums."""
+    bf, rows = torch.bfloat16, []
+    for kind, shapes in (("conv3x3", GANSYNTH_K1), ("upconv3x3", GANSYNTH_K3)):
+        up = kind == "upconv3x3"
+        for bsz, cin, cout, h, w in shapes:
+            x = torch.randn(bsz, cin, h, w, generator=rng, device=dev).to(bf)
+            wt = torch.randn(cout, cin, 3, 3, generator=rng, device=dev) * (2.0 / (9 * cin)) ** 0.5
+            b = torch.randn(cout, generator=rng, device=dev) * 0.1
+            wp, wb = conv_ops.kernel_weights_tc(wt, up), wt.to(bf)
+            xin = upsample_nearest_2x(x) if up else x
+            fn, plain = (conv_ops.fused_upconv3x3, conv_ops.upconv3x3_plain) if up else \
+                (conv_ops.fused_conv3x3, conv_ops.conv3x3_plain)
+            px, taps = bsz * h * w, 4 * 4 if up else 9
+            out_px = 4 * px if up else px
+            row = measure_bf16(
+                f"fused_{kind}_bf16", (bsz, cin, cout, h, w),
+                lambda x=x, wt=wt, b=b, wp=wp, fn=fn: fn(x, wt, b, slope, True, eps, w_packed=wp, out_dtype=bf),
+                lambda x=x, wt=wt, b=b, plain=plain: plain(x, wt, b, slope, True, eps),
+                lambda xin=xin, wb=wb, b=b: F.conv2d(xin, wb, b.to(bf), padding=1),
+                2.0 * out_px * cout * (4 if up else 9) * cin, 2.0 * (px * cin + out_px * cout + taps * cin * cout)
+                + 4.0 * cout, plan=bf16_plan(kind, bsz, cin, cout, h, w, dev),
+            )
+            if row["plan"]["cluster"] != (2 if cout > 128 else 1):
+                raise AssertionError(f"{kind} bf16 {(bsz, cin, cout, h, w)}: cluster {row['plan']['cluster']}")
+            row["role"] = "gansynth"
+            rows.append(row)
+            del x, xin
+    cin = GANSYNTH_HEAD[1]
+    w = torch.randn(2, cin, generator=rng, device=dev) * (1.0 / cin) ** 0.5
+    rows.append(head_row(GANSYNTH_HEAD, w, torch.randn(2, generator=rng, device=dev) * 0.1, dev, "gansynth",
+                         SEED + 22))
+    n_fft, hop, t = 2048, 512, 128
+    re = torch.randn(GANSYNTH_NOTES, n_fft // 2 + 1, t, generator=rng, device=dev)
+    im = torch.randn(GANSYNTH_NOTES, n_fft // 2 + 1, t, generator=rng, device=dev)
+    spec, window = torch.complex(re, im), torch.from_numpy(hann_window(n_fft)).to(dev)
+    m = n_fft // 2
+    rows.append(measure(
+        "istft_fused", (GANSYNTH_NOTES, n_fft // 2 + 1, t, n_fft, hop),
+        lambda: istft_ops.istft_fused(re, im, n_fft, hop, normalized=False),
+        lambda: istft_real_imag(re, im, n_fft, hop, normalized=False),
+        lambda: torch.istft(spec, n_fft, hop, window=window, center=True, normalized=False),
+        GANSYNTH_NOTES * t * (5.0 * m * math.log2(m) + 10.0 * m),
+        4.0 * (2 * GANSYNTH_NOTES * (n_fft // 2 + 1) * t + GANSYNTH_NOTES * (t - 1) * hop
+               + 3 * n_fft + (n_fft // hop) ** 2 * hop),
+        role="gansynth", graph_plain=False,
+    ))
+    for name in ("fused_conv3x3_bf16", "fused_upconv3x3_bf16", "head1x1", "istft_fused"):
+        mine = [r for r in rows if r["name"] == name]
+        print(f"[sums]   gansynth {name:20s} {len(mine)} shapes: kernel {sum(r['ms'] for r in mine):.4f} ms, "
+              f"library {sum(r['library_ms'] for r in mine):.4f}, bound {sum(r['bound_ms'] for r in mine):.4f}")
+    return rows
+
+
+def gansynth_synthesis(dev) -> dict:
+    """Phase 9 (e): one published-width GANSynth call of the cell's size
+    (``port_bench/configs/gansynth-ifmel-h.json``, 122 notes, seeded
+    weights) through ``synthesize_fn`` under ``pallas_up_bf16``, after a
+    warm call, with the counters zeroed just before it: K1 bf16 seven times
+    (four over a cluster: the 256-channel blocks), K3 bf16 six (three), the
+    head and K5 once, two mel products; 122 finite notes of 64,000 samples."""
+    from port_bench.drivers.gansynth_bank import model_config
+
+    gcfg = dataclasses.replace(model_config(json.loads((ROOT / "port_bench/configs/gansynth-ifmel-h.json")
+                                                       .read_text())), conv_impl="pallas_up_bf16")
+    gen = Generator(gcfg, device=dev, seed=SEED)
+    g = torch.Generator(device=dev).manual_seed(SEED + 23)
+    z = torch.randn(2, 1, 1, gcfg.rand_channels, generator=g, device=dev).repeat_interleave(61, dim=0)
+    labels = torch.arange(61, device=dev).repeat(2)
+    synth = generate_mod.synthesize_fn(gcfg, gcfg.n_stages - 1)
+    fns = (conv_ops.fused_conv3x3, conv_ops.fused_upconv3x3)
+    kept = [(f.launches, f.bf16_launches, f.cluster_launches) for f in fns]
+    others = (head_ops.head1x1.launches, istft_ops.istft_fused.launches, audio_functions.mel_to_linear.launches)
+    with torch.no_grad():
+        synth(gen, z, labels)
+        torch.cuda.synchronize()
+        for f in fns:
+            f.launches = f.bf16_launches = f.cluster_launches = 0
+        head_ops.head1x1.launches = istft_ops.istft_fused.launches = audio_functions.mel_to_linear.launches = 0
+        t0 = time.perf_counter()
+        waves = synth(gen, z, labels)
+        torch.cuda.synchronize()
+        call_ms = 1e3 * (time.perf_counter() - t0)
+    got = {"fused_conv3x3": (fns[0].bf16_launches, fns[0].cluster_launches),
+           "fused_upconv3x3": (fns[1].bf16_launches, fns[1].cluster_launches),
+           "head1x1": head_ops.head1x1.launches, "istft_fused": istft_ops.istft_fused.launches,
+           "mel_to_linear": audio_functions.mel_to_linear.launches}
+    all_bf16 = all(f.launches == f.bf16_launches for f in fns)
+    for f, (a, b, c) in zip(fns, kept):  # no path's: the counters as they were
+        f.launches, f.bf16_launches, f.cluster_launches = a, b, c
+    head_ops.head1x1.launches, istft_ops.istft_fused.launches, audio_functions.mel_to_linear.launches = others
+    rec = {"shape": tuple(waves.shape), "finite": bool(torch.isfinite(waves).all()), "launches": got,
+           "all_bf16": all_bf16, "call_ms": call_ms}
+    print(f"[bf16]   GANSynth's published call, 122 notes under pallas_up_bf16: waves {rec['shape']}, finite "
+          f"{rec['finite']}; launches (bf16, cluster) {got}; {call_ms:.2f} ms on the host's clock")
+    want = {"fused_conv3x3": (7, 4), "fused_upconv3x3": (6, 3), "head1x1": 1, "istft_fused": 1, "mel_to_linear": 2}
+    if got != want or not all_bf16 or not rec["finite"] or rec["shape"] != (122, 64000):
+        raise AssertionError(f"GANSynth's call: {rec}; launches wanted {want}, all bf16")
+    del gen, waves
+    return rec
 
 
 def wide_generator_synthesis(cfg: ModelConfig, dev) -> dict:
@@ -4551,6 +4685,8 @@ def main() -> None:
     torch.cuda.empty_cache()
     wide_gen = wide_generator_synthesis(cfg, dev)
     torch.cuda.empty_cache()
+    gansynth = gansynth_synthesis(dev)
+    torch.cuda.empty_cache()
     assert_no_mixed("phase 9")
     serving = serving_and_evaluation(cfg, dev, loop["run_dir"], card)
     torch.cuda.empty_cache()
@@ -4648,7 +4784,7 @@ def main() -> None:
     (out / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "build": build, "shapes": rows, "end_to_end": e2e, "gradients": grads, "train": train_rec,
          "end_to_end_block": e2e_block, "train_entry_point": loop, "bf16_shapes": bf16_rows,
-         "end_to_end_new_impls": e2e_new, "wide_generator": wide_gen, "serving": serving, "ingest_and_interchange": interchange,
+         "end_to_end_new_impls": e2e_new, "wide_generator": wide_gen, "gansynth_call": gansynth, "serving": serving, "ingest_and_interchange": interchange,
          "conv_impl_selection": selection, "parallel": parallel, "mixed_dtype": mixed, "kernels": kernels},
         indent=1, default=str))
     print(json.dumps({"kernels": kernels}))

@@ -8,6 +8,7 @@ from .functions import (
     bark_magn_scale,
     bark_scale_vector,
     magn_phase_to_signal,
+    mel_if_to_real_imag,
     mp_to_real_imag,
     signal_to_stft,
     stft_to_phase_magn,
@@ -44,6 +45,7 @@ __all__ = [
     "istft_real_imag",
     "load_wav",
     "magn_phase_to_signal",
+    "mel_if_to_real_imag",
     "mp_to_real_imag",
     "num_frames",
     "overlap_add",

@@ -9,6 +9,11 @@ one music's ``(N, 2, n_bins, W)`` chunks, as in JAX, or a batch of musics
 ``(M, N, 2, n_bins, W)``, which stands in for JAX's ``vmap``: every
 reduction (the magnitude's min-max rescale) and the phase prefix sum stay
 per music.
+
+GANSynth's images (``AudioConfig(freq_scale="mel_if")``) take
+:func:`mel_if_to_real_imag` instead: log-mel magnitude squared and mel
+instantaneous frequency, frames x mel bins, back to the linear spectrum
+through two products with the mel-to-linear operator.
 """
 
 from __future__ import annotations
@@ -21,6 +26,9 @@ import torch
 
 from ..config import AudioConfig
 from ..device import resolve_device
+from ..models.layers import library_numerics
+from ..utils import profiling
+from .rebin import mel_to_linear_matrix
 from .stft import istft_real_imag, stft
 
 _DEFAULT = AudioConfig()
@@ -34,6 +42,9 @@ __all__ = [
     "stft_to_phase_magn",
     "mp_to_real_imag",
     "magn_phase_to_signal",
+    "mel_to_linear_operator",
+    "mel_to_linear",
+    "mel_if_to_real_imag",
 ]
 
 
@@ -194,3 +205,57 @@ def magn_phase_to_signal(
     (reference ``audio/functions.py:97-137``)."""
     real, imag = mp_to_real_imag(magn_phase, cfg)
     return istft_real_imag(real, imag, n_fft=cfg.n_fft, hop=cfg.stft_stride)
+
+
+@functools.lru_cache(maxsize=8)
+def mel_to_linear_operator(n_fft: int, sample_rate: int, device: torch.device) -> torch.Tensor:
+    """:func:`rebin.mel_to_linear_matrix` as float32 on ``device``, made
+    once."""
+    return torch.from_numpy(mel_to_linear_matrix(n_fft, sample_rate).astype(np.float32)).to(device)
+
+
+def mel_to_linear(x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """``(M, T, n_mel)`` frames on the mel bins -> ``(M, n_freq, T)`` on the
+    linear ones: ``(x @ a)`` transposed, made in that layout by one batched
+    product in float32 (TF32 off).  ``mel_to_linear.launches`` counts
+    calls."""
+    with library_numerics():
+        out = torch.bmm(a.t().expand(x.shape[0], -1, -1), x.transpose(1, 2))
+    mel_to_linear.launches += 1
+    return out
+
+
+mel_to_linear.launches = 0
+
+
+def mel_if_to_real_imag(img: torch.Tensor, cfg: AudioConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """GANSynth's ``specgrams_helper.melspecgrams_to_specgrams`` and
+    ``specgrams_to_stfts``: ``(M, 2, T, n_mel)`` float32 images (time x
+    frequency) -> real and imaginary parts ``(M, n_fft // 2 + 1, T)``.
+
+    ``L = 8 Y0 - 5`` (the log-mel magnitude squared in [-13, 3]: the
+    source's normalizer takes its constants from its dataset, which it does
+    not publish), ``P = Y1``; ``|S|^2 = exp(L) @ A`` and the phase ``cumsum_t(pi
+    P) @ A`` (:func:`mel_to_linear`, span ``mg.synth.mel``); the spectrum
+    ``sqrt(|S|^2 + 1e-6) e^{i phase}`` over the linear bins and a zero
+    Nyquist row.  The source takes the linear phase through its
+    instantaneous frequency and a prefix sum again: that is its unwrap,
+    which ``e^{i phase}`` does not see, so it is left out."""
+    if cfg.freq_scale != "mel_if":
+        raise ValueError(f"mel_if_to_real_imag: an AudioConfig of mel_if images, not {cfg}")
+    m, two, t, n_mel = img.shape
+    if two != 2 or n_mel != cfg.n_fft // 2:
+        raise ValueError(f"mel_if_to_real_imag: image {tuple(img.shape)} for n_fft {cfg.n_fft}")
+    a = mel_to_linear_operator(cfg.n_fft, cfg.sample_rate, img.device)
+    mag2 = torch.exp(img[:, 0] * 8.0 - 5.0)
+    phase = torch.cumsum(img[:, 1] * math.pi, dim=1)
+    with profiling.span("mg.synth.mel"):
+        mag2, phase = mel_to_linear(mag2, a), mel_to_linear(phase, a)
+    n = a.shape[1]
+    real, imag = img.new_empty(m, n + 1, t), img.new_empty(m, n + 1, t)
+    real[:, n].zero_()
+    imag[:, n].zero_()
+    mag = torch.sqrt(mag2.add_(1e-6))
+    torch.mul(mag, torch.cos(phase), out=real[:, :n])
+    torch.mul(mag, torch.sin(phase), out=imag[:, :n])
+    return real, imag

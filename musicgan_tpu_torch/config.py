@@ -19,6 +19,8 @@ CONV_IMPLS = (
     "pallas_bf16", "pallas_up_bf16", "pallas_block_bf16", "pallas_train", "pallas_gp",
 )
 COMPUTE_DTYPES = ("float32", "bfloat16", "bfloat16_f32gp")
+# What an image's two channels are (AudioConfig.freq_scale).
+FREQ_SCALES = ("bark", "mel_if")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -29,6 +31,21 @@ class AudioConfig:
     n_vec: int = 512          # frames per training sample (image width)
     stft_stride: int = 256    # hop length
     sample_rate: int = 44100
+    # The image's spectrum: "bark" (MusicGAN's): channel 0 the bark-weighted
+    # magnitude, channel 1 the instantaneous frequency, both in [-1, 1] on
+    # the linear bins, the iSTFT normalized; "mel_if" (GANSynth's,
+    # ``audio/functions.py::mel_if_to_real_imag``): channel 0 the
+    # normalized log-mel magnitude squared, channel 1 the mel instantaneous
+    # frequency in units of pi, on ``n_fft // 2`` mel bins, the iSTFT not
+    # normalized (``tf.signal.inverse_stft``).  A "bark" image is bins x
+    # frames, a "mel_if" one frames x bins.
+    freq_scale: str = "bark"
+    crop: int = 0             # samples a waveform keeps from its start; 0: all
+
+    def __post_init__(self):
+        if self.freq_scale not in FREQ_SCALES or self.crop < 0:
+            raise ValueError(f"AudioConfig: freq_scale {self.freq_scale!r} (one of {FREQ_SCALES}), crop "
+                             f"{self.crop} (>= 0)")
 
     @property
     def n_bins(self) -> int:
@@ -80,14 +97,65 @@ class ModelConfig:
     #   (generate, serve, eval, the train step); inside the modules it means
     #   "xla", and on a CPU device it resolves to "xla" without measuring.
     conv_impl: str = "auto"
+    # GANSynth's generator (Engel et al. 2019, the progressive GAN's), off
+    # at the defaults, which are MusicGAN's:
+    # * n_classes: a conditional generator; a one-hot label of this many
+    #   classes joins the latent.
+    # * dense_start: ``(h, w)`` of a dense input: the latent is ``(B, 1, 1,
+    #   rand_channels)``, joined by the one-hot and pixel-normed, and a dense
+    #   layer (the source's VALID ``(h, w)`` conv on the zero-padded 1x1
+    #   input) gives ``gen_channels[0][0]`` channels at ``(h, w)``, then
+    #   LeakyReLU and PixelNorm.  ``()``: the latent is the first block's
+    #   input.
+    # * tail_conv: a 3x3 conv, LeakyReLU and PixelNorm at the last width
+    #   and the output size, before the head.
+    # * audio: the vocoder's geometry; None: ``AudioConfig()``.
+    # Any of them makes a generator that runs grown only: one head, no fade,
+    # no training.
+    n_classes: int = 0
+    dense_start: Tuple[int, ...] = ()
+    tail_conv: bool = False
+    audio: Optional[AudioConfig] = None
 
     def __post_init__(self):
         if self.conv_impl not in CONV_IMPLS:
             raise ValueError(f"unknown conv_impl {self.conv_impl!r}; one of {CONV_IMPLS}")
+        if len(self.dense_start) not in (0, 2) or (self.n_classes and not self.dense_start) or self.n_classes < 0:
+            raise ValueError(f"dense_start {self.dense_start!r} is () or (h, w); n_classes {self.n_classes} "
+                             "needs a dense input")
 
     @property
     def n_stages(self) -> int:
         return len(self.gen_channels)  # 8 (stages 0..7)
+
+    @property
+    def topology(self) -> str:
+        """``""`` for MusicGAN's generator, else what sets it apart (the
+        autotune table keys carry it)."""
+        parts = [f"dense{self.dense_start[0]}x{self.dense_start[1]}"] if self.dense_start else []
+        parts += [f"cls{self.n_classes}"] if self.n_classes else []
+        parts += ["tail"] if self.tail_conv else []
+        return "+".join(parts)
+
+    @property
+    def grown_only(self) -> bool:
+        """A generator of one stage (``n_stages - 1``), one head, no fade."""
+        return bool(self.dense_start or self.n_classes or self.tail_conv)
+
+    @property
+    def audio_config(self) -> AudioConfig:
+        return AudioConfig() if self.audio is None else self.audio
+
+    def image_size(self, latent_hw) -> tuple[int, int]:
+        """The grown image's ``(H, W)`` from the latent's ``(h, w)``."""
+        h, w = self.dense_start or latent_hw
+        return h * 2**self.n_stages, w * 2**self.n_stages
+
+    def frames(self, latent_hw) -> int:
+        """STFT frames of the image: its time axis (the first of a "mel_if"
+        image, the second of a "bark" one)."""
+        h, w = self.image_size(latent_hw)
+        return h if self.audio_config.freq_scale == "mel_if" else w
 
 
 @dataclasses.dataclass(frozen=True)
@@ -152,8 +220,17 @@ class GenerateConfig:
     nb_music: int = 5
 
 
+# Fields the JAX package's configs lack: a config's JSON leaves each out at
+# its default, so MusicGAN's configs write what they always wrote.
+_LATER_FIELDS = ("freq_scale", "crop", "n_classes", "dense_start", "tail_conv", "audio")
+
+
 def config_to_json(cfg) -> str:
-    return json.dumps(dataclasses.asdict(cfg), indent=2, default=str)
+    d = dataclasses.asdict(cfg)
+    for f in dataclasses.fields(cfg):
+        if f.name in _LATER_FIELDS and getattr(cfg, f.name) == f.default:
+            del d[f.name]
+    return json.dumps(d, indent=2, default=str)
 
 
 def train_config_from_overrides(**overrides) -> TrainConfig:

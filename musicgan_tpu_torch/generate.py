@@ -18,6 +18,13 @@ launch under ``"pallas"``, the plain matmul iSTFT on the device under
 Width-extended latents give long clips: ``z`` of width ``2 * nb_vec``
 produces ``512 * nb_vec`` STFT frames, about ``2.97 * nb_vec`` seconds.
 
+The audio geometry is the model config's (``ModelConfig.audio_config``).
+GANSynth's (``freq_scale="mel_if"``) takes a ``(M, 1, 1, C)`` latent and a
+pitch label a row, and its frames x mel-bins image goes to the spectra
+through the mel-to-linear products (``audio/functions.py::
+mel_if_to_real_imag``), then K5 at its ``n_fft`` and hop, not normalized,
+the waveform cropped to ``AudioConfig.crop`` samples.
+
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``,
 which runs every kernel's plain version; without a GPU they raise.
 """
@@ -32,7 +39,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .audio import mp_to_real_imag, save_wav
+from .audio import mel_if_to_real_imag, mp_to_real_imag, save_wav
 from .audio.stft import istft_real_imag
 from .config import AudioConfig, GenerateConfig, ModelConfig
 from .device import resolve_device
@@ -62,9 +69,10 @@ def latents(
 
 @torch.no_grad()
 def _synthesize(
-    gen: Generator, z: torch.Tensor, stage: int, model_cfg: ModelConfig, istft_impl: str = "xla"
+    gen: Generator, z: torch.Tensor, stage: int, model_cfg: ModelConfig, istft_impl: str = "xla", labels=None
 ) -> torch.Tensor:
-    """``(M, h, 2*nb_vec, C)`` latent -> ``(M, T)`` waveforms through
+    """``(M, h, 2*nb_vec, C)`` latent (GANSynth's ``(M, 1, 1, C)`` and
+    ``labels``) -> ``(M, T)`` waveforms through
     ``model_cfg.conv_impl`` (a resolved name: "auto" here is "xla", as in
     the generator) and the vocoder ``istft_impl``: ``"pallas"`` is the
     kernel K5, ``"xla"`` the plain matmul iSTFT on the device.
@@ -73,27 +81,34 @@ def _synthesize(
     full 512-bin resolution before vocoding, so audio can be auditioned
     from any growth checkpoint.
 
-    Spans (``utils/profiling.py``): ``mg.synth.generator`` (the image),
-    ``mg.synth.vocoder`` (the spectra, ``mg.synth.spectrum``, and the
-    iSTFT)."""
+    Spans (``utils/profiling.py``): ``mg.synth.generator`` (the image;
+    GANSynth's dense input ``mg.synth.latent`` inside it),
+    ``mg.synth.vocoder`` (the spectra, ``mg.synth.spectrum``, with
+    GANSynth's mel products ``mg.synth.mel``, and the iSTFT)."""
     with profiling.span("mg.synth.generator"):
-        img = gen.forward_nchw(z.permute(0, 3, 1, 2), stage, 1.0, model_cfg.conv_impl)  # (M, 2, H, W)
+        img = gen.forward_nchw(z.permute(0, 3, 1, 2), stage, 1.0, model_cfg.conv_impl, labels=labels)  # (M, 2, H, W)
         n_stages = model_cfg.n_stages
         if stage < n_stages - 1:
             img = F.interpolate(img, scale_factor=2 ** (n_stages - 1 - stage), mode="nearest")
     with profiling.span("mg.synth.vocoder"):
-        acfg = AudioConfig()
+        acfg = model_cfg.audio_config
+        mel = acfg.freq_scale == "mel_if"
         with profiling.span("mg.synth.spectrum"):
-            real, imag = mp_to_real_imag(img[:, None], acfg)  # (M, n_bins + 1, T)
+            real, imag = mel_if_to_real_imag(img, acfg) if mel else mp_to_real_imag(img[:, None], acfg)
+        normalized = not mel  # MusicGAN's torch.istft(normalized=True); GANSynth's tf.signal.inverse_stft
         if istft_impl == "pallas":
-            return istft_fused(real, imag, n_fft=acfg.n_fft, hop=acfg.stft_stride)
-        with library_numerics():  # its products in float32, not TF32
-            return istft_real_imag(real, imag, n_fft=acfg.n_fft, hop=acfg.stft_stride)
+            wave = istft_fused(real, imag, n_fft=acfg.n_fft, hop=acfg.stft_stride, normalized=normalized)
+        else:
+            with library_numerics():  # its products in float32, not TF32
+                wave = istft_real_imag(real, imag, n_fft=acfg.n_fft, hop=acfg.stft_stride, normalized=normalized)
+        return wave[:, : acfg.crop].contiguous() if acfg.crop else wave
 
 
 def synthesize_fn(model_cfg: ModelConfig = ModelConfig(), stage: int = 7):
-    """Returns ``f(gen, z) -> waveforms``: the synthesis path.  ``z`` is
-    ``(M, h, w, C)`` (numpy or tensor) and moves to ``gen``'s device.
+    """Returns ``f(gen, z, labels=None) -> waveforms``: the synthesis path.
+    ``z`` is ``(M, h, w, C)`` (numpy or tensor) and moves to ``gen``'s
+    device; a conditional config (``n_classes``) takes ``labels``, ``M``
+    class indices (GANSynth's: MIDI pitch - 24).
 
     ``conv_impl="auto"`` resolves to the measured winner at the first call
     of each latent shape, and the vocoder likewise (cached per process and
@@ -105,19 +120,24 @@ def synthesize_fn(model_cfg: ModelConfig = ModelConfig(), stage: int = 7):
     ``mg.synth.resolve``."""
     from .ops.autotune import resolve_conv_impl, resolve_istft_impl
 
-    def f(gen: Generator, z) -> torch.Tensor:
+    acfg = model_cfg.audio_config
+
+    def f(gen: Generator, z, labels=None) -> torch.Tensor:
         with profiling.span("mg.synth.call"):
             device = next(gen.parameters()).device
             z = torch.as_tensor(z, dtype=torch.float32, device=device)
+            if labels is not None:
+                labels = torch.as_tensor(labels, dtype=torch.long, device=device)
             with profiling.span("mg.synth.resolve"):
                 cfg = resolve_conv_impl(model_cfg, tuple(z.shape), stage, device=device)
                 # Spectrum frames the vocoder inverts: the stack upsamples x2
                 # per block and partial stages are nearest-upsampled to full
                 # resolution, so every latent column becomes 2^n_stages
                 # frames at any stage.
-                t_frames = z.shape[2] * 2**model_cfg.n_stages
-                istft_impl = resolve_istft_impl(t_frames, device=device)
-            return _synthesize(gen, z, stage, cfg, istft_impl)
+                t_frames = model_cfg.frames(z.shape[1:3])
+                istft_impl = resolve_istft_impl(t_frames, n_bins=acfg.n_fft // 2 + 1, device=device,
+                                                n_fft=acfg.n_fft, hop=acfg.stft_stride)
+            return _synthesize(gen, z, stage, cfg, istft_impl, labels)
 
     return f
 

@@ -225,6 +225,9 @@ def measure_conv_impls(
     gen = Generator(cfg, device=device, seed=0)
     g = torch.Generator(device=device).manual_seed(1)
     z = torch.randn(z_shape, generator=g, device=device, dtype=dtype).permute(0, 3, 1, 2)
+    labels = None
+    if cfg.n_classes:  # a conditional generator: a label a row
+        labels = torch.randint(cfg.n_classes, (z_shape[0],), generator=g, device=device)
     rtt = _measure_rtt(device)
 
     times: dict[str, float] = {}
@@ -234,7 +237,7 @@ def measure_conv_impls(
         def many(impl=impl):
             acc = torch.zeros((), device=device)
             for _ in range(_K):
-                acc = acc + gen.forward_nchw(z, stage, 1.0, impl).sum()
+                acc = acc + gen.forward_nchw(z, stage, 1.0, impl, labels=labels).sum()
             return acc
 
         times[impl] = _best_of(impl, many, _K, rtt, device)
@@ -279,10 +282,11 @@ def measure_train_impls(
 
 
 def measure_istft_impls(
-    n_bins: int, t: int, candidates=VOCODER_IMPLS, k: int = 48, device=None
+    n_bins: int, t: int, candidates=VOCODER_IMPLS, k: int = 48, device=None, n_fft: int = 1024, hop: int = 256,
 ) -> dict[str, float]:
     """Wall seconds per iSTFT for each vocoder lowering at the ``(n_bins,
-    t)`` spectrum shape, ``k`` inversions per timed dispatch (a single
+    t)`` spectrum shape, ``n_fft`` and ``hop``, ``k`` inversions per timed
+    dispatch (a single
     iSTFT is well under a millisecond, so a shallow dispatch would rank the
     round trip's jitter, not the lowerings)."""
     from ..audio.stft import istft_real_imag
@@ -302,20 +306,24 @@ def measure_istft_impls(
         def many(fn=fns[impl]):
             with library_numerics():
                 for _ in range(k):
-                    fn(real, imag)
+                    fn(real, imag, n_fft, hop)
 
         times[impl] = _best_of(impl, many, k, rtt, device)
     return times
 
 
-def _istft_key(backend: str, n_bins: int, t: int) -> str:
-    return f"v{_CACHE_VERSION}|{backend}|istft|{n_bins}x{t}|{VOCODER_IMPLS}"
+def _istft_key(backend: str, n_bins: int, t: int, n_fft: int = 1024, hop: int = 256) -> str:
+    """The vocoder's table key; past MusicGAN's ``n_fft`` and hop it
+    carries both."""
+    geometry = "" if (n_fft, hop) == (1024, 256) else f"|n{n_fft}h{hop}"
+    return f"v{_CACHE_VERSION}|{backend}|istft|{n_bins}x{t}{geometry}|{VOCODER_IMPLS}"
 
 
 def resolve_istft_impl(
-    t: int, n_bins: int = 513, allow_measure: bool = True, device=None
+    t: int, n_bins: int = 513, allow_measure: bool = True, device=None, n_fft: int = 1024, hop: int = 256,
 ) -> str:
-    """Measured vocoder-lowering winner for a ``(n_bins, t)`` spectrum on
+    """Measured vocoder-lowering winner for a ``(n_bins, t)`` spectrum at
+    ``n_fft`` and ``hop`` on
     ``device`` (the card by default): the contract of
     :func:`resolve_conv_impl`, persisted per shape; a CPU device always
     gets ``"xla"``."""
@@ -323,7 +331,7 @@ def resolve_istft_impl(
     if device.type == "cpu":
         return "xla"
     allow_measure = allow_measure and not _capturing(device)
-    key = _istft_key(_backend(device), n_bins, t)
+    key = _istft_key(_backend(device), n_bins, t, n_fft, hop)
     if not allow_measure and key not in _CACHE:
         return _load_persisted().get(key) or "xla"
     if key not in _CACHE:
@@ -334,7 +342,7 @@ def resolve_istft_impl(
                 return persisted[key]
             t0 = time.perf_counter()
             with profiling.span("mg.autotune.measure", always=True):
-                times = measure_istft_impls(n_bins, t, device=device)
+                times = measure_istft_impls(n_bins, t, device=device, n_fft=n_fft, hop=hop)
             winner = min(times, key=times.get)
             _report("istft_impl", winner, times, time.perf_counter() - t0)
             persisted[key] = winner
@@ -347,14 +355,16 @@ def resolve_istft_impl(
 
 def _candidates_and_key(
     backend: str, z_shape: tuple, stage: int, for_training: bool, train_cfg,
-    inference: tuple = ALL_IMPLS,
+    inference: tuple = ALL_IMPLS, topology: str = "",
 ) -> tuple[tuple, str]:
     """Candidate impls and the persisted-table key for one resolution.
     Training keys carry a ``train`` marker plus batch and compute dtype, so
     a training winner can never alias an inference winner (they are
     measured on different graphs and rank differently).  An inference key
     carries its candidates, so a winner over ``FLOAT32_IMPLS`` is never
-    read from one measured over all six."""
+    read from one measured over all six, and a generator other than
+    MusicGAN's its ``ModelConfig.topology``, so neither model's winner is
+    read for the other."""
     if for_training:
         candidates = TRAINING_IMPLS
         if train_cfg is not None and train_cfg.compute_dtype != "float32":
@@ -372,7 +382,7 @@ def _candidates_and_key(
         key = (
             f"v{_CACHE_VERSION}|{backend}|s{stage}|"
             f"{'x'.join(map(str, z_shape))}|float32|{candidates}"
-        )
+        ) + (f"|{topology}" if topology else "")
     return candidates, key
 
 
@@ -431,7 +441,7 @@ def resolve_conv_impl(
         return dataclasses.replace(cfg, conv_impl="xla")
 
     candidates, key = _candidates_and_key(
-        _backend(device), z_shape, stage, for_training, train_cfg, candidates
+        _backend(device), z_shape, stage, for_training, train_cfg, candidates, cfg.topology
     )
     if not (allow_measure and not _capturing(device)) and key not in _CACHE:
         winner = _load_persisted().get(key)

@@ -47,7 +47,8 @@ plan, so its output rounded to bf16 is that kernel's bits.  K2 takes
 float32, or bf16 with float32 ``y`` and ``m`` (the JAX function's outputs
 are float32).  Each wrapper counts its bf16-in-and-out launches apart in
 ``.bf16_launches`` and its mixed ones in ``.mixed_launches`` (both are also
-in ``.launches``).
+in ``.launches``); K1 and K3 count those whose plan splits PixelNorm over a
+cluster in ``.cluster_launches`` (:func:`splits_pixel_norm`).
 
 Widths: any ``cout``.  Past 128 channels the kernel splits the channel
 groups of a pixel over several thread blocks; with PixelNorm those blocks
@@ -116,6 +117,7 @@ __all__ = [
     "kernel_upconv_weights",
     "kernel_weights_tc",
     "conv_plan",
+    "splits_pixel_norm",
     "conv3x3_plain",
     "conv3x3_msq_plain",
     "upconv3x3_plain",
@@ -371,8 +373,17 @@ def _launch(name, x, w_packed, b, cout, out_hw, slope, pixel_norm, eps, route, t
     return y
 
 
-def _count(wrapper, dtype, out) -> None:
+def splits_pixel_norm(cout: int, pixel_norm: bool) -> bool:
+    """Whether a K1 / K3 launch's plan splits PixelNorm over a thread-block
+    cluster: PixelNorm over the channels of more than one block (past 128,
+    ``conv_bf16.channel_split``), in either dtype."""
+    return pixel_norm and conv_bf16.channel_split(cout)[1] > 1
+
+
+def _count(wrapper, dtype, out, clustered: bool = False) -> None:
     wrapper.launches += 1
+    if clustered:
+        wrapper.cluster_launches += 1
     if dtype != out:
         wrapper.mixed_launches += 1
     elif dtype == torch.bfloat16:
@@ -399,7 +410,7 @@ def fused_conv3x3(x, w, b, slope=None, pixel_norm=False, eps=1e-8, w_packed=None
     else:
         wp = _kernel_layout("fused_conv3x3", w, w_packed, False, x.dtype)
     y = _launch("conv3x3", x, wp, b, w.shape[0], x.shape[2:], slope, pixel_norm, eps, route, tc, out)
-    _count(fused_conv3x3, x.dtype, out)
+    _count(fused_conv3x3, x.dtype, out, splits_pixel_norm(w.shape[0], pixel_norm))
     return checked("fused_conv3x3", y)
 
 
@@ -455,7 +466,7 @@ def fused_upconv3x3(x, w, b, slope=None, pixel_norm=False, eps=1e-8, w_packed=No
         wp = _kernel_layout("fused_upconv3x3", w, w_packed, True, x.dtype)
     h, w_ = x.shape[2:]
     y = _launch("upconv3x3", x, wp, b, w.shape[0], (2 * h, 2 * w_), slope, pixel_norm, eps, route, tc, out)
-    _count(fused_upconv3x3, x.dtype, out)
+    _count(fused_upconv3x3, x.dtype, out, splits_pixel_norm(w.shape[0], pixel_norm))
     return checked("fused_upconv3x3", y)
 
 
@@ -826,6 +837,8 @@ def conv_plan(kind: str, bsz: int, cin: int, cout: int, h: int, w: int, pixel_no
 
 
 fused_conv3x3.launches = fused_conv3x3.bf16_launches = fused_conv3x3.mixed_launches = 0
+fused_conv3x3.cluster_launches = 0
 fused_conv3x3_msq.launches = fused_conv3x3_msq.mixed_launches = 0
 fused_upconv3x3.launches = fused_upconv3x3.bf16_launches = fused_upconv3x3.mixed_launches = 0
+fused_upconv3x3.cluster_launches = 0
 fused_block.launches = fused_block.bf16_launches = fused_block.mixed_launches = 0

@@ -108,7 +108,7 @@ def fake_card(monkeypatch):
         calls.append(("train", tuple(candidates)))
         return {c: 0.5 if c == "subpixel" else 1.0 for c in candidates}
 
-    def istft(n_bins, t, candidates=autotune.VOCODER_IMPLS, k=48, device=None):
+    def istft(n_bins, t, candidates=autotune.VOCODER_IMPLS, k=48, device=None, n_fft=1024, hop=256):
         calls.append(("istft", tuple(candidates)))
         return {"xla": 2.0, "pallas": 1.0}
 
@@ -181,10 +181,10 @@ def test_a_failing_candidate_makes_the_resolution_raise(monkeypatch):
     )
     forward = Generator.forward_nchw
 
-    def broken(self, z, stage, alpha=1.0, impl=None, compute_dtype=torch.float32):
+    def broken(self, z, stage, alpha=1.0, impl=None, compute_dtype=torch.float32, labels=None):
         if impl == "pallas_up":
             raise RuntimeError("mg_upconv3x3: CUDA error 700 at launch")
-        return forward(self, z, stage, alpha, impl, compute_dtype)
+        return forward(self, z, stage, alpha, impl, compute_dtype, labels)
 
     monkeypatch.setattr(Generator, "forward_nchw", broken)
     with pytest.raises(RuntimeError, match="candidate 'pallas_up' failed.*CUDA error 700"):

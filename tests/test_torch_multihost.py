@@ -400,7 +400,7 @@ def _rank_autotune(out, rank, group):
         best = "pallas_gp" if rank == 0 else "xla"
         return {c: (0.0 if c == best else 1.0) for c in candidates}
 
-    def fake_istft(n_bins, t, candidates=autotune.VOCODER_IMPLS, k=48, device=None):
+    def fake_istft(n_bins, t, candidates=autotune.VOCODER_IMPLS, k=48, device=None, n_fft=1024, hop=256):
         measured.append("istft")
         best = "pallas" if rank == 0 else "xla"
         return {c: (0.0 if c == best else 1.0) for c in candidates}

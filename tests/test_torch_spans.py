@@ -204,7 +204,7 @@ def test_each_autotune_measurement_is_an_always_span(tmp_path, monkeypatch):
     monkeypatch.setattr(autotune, "_capturing", lambda device: False)
     monkeypatch.setattr(autotune, "measure_conv_impls",
                         lambda cfg, z_shape, stage, candidates, device=None: {c: 1.0 for c in candidates})
-    monkeypatch.setattr(autotune, "measure_istft_impls", lambda n_bins, t, device=None: {"xla": 2.0, "pallas": 1.0})
+    monkeypatch.setattr(autotune, "measure_istft_impls", lambda n_bins, t, device=None, n_fft=1024, hop=256: {"xla": 2.0, "pallas": 1.0})
     card = torch.device("cuda")  # only named: nothing is allocated on it
     auto = dataclasses.replace(ModelConfig(), conv_impl="auto")
     for _ in range(2):
